@@ -1,0 +1,167 @@
+"""`livre` CLI equivalent: render frames of a volume URI to image files
+(``libre_tpu.apps.render_cli``).
+
+Reference: apps/livre/livre.cpp:56-96 (argument parsing + client frame
+loop), with the animation/frame-range semantics of Config::frame
+(livre/eq/Config.cpp:329-372) driven by FrameUtils.
+
+    python -m libre_tpu_torch.apps.render_cli \\
+        --volume "mem://#512,512,512,32?pattern=gradient" -o out
+
+``--device`` picks the torch device (default ``cuda``); ``-o`` is short
+for ``--output-dir``.  Exits with the frames-per-second summary the
+reference logs at client exit (Client.cpp:239-243).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+
+
+def build_camera(width, height, position, look_at_point, near=0.1, far=15.0):
+    """Camera + frustum looking from ``position`` at ``look_at_point``,
+    with `up` nudged near the poles to avoid gimbal lock
+    (CameraSettings.cpp:setCameraLookAt)."""
+    from libre_tpu.core.frustum import Frustum, look_at, perspective
+    from libre_tpu_torch.ops.reference import Camera
+
+    eye = np.asarray(position, np.float32)
+    z_axis = eye.astype(np.float64) - np.asarray(look_at_point, np.float64)
+    n = np.linalg.norm(z_axis)
+    if n > 0:
+        z_axis /= n
+    up = np.array([0.0, 1.0, 0.0])
+    angle = float(z_axis @ up)
+    if 1.0 - abs(angle) < 1e-4:
+        right = np.array([1.0, 0.0, 0.0]) if angle <= 0 else np.array([-1.0, 0.0, 0.0])
+        c, s = np.cos(0.01), np.sin(0.01)
+        up = up * c + np.cross(right, up) * s
+        up /= np.linalg.norm(up)
+    mv = look_at(eye, look_at_point, up).astype(np.float32)
+    proj = perspective(50.0, width / height, near, far)
+    frustum = Frustum(mv, proj)
+    camera = Camera(
+        inv_proj=np.linalg.inv(proj.astype(np.float64)).astype(np.float32),
+        inv_mv=np.linalg.inv(mv.astype(np.float64)).astype(np.float32),
+        viewport=(0, 0, width, height),
+        near=frustum.near,
+    )
+    return camera, frustum
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import torch
+
+    from libre_tpu.core.config import ApplicationParameters, RendererParameters
+    from libre_tpu.core.frame_utils import FrameUtils
+    from libre_tpu.data.datasource import DataSource, load_plugins
+    from libre_tpu.utils.image import write_image
+    from libre_tpu_torch.ops.reference import RenderParams
+    from libre_tpu_torch.ops.transfer_function import load_1dt
+    from libre_tpu_torch.render.engine import RenderEngine
+    from libre_tpu_torch.render.registry import create_renderer
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # `-o DIR` is short for `--output-dir DIR`.
+    argv = ["--output-dir" if a == "-o" else a for a in argv]
+    extra = [
+        ("width", "Image width", 512),
+        ("height", "Image height", 512),
+        ("output-dir", "Output directory for frames", "."),
+        ("format", "Image format [png|jpg]", "png"),
+        ("device", "Torch device to render on", "cuda"),
+    ]
+    app = ApplicationParameters()
+    vr = RendererParameters()
+    for name, desc, default in extra:
+        app.configuration.add_option(name, desc, default, group="Output")
+    rest = app.initialize(argv)
+    rest = vr.initialize(rest)
+    if rest and ("--help" in rest or "-h" in rest):
+        print(app.configuration.help_text())
+        print(vr.configuration.help_text())
+        return 0
+    if rest:
+        print(f"unknown arguments: {rest}", file=sys.stderr)
+        return 2
+    if not app.data_file_name:
+        print("--volume URI is required (e.g. mem://#64,64,64,16)", file=sys.stderr)
+        return 2
+
+    width = app.configuration.get("width")
+    height = app.configuration.get("height")
+    out_dir = app.configuration.get("output-dir")
+    fmt = app.configuration.get("format")
+    device = torch.device(app.configuration.get("device"))
+    os.makedirs(out_dir, exist_ok=True)
+
+    load_plugins()
+    renderer = create_renderer(app.renderer)
+    engine = RenderEngine(
+        DataSource(app.data_file_name),
+        max_gpu_cache_mb=vr.max_gpu_cache_memory_mb,
+        max_cpu_cache_mb=vr.max_cpu_cache_memory_mb,
+        device=device,
+    )
+    info = engine.info
+
+    camera, frustum = build_camera(
+        width, height, app.camera_position, app.camera_look_at
+    )
+    if app.color_map_file:
+        engine.transfer_function = torch.from_numpy(
+            load_1dt(app.color_map_file)
+        ).to(device)
+
+    params = None
+    if vr.samples_per_ray > 0:
+        params = RenderParams(
+            n_samples_per_ray=vr.samples_per_ray,
+            data_source_range=engine.data_source_range,
+        )
+
+    fu = FrameUtils(app.frames, tuple(info.frame_range))
+    frame = fu.get_current(app.frames[0])
+    delta = app.animation if app.animation else 1
+    n_frames = min(
+        app.max_frames,
+        (fu.frame_range[1] - fu.frame_range[0]) if fu.is_valid else 1,
+    )
+    if not app.animation:
+        n_frames = min(n_frames, 1)
+
+    t0 = time.perf_counter()
+    rendered = 0
+    for _ in range(n_frames):
+        ts = int(frame) if fu.is_valid else 0
+        img = renderer.render(
+            engine,
+            camera,
+            frustum,
+            params=params,
+            screen_space_error=vr.screen_space_error,
+            min_lod=vr.min_lod,
+            max_lod=vr.max_lod,
+            time_step=ts,
+            synchronous=True,
+        )
+        path = os.path.join(out_dir, f"frame_{frame:06d}.{fmt}")
+        write_image(path, img.cpu().numpy())
+        rendered += 1
+        print(f"frame {frame}: {app.renderer} renderer on {device} -> {path}")
+        if fu.is_valid:
+            frame = fu.get_next(frame, delta)
+
+    dt = time.perf_counter() - t0
+    # FPS summary at exit (Client.cpp:239-243).
+    print(f"{rendered} frames in {dt:.2f} s = {rendered / dt:.2f} FPS")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` exports one ``extern "C"`` launcher that takes
+device pointers, scalars and a stream, launches its kernel on that
+stream and returns ``cudaGetLastError()``.  At first use the source is
+compiled with ``nvcc`` into a shared library under ``_build/`` (named by
+a hash of source and flags, so an edit rebuilds) and loaded with
+``ctypes``.  The build writes a temporary file and renames it into
+place, so concurrent processes never load a half-written library.
+
+Nothing here runs at import: the CPU-only tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Launcher argument types, in order; every launcher ends with the stream.
+SIGNATURES: Dict[str, List] = {
+    "post_sweep": [_P] * 14 + [_I] * 6 + [_F] * 7 + [_P],
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built;
+    returns the library path."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of kernel ``name``, building it at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            fn = getattr(lib, name)
+            fn.argtypes = SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def build_all() -> Dict[str, float]:
+    """Build and bind every kernel; returns seconds per kernel."""
+    secs = {}
+    for name in SIGNATURES:
+        t0 = time.perf_counter()
+        load(name)
+        secs[name] = time.perf_counter() - t0
+    return secs
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on the current CUDA stream.  Tensor
+    arguments pass as device pointers, the rest as the launcher's
+    scalars; raises if the launch was refused."""
+    fn = getattr(load(name), name)
+    stream = torch.cuda.current_stream().cuda_stream
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = fn(*cargs, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")

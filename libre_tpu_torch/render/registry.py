@@ -1,0 +1,61 @@
+"""Renderer plugin registry — the RenderPipeline/RendererPlugin pair
+(``libre_tpu.render.registry``).
+
+Renderers are registered classes dispatched by name; an unknown name
+raises (RenderPipeline.cpp:65-70).  The port registers ``bricked``, the
+product default; the other renderers of the JAX package are ROADMAP
+M7 (``xla``, ``pallas-exact``) and M8 (``shearwarp``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Type
+
+_RENDERERS: Dict[str, Type["RendererPlugin"]] = {}
+
+
+def register_renderer(name: str):
+    def deco(cls: Type["RendererPlugin"]):
+        cls.name = name
+        _RENDERERS[name] = cls
+        return cls
+
+    return deco
+
+
+def create_renderer(name: str) -> "RendererPlugin":
+    """Instantiate a renderer by name (unknown name raises)."""
+    try:
+        return _RENDERERS[name]()
+    except KeyError:
+        raise ValueError(
+            f"no renderer plugin named {name!r} "
+            f"(available: {sorted(_RENDERERS)})"
+        ) from None
+
+
+class RendererPlugin:
+    """Renderer interface: produce an (H, W, 4) frame for a view."""
+
+    name = "?"
+
+    def render(self, engine, camera, frustum, *, params=None, **kwargs):
+        raise NotImplementedError
+
+
+@register_renderer("bricked")
+class BrickedRenderer(RendererPlugin):
+    """Post-classification sweep over the mixed-LOD rendering set
+    streamed through the device brick atlas (the cudaRaycaster
+    equivalent, cuda/Renderer.cu:95-230 + TexturePool.cu:101-214)."""
+
+    def render(self, engine, camera, frustum, *, params=None, **kwargs):
+        allowed = {
+            "screen_space_error", "min_lod", "max_lod", "clip_planes",
+            "time_step", "synchronous", "data_range", "n_planes",
+        }
+        kw = {k: v for k, v in kwargs.items() if k in allowed}
+        img, _stats = engine.render_bricked(
+            camera, frustum, params=params, **kw
+        )
+        return img

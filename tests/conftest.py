@@ -28,3 +28,9 @@ jax.config.update(
     os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_libre_tpu"),
 )
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none"
+    )

@@ -23,34 +23,20 @@
 // 50 MB L2), and the serial per-ray loop.  wgmma, TMA staging of slice tiles
 // and a tile-per-block layout are left for later work.
 //
-// Numerics: f32 throughout, powf (not __powf), no fast-math, so the early-exit
-// test and the TF lerp follow the reference; only FMA contraction differs.
+// Numerics: f32 throughout, powf (not __powf), no fast-math and no FMA
+// contraction (ops/_kernels.py builds with --fmad=false), so each sample
+// rounds as the reference's does and the early-exit test follows it.
 
 #include <cuda_runtime.h>
 
+#include "sweep_sample.cuh"
+
 namespace {
 
-constexpr int kTfSize = 256;
+using sweep::kAlphaClamp;
+using sweep::kTfSize;
+using sweep::Taps;
 constexpr int kMaxClip = 8;
-constexpr float kAlphaClamp = 1.0f - 1.0f / 256.0f;
-
-struct Taps {
-  int i0, i1;
-  float w;
-};
-
-// Two-tap indices and weight at fractional voxel coordinate s, clamp to edge:
-// shearwarp_pallas._interp_matrix (clip to [-0.5, n-0.5], i0 = floor of the
-// coordinate clipped to [0, n-1], i1 = min(i0 + 1, n - 1)).
-__device__ __forceinline__ Taps taps(float s, int n) {
-  s = fminf(fmaxf(s, -0.5f), (float)n - 0.5f);
-  const float i0f = floorf(fminf(fmaxf(s, 0.0f), (float)(n - 1)));
-  Taps t;
-  t.w = fminf(fmaxf(s - i0f, 0.0f), 1.0f);
-  t.i0 = (int)i0f;
-  t.i1 = min(t.i0 + 1, n - 1);
-  return t;
-}
 
 __global__ void __launch_bounds__(256) post_sweep_kernel(
     const float* __restrict__ store,   // (Na, Nc, Nb)
@@ -108,38 +94,24 @@ __global__ void __launch_bounds__(256) post_sweep_kernel(
     }
     if (!keep) continue;
 
-    const Taps tb = taps((xb - wb0) * sb_scale - 0.5f, nb);
-    const Taps tc = taps((xc - wc0) * sc_scale - 0.5f, nc);
-    const float w_a = wa[k];
-    const float* lo = store + (size_t)a0[k] * plane;
-    const float* hi = store + (size_t)a1[k] * plane;
-    const size_t r0 = (size_t)tc.i0 * nb, r1 = (size_t)tc.i1 * nb;
-    const float v00 = lo[r0 + tb.i0] * (1.0f - w_a) + hi[r0 + tb.i0] * w_a;
-    const float v01 = lo[r0 + tb.i1] * (1.0f - w_a) + hi[r0 + tb.i1] * w_a;
-    const float v10 = lo[r1 + tb.i0] * (1.0f - w_a) + hi[r1 + tb.i0] * w_a;
-    const float v11 = lo[r1 + tb.i1] * (1.0f - w_a) + hi[r1 + tb.i1] * w_a;
-    const float s_c0 = v00 * (1.0f - tb.w) + v01 * tb.w;
-    const float s_c1 = v10 * (1.0f - tb.w) + v11 * tb.w;
-    const float dens = s_c0 * (1.0f - tc.w) + s_c1 * tc.w;
+    const Taps tb = sweep::taps((xb - wb0) * sb_scale - 0.5f, nb);
+    const Taps tc = sweep::taps((xc - wc0) * sc_scale - 0.5f, nc);
+    const float dens = sweep::density(store + (size_t)a0[k] * plane,
+                                      store + (size_t)a1[k] * plane, wa[k],
+                                      tb, tc, nb);
     if (!(dens > -0.5f)) continue;  // a SENTINEL (uncovered) voxel contributed
 
-    float s = fminf(fmaxf(dens, 0.0f), 1.0f) * kTfSize - 0.5f;
-    s = fminf(fmaxf(s, 0.0f), (float)(kTfSize - 1));
+    const float s = sweep::tf_coord(dens);
     const float i0f = floorf(s);
     const float wt = s - i0f;
     const int i0 = (int)i0f;
-    const float4 c0 = s_tf[i0];
-    const float4 c1 = s_tf[min(i0 + 1, kTfSize - 1)];
-    const float cr = c0.x * (1.0f - wt) + c1.x * wt;
-    const float cg = c0.y * (1.0f - wt) + c1.y * wt;
-    const float cb = c0.z * (1.0f - wt) + c1.z * wt;
-    const float ca = c0.w * (1.0f - wt) + c1.w * wt;
+    const float4 c = sweep::lerp4(s_tf[i0], s_tf[min(i0 + 1, kTfSize - 1)], wt);
 
-    const float a_corr = 1.0f - powf(1.0f - fminf(ca, kAlphaClamp), cexp);
+    const float a_corr = 1.0f - powf(1.0f - fminf(c.w, kAlphaClamp), cexp);
     const float w = a_corr * t;
-    r += w * cr;
-    g += w * cg;
-    b += w * cb;
+    r += w * c.x;
+    g += w * c.y;
+    b += w * c.z;
     t = t * (1.0f - a_corr);
   }
   out[4 * ray] = r;

@@ -10,11 +10,12 @@ transfer function needs no conversion.  Results are writable copies, so
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
 from libre_tpu_torch.ops import shearwarp_bricked as swb
+from libre_tpu_torch.train.store_trainer import StoreProblem
 
 
 def atlas_from_jax(flat: np.ndarray, brick_shape_zyx) -> np.ndarray:
@@ -54,4 +55,41 @@ def assembly_plan_from_jax(plan) -> swb.AssemblyPlan:
         ),
         lo=plan.lo,
         hi=plan.hi,
+    )
+
+
+def store_grad_from_jax(d_store: np.ndarray, fine_dims: Tuple[int, int, int]) -> np.ndarray:
+    """(Na_store, Nc_pad, Nb_pad) density-store gradient → (Na, Nc, Nb).
+    Raises if the padding holds gradient: none may flow there."""
+    na, nc, nb = fine_dims
+    padding = np.array(np.asarray(d_store))
+    padding[:na, :nc, :nb] = 0.0
+    if padding.any():
+        raise ValueError("store_grad_from_jax: gradient in the store's padding")
+    return store_from_jax(d_store, fine_dims)
+
+
+def params_from_jax(params: Dict, fine_dims: Tuple[int, int, int]) -> Dict[str, np.ndarray]:
+    """{"store": padded store, "tf": (256, 4)} → the same, unpadded."""
+    return {
+        "store": store_from_jax(params["store"], fine_dims),
+        "tf": np.array(np.asarray(params["tf"])),
+    }
+
+
+def store_problem_from_jax(problem) -> StoreProblem:
+    """The JAX package's ``StoreProblem`` → the port's (its TPU chunking
+    and interpret-mode fields dropped)."""
+    return StoreProblem(
+        views=np.array(np.asarray(problem.views), np.float32),
+        na_store=problem.na_store,
+        na_real=problem.na_real,
+        nc_real=problem.nc_real,
+        nb_real=problem.nb_real,
+        k_planes=problem.k_planes,
+        inter_size=tuple(problem.inter_size),
+        world_min=np.asarray(problem.world_min, np.float32),
+        world_max=np.asarray(problem.world_max, np.float32),
+        axis=problem.axis,
+        diff_tf=problem.diff_tf,
     )

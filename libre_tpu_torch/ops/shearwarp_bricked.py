@@ -485,16 +485,16 @@ def post_sweep_reference(
     return torch.cat([rgb, (1.0 - t)[..., None]], dim=-1), t
 
 
-def _check_sweep_operands(store, tf, tables: SweepTables, clip, n_clip):
-    """Reject what the CUDA kernel does not take, before any pointer
-    reaches it."""
+def _check_sweep_operands(store, tf, tables: SweepTables, what="post_sweep", **extra):
+    """Reject what the CUDA kernel ``what`` does not take, before any
+    pointer reaches it: the store, the TF and the tables, plus ``extra``
+    operands given as ``name=(tensor, dtype, shape)``."""
     dev = store.device
     k_planes = tables.a0.shape[0]
     v_size, u_size = tables.corr.shape
     expect = {
         "store": (store, torch.float32, None),
         "tf": (tf, torch.float32, (TF_SIZE, 4)),
-        "clip": (clip, torch.float32, (MAX_CLIP_PLANES, 4)),
         "a0": (tables.a0, torch.int32, (k_planes,)),
         "a1": (tables.a1, torch.int32, (k_planes,)),
         "wa": (tables.wa, torch.float32, (k_planes,)),
@@ -504,24 +504,23 @@ def _check_sweep_operands(store, tf, tables: SweepTables, clip, n_clip):
         "corr": (tables.corr, torch.float32, (v_size, u_size)),
         "rgb_in": (tables.rgb_in, torch.float32, (v_size, u_size, 4)),
         "t_in": (tables.t_in, torch.float32, (v_size, u_size)),
+        **extra,
     }
     for name, (x, dtype, shape) in expect.items():
         if x.device != dev:
-            raise ValueError(f"post_sweep: {name} on {x.device}, store on {dev}")
+            raise ValueError(f"{what}: {name} on {x.device}, store on {dev}")
         if x.dtype != dtype:
-            raise TypeError(f"post_sweep: {name} is {x.dtype}, needs {dtype}")
+            raise TypeError(f"{what}: {name} is {x.dtype}, needs {dtype}")
         if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"post_sweep: {name} shape {tuple(x.shape)} != {shape}")
+            raise ValueError(f"{what}: {name} shape {tuple(x.shape)} != {shape}")
         if not x.is_contiguous():
-            raise ValueError(f"post_sweep: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
     if store.dim() != 3 or min(store.shape) < 1:
-        raise ValueError(f"post_sweep: store shape {tuple(store.shape)}")
+        raise ValueError(f"{what}: store shape {tuple(store.shape)}")
     if k_planes < 1 or v_size < 1 or u_size < 1:
-        raise ValueError("post_sweep: empty plane or ray grid")
-    if not 0 <= n_clip <= MAX_CLIP_PLANES:
-        raise ValueError(f"post_sweep: n_clip={n_clip} outside [0, 8]")
+        raise ValueError(f"{what}: empty plane or ray grid")
     if tf.data_ptr() % 16:
-        raise ValueError("post_sweep: tf must be 16-byte aligned")
+        raise ValueError(f"{what}: tf must be 16-byte aligned")
 
 
 def post_sweep(
@@ -538,7 +537,11 @@ def post_sweep(
     """The sweep: launches ``csrc/post_sweep.cu`` for CUDA tensors and
     runs :func:`post_sweep_reference` for CPU tensors (same signature and
     result).  ``post_sweep.launches`` counts kernel launches."""
-    _check_sweep_operands(store, tf, tables, clip, n_clip)
+    _check_sweep_operands(
+        store, tf, tables, clip=(clip, torch.float32, (MAX_CLIP_PLANES, 4))
+    )
+    if not 0 <= n_clip <= MAX_CLIP_PLANES:
+        raise ValueError(f"post_sweep: n_clip={n_clip} outside [0, 8]")
     if store.device.type == "cpu":
         return post_sweep_reference(
             store, tf, tables, clip, n_clip=n_clip, wb=wb, wc=wc,

@@ -10,7 +10,15 @@ from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops.transfer_function import default_color_map
 
 KERNEL_TOL_MAX = 2e-3  # one flip of the early-exit test moves a pixel ≤ 1 − 0.999
-KERNEL_TOL_MEAN = 1e-5  # FMA contraction and powf rounding
+KERNEL_TOL_MEAN = 1e-5  # powf vs torch.pow rounding
+# Backward kernel vs plain, each gradient normalised by the plain one's
+# max |·|.  Early exit off: only the summation order (float atomics) and
+# powf differ.  Early exit on: a ray whose recomputed t crosses the
+# threshold one plane apart in the two versions changes its whole
+# gradient, so the max is looser and the mean holds the rest.
+GRAD_TOL_MAX = 1e-3
+GRAD_TOL_MAX_EARLY_EXIT = 1e-2
+GRAD_TOL_MEAN_EARLY_EXIT = 1e-5
 
 
 def sweep_case(shape, seed, device):
@@ -63,3 +71,25 @@ def sweep_case(shape, seed, device):
     )
     kw = dict(n_clip=n_clip, wb=(-0.5, 0.5), wc=(-0.5, 0.5), early_exit=0.999)
     return store, dev(tf), tables, dev(clip_m), kw
+
+
+def store_grad_case(shape, seed, device, early_exit):
+    """Seeded operands of the backward sweep: the ``sweep_case`` view and
+    store (SENTINEL holes, every 7th plane inactive) with no clip planes,
+    the forward's ``out``/``t_out`` from ``post_sweep`` and a standard
+    normal cotangent ``g``.  With ``early_exit`` < 1 the TF saturates
+    (alpha × 8) so the early exit fires; otherwise it is the default map.
+    ``shape`` = (V, U, K, Na, Nc, Nb).
+
+    Returns (store, tf, tables, out, t_out, g, keyword arguments of
+    ``store_grid_backward`` without ``diff_tf``)."""
+    store, tf, tables, clip, kw = sweep_case(shape, seed, device)
+    if early_exit >= 1.0:
+        tf = torch.as_tensor(default_color_map()).to(device)
+    kw = dict(wb=kw["wb"], wc=kw["wc"], early_exit=early_exit)
+    out, t_out = swb.post_sweep(
+        store, tf, tables, torch.zeros_like(clip), n_clip=0, **kw
+    )
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    g = torch.randn(out.shape, generator=gen).to(device)
+    return store, tf, tables, out, t_out, g, kw

@@ -1,5 +1,6 @@
-"""The port imports no jax: every libre_tpu_torch module imports, and a
-tiny CPU frame renders, in a process where importing jax fails."""
+"""The port imports no jax: every libre_tpu_torch module imports, a tiny
+CPU frame renders and the store trainer takes a step, in a process where
+importing jax or optax fails."""
 
 import os
 import subprocess
@@ -8,6 +9,7 @@ import sys
 _CHILD = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["optax"] = None
 import torch
 torch.set_num_threads(1)
 import libre_tpu_torch
@@ -25,7 +27,24 @@ engine = RenderEngine(DataSource("mem://#32,32,32,16?pattern=gradient"),
                       max_gpu_cache_mb=16, device="cpu")
 img, _ = engine.render_bricked(camera, frustum, n_planes=16)
 assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+import numpy as np
+from libre_tpu_torch.ops import shearwarp_grad as swg
+from libre_tpu_torch.train import StoreProblem, fit
+vs = swg.view_vector(world_min=[-0.5] * 3, world_max=[0.5] * 3, axis=2,
+                     eye=[0.1, 0.05, 1.4], sign=-1.0,
+                     slope_bounds=(-0.45, 0.45, -0.4, 0.4), inter_size=(6, 5),
+                     max_samples_per_ray=32)
+problem = StoreProblem(views=vs[None], na_store=8, na_real=8, nc_real=8,
+                       nb_real=8, k_planes=8, inter_size=(6, 5),
+                       world_min=np.float32([-0.5] * 3),
+                       world_max=np.float32([0.5] * 3), axis=2)
+store = np.full((8, 8, 8), 0.5, np.float32)
+tf = np.stack([np.linspace(0, 1, 256, dtype=np.float32)] * 4, axis=-1)
+params, losses = fit(problem, np.zeros((1, 6, 5, 4), np.float32), store, tf,
+                     device="cpu", steps=1)
+assert np.isfinite(losses[0]) and float(params["store"].grad.abs().max()) > 0
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "optax")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
 print(len(names), "modules")

@@ -30,9 +30,26 @@ Phases, each of which raises on failure (any failure exits non-zero):
 7. the training path: ``fit`` recovers the orbit's 512³ store and the TF
    from 4 orbit views (512² slope grids, K = 512) in 5 Adam steps from a
    flat init; every step launches the sweep and the backward kernel once
-   per view; a checkpoint round trip; step, kernel and plain times.
+   per view; a checkpoint round trip; step, kernel and plain times;
+8. the exact marcher K3 vs plain PyTorch on seeded operands: the
+   ``bench_exact`` shape (one 64³ f32 brick, 256² rays, 512 samples per
+   ray) and a scattered 64-brick uint8 atlas with clip planes, a
+   saturating transfer function and a carry in, nearest and trilinear;
+9. the exact main path: ``render_cli --renderer pallas-exact`` and then
+   ``--renderer xla`` on the 512³ volume at 512×512 (the same frame), and
+   an 8-pose orbit through ``RenderEngine.render(marcher="pallas")`` at
+   screen-space error 1 (all 4096 finest bricks, 512 samples per ray) on
+   the bricked orbit's engine; K3 must launch once per pass per sample;
+   frame, select and kernel times and the work behind them (samples
+   composited, bricks sampled, rays ended by the early exit);
+10. K3 vs plain on a 64×64 window of the orbit view's rays (the plain
+   version over all 512² rays and 4096 bricks would take minutes);
+11. the exact path on the card vs on the CPU, on a small volume through a
+   9-slot atlas (passes of 8 bricks) with 2 jittered samples per pixel.
 
-Prints one JSON line describing the kernels, then, as the last line,
+Prints one JSON line describing the kernels (with each kernel's bound:
+the larger of its bytes over the HBM rate and its f32 operations over
+their peak, from this run's work), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is present.
 """
@@ -52,6 +69,30 @@ SMALL_TOL_MAX = 2e-3
 URI = "mem://#512,512,512,32?pattern=gradient"
 TRAIN_VIEWS = 4
 TRAIN_STEPS = 5
+SUBSET = 64  # K3 vs plain on a SUBSET x SUBSET window of the main-path view
+
+# The least time an H100 SXM could take for a kernel's work: bytes over the
+# HBM rate, f32 operations (outside the tensor cores) over their peak
+# (NVIDIA's data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+TF_BYTES = 256 * 4 * 4
+# f32 operations per sample, counted from the kernels' per-sample code
+# (an add, multiply, divide, compare, min/max, floor, conversion or atomic
+# add counts one, powf three; integer index arithmetic is not counted):
+# K1 and K2 per fetched plane sample (post_sweep.cu, store_grid_bwd.cu
+# with the TF gradient), K3 per composited sample by filter, for a uint8
+# atlas (exact_march.cu).
+K1_OPS_PER_SAMPLE = 97
+K2_OPS_PER_SAMPLE = 175
+K3_OPS_PER_SAMPLE = {"nearest": 69, "trilinear": 122}
+
+
+def bound(bytes_, ops):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -71,18 +112,20 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def compare(got, want, what):
-    """(max, mean) |got − want|; raises past the kernel tolerances."""
+def compare(got, want, what, tol=None):
+    """(max, mean) |got − want|; raises past ``tol`` = (max, mean), by
+    default the sweep kernel's tolerances."""
     import torch
 
     from libre_tpu_torch.testing import KERNEL_TOL_MAX, KERNEL_TOL_MEAN
 
+    tol_max, tol_mean = tol or (KERNEL_TOL_MAX, KERNEL_TOL_MEAN)
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite kernel output")
     err = (got - want).abs()
     mx, mean = float(err.max()), float(err.mean())
     print(f"{what}: max|d| {mx:.3e} mean|d| {mean:.3e}")
-    if mx > KERNEL_TOL_MAX or mean > KERNEL_TOL_MEAN:
+    if mx > tol_max or mean > tol_mean:
         raise AssertionError(
             f"{what}: kernel disagrees with plain (max {mx}, mean {mean})"
         )
@@ -179,10 +222,10 @@ def main() -> int:
         del store, tables, got, want
 
     # --------------------------------------------------------- 4. main path
-    from libre_tpu.data.datasource import DataSource, load_plugins
-    from libre_tpu.utils.image import read_image
     from libre_tpu_torch.apps import render_cli
+    from libre_tpu_torch.data.datasource import DataSource, load_plugins
     from libre_tpu_torch.render.engine import RenderEngine
+    from libre_tpu_torch.utils.image import read_image
 
     load_plugins()
     poses = orbit_cameras()
@@ -273,8 +316,9 @@ def main() -> int:
               early_exit=runner.early_exit)
     got, _ = swb.post_sweep(store, tf, tables, runner.clip, **kw)
     samples = torch.zeros((runner.v_size, runner.u_size), dtype=torch.int64, device=dev)
+    planes = torch.zeros(runner.k_planes, dtype=torch.bool, device=dev)
     want, t_want = swb.post_sweep_reference(
-        store, tf, tables, runner.clip, samples=samples, **kw
+        store, tf, tables, runner.clip, samples=samples, planes=planes, **kw
     )
     torch.cuda.synchronize()
     max_err = compare(got, want, "main-path sweep")
@@ -300,6 +344,21 @@ def main() -> int:
         f"samples fetched {fetched} of {n_grid} ({fetched / n_grid:.4f}), "
         f"mean {fetched / max(1, int((samples > 0).sum())):.1f} per fetching ray; "
         f"kernel {fetched / (ms * 1e-3) / 1e9:.3f} G samples/s {card}"
+    )
+    # K1's bound: the store slices of the planes some ray fetches, read
+    # once, plus the per-ray operands and outputs; the fetched samples'
+    # operations.
+    slices = torch.unique(torch.cat([tables.a0[planes], tables.a1[planes]]))
+    _na, s_nc, s_nb = store.shape
+    k1_bound = bound(
+        bytes_=slices.numel() * s_nc * s_nb * 4 + n_rays * 11 * 4 + TF_BYTES
+        + runner.k_planes * 5 * 4,
+        ops=fetched * K1_OPS_PER_SAMPLE,
+    )
+    print(
+        f"  K1 bound: {slices.numel()} store slices read by {int(planes.sum())} "
+        f"planes; {k1_bound[0]:.4f} ms, {k1_bound[1]}-bound; kernel at "
+        f"{k1_bound[0] / ms:.4f} of it {card}"
     )
 
     from libre_tpu_torch.apps.render_cli import build_camera
@@ -485,9 +544,221 @@ def main() -> int:
         f"samples inside the box per view (all fetched, early exit off), of "
         f"{n_grid}: {in_box} ({', '.join(f'{x / n_grid:.4f}' for x in in_box)})"
     )
+    # K2's bound: the store read and d_store written once, out, t_out, g and
+    # the per-ray tables read, the TF and dtf; every in-box sample's
+    # operations (early exit off).
+    k2_bound = bound(
+        bytes_=2 * na * nc * nb * 4 + v_size * u_size * 15 * 4 + 2 * TF_BYTES
+        + runner.k_planes * 5 * 4,
+        ops=in_box[0] * K2_OPS_PER_SAMPLE,
+    )
+    print(
+        f"  K2 bound on view 0: {k2_bound[0]:.4f} ms, {k2_bound[1]}-bound; kernel "
+        f"at {k2_bound[0] / bwd_ms:.4f} of it {card}"
+    )
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    # ---------------------------------------- 8. K3 vs plain, seeded cases
+    from libre_tpu_torch.ops import exact
+    from libre_tpu_torch.ops.reference import RenderParams
+    from libre_tpu_torch.testing import EXACT_TOL_MAX, EXACT_TOL_MEAN, exact_case
+
+    exact_tol = (EXACT_TOL_MAX, EXACT_TOL_MEAN)
+    for case, dtype in (("single", torch.float32), ("bricks", torch.uint8)):
+        for filter_mode in ("nearest", "trilinear"):
+            c = exact_case(case, seed=0, device=dev, filter_mode=filter_mode, dtype=dtype)
+            args = (c.atlas, c.slots, c.boxes, c.tf, c.rays, c.carry, c.eye, c.params)
+            got = exact.march_exact(*args, max_steps=c.max_steps, width=c.width)
+            want = exact.march_exact_reference(*args, max_steps=c.max_steps)
+            torch.cuda.synchronize()
+            what = (f"seeded K3 {case} {tuple(c.atlas.shape)} {c.atlas.dtype} "
+                    f"{filter_mode}, {c.carry.shape[0]} rays")
+            compare(got, want, what, exact_tol)
+            saturated = float((got[:, 3] > c.params.early_exit).float().mean())
+            print(f"  early exit reached by {saturated:.3f} of the rays")
+            if saturated == 0.0:
+                raise AssertionError(f"{what}: the early exit never fired")
+            del c, args, got, want
+
+    # --------------------------------------- 9. the exact main path
+    exact.march_exact.launches = 0
+    cli_ok = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for renderer in ("pallas-exact", "xla"):
+            t0 = time.perf_counter()
+            rc = render_cli.main([
+                "--volume", URI, "--width", "512", "--height", "512",
+                "--renderer", renderer, "--output-dir", os.path.join(out_dir, renderer),
+            ])
+            torch.cuda.synchronize()
+            cli_ok[renderer] = (rc, time.perf_counter() - t0, read_image(
+                os.path.join(out_dir, renderer, "frame_000000.png")))
+    exact_cli_launches = exact.march_exact.launches
+    exact_frames, exact_ms, exact_stats = [], [], []
+    for camera, frustum in poses:
+        t0 = time.perf_counter()
+        img, st, _ = engine.render(camera, frustum, screen_space_error=1.0, marcher="pallas")
+        torch.cuda.synchronize()
+        exact_ms.append((time.perf_counter() - t0) * 1e3)
+        exact_frames.append(img)
+        exact_stats.append(st)
+    exact_launches = exact.march_exact.launches
+    # ------------------------------------------ end of the exact main path
+
+    for renderer, (rc, secs, png) in cli_ok.items():
+        if rc != 0 or png.shape[:2] != (512, 512) or png.max() == 0:
+            raise AssertionError(f"render_cli --renderer {renderer}: rc {rc}, {png.shape}")
+        print(f"render_cli --renderer {renderer} 512x512 frame incl. data generation: "
+              f"{secs:.3f} s {card}")
+    if not np.array_equal(cli_ok["pallas-exact"][2], cli_ok["xla"][2]):
+        raise AssertionError("render_cli: pallas-exact and xla frames differ")
+    if exact_cli_launches != 2:
+        raise AssertionError(f"K3 launched {exact_cli_launches} times for 2 CLI frames")
+    want_launches = sum(st.n_passes for st in exact_stats)  # one sample per pixel
+    if exact_launches - exact_cli_launches != want_launches or want_launches != len(poses):
+        raise AssertionError(
+            f"K3 launched {exact_launches - exact_cli_launches} times for "
+            f"{len(poses)} orbit frames of {want_launches} passes"
+        )
+    for i, img in enumerate(exact_frames):
+        if tuple(img.shape) != (512, 512, 4) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"exact orbit frame {i}: {tuple(img.shape)} or non-finite")
+        if float(img[..., 3].max()) <= 0.0:
+            raise AssertionError(f"exact orbit frame {i} is empty")
+    st = exact_stats[-1]
+    print(
+        f"exact main path: {st.n_available} bricks in {st.n_passes} pass(es) per frame, "
+        f"{exact_launches} K3 launches for 2 CLI + {len(poses)} orbit frames"
+    )
+    steady = sorted(exact_ms[1:])
+    print(
+        f"exact orbit first frame: {exact_ms[0]:.1f} ms; steady frames 2-{len(poses)}: "
+        f"median {steady[len(steady) // 2]:.3f} ms, min {steady[0]:.3f} ms {card}"
+    )
+
+    # The last pose's operands, as engine.render builds them.
+    from libre_tpu_torch.ops import rays as ray_ops
+    from libre_tpu_torch.ops.raycast import ray_pack
+
+    camera, frustum = poses[-1]
+    t0 = time.perf_counter()
+    nodes = engine.select(frustum, 512, 1.0)
+    select_ms = (time.perf_counter() - t0) * 1e3
+    exact_params = RenderParams(
+        n_samples_per_ray=512, data_source_range=engine.data_source_range,
+        filter_mode=engine.filter_mode,
+    )
+    eye_np = np.asarray(camera.inv_mv, np.float32)[:3, 3]
+    order = engine._sort_nodes(nodes, eye_np)
+    entries = [e.pin() for e in engine._upload_nodes(order)]
+    slots, boxes = engine._pass_operands(order, [e.value for e in entries])
+    max_steps = engine._max_steps(order, exact_params)
+    eye_t, dirs, cos_z, _ = ray_ops.make_rays(
+        camera.inv_proj, camera.inv_mv, camera.viewport, device=dev
+    )
+    half = np.asarray(engine.info.world_size, np.float32) * 0.5
+    pack = ray_pack(
+        eye_t, dirs.reshape(-1, 3), ray_ops.near_plane_t(cos_z.reshape(-1), camera.near),
+        exact_params.step_size, -half, half,
+    )
+    atlas, tf = engine.atlas.data, engine.transfer_function
+    n_rays = pack.shape[1]
+    carry0 = torch.zeros((n_rays, 4), device=dev)
+    args = (atlas, slots, boxes, tf, pack, carry0, eye_np, exact_params)
+    k3_samples = torch.zeros(n_rays, dtype=torch.int32, device=dev)
+    k3_used = torch.zeros(len(order), dtype=torch.int32, device=dev)
+    frame = exact.march_exact(*args, max_steps=max_steps, width=512,
+                              samples=k3_samples, used=k3_used)
+    torch.cuda.synchronize()
+    if float((frame.reshape(512, 512, 4) - exact_frames[-1]).abs().max()) != 0.0:
+        raise AssertionError("the rebuilt operands do not give the orbit's last frame")
+    k3_ms = cuda_ms(lambda: exact.march_exact(*args, max_steps=max_steps, width=512), reps=20)
+    composited = int(k3_samples.sum())
+    used_bricks = int(k3_used.sum())
+    ended = float((frame[:, 3] > exact_params.early_exit).float().mean())
+    # K3's bound: the bricks some ray samples (their atlas slots) read
+    # once, the boxes, slots, ray pack, carry in and out and the TF; the
+    # composited samples' operations.
+    k3_bound = bound(
+        bytes_=used_bricks * engine.atlas.slot_bytes + len(order) * (16 + 1) * 4
+        + n_rays * (8 + 4 + 4) * 4 + TF_BYTES,
+        ops=composited * K3_OPS_PER_SAMPLE[exact_params.filter_mode],
+    )
+    # The same frame from only the bricks some ray samples: what the
+    # per-ray slab tests of the other bricks cost.
+    keep = k3_used.bool()
+    sampled_args = (atlas, slots[keep].contiguous(), boxes[keep].contiguous(), tf, pack,
+                    carry0, eye_np, exact_params)
+    if not torch.equal(exact.march_exact(*sampled_args, max_steps=max_steps, width=512), frame):
+        raise AssertionError("the bricks that take no sample changed the frame")
+    k3_sampled_ms = cuda_ms(
+        lambda: exact.march_exact(*sampled_args, max_steps=max_steps, width=512), reps=20
+    )
+    print(f"exact steady frame breakdown: select_visibles {select_ms:.3f} ms (host) {card}")
+    print(
+        f"K3 on the orbit view's operands (512x512 rays, {len(order)} bricks, "
+        f"{exact_params.filter_mode}, {exact_params.n_samples_per_ray} samples per ray): kernel "
+        f"{k3_ms:.4f} ms; {composited} samples composited "
+        f"({composited / n_rays:.1f} per ray), {used_bricks} bricks sampled, rays "
+        f"ending in the early exit {ended:.4f}; {composited / (k3_ms * 1e-3) / 1e9:.3f} "
+        f"G samples/s; bound {k3_bound[0]:.4f} ms ({k3_bound[1]}), kernel at "
+        f"{k3_bound[0] / k3_ms:.4f} of it {card}"
+    )
+    print(
+        f"  the same frame from the {used_bricks} sampled bricks alone: kernel "
+        f"{k3_sampled_ms:.4f} ms (the slab tests of the other {len(order) - used_bricks} "
+        f"bricks cost the difference) {card}"
+    )
+
+    # ------------------ 10. K3 vs plain on a window of the main path's rays
+    lo = (512 - SUBSET) // 2
+    sub = pack.reshape(8, 512, 512)[:, lo:lo + SUBSET, lo:lo + SUBSET]
+    sub = sub.reshape(8, -1).contiguous()
+    sub_args = (atlas, slots, boxes, tf, sub, torch.zeros((SUBSET * SUBSET, 4), device=dev),
+                eye_np, exact_params)
+    got = exact.march_exact(*sub_args, max_steps=max_steps, width=SUBSET)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = exact.march_exact_reference(*sub_args, max_steps=max_steps)
+    torch.cuda.synchronize()
+    k3_plain_ms = (time.perf_counter() - t0) * 1e3
+    k3_err = compare(got, want, f"main-path K3, {SUBSET}x{SUBSET} window", exact_tol)
+    k3_sub_ms = cuda_ms(lambda: exact.march_exact(*sub_args, max_steps=max_steps, width=SUBSET),
+                        reps=20)
+    print(
+        f"  on the {SUBSET}x{SUBSET} window: kernel {k3_sub_ms:.4f} ms, plain "
+        f"{k3_plain_ms:.3f} ms (1 call) {card}"
+    )
+    for e in entries:
+        e.unpin()
+    del args, sampled_args, sub_args, pack, frame
+
+    # --------------------------------------------- 11. card vs CPU, exact
+    # A 9-slot atlas forces passes of 8 bricks, the carry threaded through
+    # them; two jittered samples per pixel.
+    camera, frustum = build_camera(48, 40, (0.3, 0.2, 1.5), (0.0, 0.0, 0.0))
+    small_params = RenderParams(n_samples_per_ray=128, samples_per_pixel=2,
+                                filter_mode="trilinear")
+    slot_mb = RenderEngine(DataSource(small), max_gpu_cache_mb=1, device="cpu") \
+        .atlas.slot_bytes / 2**20
+    frames = [
+        RenderEngine(DataSource(small), max_gpu_cache_mb=18 * slot_mb, device=d)
+        .render(camera, frustum, params=small_params, screen_space_error=1.0)
+        for d in (dev, "cpu")
+    ]
+    (on_card, st_card, _), (on_cpu, st_cpu, _) = frames
+    small_err = float((on_card.cpu() - on_cpu).abs().max())
+    print(
+        f"small volume, exact path, card vs CPU port ({st_card.n_available} bricks in "
+        f"{st_card.n_passes} passes, 2 samples per pixel): max|d| {small_err:.3e}"
+    )
+    if st_card.n_passes < 2 or st_card.n_passes != st_cpu.n_passes:
+        raise AssertionError(f"passes: card {st_card.n_passes}, CPU {st_cpu.n_passes}")
+    if small_err > EXACT_TOL_MAX or float(on_cpu[..., 3].max()) <= 0.0:
+        raise AssertionError(f"card exact frame disagrees with the CPU port ({small_err})")
+
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
+    if loaded:
+        raise AssertionError(f"imported {loaded[:5]}")
 
     print(json.dumps({"kernels": [
         {
@@ -499,6 +770,9 @@ def main() -> int:
             "max_abs_err": max_err,
             "ms": ms,
             "plain_ms": plain_ms,
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
+            "library_ms": None,
         },
         {
             "name": "store_grid_bwd",
@@ -509,6 +783,22 @@ def main() -> int:
             "max_abs_err": bwd_err,
             "ms": bwd_ms,
             "plain_ms": bwd_plain_ms,
+            "bound_ms": k2_bound[0],
+            "bound_by": k2_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "exact_march",
+            "route": "cuda",
+            "source": "libre_tpu_torch/csrc/exact_march.cu",
+            "replaces": "libre_tpu/ops/exact_pallas.py:481",
+            "launches": exact_launches,
+            "max_abs_err": k3_err,
+            "ms": k3_ms,
+            "plain_ms": k3_plain_ms,
+            "bound_ms": k3_bound[0],
+            "bound_by": k3_bound[1],
+            "library_ms": None,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ def build_camera(width, height, position, look_at_point, near=0.1, far=15.0):
     """Camera + frustum looking from ``position`` at ``look_at_point``,
     with `up` nudged near the poles to avoid gimbal lock
     (CameraSettings.cpp:setCameraLookAt)."""
-    from libre_tpu.core.frustum import Frustum, look_at, perspective
+    from libre_tpu_torch.core.frustum import Frustum, look_at, perspective
     from libre_tpu_torch.ops.reference import Camera
 
     eye = np.asarray(position, np.float32)
@@ -57,10 +57,10 @@ def build_camera(width, height, position, look_at_point, near=0.1, far=15.0):
 def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
-    from libre_tpu.core.config import ApplicationParameters, RendererParameters
-    from libre_tpu.core.frame_utils import FrameUtils
-    from libre_tpu.data.datasource import DataSource, load_plugins
-    from libre_tpu.utils.image import write_image
+    from libre_tpu_torch.core.config import ApplicationParameters, RendererParameters
+    from libre_tpu_torch.core.frame_utils import FrameUtils
+    from libre_tpu_torch.data.datasource import DataSource, load_plugins
+    from libre_tpu_torch.utils.image import write_image
     from libre_tpu_torch.ops.reference import RenderParams
     from libre_tpu_torch.ops.transfer_function import load_1dt
     from libre_tpu_torch.render.engine import RenderEngine
@@ -106,6 +106,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         DataSource(app.data_file_name),
         max_gpu_cache_mb=vr.max_gpu_cache_memory_mb,
         max_cpu_cache_mb=vr.max_cpu_cache_memory_mb,
+        filter_mode="trilinear",
         device=device,
     )
     info = engine.info
@@ -122,7 +123,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if vr.samples_per_ray > 0:
         params = RenderParams(
             n_samples_per_ray=vr.samples_per_ray,
+            samples_per_pixel=vr.samples_per_pixel,
             data_source_range=engine.data_source_range,
+            filter_mode="trilinear",
         )
 
     fu = FrameUtils(app.frames, tuple(info.frame_range))

@@ -46,6 +46,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, List] = {
     "post_sweep": [_P] * 14 + [_I] * 6 + [_F] * 7 + [_P],
     "store_grid_bwd": [_P] * 16 + [_I] * 6 + [_F] * 7 + [_P],
+    "exact_march": [_P] * 9 + [_I] * 9 + [_F] * 8 + [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -24,6 +24,11 @@ class AtlasFullError(RuntimeError):
     pass
 
 
+# Unsigned dtypes whose slots are copied through the signed dtype of the
+# same width: PyTorch's indexed copies do not take them.
+_BITS_AS = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """numpy dtype (or anything ``np.dtype`` takes) → torch dtype."""
     if isinstance(dtype, torch.dtype):
@@ -109,15 +114,17 @@ class BrickAtlas:
         idx = torch.as_tensor(np.asarray(slots, np.int64)).to(
             self.device, non_blocking=True
         )
+        bits = _BITS_AS.get(self.dtype, self.dtype)
         with self._data_lock:
             dev = host.to(self.device, non_blocking=True)
-            self._data.index_copy_(0, idx, dev)
+            self._data.view(bits).index_copy_(0, idx, dev.view(bits))
 
     def gather(self, slots) -> torch.Tensor:
         """The given slots as a stacked (N, BZ, BY, BX) tensor."""
         idx = torch.as_tensor(np.asarray(slots, np.int64)).to(self.device)
+        bits = _BITS_AS.get(self.dtype, self.dtype)
         with self._data_lock:
-            return self._data.index_select(0, idx)
+            return self._data.view(bits).index_select(0, idx).view(self.dtype)
 
 
 def atlas_capacity(max_bytes: int, brick_shape_zyx, dtype=torch.float32) -> int:

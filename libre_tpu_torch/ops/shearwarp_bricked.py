@@ -401,6 +401,7 @@ def post_sweep_reference(
     wc: Tuple[float, float],
     early_exit: float,
     samples: Optional[torch.Tensor] = None,
+    planes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch sweep: the specification of ``csrc/post_sweep.cu``.
 
@@ -423,6 +424,7 @@ def post_sweep_reference(
     (V, U) int64 tensor if given, is incremented by the planes at which
     each ray fetches the store (not yet saturated, plane active, inside
     the box and the clip half-spaces): the kernel's work per ray.
+    ``planes``, a (K,) bool tensor if given, is set where any ray fetches.
     """
     f32 = torch.float32
     dev = store.device
@@ -478,6 +480,8 @@ def post_sweep_reference(
         alive = (1.0 - t) <= early_exit
         if samples is not None:
             samples += fetch & alive
+        if planes is not None:
+            planes[k] = (fetch & alive).any()
         m = alive.to(f32)
         a_eff = a_corr * m
         rgb = rgb + (a_eff * t)[..., None] * rgba[..., :3]

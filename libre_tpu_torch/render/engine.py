@@ -1,4 +1,4 @@
-"""Render engine: LOD selection → rendering set → upload → bricked frame
+"""Render engine: LOD selection → rendering set → upload → frame
 (``libre_tpu.render.engine``).
 
 Per frame, as in renderers/glRaycaster/GLRaycastPipeline.cpp:78-350:
@@ -6,13 +6,18 @@ Per frame, as in renderers/glRaycaster/GLRaycastPipeline.cpp:78-350:
   * ``select_visibles`` picks the LOD brick set for the view (SSE DFS);
   * bricks stream datasource → host data cache (LRU) → device atlas
     slots;
-  * the rendering set is assembled into one density store on the
-    device, cached across frames, and swept by the post-classification
-    kernel (``ops/shearwarp_bricked.py``).
+  * :meth:`render_bricked`: the rendering set is assembled into one
+    density store on the device, cached across frames, and swept by the
+    post-classification kernel (``ops/shearwarp_bricked.py``);
+  * :meth:`render`: the exact marcher (``ops/exact.py``) walks the set
+    front to back in memory-bounded passes of atlas-resident bricks,
+    with the per-ray (rgb, a) carried across passes
+    (GLRaycastPipeline.cpp:148-186).
 
-Implemented: the synchronous in-core branch of :meth:`render_bricked`.
-The out-of-core slab multipass and asynchronous rendering (ROADMAP M5)
-and histogram collection (ROADMAP M6) raise ``NotImplementedError``.
+Implemented: the synchronous in-core branch of :meth:`render_bricked`
+and the synchronous multipass :meth:`render`.  The out-of-core slab
+multipass and asynchronous rendering (ROADMAP M5) and histogram
+collection (ROADMAP M6) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,21 +30,27 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from libre_tpu.core.cache import LRUCache
-from libre_tpu.core.clip_planes import ClipPlanes
-from libre_tpu.core.frustum import Frustum
-from libre_tpu.core.nodeid import NodeId
-from libre_tpu.core.select_visibles import select_visibles
-from libre_tpu.data.datasource import DataSource
+from libre_tpu_torch.core.cache import LRUCache
+from libre_tpu_torch.core.clip_planes import ClipPlanes
+from libre_tpu_torch.core.frustum import Frustum
+from libre_tpu_torch.core.nodeid import NodeId
+from libre_tpu_torch.core.select_visibles import select_visibles
+from libre_tpu_torch.data.datasource import DataSource
+from libre_tpu_torch.ops import exact
+from libre_tpu_torch.ops import rays as ray_ops
 from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops.atlas import BrickAtlas, atlas_capacity, torch_dtype
+from libre_tpu_torch.ops.raycast import brick_boxes, ray_pack, sort_bricks_front_to_back
 from libre_tpu_torch.ops.reference import (
     Camera,
     RenderParams,
+    max_steps_for_bricks,
     nyquist_samples_per_ray,
 )
 from libre_tpu_torch.ops.transfer_function import default_color_map
+
+MARCHERS = ("auto", "pallas", "xla")
 
 
 @dataclasses.dataclass
@@ -164,6 +175,7 @@ class RenderEngine:
         datasource: DataSource,
         max_gpu_cache_mb: int = 3072,
         max_cpu_cache_mb: int = 8192,
+        filter_mode: str = "nearest",
         device="cuda",
     ):
         self.datasource = datasource
@@ -172,7 +184,15 @@ class RenderEngine:
         self.info = info
         padded = info.maximum_block_size  # (x, y, z)
         self._brick_shape_zyx = (padded[2], padded[1], padded[0])
+        # The exact marcher's default filter (render with params=None).
+        self.filter_mode = filter_mode
         self.atlas_dtype = torch_dtype(info.data_type.numpy_dtype)
+        # Interior box of every brick inside its padded slot, in
+        # normalized texture coordinates (TextureObject.cpp:79-128).
+        overlap = np.asarray(info.overlap, np.float32)
+        pad = np.asarray(padded, np.float32)
+        self._tex_min = overlap / pad
+        self._tex_max = (overlap + np.asarray(info.block_size, np.float32)) / pad
 
         total_budget = max_gpu_cache_mb * 2**20
         atlas_budget = max(1, int(total_budget * ATLAS_FRACTION))
@@ -424,3 +444,137 @@ class RenderEngine:
             self._frame_runners[rkey] = runner
         img = runner(store, self.transfer_function, camera, sw_plan)
         return img, stats
+
+    def render(
+        self,
+        camera: Camera,
+        frustum: Frustum,
+        params: Optional[RenderParams] = None,
+        screen_space_error: float = 4.0,
+        min_lod: int = 0,
+        max_lod: int = (1 << 4) - 1,
+        clip_planes: Optional[ClipPlanes] = None,
+        time_step: int = 0,
+        synchronous: bool = True,
+        collect_histogram: bool = False,
+        data_range: Tuple[float, float] = (0.0, 1.0),
+        marcher: str = "auto",
+    ) -> Tuple[torch.Tensor, RenderStatistics, None]:
+        """Exact frame → ((H, W, 4) f32 tensor on the engine's device,
+        bottom-up rows; statistics; histogram, always None here).
+
+        The rendering set is sorted front to back by brick centre
+        distance and marched in passes of at most ``atlas.n_slots − 1``
+        atlas-resident bricks, the per-ray (rgb, a) carried from pass to
+        pass (GLRaycastPipeline.cpp:148-186), once per jittered subpixel
+        sample (fragRaycast.glsl:121-127) and averaged.
+
+        ``marcher`` is "auto", "pallas" or "xla": the JAX package's two
+        marchers give the same image, and here all three run the same
+        one, ``exact.march_exact`` (K3 on a CUDA engine, its plain
+        version on a CPU engine).  K3 reads each brick in place from its
+        atlas slot, in the atlas's native dtype.
+        """
+        if marcher not in MARCHERS:
+            raise ValueError(f"render: marcher {marcher!r} is not one of {MARCHERS}")
+        if not synchronous:
+            raise NotImplementedError(
+                "render(synchronous=False): asynchronous rendering is ROADMAP M5"
+            )
+        if collect_histogram:
+            raise NotImplementedError(
+                "render(collect_histogram=True): histograms are ROADMAP M6"
+            )
+        vx, vy, vw, vh = camera.viewport
+        visibles = self.select(
+            frustum, vh, screen_space_error, min_lod, max_lod,
+            data_range, clip_planes, time_step,
+        )
+        stats = RenderStatistics()
+        self.prefetch_batch(visibles)
+        render_nodes = list(visibles)
+        stats.n_available = len(render_nodes)
+
+        if params is None:
+            max_level = max((n.level for n in render_nodes), default=0)
+            params = RenderParams(
+                n_samples_per_ray=nyquist_samples_per_ray(
+                    self.info.voxels, self.info.root_node.depth, max_level
+                ),
+                data_source_range=self.data_source_range,
+                filter_mode=self.filter_mode,
+            )
+
+        eye_np = np.asarray(camera.inv_mv, np.float32)[:3, 3]
+        order_nodes = self._sort_nodes(render_nodes, eye_np)
+        batch = max(1, self.atlas.n_slots - 1)
+        max_steps = self._max_steps(order_nodes, params)
+        clip_arr = clip_planes.as_array() if clip_planes is not None else None
+        half = np.asarray(self.info.world_size, np.float32) * 0.5
+        tf = self.transfer_function.contiguous()
+
+        sample_imgs = []
+        for si in range(max(1, params.samples_per_pixel)):
+            eye, dirs, cos_z, _ = ray_ops.make_rays(
+                camera.inv_proj, camera.inv_mv, camera.viewport,
+                sample_index=si, device=self.device,
+            )
+            dirs = dirs.reshape(-1, 3)
+            tnp_ = ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)
+            pack = ray_pack(eye, dirs, tnp_, params.step_size, -half, half, clip_arr)
+            carry = torch.zeros((dirs.shape[0], 4), device=self.device)
+            for start in range(0, len(order_nodes), batch):
+                pass_nodes = order_nodes[start : start + batch]
+                if si == 0:
+                    stats.n_passes += 1
+                entries = [e.pin() for e in self._upload_nodes(pass_nodes)]
+                try:
+                    slots, boxes = self._pass_operands(
+                        pass_nodes, [e.value for e in entries]
+                    )
+                    # Launched on the current stream: a later pass's
+                    # upload into a released slot is ordered after it.
+                    carry = exact.march_exact(
+                        self.atlas.data, slots, boxes, tf, pack, carry, eye_np,
+                        params, max_steps=max_steps, width=vw,
+                    )
+                finally:
+                    for e in entries:
+                        e.unpin()
+            sample_imgs.append(carry)
+        rgb_a = sum(sample_imgs) / float(len(sample_imgs))
+        stats.n_render_available = len(order_nodes)
+        return rgb_a.reshape(vh, vw, 4), stats, None
+
+    def _world_boxes(self, nodes: Sequence[NodeId]) -> Tuple[np.ndarray, np.ndarray]:
+        """(N, 3) world box corners of ``nodes`` (float64 holding f32 values)."""
+        lns = [self.datasource.get_node(n) for n in nodes]
+        return (
+            np.asarray([ln.world_box_min for ln in lns], np.float64),
+            np.asarray([ln.world_box_max for ln in lns], np.float64),
+        )
+
+    def _sort_nodes(self, nodes: Sequence[NodeId], eye: np.ndarray) -> List[NodeId]:
+        if not nodes:
+            return []
+        wmin, wmax = self._world_boxes(nodes)
+        return [nodes[i] for i in sort_bricks_front_to_back(wmin, wmax, eye)]
+
+    def _max_steps(self, nodes: Sequence[NodeId], params: RenderParams) -> int:
+        if not nodes:
+            return 1
+        wmin, wmax = self._world_boxes(nodes)
+        return max_steps_for_bricks(wmin, wmax, params.step_size)
+
+    def _pass_operands(
+        self, nodes: Sequence[NodeId], slots: Sequence[int]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The march's per-brick operands for one pass on the device: the
+        atlas slots (B,) int32 and ``raycast.brick_boxes`` (B, 16)."""
+        wmin, wmax = self._world_boxes(nodes)
+        n = len(nodes)
+        boxes = brick_boxes(
+            wmin, wmax, np.tile(self._tex_min, (n, 1)), np.tile(self._tex_max, (n, 1))
+        )
+        slot_t = torch.as_tensor(np.asarray(slots, np.int32))
+        return slot_t.to(self.device), boxes.to(self.device)

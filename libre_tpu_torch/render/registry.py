@@ -3,8 +3,8 @@
 
 Renderers are registered classes dispatched by name; an unknown name
 raises (RenderPipeline.cpp:65-70).  The port registers ``bricked``, the
-product default; the other renderers of the JAX package are ROADMAP
-M7 (``xla``, ``pallas-exact``) and M8 (``shearwarp``).
+product default, and the exact marcher's ``xla`` and ``pallas-exact``;
+``shearwarp`` is ROADMAP M8.
 """
 
 from __future__ import annotations
@@ -57,5 +57,39 @@ class BrickedRenderer(RendererPlugin):
         kw = {k: v for k, v in kwargs.items() if k in allowed}
         img, _stats = engine.render_bricked(
             camera, frustum, params=params, **kw
+        )
+        return img
+
+
+# The engine.render keywords ``pallas-exact`` passes on; ``xla`` passes
+# every keyword (libre_tpu/render/registry.py:54-114).
+_EXACT_KWARGS = {
+    "screen_space_error", "min_lod", "max_lod", "clip_planes",
+    "time_step", "synchronous", "data_range",
+}
+
+
+@register_renderer("xla")
+class XlaRaycastRenderer(RendererPlugin):
+    """Exact marcher through the full cache/atlas/multipass engine path
+    (the glRaycaster/cudaRaycaster equivalent).  In the port it runs the
+    same marcher as ``pallas-exact``: K3 on the card."""
+
+    def render(self, engine, camera, frustum, *, params=None, **kwargs):
+        img, _stats, _hist = engine.render(
+            camera, frustum, params=params, **kwargs
+        )
+        return img
+
+
+@register_renderer("pallas-exact")
+class PallasExactRenderer(RendererPlugin):
+    """The exact marcher behind the engine's general-camera path: the
+    reference's sample grid and ownership rule, K3 on the card."""
+
+    def render(self, engine, camera, frustum, *, params=None, **kwargs):
+        kw = {k: v for k, v in kwargs.items() if k in _EXACT_KWARGS}
+        img, _stats, _hist = engine.render(
+            camera, frustum, params=params, marcher="pallas", **kw
         )
         return img

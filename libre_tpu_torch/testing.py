@@ -3,10 +3,13 @@ their plain PyTorch versions (``chip_smoke.py`` and the CUDA tests)."""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from libre_tpu_torch.ops import shearwarp_bricked as swb
+from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.ops.transfer_function import default_color_map
 
 KERNEL_TOL_MAX = 2e-3  # one flip of the early-exit test moves a pixel ≤ 1 − 0.999
@@ -93,3 +96,117 @@ def store_grad_case(shape, seed, device, early_exit):
     gen = torch.Generator(device="cpu").manual_seed(seed + 1)
     g = torch.randn(out.shape, generator=gen).to(device)
     return store, tf, tables, out, t_out, g, kw
+
+
+# The exact marcher (K3) vs its plain version.  The kernel composites one
+# sample at a time; the plain version folds chunks of 32 samples in closed
+# form (raycast._composite_chunk), so their sums round differently (~1e-6).
+# Where that moves a ray's accumulated alpha across the early-exit
+# threshold one sample apart, the pixel moves by at most 1 − 0.999 plus
+# one sample's contribution; the mean holds the rest to the rounding.
+EXACT_TOL_MAX = 2e-3
+EXACT_TOL_MEAN = 1e-5
+
+
+class ExactCase(NamedTuple):
+    """Operands of one pass of ``exact.march_exact``."""
+
+    atlas: torch.Tensor
+    slots: torch.Tensor
+    boxes: torch.Tensor
+    tf: torch.Tensor
+    rays: torch.Tensor
+    carry: torch.Tensor
+    eye: np.ndarray
+    params: RenderParams
+    max_steps: int
+    width: int
+
+
+def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float32):
+    """Seeded operands of the exact march.
+
+    ``case`` = "single": the ``bench_exact`` shape (bench.py:279-291), one
+    64³ random brick filling [−0.5, 0.5]³, 256² rays from (0.2, 0.1, 1.4),
+    512 samples per ray, the default TF, zero carry.
+
+    ``case`` = "bricks": a 4×4×4 grid of 16³ bricks with 2-voxel ghosts
+    (20³ slots, random ghost voxels) scattered over a 72-slot atlas and
+    marched front to back; 100×70 rays (ragged 16×8 tiles) from an
+    off-axis eye; 256 samples per ray; two clip planes; a saturating TF
+    (alpha × 8) so the early exit fires; a seeded carry in, with every
+    9th ray already past the early-exit threshold.
+
+    ``dtype`` is the atlas's: float32 (data range [0, 1]) or uint8 (data
+    range [0, 255]).  Returns an :class:`ExactCase`."""
+    from libre_tpu_torch.apps.render_cli import build_camera
+    from libre_tpu_torch.ops import rays as ray_ops
+    from libre_tpu_torch.ops.raycast import (
+        brick_boxes,
+        ray_pack,
+        sort_bricks_front_to_back,
+    )
+    from libre_tpu_torch.ops.reference import max_steps_for_bricks
+
+    rng = np.random.default_rng(seed)
+    tf = default_color_map()
+    if case == "single":
+        grid, brick, ghost, n_slots = 1, 64, 0, 1
+        width, height, eye, spr, clip = 256, 256, (0.2, 0.1, 1.4), 512, None
+    elif case == "bricks":
+        grid, brick, ghost, n_slots = 4, 16, 2, 72
+        width, height, eye, spr = 100, 70, (0.55, 0.4, 1.3), 256
+        clip = np.float32([[1.0, 0.0, 0.0, 0.3], [0.0, -1.0, 0.5, 0.2]])
+        tf[:, 3] = np.clip(8.0 * tf[:, 3], 0.0, 1.0)
+    else:
+        raise ValueError(f"exact_case: unknown case {case!r}")
+    padded = brick + 2 * ghost
+    shape = (n_slots, padded, padded, padded)
+    if dtype == torch.uint8:
+        data = rng.integers(0, 256, shape, dtype=np.uint8)
+        data_range = (0.0, 255.0)
+    else:
+        data = rng.random(shape, dtype=np.float32)
+        data_range = (0.0, 1.0)
+    params = RenderParams(
+        n_samples_per_ray=spr, data_source_range=data_range, filter_mode=filter_mode
+    )
+
+    cells = np.stack(np.meshgrid(*[np.arange(grid)] * 3, indexing="ij"), -1)
+    wmin = (cells.reshape(-1, 3) / grid - 0.5).astype(np.float32)
+    wmax = ((cells.reshape(-1, 3) + 1) / grid - 0.5).astype(np.float32)
+    camera, _frustum = build_camera(width, height, eye, (0.0, 0.0, 0.0))
+    eye_np = np.asarray(camera.inv_mv, np.float32)[:3, 3]
+    order = sort_bricks_front_to_back(wmin, wmax, eye_np)
+    slots = rng.permutation(n_slots)[: len(wmin)][order].astype(np.int32)
+    boxes = brick_boxes(
+        wmin[order], wmax[order],
+        np.full((len(order), 3), ghost / padded, np.float32),
+        np.full((len(order), 3), (ghost + brick) / padded, np.float32),
+    )
+
+    eye_t, dirs, cos_z, _ = ray_ops.make_rays(
+        camera.inv_proj, camera.inv_mv, camera.viewport, device=device
+    )
+    dirs = dirs.reshape(-1, 3)
+    tnp = ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)
+    rays = ray_pack(eye_t, dirs, tnp, params.step_size, wmin.min(0), wmax.max(0), clip)
+    n_rays = width * height
+    carry = np.zeros((n_rays, 4), np.float32)
+    if case == "bricks":
+        a = rng.uniform(0.0, 0.6, n_rays).astype(np.float32)
+        a[::9] = 0.9995
+        carry[:, :3] = rng.uniform(0.0, 1.0, (n_rays, 3)).astype(np.float32) * a[:, None]
+        carry[:, 3] = a
+    return ExactCase(
+        atlas=torch.from_numpy(data).to(device),
+        slots=torch.from_numpy(slots).to(device),
+        boxes=boxes.to(device),
+        tf=torch.from_numpy(tf).to(device),
+        rays=rays,
+        carry=torch.from_numpy(carry).to(device),
+        eye=eye_np,
+        params=params,
+        max_steps=max_steps_for_bricks(wmin, wmax, params.step_size),
+        width=width,
+    )

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Marked ``cuda``; every test skips where torch sees no GPU.
 
-This file imports no jax, so it also runs where jax is not installed:
+This file imports neither jax nor the JAX package, so it also runs where
+jax is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -9,17 +10,22 @@ This file imports no jax, so it also runs where jax is not installed:
 import pytest
 import torch
 
-from libre_tpu.data.datasource import DataSource, load_plugins
 from libre_tpu_torch.apps.render_cli import build_camera
+from libre_tpu_torch.data.datasource import DataSource, load_plugins
+from libre_tpu_torch.ops import exact
 from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.render.engine import RenderEngine
+from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.testing import (
+    EXACT_TOL_MAX,
+    EXACT_TOL_MEAN,
     GRAD_TOL_MAX,
     GRAD_TOL_MAX_EARLY_EXIT,
     GRAD_TOL_MEAN_EARLY_EXIT,
     KERNEL_TOL_MAX,
     KERNEL_TOL_MEAN,
+    exact_case,
     store_grad_case,
     sweep_case,
 )
@@ -103,3 +109,58 @@ def test_store_grid_bwd_kernel_matches_plain(cuda, early_exit, diff_tf):
             assert float(err.max()) <= GRAD_TOL_MAX
     if not diff_tf:
         assert float(dtf.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("case", ["bricks", "single"])
+def test_exact_march_kernel_matches_plain(cuda, case, filter_mode, dtype):
+    """K3 vs ``march_exact_reference`` on ``exact_case`` operands: a
+    scattered multi-brick atlas with clip planes, a saturating TF and a
+    carry in, and the single 64³ brick of bench_exact.  Tolerance: max
+    2e-3, mean 1e-5 (serial vs closed-form compositing; an early-exit
+    flip moves a pixel by at most 1 − 0.999)."""
+    c = exact_case(case, seed=0, device=cuda, filter_mode=filter_mode, dtype=dtype)
+    n_rays, n_bricks = c.carry.shape[0], c.slots.shape[0]
+    counts = [
+        (torch.zeros(n_rays, dtype=torch.int32, device=cuda),
+         torch.zeros(n_bricks, dtype=torch.int32, device=cuda))
+        for _ in range(2)
+    ]
+    args = (c.atlas, c.slots, c.boxes, c.tf, c.rays, c.carry, c.eye, c.params)
+    launches = exact.march_exact.launches
+    got = exact.march_exact(*args, max_steps=c.max_steps, width=c.width,
+                            samples=counts[0][0], used=counts[0][1])
+    want = exact.march_exact_reference(*args, max_steps=c.max_steps,
+                                       samples=counts[1][0], used=counts[1][1])
+    torch.cuda.synchronize()
+    assert exact.march_exact.launches == launches + 1
+    err = (got - want).abs()
+    assert float(err.max()) <= EXACT_TOL_MAX
+    assert float(err.mean()) <= EXACT_TOL_MEAN
+    assert float((got[:, 3] > 0.999).float().mean()) > 0  # early exit fired
+    torch.testing.assert_close(counts[0][1], counts[1][1], rtol=0, atol=0)
+    flips = int((counts[0][0] != counts[1][0]).sum())
+    assert flips <= n_rays // 200, flips  # only early-exit flips move a count
+
+
+@pytest.mark.cuda
+def test_engine_render_on_card_matches_cpu(cuda):
+    """RenderEngine.render on the card (K3) vs on the CPU (plain marcher),
+    two jittered samples per pixel: same frame within the kernel
+    tolerance."""
+    load_plugins()
+    uri = "mem://#64,64,64,16?pattern=gradient"
+    camera, frustum = build_camera(48, 40, (0.3, 0.2, 1.5), (0.0, 0.0, 0.0))
+    params = RenderParams(n_samples_per_ray=128, samples_per_pixel=2,
+                          filter_mode="trilinear")
+    launches = exact.march_exact.launches
+    frames = [
+        RenderEngine(DataSource(uri), max_gpu_cache_mb=64, device=d)
+        .render(camera, frustum, params=params, screen_space_error=1.0)[0].cpu()
+        for d in (cuda, "cpu")
+    ]
+    assert exact.march_exact.launches == launches + 2
+    assert float((frames[0] - frames[1]).abs().max()) <= EXACT_TOL_MAX
+    assert float(frames[1][..., 3].max()) > 0

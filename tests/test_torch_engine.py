@@ -17,15 +17,19 @@ from libre_tpu.core.frustum import Frustum, look_at, perspective
 from libre_tpu.data.datasource import DataSource, load_plugins
 from libre_tpu.ops.reference import Camera as CameraJ, RenderParams as ParamsJ
 from libre_tpu.render.engine import RenderEngine as EngineJ
-from libre_tpu.utils.image import read_image
 from libre_tpu_torch.apps import render_cli
+from libre_tpu_torch.core.frustum import Frustum as FrustumT
+from libre_tpu_torch.data.datasource import DataSource as DataSourceT
+from libre_tpu_torch.data.datasource import load_plugins as load_plugins_t
 from libre_tpu_torch.ops.reference import Camera as CameraT, RenderParams as ParamsT
 from libre_tpu_torch.render.engine import RenderEngine as EngineT
 from libre_tpu_torch.render.registry import create_renderer
+from libre_tpu_torch.utils.image import read_image
 from tests.test_bricked import make_scene
 
 torch.set_num_threads(1)
 load_plugins()
+load_plugins_t()
 
 W = H = 48
 
@@ -34,13 +38,14 @@ def view(eye=(0.2, 0.1, 1.4)):
     proj = perspective(50.0, 1.0, 0.1, 15.0)
     mv = look_at(list(eye), [0, 0, 0], [0, 1, 0])
     frustum = Frustum(mv, proj)
+    frustum_t = FrustumT(mv, proj)
     kw = dict(
         inv_proj=np.linalg.inv(proj.astype(np.float64)).astype(np.float32),
         inv_mv=np.linalg.inv(mv.astype(np.float64)).astype(np.float32),
         viewport=(0, 0, W, H),
         near=frustum.near,
     )
-    return CameraJ(**kw), CameraT(**kw), frustum
+    return CameraJ(**kw), CameraT(**kw), frustum, frustum_t
 
 
 SCENES = {
@@ -59,10 +64,11 @@ def test_render_bricked_matches_jax(tmp_path, name):
     uri, rng, n_planes, eye = SCENES[name]
     if uri is None:
         _vol, ds_j = make_scene(tmp_path)
-        ds_t = ds_j
+        uri = ds_j.uri
     else:
-        ds_j, ds_t = DataSource(uri), DataSource(uri)
-    cam_j, cam_t, frustum = view(eye)
+        ds_j = DataSource(uri)
+    ds_t = DataSourceT(uri)
+    cam_j, cam_t, frustum, frustum_t = view(eye)
     eng_j = EngineJ(ds_j, max_gpu_cache_mb=64, filter_mode="trilinear")
     eng_t = EngineT(ds_t, max_gpu_cache_mb=64, device="cpu")
     kw = dict(screen_space_error=1.0, n_planes=n_planes)
@@ -73,7 +79,7 @@ def test_render_bricked_matches_jax(tmp_path, name):
         **kw,
     )
     params_t = ParamsT(n_samples_per_ray=n_planes, data_source_range=rng)
-    got, stats_t = eng_t.render_bricked(cam_t, frustum, params=params_t, **kw)
+    got, stats_t = eng_t.render_bricked(cam_t, frustum_t, params=params_t, **kw)
     assert got.shape == (H, W, 4) and got.device.type == "cpu"
     assert stats_t.n_available == stats_j.n_available > 0
     assert stats_t.n_passes == 1 and stats_t.rendering_done
@@ -82,14 +88,14 @@ def test_render_bricked_matches_jax(tmp_path, name):
 
     # Steady state: the second frame hits the assembled-store cache.
     assert len(eng_t._store_cache) == 1
-    again, _ = eng_t.render_bricked(cam_t, frustum, params=params_t, **kw)
+    again, _ = eng_t.render_bricked(cam_t, frustum_t, params=params_t, **kw)
     np.testing.assert_array_equal(again.numpy(), got.numpy())
     assert len(eng_t._store_cache) == 1
 
 
 def test_unported_branches_raise(tmp_path):
     """Where the slice stops, the engine says so instead of falling back."""
-    _cam_j, cam_t, frustum = view()
+    _cam_j, cam_t, _frustum, frustum = view()
     kw = dict(screen_space_error=1.0, n_planes=16)
     for uri, budget_mb, extra, item in (
         ("mem://#32,32,32,16?pattern=gradient", 64,
@@ -100,7 +106,7 @@ def test_unported_branches_raise(tmp_path):
         # 64 finest bricks and their 1 MiB store: the out-of-core case.
         ("mem://#64,64,64,16?pattern=gradient", 1, dict(min_lod=2), "M5"),
     ):
-        eng = EngineT(DataSource(uri), max_gpu_cache_mb=budget_mb, device="cpu")
+        eng = EngineT(DataSourceT(uri), max_gpu_cache_mb=budget_mb, device="cpu")
         with pytest.raises(NotImplementedError, match=item):
             eng.render_bricked(cam_t, frustum, **kw, **extra)
     with pytest.raises(ValueError):

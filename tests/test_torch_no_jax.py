@@ -1,6 +1,7 @@
-"""The port imports no jax: every libre_tpu_torch module imports, a tiny
-CPU frame renders and the store trainer takes a step, in a process where
-importing jax or optax fails."""
+"""The port imports neither jax nor anything of the JAX package: every
+libre_tpu_torch module imports, a tiny CPU frame renders through the
+bricked path and through the exact path, and the store trainer takes a
+step, in a process where importing jax, optax or libre_tpu fails."""
 
 import os
 import subprocess
@@ -10,6 +11,7 @@ _CHILD = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["optax"] = None
+sys.modules["libre_tpu"] = None
 import torch
 torch.set_num_threads(1)
 import libre_tpu_torch
@@ -17,9 +19,9 @@ names = [m.name for m in pkgutil.walk_packages(
     libre_tpu_torch.__path__, "libre_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-from libre_tpu.core.frustum import Frustum, look_at, perspective
-from libre_tpu.data.datasource import DataSource, load_plugins
 from libre_tpu_torch.apps.render_cli import build_camera
+from libre_tpu_torch.data.datasource import DataSource, load_plugins
+from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.render.engine import RenderEngine
 load_plugins()
 camera, frustum = build_camera(16, 16, (0.2, 0.1, 1.4), (0.0, 0.0, 0.0))
@@ -27,6 +29,12 @@ engine = RenderEngine(DataSource("mem://#32,32,32,16?pattern=gradient"),
                       max_gpu_cache_mb=16, device="cpu")
 img, _ = engine.render_bricked(camera, frustum, n_planes=16)
 assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0
+img, stats, _ = engine.render(
+    camera, frustum, params=RenderParams(n_samples_per_ray=32, samples_per_pixel=2,
+                                         filter_mode="trilinear"),
+    screen_space_error=1.0, marcher="pallas")
+assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0
+assert stats.n_passes == 1 and stats.n_available > 1
 import numpy as np
 from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.train import StoreProblem, fit
@@ -44,7 +52,7 @@ params, losses = fit(problem, np.zeros((1, 6, 5, 4), np.float32), store, tf,
                      device="cpu", steps=1)
 assert np.isfinite(losses[0]) and float(params["store"].grad.abs().max()) > 0
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "optax")
+                if m.split(".")[0] in ("jax", "jaxlib", "optax", "libre_tpu")
                 and sys.modules[m] is not None)
 assert not loaded, loaded
 print(len(names), "modules")

@@ -45,7 +45,22 @@ Phases, each of which raises on failure (any failure exits non-zero):
 10. K3 vs plain on a 64×64 window of the orbit view's rays (the plain
    version over all 512² rays and 4096 bricks would take minutes);
 11. the exact path on the card vs on the CPU, on a small volume through a
-   9-slot atlas (passes of 8 bricks) with 2 jittered samples per pixel.
+   9-slot atlas (passes of 8 bricks) with 2 jittered samples per pixel;
+12. the exact backward K4 vs plain PyTorch on seeded operands, early exit
+   off: the ``exact_fwd_bwd`` shape (one 64³ f32 brick, 256² rays, 512
+   samples per ray) and a (24, 144, 136) brick with two clip planes and
+   a jittered sample, nearest and trilinear; an autograd round trip of
+   ``render_exact_diff`` on the card vs the plain backward; the fwd+bwd
+   rate at the ``exact_fwd_bwd`` shape;
+13. the exact training path at full width: ``init_exact_state`` from a
+   flat 0.5 volume, ``make_exact_train_step`` with Adam (lr 5e-2) for 5
+   steps over 4 views (512² rays, 512 samples per ray, trilinear) of a
+   512³ smooth ground truth; K3 and K4 must launch once per step and the
+   loss of view 0 must fall; step, kernel and plain times, samples per
+   view, K4 vs plain on the whole of view 0, K3 and K4 vs plain on a
+   64×64 window of it;
+14. the exact trainer on the card vs on the CPU: 2 SGD steps on a 32³
+   volume seen by 24×20 rays.
 
 Prints one JSON line describing the kernels (with each kernel's bound:
 the larger of its bytes over the HBM rate and its f32 operations over
@@ -56,6 +71,7 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -86,6 +102,17 @@ TF_BYTES = 256 * 4 * 4
 K1_OPS_PER_SAMPLE = 97
 K2_OPS_PER_SAMPLE = 175
 K3_OPS_PER_SAMPLE = {"nearest": 69, "trilinear": 122}
+# K4 per sample of an f32 brick (exact_march_bwd.cu): K3's count without
+# the 8 (1) conversions and its composite (10), plus the recompute's
+# backward: the weight and prefix (8), the inversion (9), the opacity
+# correction's slope and gate (9), the TF gradient's products and shared
+# atomics (20), the density gates and slope (17), the taps' weights,
+# products and global atomics (44 trilinear, 1 nearest), T (2).
+K4_OPS_PER_SAMPLE = {"nearest": 124, "trilinear": 213}
+# The exact trainer's views: benchmarks/demo_inverse_render.py:34-37.
+EXACT_EYES = ([0.1, 0.05, 1.4], [-0.15, 0.1, 1.3], [0.02, -0.12, 1.5], [-0.05, -0.02, 1.2])
+EXACT_TRAIN_N = 512
+EXACT_TRAIN_ORDER = (0, 1, 2, 3, 0)
 
 
 def bound(bytes_, ops):
@@ -132,9 +159,10 @@ def compare(got, want, what, tol=None):
     return mx
 
 
-def compare_grads(got, want, what, early_exit):
+def compare_grads(got, want, what, early_exit, tol_max=None):
     """Normalised (max, mean) |got − want| / max |want|; raises past the
-    backward kernel's tolerances."""
+    backward kernels' tolerances (``tol_max``: the max with the early
+    exit off, by default K2's)."""
     import torch
 
     from libre_tpu_torch.testing import (
@@ -154,7 +182,7 @@ def compare_grads(got, want, what, early_exit):
     if early_exit < 1.0:
         bad = mx > GRAD_TOL_MAX_EARLY_EXIT or mean > GRAD_TOL_MEAN_EARLY_EXIT
     else:
-        bad = mx > GRAD_TOL_MAX
+        bad = mx > (GRAD_TOL_MAX if tol_max is None else tol_max)
     if bad:
         raise AssertionError(f"{what}: kernel disagrees with plain ({mx}, {mean})")
     return mx
@@ -756,7 +784,254 @@ def main() -> int:
     if small_err > EXACT_TOL_MAX or float(on_cpu[..., 3].max()) <= 0.0:
         raise AssertionError(f"card exact frame disagrees with the CPU port ({small_err})")
 
-    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
+    # ---------------------------------------- 12. K4 vs plain, seeded cases
+    from libre_tpu_torch.testing import EXACT_GRAD_TOL_MAX, exact_grad_case
+
+    def brick_args(volume, tf_, view):
+        """K3's operands for one brick filling the view's box, less the carry."""
+        slot = torch.zeros(1, dtype=torch.int32, device=volume.device)
+        return (volume[None], slot, view.brick_boxes, tf_, view.ray_pack)
+
+    def compare_k4(got, want, what):
+        errs = [compare_grads(a, b, f"{what}: {name}", 1.1, EXACT_GRAD_TOL_MAX)
+                for name, a, b in zip(("d_volume", "d_tf"), got, want)]
+        return max(errs), max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    for case in ("bench", "wide"):
+        for filter_mode in ("nearest", "trilinear"):
+            c = exact_grad_case(case, seed=0, device=dev, filter_mode=filter_mode)
+            args = (c.volume, c.tf, c.view, c.out, c.g)
+            got = exact.march_exact_backward(*args)
+            want = exact.march_exact_backward_reference(*args)
+            torch.cuda.synchronize()
+            compare_k4(got, want, f"seeded K4 {case} {tuple(c.volume.shape)} {filter_mode}, "
+                                  f"{c.view.n_rays} rays")
+            del c, args, got, want
+
+    # The autograd round trip at the exact_fwd_bwd shape (trilinear), and
+    # its rate: rays / (K3 + K4 + the product, sum and accumulation).
+    c = exact_grad_case("bench", seed=1, device=dev)
+    vol = c.volume.clone().requires_grad_()
+    tf_leaf = c.tf.clone().requires_grad_()
+    exact.render_exact_diff(vol, tf_leaf, c.view).mul(c.g).sum().backward()
+    args = (c.volume, c.tf, c.view, c.out, c.g)
+    want = exact.march_exact_backward_reference(*args)
+    torch.cuda.synchronize()
+    compare_k4((vol.grad, tf_leaf.grad), want, "render_exact_diff backward on the card")
+
+    def fwd_bwd():
+        vol.grad = tf_leaf.grad = None
+        exact.render_exact_diff(vol, tf_leaf, c.view).mul(c.g).sum().backward()
+
+    fb_ms = cuda_ms(fwd_bwd, reps=10)
+    with torch.no_grad():
+        bench_k3_ms = cuda_ms(lambda: exact.render_exact_diff(c.volume, c.tf, c.view), reps=10)
+    bench_k4_ms = cuda_ms(lambda: exact.march_exact_backward(*args), reps=10)
+    bench_samples = torch.zeros(c.view.n_rays, dtype=torch.int32, device=dev)
+    exact.march_exact(*brick_args(c.volume, c.tf, c.view), torch.zeros_like(c.out),
+                      c.view.eye, c.view.params,
+                      max_steps=c.view.max_steps, width=c.view.width, samples=bench_samples)
+    n_bench = int(bench_samples.sum())
+    bench_bound = bound(
+        bytes_=2 * c.volume.numel() * 4 + c.view.n_rays * 16 * 4 + 2 * TF_BYTES,
+        ops=n_bench * K4_OPS_PER_SAMPLE["trilinear"],
+    )
+    print(
+        f"exact fwd+bwd at the exact_fwd_bwd shape (64^3 f32, 256x256 rays, 512 samples "
+        f"per ray, trilinear, {n_bench} samples): {fb_ms:.4f} ms per step, "
+        f"{c.view.n_rays / (fb_ms * 1e-3) / 1e6:.3f} Mrays/s; K3 {bench_k3_ms:.4f} ms, "
+        f"K4 {bench_k4_ms:.4f} ms ({n_bench / (bench_k4_ms * 1e-3) / 1e9:.3f} G samples/s; "
+        f"bound {bench_bound[0]:.4f} ms, {bench_bound[1]}) {card}"
+    )
+    del c, vol, tf_leaf, args, want
+
+    # ---------------------------------- 13. the exact training path, full width
+    from libre_tpu_torch.ops.transfer_function import default_color_map
+    from libre_tpu_torch.testing import smooth_volume
+    from libre_tpu_torch.train import init_exact_state, make_exact_train_step
+
+    n = EXACT_TRAIN_N
+    gt = smooth_volume(n, seed=7, device=dev)
+    tf_default = torch.from_numpy(default_color_map()).to(dev)
+    train_params = RenderParams(
+        n_samples_per_ray=512, data_source_range=(0.0, 1.0), filter_mode="trilinear",
+        early_exit=1.1,
+    )
+    ex_views = [exact.exact_view(build_camera(512, 512, e, (0.0, 0.0, 0.0))[0], train_params,
+                                 device=dev)
+                for e in EXACT_EYES]
+    with torch.no_grad():
+        ex_targets = [exact.render_exact_diff(gt, tf_default, v) for v in ex_views]
+    state = init_exact_state(torch.full((n, n, n), 0.5, device=dev), tf_default,
+                             lambda p: torch.optim.Adam(p, lr=5e-2), device=dev)
+    ex_steps = [make_exact_train_step(v) for v in ex_views]
+    ex_losses, ex_step_at = [], []
+    torch.cuda.synchronize()
+    exact.march_exact.launches = 0
+    exact.march_exact_backward.launches = 0
+    t0 = time.perf_counter()
+    for i in EXACT_TRAIN_ORDER:
+        ex_losses.append(float(ex_steps[i](state, ex_targets[i])))  # synchronises
+        ex_step_at.append(time.perf_counter())
+    ex_fwd_launches = exact.march_exact.launches
+    ex_bwd_launches = exact.march_exact_backward.launches
+    # ----------------------------------- end of the exact training path
+
+    print(f"exact training losses (views {list(EXACT_TRAIN_ORDER)}): {ex_losses}")
+    if not all(np.isfinite(ex_losses)) or not ex_losses[-1] < ex_losses[0]:
+        raise AssertionError(f"exact training did not lower view 0's loss: {ex_losses}")
+    n_steps = len(EXACT_TRAIN_ORDER)
+    if ex_fwd_launches != n_steps or ex_bwd_launches != n_steps:
+        raise AssertionError(
+            f"exact training launched K3 {ex_fwd_launches} and K4 {ex_bwd_launches} "
+            f"times in {n_steps} steps"
+        )
+    p_vol, p_tf = state.params["density"].detach(), state.params["tf"].detach()
+    if float(p_tf.min()) < 0.0 or float(p_tf.max()) > 1.0:
+        raise AssertionError("exact training left the TF outside [0, 1]")
+    ex_steps_ms = np.diff([t0] + ex_step_at) * 1e3
+    ex_step_ms = float(np.median(ex_steps_ms[1:]))
+    v0 = ex_views[0]
+    print(
+        f"exact training: {n}^3 f32 volume, {len(ex_views)} views of 512x512 rays, 512 "
+        f"samples per ray, trilinear, early exit off; K3 launches {ex_fwd_launches}, K4 "
+        f"launches {ex_bwd_launches}; mean |density - truth| "
+        f"{float((p_vol - gt).abs().mean()):.4f}"
+    )
+    print(
+        f"exact training step: median of steps 2-{n_steps} {ex_step_ms:.3f} ms (all steps "
+        f"{', '.join(f'{x:.3f}' for x in ex_steps_ms)} ms); fwd+bwd "
+        f"{v0.n_rays / (ex_step_ms * 1e-3) / 1e6:.3f} Mrays/s {card}"
+    )
+
+    # Where a step's device time goes: one more step of view 0, after the
+    # counts were read, under torch.profiler (device kernels by name; the
+    # optimizer's annotated range, which spans its kernels, left out).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        float(ex_steps[0](state, ex_targets[0]))
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    groups = {}  # K4, K3, the optimizer's foreach kernels, fills, reductions
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        tag = next((t for t in ("exact_march_bwd", "exact_march_kernel", "multi_tensor_apply",
+                                "Fill", "reduce") if t in e.key), "other")
+        groups[tag] = groups.get(tag, 0.0) + e.self_device_time_total / 1e3
+    busy_ms = sum(groups.values())
+    print(
+        f"one exact training step under torch.profiler: {prof_wall_ms:.3f} ms host clock, "
+        f"{busy_ms:.3f} ms of device kernels (idle share {1.0 - busy_ms / prof_wall_ms:.3f}); "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + f" {card}"
+    )
+    del gt, ex_targets
+
+    # View 0 with the trained state, kernel vs plain: the forward's out and
+    # a seeded N(0, 1) cotangent in place of the loss's.
+    fwd_args = (*brick_args(p_vol, p_tf, v0), torch.zeros((v0.n_rays, 4), device=dev))
+    samples0 = torch.zeros(v0.n_rays, dtype=torch.int32, device=dev)
+    out0 = exact.march_exact(*fwd_args, v0.eye, v0.params, max_steps=v0.max_steps,
+                             width=v0.width, samples=samples0)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    g0 = torch.randn(out0.shape, generator=gen).to(dev)
+    args = (p_vol, p_tf, v0, out0, g0)
+    got = exact.march_exact_backward(*args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = exact.march_exact_backward_reference(*args)
+    torch.cuda.synchronize()
+    k4_plain_ms = (time.perf_counter() - t1) * 1e3
+    _, k4_err = compare_k4(got, want, "K4 on training view 0")
+    del got, want
+    k3_view_ms = cuda_ms(lambda: exact.march_exact(*fwd_args, v0.eye, v0.params,
+                                                   max_steps=v0.max_steps, width=v0.width),
+                         reps=10)
+    k4_ms = cuda_ms(lambda: exact.march_exact_backward(*args), reps=5, warmup=1)
+    n_view = int(samples0.sum())
+    # K4's bound: the volume read and d_volume written once, the ray pack,
+    # out and g read, the TF and d_tf; every sample's operations.
+    k4_bound = bound(
+        bytes_=2 * p_vol.numel() * 4 + v0.n_rays * 16 * 4 + 2 * TF_BYTES,
+        ops=n_view * K4_OPS_PER_SAMPLE[train_params.filter_mode],
+    )
+    print(
+        f"training view 0: {n_view} samples ({n_view / v0.n_rays:.1f} per ray, at most "
+        f"{int(samples0.max())}); K3 {k3_view_ms:.4f} ms, K4 {k4_ms:.4f} ms (incl. zeroing "
+        f"the {p_vol.numel() * 4} B d_volume; {n_view / (k4_ms * 1e-3) / 1e9:.3f} G "
+        f"samples/s), plain backward {k4_plain_ms:.3f} ms (1 call) {card}"
+    )
+    print(
+        f"  K4 bound on view 0: {k4_bound[0]:.4f} ms, {k4_bound[1]}-bound; kernel at "
+        f"{k4_bound[0] / k4_ms:.4f} of it {card}"
+    )
+
+    # K3 and K4 vs plain on a 64x64 window of view 0's rays (the 512^3
+    # brick, long rays, the early exit off).
+    lo = (512 - SUBSET) // 2
+    sub = v0.ray_pack.reshape(8, 512, 512)[:, lo:lo + SUBSET, lo:lo + SUBSET]
+    w0 = dataclasses.replace(v0, ray_pack=sub.reshape(8, -1).contiguous(), width=SUBSET)
+    sub_fwd = (*brick_args(p_vol, p_tf, w0), torch.zeros((w0.n_rays, 4), device=dev))
+    out_w = exact.march_exact(*sub_fwd, w0.eye, w0.params, max_steps=w0.max_steps,
+                              width=w0.width)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want_w = exact.march_exact_reference(*sub_fwd, w0.eye, w0.params, max_steps=w0.max_steps)
+    torch.cuda.synchronize()
+    k3_plain_window_ms = (time.perf_counter() - t1) * 1e3
+    k3_train_err = compare(out_w, want_w, f"K3 on a {SUBSET}x{SUBSET} window of training "
+                                          f"view 0", exact_tol)
+    g_w = g0.reshape(512, 512, 4)[lo:lo + SUBSET, lo:lo + SUBSET].reshape(-1, 4).contiguous()
+    sub_args = (p_vol, p_tf, w0, out_w, g_w)
+    got = exact.march_exact_backward(*sub_args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = exact.march_exact_backward_reference(*sub_args)
+    torch.cuda.synchronize()
+    k4_plain_window_ms = (time.perf_counter() - t1) * 1e3
+    compare_k4(got, want, f"K4 on a {SUBSET}x{SUBSET} window of training view 0")
+    k4_window_ms = cuda_ms(lambda: exact.march_exact_backward(*sub_args), reps=10)
+    print(
+        f"  on the {SUBSET}x{SUBSET} window: K4 {k4_window_ms:.4f} ms, plain "
+        f"{k4_plain_window_ms:.3f} ms (1 call); K3 plain {k3_plain_window_ms:.3f} ms "
+        f"(1 call) {card}"
+    )
+    del state, p_vol, args, sub_args, got, want, want_w, fwd_args, sub_fwd
+
+    # ------------------------------------ 14. the exact trainer, card vs CPU
+    # The same start and target on both devices: the target is the CPU's.
+    rng = np.random.default_rng(3)
+    small_density = (0.5 + 0.05 * rng.standard_normal((32, 32, 32))).astype(np.float32)
+    small_tf = np.clip(default_color_map() * 0.7 + 0.05, 0.0, 1.0).astype(np.float32)
+    small_params = RenderParams(n_samples_per_ray=64, data_source_range=(0.0, 1.0),
+                                filter_mode="trilinear", early_exit=1.1)
+    camera, _ = build_camera(24, 20, EXACT_EYES[0], (0.0, 0.0, 0.0))
+    with torch.no_grad():
+        small_target = exact.render_exact_diff(
+            smooth_volume(32, seed=7, device="cpu"), torch.from_numpy(default_color_map()),
+            exact.exact_view(camera, small_params, device="cpu"),
+        )
+    trained, small_losses = [], []
+    for d in (dev, "cpu"):
+        st = init_exact_state(small_density, small_tf,
+                              lambda p: torch.optim.SGD(p, lr=5.0), device=d)
+        step = make_exact_train_step(exact.exact_view(camera, small_params, device=d))
+        small_losses.append([float(step(st, small_target.to(d))) for _ in range(2)])
+        trained.append({k: v.detach().cpu() for k, v in st.params.items()})
+    small_err = max(float((trained[0][k] - trained[1][k]).abs().max()) for k in trained[1])
+    moved = float((trained[1]["density"] - torch.from_numpy(small_density)).abs().max())
+    print(
+        f"small exact trainer, card vs CPU port (32^3, 24x20 rays, 2 SGD steps, losses "
+        f"{small_losses[0]} / {small_losses[1]}): params max|d| {small_err:.3e}, "
+        f"density moved {moved:.3e}"
+    )
+    if small_err > 1e-4 or moved < 1e-3:
+        raise AssertionError(f"card exact trainer disagrees with the CPU port ({small_err})")
+
+    loaded =[m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
     if loaded:
         raise AssertionError(f"imported {loaded[:5]}")
 
@@ -792,12 +1067,25 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/exact_march.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:481",
-            "launches": exact_launches,
-            "max_abs_err": k3_err,
+            "launches": exact_launches + ex_fwd_launches,
+            "max_abs_err": max(k3_err, k3_train_err),
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "exact_march_bwd",
+            "route": "cuda",
+            "source": "libre_tpu_torch/csrc/exact_march_bwd.cu",
+            "replaces": "libre_tpu/ops/exact_pallas.py:1405",
+            "launches": ex_bwd_launches,
+            "max_abs_err": k4_err,
+            "ms": k4_ms,
+            "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound[0],
+            "bound_by": k4_bound[1],
             "library_ms": None,
         },
     ]}))

@@ -40,75 +40,22 @@
 // no FMA contraction (ops/_kernels.py builds with --fmad=false): the per-ray
 // constants come from the wrapper, computed with the plain version's ops, and
 // every sample position, texture coordinate and voxel index rounds as the
-// plain version's, so nearest-filter fetches on voxel boundaries agree.
+// plain version's, so nearest-filter fetches on voxel boundaries agree.  The
+// sample set, taps and texel coordinates come from exact_sample.cuh, shared
+// with the recompute backward (exact_march_bwd.cu).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "sweep_sample.cuh"
+#include "exact_sample.cuh"
 
 namespace {
 
-using sweep::kAlphaClamp;
-using sweep::kTfSize;
-
-constexpr int kTileX = 16;
-constexpr int kTileY = 8;
-
-__device__ __forceinline__ int cell(float x, int dim) {
-  return min(max((int)x, 0), dim - 1);
-}
-
-// Trilinear taps along one axis: raycast._fetch_trilinear's prep.
-struct Axis {
-  int i0, i1;
-  float w;
-};
-
-__device__ __forceinline__ Axis prep(float tex, int dim) {
-  const float s = fminf(fmaxf(tex * (float)dim - 0.5f, 0.0f), (float)dim - 1.0f);
-  const float i0f = floorf(s);
-  Axis a;
-  a.w = s - i0f;
-  a.i0 = cell(i0f, dim);
-  a.i1 = min(a.i0 + 1, dim - 1);
-  return a;
-}
-
-template <typename T, bool kTrilinear>
-__device__ __forceinline__ float fetch(const T* __restrict__ brick, float tx,
-                                       float ty, float tz, int bx, int by,
-                                       int bz) {
-  if (!kTrilinear) {
-    const int ix = cell(floorf(tx * (float)bx), bx);
-    const int iy = cell(floorf(ty * (float)by), by);
-    const int iz = cell(floorf(tz * (float)bz), bz);
-    return (float)brick[((size_t)iz * by + iy) * bx + ix];
-  }
-  const Axis ax = prep(tx, bx), ay = prep(ty, by), az = prep(tz, bz);
-  // The corners in raycast._fetch_trilinear's order (x outer, z inner), each
-  // weighted (wx * wy) * wz, summed left to right.
-  float out = 0.0f;
-#pragma unroll
-  for (int dxb = 0; dxb < 2; ++dxb) {
-#pragma unroll
-    for (int dyb = 0; dyb < 2; ++dyb) {
-#pragma unroll
-      for (int dzb = 0; dzb < 2; ++dzb) {
-        const int ix = dxb ? ax.i1 : ax.i0;
-        const int iy = dyb ? ay.i1 : ay.i0;
-        const int iz = dzb ? az.i1 : az.i0;
-        const float wgt = (dxb ? ax.w : 1.0f - ax.w) *
-                          (dyb ? ay.w : 1.0f - ay.w) *
-                          (dzb ? az.w : 1.0f - az.w);
-        const float v = (float)brick[((size_t)iz * by + iy) * bx + ix];
-        out = (dxb | dyb | dzb) ? out + v * wgt : v * wgt;
-      }
-    }
-  }
-  return out;
-}
+using exact::kTileX;
+using exact::kTileY;
+using exact::kAlphaClamp;
+using exact::kTfSize;
 
 template <typename T, bool kTrilinear>
 __global__ void __launch_bounds__(kTileX* kTileY) exact_march_kernel(
@@ -135,13 +82,7 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_kernel(
   const int r = y * width + x;
   if (r >= n_rays) return;
 
-  const float dx = rays[r], dy = rays[n_rays + r], dz = rays[2 * n_rays + r];
-  const float tnp = rays[3 * n_rays + r], tng = rays[4 * n_rays + r];
-  const int n_start = (int)rays[5 * n_rays + r];
-  const float t_lo = rays[6 * n_rays + r], t_hi = rays[7 * n_rays + r];
-  const float inv_x = 1.0f / (dx == 0.0f ? 1e-10f : dx);
-  const float inv_y = 1.0f / (dy == 0.0f ? 1e-10f : dy);
-  const float inv_z = 1.0f / (dz == 0.0f ? 1e-10f : dz);
+  const exact::Ray ray = exact::load_ray(rays, n_rays, r);
   const size_t brick_voxels = (size_t)bx * by * bz;
 
   const float4 c_in = carry[r];
@@ -150,40 +91,19 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_kernel(
   bool done = ca > early_exit;
 
   for (int b = 0; b < n_bricks && !done; ++b) {
-    // Slab test (ops/rays.intersect_box): box = (p.xyz, (p.w, q.x, q.y)).
-    const float4 p = __ldg(boxes + 4 * b), q = __ldg(boxes + 4 * b + 1);
-    float tb = inv_x * (p.x - ex), tt = inv_x * (p.w - ex);
-    float t0 = fminf(tt, tb), t1 = fmaxf(tt, tb);
-    tb = inv_y * (p.y - ey);
-    tt = inv_y * (q.x - ey);
-    t0 = fmaxf(t0, fminf(tt, tb));
-    t1 = fminf(t1, fmaxf(tt, tb));
-    tb = inv_z * (p.z - ez);
-    tt = inv_z * (q.y - ez);
-    t0 = fmaxf(t0, fminf(tt, tb));
-    t1 = fminf(t1, fmaxf(tt, tb));
-    const float lo = fmaxf(t0, t_lo), hi = fminf(t1, t_hi);
-    if (!(lo < hi)) continue;  // no sample can lie in (lo, hi]
-
+    exact::Span span;
+    if (!exact::brick_span(ray, __ldg(boxes + 4 * b), __ldg(boxes + 4 * b + 1), ex,
+                           ey, ez, step, max_steps, &span))
+      continue;
     const float4 s = __ldg(boxes + 4 * b + 2), o = __ldg(boxes + 4 * b + 3);
     const T* brick = atlas + (size_t)__ldg(slots + b) * brick_voxels;
-    const int n0 = (int)floorf((fmaxf(lo, tnp) - tng) / step) - 1;
-    const int n_end = n0 + max_steps;
     int brick_count = 0;
-    for (int n = max(n0, n_start); n < n_end; ++n) {
-      const float t = tng + (float)n * step;
-      if (t > hi) break;
-      if (!(t > lo)) continue;
-      const float tx = (ex + dx * t) * s.x + s.w;
-      const float ty = (ey + dy * t) * s.y + o.x;
-      const float tz = (ez + dz * t) * s.z + o.y;
-      const float raw = fetch<T, kTrilinear>(brick, tx, ty, tz, bx, by, bz);
-      const float dens = fminf(fmaxf(raw * mult + add, 0.0f), 1.0f);
-      const float sc = sweep::tf_coord(dens);
-      const float i0f = floorf(sc);
-      const int i0 = (int)i0f;
-      const float4 src = sweep::lerp4(s_tf[i0], s_tf[min(i0 + 1, kTfSize - 1)],
-                                      sc - i0f);
+    exact::for_each_sample(span, ray.tng, step, [&](float t) {
+      const exact::Taps k =
+          exact::taps_at<kTrilinear>(ray, t, ex, ey, ez, s, o, bx, by, bz);
+      const float raw = exact::fetch<T, kTrilinear>(brick, k, bx, by);
+      const exact::TfTaps q = exact::tf_taps(exact::normalise(raw, mult, add));
+      const float4 src = sweep::lerp4(s_tf[q.i0], s_tf[q.i1], q.w);
       const float alpha = 1.0f - powf(1.0f - fminf(src.w, kAlphaClamp), corr);
       const float w = alpha * (1.0f - ca);
       cr = cr + src.x * w;
@@ -191,11 +111,9 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_kernel(
       cb = cb + src.z * w;
       ca = ca + w;
       ++brick_count;
-      if (ca > early_exit) {
-        done = true;
-        break;
-      }
-    }
+      done = ca > early_exit;
+      return done;
+    });
     count += brick_count;
     if (used != nullptr && brick_count > 0) used[b] = 1;
   }

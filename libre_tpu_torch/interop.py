@@ -4,7 +4,8 @@ The JAX package lays its device state out for the TPU: the brick atlas
 is flat slots padded to 128 lanes, and the assembled store pads its two
 in-plane axes to multiples of 128.  These functions strip that padding
 so the port and the JAX package can be fed the same state; the (256, 4)
-transfer function needs no conversion.  Results are writable copies, so
+transfer function and the exact trainer's (Z, Y, X) density need no
+conversion.  Results are writable copies, so
 ``torch.from_numpy`` can take them.
 """
 
@@ -75,6 +76,12 @@ def params_from_jax(params: Dict, fine_dims: Tuple[int, int, int]) -> Dict[str, 
         "store": store_from_jax(params["store"], fine_dims),
         "tf": np.array(np.asarray(params["tf"])),
     }
+
+
+def exact_params_from_jax(params: Dict) -> Dict[str, np.ndarray]:
+    """{"density": (Z, Y, X), "tf": (256, 4)} of the JAX package's exact
+    ``TrainState.params`` → numpy copies (no padding to strip)."""
+    return {k: np.array(np.asarray(params[k]), np.float32) for k in ("density", "tf")}
 
 
 def store_problem_from_jax(problem) -> StoreProblem:

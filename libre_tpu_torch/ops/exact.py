@@ -1,5 +1,6 @@
-"""Exact marcher on the card (``libre_tpu.ops.exact_pallas``): the wrapper
-of K3 (``csrc/exact_march.cu``) and the single-brick entry points.
+"""Exact marcher on the card (``libre_tpu.ops.exact_pallas``): the wrappers
+of K3 (``csrc/exact_march.cu``) and K4 (``csrc/exact_march_bwd.cu``) and
+the single-brick entry points.
 
 :func:`march_exact` marches the rays of one pass through its bricks,
 front to back, onto the carried (rgb, a): on a CUDA tensor it launches
@@ -8,6 +9,11 @@ the hand-written kernel, on a CPU tensor it runs the plain version
 the same operands and result.  The engine's ``render`` (the ``xla`` and
 ``pallas-exact`` renderers) and :func:`render_exact_rays` /
 :func:`render_exact` (BASELINE configs 1-2) call it.
+
+:func:`render_exact_diff` is the differentiable single-brick render of
+one :class:`ExactView`: forward K3, backward :func:`march_exact_backward`
+(K4 on a CUDA tensor, ``march_exact_backward_reference`` on a CPU one),
+with the early exit off (the exact trainer's semantics).
 
 Of the JAX package's planning (``plan_exact``) only what fixes the sample
 grid and the per-brick box is kept: ``raycast.ray_pack`` and
@@ -18,7 +24,8 @@ arbitrary gather; one thread per ray serves every direction.
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +36,7 @@ from libre_tpu_torch.ops.raycast import (
     BOX_FLOATS,
     PACK_ROWS,
     brick_boxes,
+    march_exact_backward_reference,
     march_exact_reference,
     ray_pack,
 )
@@ -40,7 +48,9 @@ from libre_tpu_torch.ops.reference import (
 from libre_tpu_torch.ops.transfer_function import TF_SIZE
 
 __all__ = [
-    "ATLAS_DTYPES", "march_exact", "march_exact_reference", "render_exact",
+    "ATLAS_DTYPES", "ExactView", "RenderExactDiff", "exact_view", "march_exact",
+    "march_exact_backward", "march_exact_backward_reference",
+    "march_exact_reference", "render_exact", "render_exact_diff",
     "render_exact_rays",
 ]
 
@@ -48,31 +58,40 @@ __all__ = [
 ATLAS_DTYPES = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
 
 
-def _check_operands(atlas, slots, boxes, tf, rays, carry, samples, used):
-    """Reject what K3 does not take before a pointer reaches it."""
-    n_bricks, n_rays = slots.shape[0], carry.shape[0]
+def _check_operands(who, atlas, slots, boxes, tf, rays, params, per_ray, samples=None,
+                    used=None):
+    """Reject what the kernels do not take before a pointer reaches them.
+    ``slots`` None means one brick (the backward's).  ``per_ray`` names the
+    (R, 4) f32 operands (the carry, or the backward's forward output and
+    cotangent)."""
+    n_bricks = 1 if slots is None else slots.shape[0]
+    n_rays = next(iter(per_ray.values())).shape[0]
     expect = {
-        "slots": (slots, torch.int32, (n_bricks,)),
         "boxes": (boxes, torch.float32, (n_bricks, BOX_FLOATS)),
         "tf": (tf, torch.float32, (TF_SIZE, 4)),
         "rays": (rays, torch.float32, (len(PACK_ROWS), n_rays)),
-        "carry": (carry, torch.float32, (n_rays, 4)),
     }
+    if slots is not None:
+        expect["slots"] = (slots, torch.int32, (n_bricks,))
+    for name, x in per_ray.items():
+        expect[name] = (x, torch.float32, (n_rays, 4))
     if samples is not None:
         expect["samples"] = (samples, torch.int32, (n_rays,))
     if used is not None:
         expect["used"] = (used, torch.int32, (n_bricks,))
     for name, (x, dtype, shape) in expect.items():
         if x.device != atlas.device:
-            raise ValueError(f"march_exact: {name} on {x.device}, atlas on {atlas.device}")
+            raise ValueError(f"{who}: {name} on {x.device}, atlas on {atlas.device}")
         if x.dtype != dtype:
-            raise TypeError(f"march_exact: {name} is {x.dtype}, needs {dtype}")
+            raise TypeError(f"{who}: {name} is {x.dtype}, needs {dtype}")
         if tuple(x.shape) != shape:
-            raise ValueError(f"march_exact: {name} shape {tuple(x.shape)} != {shape}")
+            raise ValueError(f"{who}: {name} shape {tuple(x.shape)} != {shape}")
         if not x.is_contiguous():
-            raise ValueError(f"march_exact: {name} must be contiguous")
+            raise ValueError(f"{who}: {name} must be contiguous")
     if atlas.dim() != 4 or not atlas.is_contiguous():
-        raise ValueError(f"march_exact: atlas must be a contiguous (n_slots, BZ, BY, BX), got {tuple(atlas.shape)}")
+        raise ValueError(f"{who}: atlas must be a contiguous (n_slots, BZ, BY, BX), got {tuple(atlas.shape)}")
+    if params.filter_mode not in ("nearest", "trilinear"):
+        raise ValueError(f"{who}: unknown filter mode {params.filter_mode!r}")
 
 
 def march_exact(
@@ -99,9 +118,8 @@ def march_exact(
     default: all rays in one row).  On a CPU tensor it runs the plain
     version; on any other device it raises.
     """
-    _check_operands(atlas, slots, boxes, tf, rays, carry, samples, used)
-    if params.filter_mode not in ("nearest", "trilinear"):
-        raise ValueError(f"march_exact: unknown filter mode {params.filter_mode!r}")
+    _check_operands("march_exact", atlas, slots, boxes, tf, rays, params, {"carry": carry},
+                    samples, used)
     if atlas.device.type == "cpu":
         return march_exact_reference(
             atlas, slots, boxes, tf, rays, carry, eye, params,
@@ -140,6 +158,175 @@ def march_exact(
 march_exact.launches = 0
 
 
+def march_exact_backward(
+    volume_zyx: torch.Tensor,
+    tf: torch.Tensor,
+    view: "ExactView",
+    out: torch.Tensor,
+    g: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Recompute backward of :func:`render_exact_diff`'s forward, early
+    exit off → (d_volume (Z, Y, X), d_tf (256, 4)).
+
+    Operands and result as :func:`march_exact_backward_reference`: the
+    (Z, Y, X) f32 volume filling ``view``'s box, the TF, the forward's
+    output ``out`` (marched from a zero carry) and its cotangent ``g``.
+    On a CUDA tensor this zeroes the gradients and launches
+    ``csrc/exact_march_bwd.cu`` on the current stream, in tiles of
+    ``view.width`` rays per row (``march_exact_backward.launches`` counts
+    the launches); on a CPU tensor it runs the plain version; on any other
+    device it raises."""
+    who = "march_exact_backward"
+    if volume_zyx.dtype != torch.float32:
+        raise TypeError(f"{who}: the volume is {volume_zyx.dtype}, needs float32")
+    if volume_zyx.dim() != 3:
+        raise ValueError(f"{who}: needs a (Z, Y, X) volume, got {tuple(volume_zyx.shape)}")
+    boxes, rays, params = view.brick_boxes, view.ray_pack, view.params
+    _check_operands(who, volume_zyx[None], None, boxes, tf, rays, params, {"out": out, "g": g})
+    _require_no_early_exit(who, params)
+    if volume_zyx.device.type == "cpu":
+        return march_exact_backward_reference(volume_zyx, tf, view, out, g)
+    if volume_zyx.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {volume_zyx.device}")
+    for name, x in (("boxes", boxes), ("tf", tf), ("out", out), ("g", g)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must be 16-byte aligned")
+    d_volume = torch.zeros_like(volume_zyx)
+    d_tf = torch.zeros_like(tf)
+    n_rays = out.shape[0]
+    if n_rays == 0:
+        return d_volume, d_tf
+    lo, hi = params.data_source_range
+    bz, by, bx = volume_zyx.shape
+    ex, ey, ez = (float(v) for v in view.eye)
+    with torch.cuda.device(volume_zyx.device):
+        _kernels.launch(
+            "exact_march_bwd",
+            volume_zyx, boxes, tf, rays, out, g, d_volume, d_tf,
+            int(params.filter_mode == "trilinear"), n_rays, int(view.width),
+            bx, by, bz, int(view.max_steps), ex, ey, ez, params.step_size,
+            1.0 / (hi - lo), -lo / (hi - lo), params.alpha_correction,
+        )
+    march_exact_backward.launches += 1
+    return d_volume, d_tf
+
+
+march_exact_backward.launches = 0
+
+
+def _require_no_early_exit(who, params: RenderParams):
+    if float(params.early_exit) <= 1.0:
+        raise ValueError(
+            f"{who} requires early_exit > 1 (disabled): the composite inversion "
+            f"needs every sample composited"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactView:
+    """What fixes one camera's sample grid over one brick, computed once
+    (the part of the JAX package's ``ExactPlan`` a per-ray kernel needs):
+    the (8, R) ``ray_pack``, the (1, 16) ``brick_boxes``, the ``eye``, the
+    march length ``max_steps``, the screen ``width`` the kernels tile the
+    rays by, and the marching ``params``."""
+
+    ray_pack: torch.Tensor
+    brick_boxes: torch.Tensor
+    eye: np.ndarray
+    max_steps: int
+    width: int
+    params: RenderParams
+
+    @property
+    def n_rays(self) -> int:
+        return self.ray_pack.shape[1]
+
+
+def exact_view(
+    camera: Camera,
+    params: RenderParams,
+    global_min=(-0.5, -0.5, -0.5),
+    global_max=(0.5, 0.5, 0.5),
+    *,
+    world_min=None,
+    world_max=None,
+    clip_planes: Optional[np.ndarray] = None,
+    sample_index: int = 0,
+    device="cuda",
+) -> ExactView:
+    """The :class:`ExactView` of ``camera``'s rays (jittered subpixel
+    sample ``sample_index``) over one brick, no ghost voxels, on
+    ``device``.  The brick fills ``world_min/max`` (default: the global
+    box, the single-brick form); the sample grid is the global box's
+    (fragRaycast.glsl:152-158)."""
+    wmin = global_min if world_min is None else world_min
+    wmax = global_max if world_max is None else world_max
+    eye, dirs, cos_z, _ = ray_ops.make_rays(
+        camera.inv_proj, camera.inv_mv, camera.viewport,
+        sample_index=sample_index, device=device,
+    )
+    tnp_ = ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)
+    return ExactView(
+        ray_pack=ray_pack(
+            eye, dirs.reshape(-1, 3), tnp_, params.step_size, global_min, global_max,
+            clip_planes,
+        ),
+        brick_boxes=brick_boxes(wmin, wmax, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)).to(device),
+        eye=np.asarray(camera.inv_mv, np.float32)[:3, 3],
+        max_steps=max_steps_for_bricks(
+            np.asarray(wmin, np.float32), np.asarray(wmax, np.float32), params.step_size
+        ),
+        width=camera.viewport[2],
+        params=params,
+    )
+
+
+def _march_view(volume_zyx, tf, view: ExactView, carry) -> torch.Tensor:
+    slot = torch.zeros(1, dtype=torch.int32, device=volume_zyx.device)
+    return march_exact(
+        volume_zyx[None].contiguous(), slot, view.brick_boxes,
+        tf, view.ray_pack, carry, view.eye, view.params,
+        max_steps=view.max_steps, width=view.width,
+    )
+
+
+class RenderExactDiff(torch.autograd.Function):
+    """Forward: K3 from a zero carry; backward: K4 (or their plain
+    versions on the CPU).  Saves (volume, tf, out), as the JAX package's
+    ``_red_fwd``."""
+
+    @staticmethod
+    def forward(ctx, volume_zyx, tf, view: ExactView):
+        volume_zyx, tf = volume_zyx.contiguous(), tf.contiguous()
+        out = _march_view(
+            volume_zyx, tf, view, torch.zeros((view.n_rays, 4), device=volume_zyx.device)
+        )
+        ctx.view = view
+        ctx.save_for_backward(volume_zyx, tf, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        volume_zyx, tf, out = ctx.saved_tensors
+        d_volume, d_tf = march_exact_backward(volume_zyx, tf, ctx.view, out, g.contiguous())
+        return d_volume, d_tf, None
+
+
+def render_exact_diff(volume_zyx: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:
+    """Differentiable exact render of one (Z, Y, X) f32 brick filling the
+    view's box → (R, 4) rgba, with gradients for the volume and the
+    (256, 4) TF.  Requires ``view.params.early_exit > 1`` (the trainer's
+    semantics: the composite inversion needs every sample composited).
+    Every ray direction is served: there is no fallback to refuse."""
+    _require_no_early_exit("render_exact_diff", view.params)
+    if volume_zyx.dtype != torch.float32 or volume_zyx.dim() != 3:
+        raise TypeError(
+            f"render_exact_diff: needs a (Z, Y, X) float32 volume, got "
+            f"{tuple(volume_zyx.shape)} {volume_zyx.dtype}"
+        )
+    return RenderExactDiff.apply(volume_zyx, tf, view)
+
+
 def render_exact_rays(
     volume_zyx: torch.Tensor,
     tf: torch.Tensor,
@@ -163,31 +350,19 @@ def render_exact_rays(
     shared across bricks (fragRaycast.glsl:152-158), and the earlier
     bricks' carry as ``init_carry``."""
     dev = volume_zyx.device
-    gmin = world_min if global_min is None else global_min
-    gmax = world_max if global_max is None else global_max
-    eye, dirs, cos_z, _ = ray_ops.make_rays(
-        camera.inv_proj, camera.inv_mv, camera.viewport,
+    view = exact_view(
+        camera, params,
+        world_min if global_min is None else global_min,
+        world_max if global_max is None else global_max,
+        world_min=world_min, world_max=world_max, clip_planes=clip_planes,
         sample_index=sample_index, device=dev,
     )
-    dirs = dirs.reshape(-1, 3)
-    tnp_ = ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)
-    pack = ray_pack(eye, dirs, tnp_, params.step_size, gmin, gmax, clip_planes)
-    boxes = brick_boxes(world_min, world_max, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)).to(dev)
     carry = (
-        torch.zeros((dirs.shape[0], 4), device=dev)
+        torch.zeros((view.n_rays, 4), device=dev)
         if init_carry is None
         else init_carry.to(device=dev, dtype=torch.float32).contiguous()
     )
-    return march_exact(
-        volume_zyx[None].contiguous(), torch.zeros(1, dtype=torch.int32, device=dev),
-        boxes, tf.to(dev).contiguous(), pack, carry,
-        np.asarray(camera.inv_mv, np.float32)[:3, 3], params,
-        max_steps=max_steps_for_bricks(
-            np.asarray(world_min, np.float32), np.asarray(world_max, np.float32),
-            params.step_size,
-        ),
-        width=camera.viewport[2],
-    )
+    return _march_view(volume_zyx, tf.to(dev).contiguous(), view, carry)
 
 
 def render_exact(

@@ -1,5 +1,6 @@
 """The exact marcher's plain PyTorch version (``libre_tpu.ops.raycast``):
-the specification of ``csrc/exact_march.cu`` (K3).
+the specification of ``csrc/exact_march.cu`` (K3) and of its recompute
+backward ``csrc/exact_march_bwd.cu`` (K4).
 
 Semantically identical to :mod:`libre_tpu_torch.ops.reference`: the same
 global sample grid ``t_n = tnGlobal + n·step``, the same half-open brick
@@ -23,7 +24,7 @@ floats:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,15 +128,21 @@ def _composite_chunk(carry, src_r, src_g, src_b, alpha, valid, early_exit):
     return (r, g, b, a), valid & m
 
 
-def _tf_lookup_channels(tf: torch.Tensor, density: torch.Tensor):
-    """GL linear 1-D TF lookup, channelwise: (T, 4) × (R, C) → 4× (R, C)."""
-    n = tf.shape[0]
+def _tf_taps(density: torch.Tensor, n: int):
+    """GL linear 1-D TF lookup coordinates: (s, i0, i1, w) with s the
+    clamped texel coordinate in [0, n − 1], texels i0 = floor(s),
+    i1 = min(i0 + 1, n − 1) and the lerp weight w of i1."""
     s = torch.clamp(density, 0.0, 1.0) * n - 0.5
     s = torch.clamp(s, 0.0, float(n - 1))
     i0f = torch.floor(s)
     w = s - i0f
     i0 = i0f.long()
-    i1 = torch.clamp(i0 + 1, max=n - 1)
+    return s, i0, torch.clamp(i0 + 1, max=n - 1), w
+
+
+def _tf_lookup_channels(tf: torch.Tensor, density: torch.Tensor):
+    """GL linear 1-D TF lookup, channelwise: (T, 4) × (R, C) → 4× (R, C)."""
+    _s, i0, i1, w = _tf_taps(density, tf.shape[0])
     return [tf[i0, c] * (1.0 - w) + tf[i1, c] * w for c in range(4)]
 
 
@@ -145,16 +152,17 @@ def _cell(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.long().clamp(0, dim - 1)
 
 
-def _fetch_nearest(brick_flat, tex_x, tex_y, tex_z, dims_xyz):
+def _taps(tex_x, tex_y, tex_z, dims_xyz, filter_mode):
+    """The voxels one fetch reads, as [(flat index, weight)]: one with
+    weight None (nearest), or the 8 trilinear corners, x outer and z
+    inner, each weighted (wx·wy)·wz (clamp to edge: at the top edge i1 =
+    i0, so two corners name one voxel)."""
     bx, by, bz = dims_xyz
-    ix = _cell(torch.floor(tex_x * bx), bx)
-    iy = _cell(torch.floor(tex_y * by), by)
-    iz = _cell(torch.floor(tex_z * bz), bz)
-    return brick_flat[(iz * by + iy) * bx + ix]
-
-
-def _fetch_trilinear(brick_flat, tex_x, tex_y, tex_z, dims_xyz):
-    bx, by, bz = dims_xyz
+    if filter_mode == "nearest":
+        ix = _cell(torch.floor(tex_x * bx), bx)
+        iy = _cell(torch.floor(tex_y * by), by)
+        iz = _cell(torch.floor(tex_z * bz), bz)
+        return [((iz * by + iy) * bx + ix, None)]
 
     def prep(tex, dim):
         s = torch.clamp(tex * dim - 0.5, 0.0, dim - 1.0)
@@ -166,7 +174,7 @@ def _fetch_trilinear(brick_flat, tex_x, tex_y, tex_z, dims_xyz):
     ix0, ix1, wx = prep(tex_x, bx)
     iy0, iy1, wy = prep(tex_y, by)
     iz0, iz1, wz = prep(tex_z, bz)
-    out = 0.0
+    taps = []
     for dxb in (0, 1):
         for dyb in (0, 1):
             for dzb in (0, 1):
@@ -178,8 +186,56 @@ def _fetch_trilinear(brick_flat, tex_x, tex_y, tex_z, dims_xyz):
                     * (wy if dyb else 1.0 - wy)
                     * (wz if dzb else 1.0 - wz)
                 )
-                out = out + brick_flat[(iz * by + iy) * bx + ix] * wgt
+                taps.append(((iz * by + iy) * bx + ix, wgt))
+    return taps
+
+
+def _fetch(brick_flat, taps):
+    """The f32 value at ``taps``, the weighted corners summed in order."""
+    idx, wgt = taps[0]
+    if wgt is None:
+        return brick_flat[idx]
+    out = 0.0
+    for idx, wgt in taps:
+        out = out + brick_flat[idx] * wgt
     return out
+
+
+def _brick_samples(block, eye, box, step, max_steps):
+    """One brick's exact sample set for a block of rays: yields, per chunk
+    of ``CHUNK`` grid samples, the (R, C) membership mask and the texture
+    coordinates (x, y, z); nothing if no ray's interval is non-empty.
+
+    ``block`` is the (8, R) slice of ``ray_pack``, ``box`` one row of
+    ``brick_boxes`` (CPU).  With (t0, t1] the rays' slab interval of the
+    brick, lo = max(t0, t_lo), hi = min(t1, t_hi) and
+    n0 = floor((max(lo, t_near_plane) − tn_global)/step) − 1 (a lower
+    bound on the first member), the samples n0 ≤ n < n0 + ``max_steps``
+    with n ≥ n_start and t_n = tn_global + n·step ∈ (lo, hi] belong."""
+    dx, dy, dz, tnp, tng, n_start_f, t_lo, t_hi = block
+    dev = dx.device
+    ex, ey, ez = eye
+    eye_t = torch.tensor([ex, ey, ez], dtype=torch.float32, device=dev)
+    dirs = torch.stack([dx, dy, dz], dim=-1)
+    sx, sy, sz, ox, oy, oz = box[8:14].tolist()
+    t0, t1, _hit = ray_ops.intersect_box(eye_t, dirs, box[0:3], box[3:6])
+    lo = torch.maximum(t0, t_lo)
+    hi = torch.minimum(t1, t_hi)
+    if not bool((lo < hi).any()):
+        return
+    n0 = torch.floor((torch.maximum(lo, tnp) - tng) / step).to(torch.int32) - 1
+    n_start = n_start_f.to(torch.int32)
+    k_base = torch.arange(CHUNK, dtype=torch.int32, device=dev)
+    for ci in range(-(-max_steps // CHUNK)):
+        n = n0[:, None] + (ci * CHUNK + k_base)[None, :]  # (R, C)
+        t = tng[:, None] + n.to(torch.float32) * step
+        valid = (t > lo[:, None]) & (t <= hi[:, None]) & (n >= n_start[:, None])
+        yield (
+            valid,
+            (ex + dx[:, None] * t) * sx + ox,
+            (ey + dy[:, None] * t) * sy + oy,
+            (ez + dz[:, None] * t) * sz + oz,
+        )
 
 
 def march_exact_reference(
@@ -204,14 +260,9 @@ def march_exact_reference(
     :func:`ray_pack`; ``carry`` (R, 4) f32 rgba from earlier passes;
     ``eye`` 3 floats.  Returns the (R, 4) carry after this pass.
 
-    Per brick and ray, with (t0, t1] the ray's slab interval of the
-    brick, lo = max(t0, t_lo), hi = min(t1, t_hi) and
-    n0 = floor((max(lo, t_near_plane) − tn_global)/step) − 1 (a lower
-    bound on the first member sample), the samples
-    n0 ≤ n < n0 + ``max_steps`` with n ≥ n_start and
-    t_n = tn_global + n·step ∈ (lo, hi] are fetched (nearest or
-    trilinear at ``tex = (eye + dir·t)·s + o``), normalised by the data
-    range, classified by the linear TF lookup, opacity-corrected
+    Per brick and ray, the samples of :func:`_brick_samples` are fetched
+    (nearest or trilinear at ``tex = (eye + dir·t)·s + o``), normalised by
+    the data range, classified by the linear TF lookup, opacity-corrected
     ``1 − (1 − min(a, 1 − 1/256))^corr`` and composited front to back
     while the accumulated alpha before the sample is ≤ ``early_exit``.
     ``max_steps`` must cover the longest brick diagonal
@@ -221,50 +272,26 @@ def march_exact_reference(
     the samples each ray composites and flag (1) the bricks that
     composite any.
     """
-    dev = carry.device
-    step = params.step_size
     lo_, hi_ = params.data_source_range
     mult = 1.0 / (hi_ - lo_)
     add = -lo_ / (hi_ - lo_)
-    bz, by, bx = atlas.shape[1:]
-    fetch = _fetch_trilinear if params.filter_mode == "trilinear" else _fetch_nearest
-    ex, ey, ez = (float(v) for v in eye)
-    eye_t = torch.tensor([ex, ey, ez], dtype=torch.float32, device=dev)
-    slot_list = slots.tolist()
+    dims = tuple(reversed(atlas.shape[1:]))
     box_rows = boxes.cpu()
-    n_chunks = -(-max_steps // CHUNK)
-    k_base = torch.arange(CHUNK, dtype=torch.int32, device=dev)
 
     out = carry.clone()
     for r0 in range(0, carry.shape[0], RAY_BLOCK):
         sl = slice(r0, r0 + RAY_BLOCK)
-        dx, dy, dz, tnp, tng, n_start_f, t_lo, t_hi = rays[:, sl]
-        dirs = torch.stack([dx, dy, dz], dim=-1)
-        n_start = n_start_f.to(torch.int32)
         c = out[sl]
         state = (c[:, 0], c[:, 1], c[:, 2], c[:, 3])
-        count = torch.zeros_like(n_start)
-        for b, slot in enumerate(slot_list):
-            wmin, wmax = box_rows[b, 0:3], box_rows[b, 3:6]
-            sx, sy, sz, ox, oy, oz = box_rows[b, 8:14].tolist()
-            t0, t1, _hit = ray_ops.intersect_box(eye_t, dirs, wmin, wmax)
-            lo = torch.maximum(t0, t_lo)
-            hi = torch.minimum(t1, t_hi)
-            if not bool((lo < hi).any()):
-                continue
-            n0 = torch.floor((torch.maximum(lo, tnp) - tng) / step).to(torch.int32) - 1
-            brick_flat = atlas[slot].reshape(-1).float()
-            brick_count = torch.zeros_like(n_start)
-            for ci in range(n_chunks):
-                n = n0[:, None] + (ci * CHUNK + k_base)[None, :]  # (R, C)
-                t = tng[:, None] + n.to(torch.float32) * step
-                valid = (
-                    (t > lo[:, None]) & (t <= hi[:, None]) & (n >= n_start[:, None])
-                )
-                tex_x = (ex + dx[:, None] * t) * sx + ox
-                tex_y = (ey + dy[:, None] * t) * sy + oy
-                tex_z = (ez + dz[:, None] * t) * sz + oz
-                raw = fetch(brick_flat, tex_x, tex_y, tex_z, (bx, by, bz))
+        count = torch.zeros(c.shape[0], dtype=torch.int32, device=carry.device)
+        for b, slot in enumerate(slots.tolist()):
+            brick_count = torch.zeros_like(count)
+            for ci, (valid, tex_x, tex_y, tex_z) in enumerate(_brick_samples(
+                rays[:, sl], eye, box_rows[b], params.step_size, max_steps
+            )):
+                if ci == 0:
+                    brick_flat = atlas[slot].reshape(-1).float()
+                raw = _fetch(brick_flat, _taps(tex_x, tex_y, tex_z, dims, params.filter_mode))
                 density = torch.clamp(raw * mult + add, 0.0, 1.0)
                 src_r, src_g, src_b, src_a = _tf_lookup_channels(tf, density)
                 alpha = 1.0 - torch.pow(
@@ -281,6 +308,83 @@ def march_exact_reference(
         if samples is not None:
             samples[sl] += count
     return out
+
+
+def march_exact_backward_reference(
+    volume_zyx: torch.Tensor,
+    tf: torch.Tensor,
+    view,
+    out: torch.Tensor,
+    g: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch recompute backward of a one-brick exact march with
+    the early exit off: the specification of K4.
+
+    ``volume_zyx`` (Z, Y, X) f32 fills the box of ``view`` (an
+    ``exact.ExactView``: its ray pack, one-row brick boxes, eye, params and
+    march length); ``tf`` (256, 4) f32; ``out`` the forward's (R, 4)
+    output (marched from a zero carry) and ``g`` its cotangent.  Returns
+    (d_volume (Z, Y, X), d_tf (256, 4)).
+
+    Re-marches each ray's samples front to back in blocks of rays ×
+    ``CHUNK`` samples, carrying the transmittance T and the inclusive
+    prefix P = Σ w_j⟨g_rgb, rgb_j⟩, and inverts the composite with
+    TOT = ⟨g_rgb, out_rgb⟩ and T_fin = 1 − out_a
+    (exact_pallas.py:1686-1708):
+    dα = T·D − (TOT − P)/(1 − α) + g_a·T_fin/(1 − α).  Then through the
+    opacity correction and the alpha-clamp gate, the TF lerp (into bins
+    i0 and i1), the gates 0 < density < 1 and 0 < s_tf < 255 (strict, as
+    the JAX kernel's), the data-range scale and the fetch's taps.
+    """
+    params = view.params
+    lo_, hi_ = params.data_source_range
+    mult = 1.0 / (hi_ - lo_)
+    add = -lo_ / (hi_ - lo_)
+    corr = params.alpha_correction
+    n_tf = tf.shape[0]
+    dims = tuple(reversed(volume_zyx.shape))
+    brick_flat = volume_zyx.reshape(-1)
+    box = view.brick_boxes.cpu()[0]
+    d_flat = torch.zeros_like(brick_flat)
+    d_tf = torch.zeros_like(tf)
+
+    for r0 in range(0, out.shape[0], RAY_BLOCK):
+        sl = slice(r0, r0 + RAY_BLOCK)
+        g_r, g_g, g_b, g_a = (g[sl, i][:, None] for i in range(4))
+        o = out[sl]
+        tot = (g[sl, :3] * o[:, :3]).sum(dim=1)[:, None]
+        t_fin = (1.0 - o[:, 3])[:, None]
+        trans = torch.ones_like(tot)
+        prefix = torch.zeros_like(tot)
+        for valid, tex_x, tex_y, tex_z in _brick_samples(
+            view.ray_pack[:, sl], view.eye, box, params.step_size, view.max_steps
+        ):
+            taps = _taps(tex_x, tex_y, tex_z, dims, params.filter_mode)
+            density = torch.clamp(_fetch(brick_flat, taps) * mult + add, 0.0, 1.0)
+            s, i0, i1, wt = _tf_taps(density, n_tf)
+            c0, c1 = tf[i0], tf[i1]  # (R, C, 4)
+            c = c0 * (1.0 - wt)[..., None] + c1 * wt[..., None]
+            a_cl = torch.clamp(c[..., 3], max=ALPHA_CLAMP)
+            alpha = (1.0 - torch.pow(1.0 - a_cl, corr)) * valid
+            one_m = 1.0 - alpha
+            t_at = trans * _exclusive_cumprod(one_m)
+            w = alpha * t_at
+            d = c[..., 0] * g_r + c[..., 1] * g_g + c[..., 2] * g_b
+            p_incl = prefix + torch.cumsum(w * d, dim=1)
+            denom = torch.clamp(one_m, min=1e-12)
+            dalpha = (t_at * d - (tot - p_incl) / denom + g_a * t_fin / denom) * valid
+            pw = torch.pow(torch.clamp(1.0 - a_cl, min=1e-12), corr - 1.0)
+            dav = dalpha * corr * pw * (c[..., 3] < ALPHA_CLAMP)
+            dch = torch.stack([w * g_r, w * g_g, w * g_b, dav], dim=-1)
+            d_tf.index_add_(0, i0.reshape(-1), (dch * (1.0 - wt)[..., None]).reshape(-1, 4))
+            d_tf.index_add_(0, i1.reshape(-1), (dch * wt[..., None]).reshape(-1, 4))
+            gate = (density > 0.0) & (density < 1.0) & (s > 0.0) & (s < n_tf - 1)
+            dd = ((dch * (c1 - c0)).sum(dim=-1) * n_tf * mult) * gate
+            for idx, wgt in taps:
+                d_flat.index_add_(0, idx.reshape(-1), (dd if wgt is None else dd * wgt).reshape(-1))
+            trans = trans * torch.prod(one_m, dim=1, keepdim=True)
+            prefix = p_incl[:, -1:]
+    return d_flat.reshape(volume_zyx.shape), d_tf
 
 
 def render_rays(

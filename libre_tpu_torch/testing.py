@@ -8,6 +8,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from libre_tpu_torch.ops import exact
 from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.ops.transfer_function import default_color_map
@@ -126,9 +127,9 @@ class ExactCase(NamedTuple):
 def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float32):
     """Seeded operands of the exact march.
 
-    ``case`` = "single": the ``bench_exact`` shape (bench.py:279-291), one
-    64³ random brick filling [−0.5, 0.5]³, 256² rays from (0.2, 0.1, 1.4),
-    512 samples per ray, the default TF, zero carry.
+    ``case`` = "single": scene "bench" of ``EXACT_SCENES`` (bench.py's
+    ``bench_exact`` shape: one 64³ random brick filling [−0.5, 0.5]³, 256²
+    rays), the default TF, zero carry.
 
     ``case`` = "bricks": a 4×4×4 grid of 16³ bricks with 2-voxel ghosts
     (20³ slots, random ghost voxels) scattered over a 72-slot atlas and
@@ -151,23 +152,38 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
     rng = np.random.default_rng(seed)
     tf = default_color_map()
     if case == "single":
-        grid, brick, ghost, n_slots = 1, 64, 0, 1
-        width, height, eye, spr, clip = 256, 256, (0.2, 0.1, 1.4), 512, None
+        shape = (1, *EXACT_SCENES["bench"][0])
     elif case == "bricks":
         grid, brick, ghost, n_slots = 4, 16, 2, 72
         width, height, eye, spr = 100, 70, (0.55, 0.4, 1.3), 256
         clip = np.float32([[1.0, 0.0, 0.0, 0.3], [0.0, -1.0, 0.5, 0.2]])
         tf[:, 3] = np.clip(8.0 * tf[:, 3], 0.0, 1.0)
+        padded = brick + 2 * ghost
+        shape = (n_slots, padded, padded, padded)
     else:
         raise ValueError(f"exact_case: unknown case {case!r}")
-    padded = brick + 2 * ghost
-    shape = (n_slots, padded, padded, padded)
     if dtype == torch.uint8:
         data = rng.integers(0, 256, shape, dtype=np.uint8)
         data_range = (0.0, 255.0)
     else:
         data = rng.random(shape, dtype=np.float32)
         data_range = (0.0, 1.0)
+    if case == "single":
+        view = _exact_scene_view(
+            "bench", device, data_source_range=data_range, filter_mode=filter_mode
+        )
+        return ExactCase(
+            atlas=torch.from_numpy(data).to(device),
+            slots=torch.zeros(1, dtype=torch.int32, device=device),
+            boxes=view.brick_boxes,
+            tf=torch.from_numpy(tf).to(device),
+            rays=view.ray_pack,
+            carry=torch.zeros((view.n_rays, 4), device=device),
+            eye=view.eye,
+            params=view.params,
+            max_steps=view.max_steps,
+            width=view.width,
+        )
     params = RenderParams(
         n_samples_per_ray=spr, data_source_range=data_range, filter_mode=filter_mode
     )
@@ -193,11 +209,10 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
     rays = ray_pack(eye_t, dirs, tnp, params.step_size, wmin.min(0), wmax.max(0), clip)
     n_rays = width * height
     carry = np.zeros((n_rays, 4), np.float32)
-    if case == "bricks":
-        a = rng.uniform(0.0, 0.6, n_rays).astype(np.float32)
-        a[::9] = 0.9995
-        carry[:, :3] = rng.uniform(0.0, 1.0, (n_rays, 3)).astype(np.float32) * a[:, None]
-        carry[:, 3] = a
+    a = rng.uniform(0.0, 0.6, n_rays).astype(np.float32)
+    a[::9] = 0.9995
+    carry[:, :3] = rng.uniform(0.0, 1.0, (n_rays, 3)).astype(np.float32) * a[:, None]
+    carry[:, 3] = a
     return ExactCase(
         atlas=torch.from_numpy(data).to(device),
         slots=torch.from_numpy(slots).to(device),
@@ -210,3 +225,89 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
         max_steps=max_steps_for_bricks(wmin, wmax, params.step_size),
         width=width,
     )
+
+
+# The exact backward K4 vs its plain version, each gradient normalised by
+# the plain one's max |·|, early exit off.  Both visit the same samples
+# with the same values (exact_sample.cuh, --fmad=false); the kernel
+# composites serially and adds with float atomics in a run-dependent order,
+# the plain version takes closed-form cumulative products and sums, so
+# the inversion (TOT − P)/(1 − α) cancels in another rounding.
+EXACT_GRAD_TOL_MAX = 1e-3
+
+
+class ExactGradCase(NamedTuple):
+    """Operands of ``exact.march_exact_backward``: one f32 volume
+    filling the view's box."""
+
+    volume: torch.Tensor  # (Z, Y, X)
+    tf: torch.Tensor
+    view: exact.ExactView
+    out: torch.Tensor  # (R, 4), the forward from a zero carry
+    g: torch.Tensor  # (R, 4)
+
+
+# The single-brick scenes, by case: (volume shape (Z, Y, X), (width,
+# height), eye, samples per ray, clip planes, subpixel sample).  "bench" is
+# bench.py's bench_exact and exact_fwd_bwd shape (:279-291, :379-413): a 64³
+# volume filling [−0.5, 0.5]³, 256² rays from (0.2, 0.1, 1.4), 512 samples
+# per ray.  "wide" is a (24, 144, 136) volume, so the two extents across
+# the major (z) axis exceed 128, seen by 96×80 rays from (0.25, 0.15, 1.3)
+# at 256 samples per ray, with two clip planes and jittered sample 1.
+EXACT_SCENES = {
+    "bench": ((64, 64, 64), (256, 256), (0.2, 0.1, 1.4), 512, None, 0),
+    "wide": ((24, 144, 136), (96, 80), (0.25, 0.15, 1.3), 256,
+             np.float32([[1.0, 0.0, 0.0, 0.3], [0.0, -1.0, 0.5, 0.2]]), 1),
+}
+
+
+def _exact_scene_view(case, device, **params):
+    """The :class:`exact.ExactView` of scene ``case`` (``EXACT_SCENES``),
+    with ``params`` for the rest of its ``RenderParams``."""
+    from libre_tpu_torch.apps.render_cli import build_camera
+
+    _shape, (width, height), eye, spr, clip, sample = EXACT_SCENES[case]
+    camera, _frustum = build_camera(width, height, eye, (0.0, 0.0, 0.0))
+    return exact.exact_view(
+        camera, RenderParams(n_samples_per_ray=spr, **params), clip_planes=clip,
+        sample_index=sample, device=device,
+    )
+
+
+def exact_grad_case(case, seed, device, *, filter_mode="trilinear"):
+    """Seeded K4 operands over scene ``case`` of ``EXACT_SCENES``: a
+    random f32 volume, the default TF, the early exit off; ``g`` is a
+    standard normal cotangent and ``out`` the forward (``march_exact``,
+    so K3 on a CUDA device)."""
+    if case not in EXACT_SCENES:
+        raise ValueError(f"exact_grad_case: unknown case {case!r}")
+    rng = np.random.default_rng(seed)
+    view = _exact_scene_view(
+        case, device, data_source_range=(0.0, 1.0), filter_mode=filter_mode, early_exit=1.1
+    )
+    shape = EXACT_SCENES[case][0]
+    volume = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(device)
+    tf = torch.from_numpy(default_color_map()).to(device)
+    with torch.no_grad():
+        out = exact.render_exact_diff(volume, tf, view)
+    g = torch.from_numpy(rng.standard_normal((view.n_rays, 4)).astype(np.float32)).to(device)
+    return ExactGradCase(volume, tf, view, out, g)
+
+
+def smooth_volume(n, seed=7, device="cuda"):
+    """A smooth (n, n, n) f32 density in [0, 1] on ``device``: the sum of
+    six seeded Gaussian blobs, normalised by its max (the torch copy of
+    benchmarks/demo_inverse_render.py:41-54; the blobs' centres, widths
+    and heights are drawn with numpy from ``seed``, the field is
+    computed on the device)."""
+    rng = np.random.default_rng(seed)
+    g = torch.linspace(-1.0, 1.0, n, dtype=torch.float32, device=device)
+    x, y, z = g[None, None, :], g[None, :, None], g[:, None, None]
+    vol = torch.zeros((n, n, n), dtype=torch.float32, device=device)
+    for _ in range(6):
+        c = rng.uniform(-0.6, 0.6, 3).astype(np.float32)
+        s = rng.uniform(0.15, 0.4)
+        a = rng.uniform(0.4, 1.0)
+        r2 = (x - float(c[0])) ** 2 + (y - float(c[1])) ** 2 + (z - float(c[2])) ** 2
+        vol += a * torch.exp(-r2 / (2 * s * s))
+    return torch.clamp(vol / vol.max(), 0.0, 1.0)

@@ -7,6 +7,8 @@ jax is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -18,6 +20,7 @@ from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.render.engine import RenderEngine
 from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.testing import (
+    EXACT_GRAD_TOL_MAX,
     EXACT_TOL_MAX,
     EXACT_TOL_MEAN,
     GRAD_TOL_MAX,
@@ -26,6 +29,7 @@ from libre_tpu_torch.testing import (
     KERNEL_TOL_MAX,
     KERNEL_TOL_MEAN,
     exact_case,
+    exact_grad_case,
     store_grad_case,
     sweep_case,
 )
@@ -164,3 +168,43 @@ def test_engine_render_on_card_matches_cpu(cuda):
     assert exact.march_exact.launches == launches + 2
     assert float((frames[0] - frames[1]).abs().max()) <= EXACT_TOL_MAX
     assert float(frames[1][..., 3].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("case", ["bench", "wide"])
+def test_exact_march_bwd_kernel_matches_plain(cuda, case, filter_mode):
+    """K4 vs ``march_exact_backward_reference`` on ``exact_grad_case``
+    operands (the bench_exact shape; a brick whose extents across the
+    march exceed 128, with clip planes and a jittered sample), each
+    gradient normalised by the plain one's max |·|.  Tolerance: max 1e-3
+    (serial vs closed-form inversion, float-atomic order)."""
+    c = exact_grad_case(case, seed=0, device=cuda, filter_mode=filter_mode)
+    args = (c.volume, c.tf, c.view, c.out, c.g)
+    launches = exact.march_exact_backward.launches
+    got = exact.march_exact_backward(*args)
+    want = exact.march_exact_backward_reference(*args)
+    torch.cuda.synchronize()
+    assert exact.march_exact_backward.launches == launches + 1
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max() / b.abs().max()) <= EXACT_GRAD_TOL_MAX
+
+
+@pytest.mark.cuda
+def test_render_exact_diff_on_card_matches_cpu(cuda):
+    """Autograd through K3 and K4 on the card vs the plain versions on the
+    CPU, on the "wide" case (a (24, 144, 136) volume, 96×80 rays, clip
+    planes, a jittered sample)."""
+    c = exact_grad_case("wide", seed=1, device="cpu")
+    grads = []
+    for dev in (cuda, "cpu"):
+        view = dataclasses.replace(
+            c.view, ray_pack=c.view.ray_pack.to(dev), brick_boxes=c.view.brick_boxes.to(dev)
+        )
+        vol = c.volume.to(dev).requires_grad_()
+        tf = c.tf.to(dev).requires_grad_()
+        (exact.render_exact_diff(vol, tf, view) * c.g.to(dev)).sum().backward()
+        grads.append((vol.grad.cpu(), tf.grad.cpu()))
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max() / b.abs().max()) <= EXACT_GRAD_TOL_MAX

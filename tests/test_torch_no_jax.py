@@ -1,7 +1,8 @@
 """The port imports neither jax nor anything of the JAX package: every
 libre_tpu_torch module imports, a tiny CPU frame renders through the
-bricked path and through the exact path, and the store trainer takes a
-step, in a process where importing jax, optax or libre_tpu fails."""
+bricked path and through the exact path, and the store trainer and the
+exact trainer each take a step, in a process where importing jax, optax
+or libre_tpu fails."""
 
 import os
 import subprocess
@@ -51,6 +52,16 @@ tf = np.stack([np.linspace(0, 1, 256, dtype=np.float32)] * 4, axis=-1)
 params, losses = fit(problem, np.zeros((1, 6, 5, 4), np.float32), store, tf,
                      device="cpu", steps=1)
 assert np.isfinite(losses[0]) and float(params["store"].grad.abs().max()) > 0
+from libre_tpu_torch.ops.exact import exact_view
+from libre_tpu_torch.train import init_exact_state, make_exact_train_step
+exact_params = RenderParams(n_samples_per_ray=16, data_source_range=(0.0, 1.0),
+                            filter_mode="trilinear", early_exit=1.1)
+state = init_exact_state(np.full((8, 8, 8), 0.5, np.float32), tf,
+                         lambda p: torch.optim.Adam(p, lr=1e-2), device="cpu")
+view = exact_view(camera, exact_params, device="cpu")
+loss = make_exact_train_step(view)(state, torch.zeros(view.n_rays, 4))
+assert np.isfinite(float(loss)) and state.step == 1
+assert float(state.params["density"].grad.abs().max()) > 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "libre_tpu")
                 and sys.modules[m] is not None)

@@ -60,7 +60,20 @@ Phases, each of which raises on failure (any failure exits non-zero):
    view, K4 vs plain on the whole of view 0, K3 and K4 vs plain on a
    64×64 window of it;
 14. the exact trainer on the card vs on the CPU: 2 SGD steps on a 32³
-   volume seen by 24×20 rays.
+   volume seen by 24×20 rays;
+15. the dense pre-classified sweep K5 vs plain PyTorch on seeded
+   operands: the JAX package's dense test scene (20×24×28, a (24, 40)
+   grid, 24 planes) from all four eyes, with empty slices and a
+   saturating TF, and a 512³ RGBA stack under 512² rays × 512 planes;
+16. the dense main path: ``render_cli --renderer shearwarp`` on the 512³
+   volume at 512×512 (level 4, a 2 GiB classified stack, K = 512), then
+   the 8-pose orbit through ``RenderEngine.render_shearwarp``, frames 2-8
+   on the cached stack; K5 must launch once per frame and no plain
+   version may run; first-frame split (level assembly, classify), steady
+   frames, K5 and plain times on the last pose and the work behind them;
+17. the dense path on the card (K5) vs on the CPU (the plain pipeline) on
+   a small volume, and the autograd Function's forward and gradients on
+   the card vs on the CPU.
 
 Prints one JSON line describing the kernels (with each kernel's bound:
 the larger of its bytes over the HBM rate and its f32 operations over
@@ -109,6 +122,11 @@ K3_OPS_PER_SAMPLE = {"nearest": 69, "trilinear": 122}
 # atomics (20), the density gates and slope (17), the taps' weights,
 # products and global atomics (44 trilinear, 1 nearest), T (2).
 K4_OPS_PER_SAMPLE = {"nearest": 124, "trilinear": 213}
+# K5 per composited sample (pre_sweep.cu): the early-exit test (2), the
+# sample point (4) and box test (4), both axes' taps (24), the RGBA lerps
+# (87: 7 four-channel lerps, each weight's 1 − w once), the opacity
+# correction (6) and the composite (9).
+K5_OPS_PER_SAMPLE = 136
 # The exact trainer's views: benchmarks/demo_inverse_render.py:34-37.
 EXACT_EYES = ([0.1, 0.05, 1.4], [-0.15, 0.1, 1.3], [0.02, -0.12, 1.5], [-0.05, -0.02, 1.2])
 EXACT_TRAIN_N = 512
@@ -137,6 +155,46 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(what, fn, tags, card, unprofiled_ms):
+    """Run ``fn`` (which must end by synchronising) once under
+    torch.profiler and print its host-clock time, its device time in
+    kernels and in copies (memcpy, memset) with their counts, the device's
+    idle share of ``unprofiled_ms`` (the same work's host-clock time
+    without the profiler, whose own cost inflates its clock) and of the
+    profiled clock, and the kernels' time by the first of ``tags`` in each
+    kernel's name ("other" for none).  Annotated ranges, which span
+    kernels, are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    groups, n_kernels, copy_ms, n_copies = {}, 0, 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        ms = e.self_device_time_total / 1e3
+        if e.key.startswith(("Memcpy", "Memset")):
+            copy_ms += ms
+            n_copies += e.count
+            continue
+        tag = next((t for t in tags if t in e.key), "other")
+        groups[tag] = groups.get(tag, 0.0) + ms
+        n_kernels += e.count
+    kernel_ms = sum(groups.values())
+    busy_ms = kernel_ms + copy_ms
+    print(
+        f"{what} under torch.profiler: {wall_ms:.3f} ms host clock ({unprofiled_ms:.3f} ms "
+        f"unprofiled); device {kernel_ms:.3f} ms in {n_kernels} kernels + {copy_ms:.3f} ms in "
+        f"{n_copies} copies; idle share {1.0 - busy_ms / unprofiled_ms:.3f} of the unprofiled "
+        f"time ({1.0 - busy_ms / wall_ms:.3f} of the profiled clock); kernels: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
+        + f" {card}"
+    )
 
 
 def compare(got, want, what, tol=None):
@@ -345,8 +403,10 @@ def main() -> int:
     got, _ = swb.post_sweep(store, tf, tables, runner.clip, **kw)
     samples = torch.zeros((runner.v_size, runner.u_size), dtype=torch.int64, device=dev)
     planes = torch.zeros(runner.k_planes, dtype=torch.bool, device=dev)
+    touched = torch.zeros(store.shape, dtype=torch.bool, device=dev)
     want, t_want = swb.post_sweep_reference(
-        store, tf, tables, runner.clip, samples=samples, planes=planes, **kw
+        store, tf, tables, runner.clip, samples=samples, planes=planes, touched=touched,
+        **kw
     )
     torch.cuda.synchronize()
     max_err = compare(got, want, "main-path sweep")
@@ -373,21 +433,22 @@ def main() -> int:
         f"mean {fetched / max(1, int((samples > 0).sum())):.1f} per fetching ray; "
         f"kernel {fetched / (ms * 1e-3) / 1e9:.3f} G samples/s {card}"
     )
-    # K1's bound: the store slices of the planes some ray fetches, read
-    # once, plus the per-ray operands and outputs; the fetched samples'
-    # operations.
+    # K1's bound: the store voxels under the taps of the fetched samples,
+    # each read once, plus the per-ray operands and outputs; the fetched
+    # samples' operations.
     slices = torch.unique(torch.cat([tables.a0[planes], tables.a1[planes]]))
     _na, s_nc, s_nb = store.shape
+    n_touched = int(touched.sum())
     k1_bound = bound(
-        bytes_=slices.numel() * s_nc * s_nb * 4 + n_rays * 11 * 4 + TF_BYTES
-        + runner.k_planes * 5 * 4,
+        bytes_=n_touched * 4 + n_rays * 11 * 4 + TF_BYTES + runner.k_planes * 5 * 4,
         ops=fetched * K1_OPS_PER_SAMPLE,
     )
     print(
-        f"  K1 bound: {slices.numel()} store slices read by {int(planes.sum())} "
-        f"planes; {k1_bound[0]:.4f} ms, {k1_bound[1]}-bound; kernel at "
-        f"{k1_bound[0] / ms:.4f} of it {card}"
+        f"  K1 bound: {n_touched} store voxels read ({n_touched / (slices.numel() * s_nc * s_nb):.4f} "
+        f"of the {slices.numel()} slices of the {int(planes.sum())} planes fetched); "
+        f"{k1_bound[0]:.4f} ms, {k1_bound[1]}-bound; kernel at {k1_bound[0] / ms:.4f} of it {card}"
     )
+    del touched
 
     from libre_tpu_torch.apps.render_cli import build_camera
 
@@ -905,28 +966,12 @@ def main() -> int:
     )
 
     # Where a step's device time goes: one more step of view 0, after the
-    # counts were read, under torch.profiler (device kernels by name; the
-    # optimizer's annotated range, which spans its kernels, left out).
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        float(ex_steps[0](state, ex_targets[0]))
-        prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    groups = {}  # K4, K3, the optimizer's foreach kernels, fills, reductions
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        tag = next((t for t in ("exact_march_bwd", "exact_march_kernel", "multi_tensor_apply",
-                                "Fill", "reduce") if t in e.key), "other")
-        groups[tag] = groups.get(tag, 0.0) + e.self_device_time_total / 1e3
-    busy_ms = sum(groups.values())
-    print(
-        f"one exact training step under torch.profiler: {prof_wall_ms:.3f} ms host clock, "
-        f"{busy_ms:.3f} ms of device kernels (idle share {1.0 - busy_ms / prof_wall_ms:.3f}); "
-        + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-        + f" {card}"
+    # counts were read (K4, K3, the optimizer's foreach kernels, fills,
+    # reductions).
+    profiled(
+        "one exact training step", lambda: float(ex_steps[0](state, ex_targets[0])),
+        ("exact_march_bwd", "exact_march_kernel", "multi_tensor_apply", "Fill", "reduce"),
+        card, ex_step_ms,
     )
     del gt, ex_targets
 
@@ -1031,6 +1076,244 @@ def main() -> int:
     if small_err > 1e-4 or moved < 1e-3:
         raise AssertionError(f"card exact trainer disagrees with the CPU port ({small_err})")
 
+    # ----------------------------------------- 15. K5 vs plain, seeded cases
+    from libre_tpu_torch.ops import shearwarp_dense as swd
+    from libre_tpu_torch.testing import DENSE_EYES, DENSE_GRAD_TOL, dense_case, dense_grad_case
+
+    for case, eye in [("scene", e) for e in DENSE_EYES] + [("slice", "z-")]:
+        c = dense_case(case, seed=0, device=dev, eye=eye)
+        kw = c.plan_args.sweep_kwargs()
+        got = swd.pre_sweep(c.chans, c.tables, **kw)
+        want = swd.pre_sweep_reference(c.chans, c.tables, **kw)
+        torch.cuda.synchronize()
+        k_planes = c.tables.a0.shape[0]
+        v_size, u_size = c.tables.corr.shape
+        what = (f"seeded K5 {case} {eye if case == 'scene' else ''} {tuple(c.chans.shape)}, "
+                f"{v_size}x{u_size} rays x {k_planes} planes")
+        compare(got, want, what)
+        n_act = int(c.tables.act.sum())
+        saturated = float((got[..., 3] > kw["early_exit"]).float().mean())
+        print(f"  active planes {n_act}/{k_planes}, early exit reached by {saturated:.3f} "
+              f"of the rays")
+        if saturated == 0.0 or n_act == k_planes:
+            raise AssertionError(f"{what}: no early exit or no empty plane")
+        del c, got, want
+
+    # ------------------------------------------------- 16. the dense main path
+    # The plain sweep and the plain pipeline must not run on the card's
+    # main path: count their calls.  The first frame's level assembly and
+    # classification are timed apart.
+    plain_calls = []
+    spans = {}
+    real_fns = (swd.pre_sweep_reference, sw.render_slope_grid, swd.classify_planes)
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            plain_calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return wrapper
+
+    swd.pre_sweep_reference = counted(real_fns[0])
+    sw.render_slope_grid = counted(real_fns[1])
+    swd.classify_planes = timed("classify", real_fns[2])
+    dense_engine = RenderEngine(DataSource(URI), device=dev)
+    dense_engine._level_volume = timed("level", dense_engine._level_volume)
+    try:
+        swd.pre_sweep.launches = 0
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            rc = render_cli.main([
+                "--volume", URI, "--width", "512", "--height", "512",
+                "--renderer", "shearwarp", "--output-dir", out_dir,
+            ])
+            torch.cuda.synchronize()
+            dense_cli_s = time.perf_counter() - t0
+            dense_png = read_image(os.path.join(out_dir, "frame_000000.png"))
+        dense_cli_launches = swd.pre_sweep.launches
+        cli_spans = dict(spans)
+        spans.clear()
+        dense_frames, dense_ms = [], []
+        for camera, _frustum in poses:
+            t0 = time.perf_counter()
+            dense_frames.append(dense_engine.render_shearwarp(camera))
+            torch.cuda.synchronize()
+            dense_ms.append((time.perf_counter() - t0) * 1e3)
+        dense_launches = swd.pre_sweep.launches
+    finally:
+        swd.pre_sweep_reference, sw.render_slope_grid, swd.classify_planes = real_fns
+    # ------------------------------------------- end of the dense main path
+
+    if rc != 0 or dense_png.shape[:2] != (512, 512) or dense_png.max() == 0:
+        raise AssertionError(f"render_cli --renderer shearwarp: rc {rc}, {dense_png.shape}")
+    if plain_calls:
+        raise AssertionError(f"the dense main path ran plain versions: {plain_calls}")
+    if dense_cli_launches != 1 or dense_launches != 1 + len(poses):
+        raise AssertionError(
+            f"pre_sweep launched {dense_cli_launches} times for the CLI frame and "
+            f"{dense_launches - dense_cli_launches} for {len(poses)} orbit frames"
+        )
+    for i, img in enumerate(dense_frames):
+        if tuple(img.shape) != (512, 512, 4) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"dense orbit frame {i}: {tuple(img.shape)} or non-finite")
+        if float(img[..., 3].max()) <= 0.0:
+            raise AssertionError(f"dense orbit frame {i} is empty")
+    if len(dense_engine._classified_cache) != 1:
+        raise AssertionError(
+            f"the orbit classified {len(dense_engine._classified_cache)} stacks, expected 1"
+        )
+    (chans, content), = [dense_engine._classified_cache.get(k)
+                         for k in list(dense_engine._classified_cache)]
+    level = dense_engine.info.root_node.depth - 1
+    print(
+        f"dense main path: level {level}, classified stack {tuple(chans.shape)} = "
+        f"{chans.numel() * 4} B (device budget {dense_engine.device_budget.budget} B), "
+        f"{dense_launches} K5 launches for 1 CLI + {len(poses)} orbit frames, no plain call"
+    )
+    print(
+        f"render_cli --renderer shearwarp 512x512 frame incl. data generation: "
+        f"{dense_cli_s:.3f} s, of which classify {cli_spans['classify']:.1f} ms {card}"
+    )
+    steady = sorted(dense_ms[1:])
+    print(
+        f"dense orbit first frame: {dense_ms[0]:.1f} ms = level assembly "
+        f"{spans['level']:.1f} ms + classify {spans['classify']:.1f} ms + the rest "
+        f"(upload, content flags, tables, sweep, warp) "
+        f"{dense_ms[0] - spans['level'] - spans['classify']:.1f} ms; steady frames "
+        f"2-{len(poses)}: median {steady[len(steady) // 2]:.3f} ms, min {steady[0]:.3f} ms {card}"
+    )
+
+    # K5 on the last pose's operands, as render_shearwarp builds them.
+    camera, _frustum = poses[-1]
+    _vx, _vy, vw, vh = camera.viewport
+    half = np.asarray(dense_engine.info.world_size, np.float32) * 0.5
+    dense_k = max(max(dense_engine.info.voxels), 256)  # render_shearwarp's default
+    dense_params = RenderParams(
+        n_samples_per_ray=dense_k, data_source_range=dense_engine.data_source_range,
+        filter_mode="trilinear",
+    )
+    dense_swp = sw.ShearWarpParams(n_planes=dense_k, inter_size=(vh, vw))
+    t0 = time.perf_counter()
+    pa = swd.slope_grid_plan_args(sw.make_view_plan(camera, dense_swp.slope_margin),
+                                  -half, half, dense_params, dense_swp)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    frame = swd.render_frame(chans, chans.shape[1], chans.shape[2], camera, pa, content)
+    torch.cuda.synchronize()
+    if not torch.equal(frame, dense_frames[-1]):
+        raise AssertionError("the rebuilt operands do not give the dense orbit's last frame")
+    frame_ms = cuda_ms(
+        lambda: swd.render_frame(chans, chans.shape[1], chans.shape[2], camera, pa, content),
+        reps=20,
+    )
+    _fv, tables = swd.sweep_operands(chans, pa, camera, content)
+    kw = pa.sweep_kwargs()
+    got = swd.pre_sweep(chans, tables, **kw)
+    k5_samples = torch.zeros((vh, vw), dtype=torch.int64, device=dev)
+    k5_planes = torch.zeros(dense_k, dtype=torch.bool, device=dev)
+    k5_touched = torch.zeros(chans.shape[:3], dtype=torch.bool, device=dev)
+    want = swd.pre_sweep_reference(chans, tables, samples=k5_samples, planes=k5_planes,
+                                   touched=k5_touched, **kw)
+    torch.cuda.synchronize()
+    k5_err = compare(got, want, "main-path K5")
+    k5_ms = cuda_ms(lambda: swd.pre_sweep(chans, tables, **kw), reps=20)
+    k5_plain_ms = cuda_ms(lambda: swd.pre_sweep_reference(chans, tables, **kw),
+                          reps=3, warmup=1)
+    vol_dev = torch.from_numpy(dense_engine._level_volume(level)).to(dev)
+    tf = dense_engine.transfer_function
+    classify_ms = cuda_ms(
+        lambda: swd.classify_planes(vol_dev, tf, pa.axis, dense_params.data_source_range),
+        reps=3, warmup=1,
+    )
+    del vol_dev
+    n_rays = vh * vw
+    composited = int(k5_samples.sum())
+    ended = float((want[..., 3] > kw["early_exit"]).float().mean())
+    # K5's bound: the RGBA texels under the taps of the composited
+    # samples, each read once, the per-ray corr and the output, the plane
+    # tables; the composited samples' operations.
+    slices = torch.unique(torch.cat([tables.a0[k5_planes], tables.a1[k5_planes]]))
+    _na, d_nc, d_nb, _ = chans.shape
+    k5_texels = int(k5_touched.sum())
+    del k5_touched
+    k5_bound = bound(
+        bytes_=k5_texels * 16 + n_rays * (4 + 16) + dense_k * 5 * 4,
+        ops=composited * K5_OPS_PER_SAMPLE,
+    )
+    print(
+        f"dense steady frame breakdown: view plan {plan_ms:.3f} ms (host), one-upload "
+        f"frame (tables, K5, warp) {frame_ms:.4f} ms by CUDA events; classify the "
+        f"{tuple(chans.shape[:3])} level {classify_ms:.3f} ms {card}"
+    )
+    print(
+        f"K5 on the orbit view's operands ({vh}x{vw} rays x {dense_k} planes over "
+        f"{tuple(chans.shape)}): kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.3f} ms {card}"
+    )
+    print(
+        f"  this view's work: active planes {int(tables.act.sum())}/{dense_k}, planes sampled "
+        f"{int(k5_planes.sum())}, rays that composite "
+        f"{float((k5_samples > 0).float().mean()):.4f}, rays ending in the early exit "
+        f"{ended:.4f}, samples composited {composited} "
+        f"({composited / (n_rays * dense_k):.4f} of the grid); kernel "
+        f"{composited / (k5_ms * 1e-3) / 1e9:.3f} G samples/s {card}"
+    )
+    print(
+        f"  K5 bound: {k5_texels} RGBA texels read ({k5_texels / (slices.numel() * d_nc * d_nb):.4f} "
+        f"of the {slices.numel()} slices of the planes sampled); {k5_bound[0]:.4f} ms, "
+        f"{k5_bound[1]}-bound; kernel at {k5_bound[0] / k5_ms:.4f} of it {card}"
+    )
+
+    # Where a steady frame's time goes: one more frame of the last pose,
+    # after the counts were read.
+    def steady_frame():
+        dense_engine.render_shearwarp(camera)
+        torch.cuda.synchronize()
+
+    profiled("one dense steady frame", steady_frame,
+             ("pre_sweep_kernel", "elementwise", "index", "reduce", "cat", "copy"), card,
+             steady[len(steady) // 2])
+    del got, want, tables, dense_frames, frame
+
+    # ----------------------------------------- 17. dense, card vs CPU
+    camera, _frustum = build_camera(48, 48, (0.3, 0.2, 1.5), (0.0, 0.0, 0.0))
+    k5_before = swd.pre_sweep.launches
+    on_card, on_cpu = [
+        RenderEngine(DataSource(small), max_gpu_cache_mb=64, device=d)
+        .render_shearwarp(camera, n_planes=64).cpu()
+        for d in (dev, "cpu")
+    ]
+    if swd.pre_sweep.launches != k5_before + 1:
+        raise AssertionError("the card's render_shearwarp did not launch K5 once")
+    small_err = float((on_card - on_cpu).abs().max())
+    print(f"small volume, dense path, card (K5) vs CPU port (plain pipeline): "
+          f"max|d| {small_err:.3e}")
+    if small_err > SMALL_TOL_MAX or float(on_cpu[..., 3].max()) <= 0.0:
+        raise AssertionError(f"card dense frame disagrees with the CPU port ({small_err})")
+    # The autograd Function: forward classify + sweep, backward the plain
+    # pipeline's recompute, on the card and on the CPU.
+    results = []
+    for d in (dev, "cpu"):
+        vol_g, tf_g, g, pa_g = dense_grad_case(d)
+        out_g = swd.render_slope_grid_fused(vol_g, tf_g, pa_g)
+        (out_g * g).sum().backward()
+        results.append((out_g.detach().cpu(), vol_g.grad.cpu(), tf_g.grad.cpu()))
+    fwd_err = float((results[0][0] - results[1][0]).abs().max())
+    grad_errs = [float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(results[0][1:], results[1][1:])]
+    print(f"render_slope_grid_fused, card vs CPU (20x24x28, 24x40 rays, 24 planes): forward "
+          f"max|d| {fwd_err:.3e}; gradients max|d|/max|CPU| volume {grad_errs[0]:.3e}, "
+          f"TF {grad_errs[1]:.3e}")
+    if fwd_err > SMALL_TOL_MAX or max(grad_errs) > DENSE_GRAD_TOL:
+        raise AssertionError(f"card autograd disagrees with the CPU ({fwd_err}, {grad_errs})")
+
     loaded =[m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
     if loaded:
         raise AssertionError(f"imported {loaded[:5]}")
@@ -1086,6 +1369,19 @@ def main() -> int:
             "plain_ms": k4_plain_ms,
             "bound_ms": k4_bound[0],
             "bound_by": k4_bound[1],
+            "library_ms": None,
+        },
+        {
+            "name": "pre_sweep",
+            "route": "cuda",
+            "source": "libre_tpu_torch/csrc/pre_sweep.cu",
+            "replaces": "libre_tpu/ops/shearwarp_pallas.py:206",
+            "launches": dense_launches,
+            "max_abs_err": k5_err,
+            "ms": k5_ms,
+            "plain_ms": k5_plain_ms,
+            "bound_ms": k5_bound[0],
+            "bound_by": k5_bound[1],
             "library_ms": None,
         },
     ]}))

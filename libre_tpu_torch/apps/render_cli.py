@@ -142,21 +142,36 @@ def main(argv: Optional[List[str]] = None) -> int:
     rendered = 0
     for _ in range(n_frames):
         ts = int(frame) if fu.is_valid else 0
-        img = renderer.render(
-            engine,
-            camera,
-            frustum,
-            params=params,
-            screen_space_error=vr.screen_space_error,
-            min_lod=vr.min_lod,
-            max_lod=vr.max_lod,
-            time_step=ts,
-            synchronous=True,
-        )
+        if app.renderer == "shearwarp":
+            # The pre-classified sweep over one dense LOD level.
+            level = min(vr.max_lod, info.root_node.depth - 1)
+            img = renderer.render(
+                engine,
+                camera,
+                frustum,
+                params=params,
+                level=level,
+                time_step=ts,
+                n_planes=vr.samples_per_ray or None,
+            )
+            detail = f"shearwarp level {level}"
+        else:
+            img = renderer.render(
+                engine,
+                camera,
+                frustum,
+                params=params,
+                screen_space_error=vr.screen_space_error,
+                min_lod=vr.min_lod,
+                max_lod=vr.max_lod,
+                time_step=ts,
+                synchronous=True,
+            )
+            detail = f"{app.renderer} renderer"
         path = os.path.join(out_dir, f"frame_{frame:06d}.{fmt}")
         write_image(path, img.cpu().numpy())
         rendered += 1
-        print(f"frame {frame}: {app.renderer} renderer on {device} -> {path}")
+        print(f"frame {frame}: {detail} on {device} -> {path}")
         if fu.is_valid:
             frame = fu.get_next(frame, delta)
 

@@ -2,7 +2,8 @@
 // sweep (post_sweep.cu) and its recompute backward (store_grid_bwd.cu), so the
 // backward recomputes exactly the samples the forward composited.  The plain
 // PyTorch specification is libre_tpu_torch/ops/shearwarp_bricked.py::
-// post_sweep_reference.
+// post_sweep_reference.  rgba() is the pre-classified sample of the dense
+// sweep (pre_sweep.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +59,21 @@ __device__ __forceinline__ float4 lerp4(float4 c0, float4 c1, float wt) {
                      c0.y * (1.0f - wt) + c1.y * wt,
                      c0.z * (1.0f - wt) + c1.z * wt,
                      c0.w * (1.0f - wt) + c1.w * wt);
+}
+
+// Pre-classified RGBA at one sample from (Nc, Nb) float4 slices lo (weight
+// 1 - w_a) and hi (weight w_a): per channel, density()'s order (axis lerp at
+// each 2x2 tap, then along b, then along c).  The dense sweep (pre_sweep.cu)
+// uses it; its plain PyTorch specification is libre_tpu_torch/ops/
+// shearwarp_dense.py::pre_sweep_reference.
+__device__ __forceinline__ float4 rgba(const float4* lo, const float4* hi,
+                                       float w_a, Taps tb, Taps tc, int nb) {
+  const size_t r0 = (size_t)tc.i0 * nb, r1 = (size_t)tc.i1 * nb;
+  const float4 v00 = lerp4(lo[r0 + tb.i0], hi[r0 + tb.i0], w_a);
+  const float4 v01 = lerp4(lo[r0 + tb.i1], hi[r0 + tb.i1], w_a);
+  const float4 v10 = lerp4(lo[r1 + tb.i0], hi[r1 + tb.i0], w_a);
+  const float4 v11 = lerp4(lo[r1 + tb.i1], hi[r1 + tb.i1], w_a);
+  return lerp4(lerp4(v00, v01, tb.w), lerp4(v10, v11, tb.w), tc.w);
 }
 
 }  // namespace sweep

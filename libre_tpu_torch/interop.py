@@ -1,8 +1,10 @@
 """State carried across from the JAX package, as numpy arrays.
 
 The JAX package lays its device state out for the TPU: the brick atlas
-is flat slots padded to 128 lanes, and the assembled store pads its two
-in-plane axes to multiples of 128.  These functions strip that padding
+is flat slots padded to 128 lanes, and the assembled store and the
+classified plane stack pad their two in-plane axes to multiples of 128
+(the stack also stacks its four channels along c).  These functions
+strip that padding
 so the port and the JAX package can be fed the same state; the (256, 4)
 transfer function and the exact trainer's (Z, Y, X) density need no
 conversion.  Results are writable copies, so
@@ -76,6 +78,19 @@ def params_from_jax(params: Dict, fine_dims: Tuple[int, int, int]) -> Dict[str, 
         "store": store_from_jax(params["store"], fine_dims),
         "tf": np.array(np.asarray(params["tf"])),
     }
+
+
+def classified_from_jax(chans: np.ndarray, nc: int, nb: int) -> np.ndarray:
+    """(Na, 4·Nc_pad, Nb_pad) classified plane stack → (Na, Nc, Nb, 4).
+    Raises if the padding holds a nonzero value."""
+    chans = np.asarray(chans)
+    na, rows, nb_pad = chans.shape
+    planes = chans.reshape(na, 4, rows // 4, nb_pad)
+    padding = np.array(planes)
+    padding[:, :, :nc, :nb] = 0.0
+    if padding.any():
+        raise ValueError("classified_from_jax: nonzero values in the stack's padding")
+    return np.ascontiguousarray(np.moveaxis(planes[:, :, :nc, :nb], 1, -1))
 
 
 def exact_params_from_jax(params: Dict) -> Dict[str, np.ndarray]:

@@ -44,7 +44,7 @@ class BrickAtlas:
         n_slots: int,
         brick_shape_zyx: Tuple[int, int, int],
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
     ):
         self.n_slots = int(n_slots)
         self.brick_shape = tuple(int(b) for b in brick_shape_zyx)

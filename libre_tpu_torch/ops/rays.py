@@ -59,7 +59,7 @@ def make_rays(
     viewport: Tuple[int, int, int, int],
     sample_index: int = 0,
     frag_override=None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Build per-pixel rays for a viewport on ``device``.
 

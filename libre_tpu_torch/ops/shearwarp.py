@@ -1,26 +1,40 @@
-"""Shear-warp view planning and the slope-grid → screen warp
-(``libre_tpu.ops.shearwarp``).
+"""Shear-warp view planning, the plain shear-warp pipeline and the
+slope-grid → screen warps (``libre_tpu.ops.shearwarp``).
 
 Rays are parameterized by their slope (u, v) = (d_b/d_a, d_c/d_a) with
 respect to the volume axis most aligned with the view (the major axis
 a); every sample of slope-ray (u, v) on axis plane a = z lies at the
-in-plane point (e_b + u·(z − e_a), e_c + v·(z − e_a)).  The sweep kernel
-composites a (V, U) grid of such rays; :func:`warp_frame_device` maps
-that slope image to screen pixels with one bilinear gather.
+in-plane point (e_b + u·(z − e_a), e_c + v·(z − e_a)).  A sweep
+composites a (V, U) grid of such rays; :func:`warp_to_screen` and
+:func:`warp_frame_device` map that slope image to screen pixels with one
+bilinear gather.
+
+:func:`render_slope_grid` is the plain pipeline: K virtual planes, each
+the axis lerp of two slices, resampled onto the slope grid by two-tap
+interpolation matrices (batched products), then composited front to
+back in closed form with the exact early exit.  Classification ``pre``
+applies the transfer function per voxel and interpolates RGBA; ``post``
+interpolates density and classifies per sample.  It is plain torch,
+differentiable by autograd: the dense renderer's CPU backend and the
+recompute behind the backward of ``shearwarp_dense``'s fused sweep.
 
 The planners are numpy copies of the JAX package's (they run on the
-host every frame); the warp is plain torch on the frame's device.
+host every frame).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from libre_tpu_torch.ops.reference import Camera
+from libre_tpu_torch.ops import rays as ray_ops
+from libre_tpu_torch.ops.reference import ALPHA_CLAMP, Camera, RenderParams
+from libre_tpu_torch.ops.transfer_function import lookup
+
+CLASSIFICATIONS = ("pre", "post")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +44,23 @@ class ShearWarpParams:
     n_planes: int = 256  # K: virtual axis planes = samples per ray
     inter_size: Tuple[int, int] = (256, 256)  # (V, U) slope-grid size
     slope_margin: float = 0.02  # widen the slope bounds by this fraction
+    classification: str = "pre"  # "pre" | "post"
+    # Resample operand type.  The port computes in float32 only, for
+    # parity with the JAX package; reduced precision is an open cell.
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.classification not in CLASSIFICATIONS:
+            raise ValueError(
+                f"ShearWarpParams: classification {self.classification!r} "
+                f"is not one of {CLASSIFICATIONS}"
+            )
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"ShearWarpParams: compute_dtype {self.compute_dtype!r}: only "
+                "float32 is ported; a reduced-precision resample is the open "
+                "cell of ROADMAP M4"
+            )
 
 
 # Axis permutations: volume arrays are (Z, Y, X) = world axes (2, 1, 0).
@@ -42,18 +73,13 @@ _PERM = {
 _BC_AXES = {0: (1, 2), 1: (0, 2), 2: (0, 1)}  # world (b, c) per major a
 
 
-def _boundary_slopes_np(camera: Camera, axis: int):
-    """Per-pixel slopes (u, v) and the major-axis direction component
-    d_a, evaluated on the viewport BOUNDARY pixels only: u = dir_b/dir_a
-    is a ratio of functions linear in pixel coordinates, so its extrema
-    over the convex viewport lie on the boundary."""
+def _slopes_np(camera: Camera, axis: int, fx: np.ndarray, fy: np.ndarray):
+    """Slopes (u, v) and the major-axis direction component d_a of the
+    rays through fragment coordinates (fx, fy) (``rays.make_rays`` math,
+    sample 0, in numpy f32)."""
     vx, vy, vw, vh = camera.viewport
     inv_proj = np.asarray(camera.inv_proj, np.float32)
     inv_mv = np.asarray(camera.inv_mv, np.float32)
-    px = np.arange(vw, dtype=np.float32) + 0.5 + vx
-    py = np.arange(vh, dtype=np.float32) + 0.5 + vy
-    fx = np.concatenate([px, px, np.full(vh, px[0]), np.full(vh, px[-1])])
-    fy = np.concatenate([np.full(vw, py[0]), np.full(vw, py[-1]), py, py])
     ndc_x = 2.0 * (fx - vx - vw / 2.0) / vw
     ndc_y = 2.0 * (fy - vy - vh / 2.0) / vh
     ones = np.ones_like(ndc_x)
@@ -70,6 +96,32 @@ def _boundary_slopes_np(camera: Camera, axis: int):
     return dirs[..., b] / safe, dirs[..., c] / safe, d_a
 
 
+def _pixel_coords_np(camera: Camera):
+    vx, vy, vw, vh = camera.viewport
+    px = np.arange(vw, dtype=np.float32) + 0.5 + vx
+    py = np.arange(vh, dtype=np.float32) + 0.5 + vy
+    return px, py
+
+
+def _pixel_slopes_np(camera: Camera, axis: int):
+    """Per-pixel slopes (u (H, W), v (H, W), d_a (H, W)) on the host, for
+    :func:`make_plan`."""
+    px, py = _pixel_coords_np(camera)
+    fx, fy = np.meshgrid(px, py, indexing="xy")
+    return _slopes_np(camera, axis, fx, fy)
+
+
+def _boundary_slopes_np(camera: Camera, axis: int):
+    """:func:`_pixel_slopes_np` on the viewport BOUNDARY pixels only:
+    u = dir_b/dir_a is a ratio of functions linear in pixel coordinates,
+    so its extrema over the convex viewport lie on the boundary."""
+    px, py = _pixel_coords_np(camera)
+    vh, vw = len(py), len(px)
+    fx = np.concatenate([px, px, np.full(vh, px[0]), np.full(vh, px[-1])])
+    fy = np.concatenate([np.full(vw, py[0]), np.full(vw, py[-1]), py, py])
+    return _slopes_np(camera, axis, fx, fy)
+
+
 def choose_major_axis_np(camera: Camera) -> Tuple[int, float]:
     """Major world axis + marching sign from the central view direction
     (camera looks down −z in eye space)."""
@@ -77,6 +129,22 @@ def choose_major_axis_np(camera: Camera) -> Tuple[int, float]:
     view_dir = -inv_mv[:3, 2]
     axis = int(np.argmax(np.abs(view_dir)))
     return axis, float(np.sign(view_dir[axis]) or 1.0)
+
+
+choose_major_axis = choose_major_axis_np
+
+
+def pixel_slopes(camera: Camera, axis: int, device="cuda"):
+    """Per-pixel slopes (u, v) w.r.t. the major axis and the major-axis
+    direction component d_a (whose sign must match the marching sign),
+    each (H, W) on ``device``."""
+    _, dirs, _, _ = ray_ops.make_rays(
+        camera.inv_proj, camera.inv_mv, camera.viewport, device=device
+    )
+    b, c = _BC_AXES[axis]
+    d_a = dirs[..., axis]
+    safe = torch.where(torch.abs(d_a) < 1e-6, torch.full_like(d_a, 1e-6), d_a)
+    return dirs[..., b] / safe, dirs[..., c] / safe, d_a
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +183,228 @@ def _slope_bounds(u, v, d_a, sign, margin):
         float(uu.max() + du),
         float(vv.min() - dv),
         float(vv.max() + dv),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShearWarpPlan:
+    """Per-view plan with the per-pixel slopes of the screen warp."""
+
+    axis: int
+    sign: float
+    bounds: Tuple[float, float, float, float]
+    eye: np.ndarray  # (3,)
+    u: np.ndarray  # (H, W) per-pixel slopes
+    v: np.ndarray
+    valid: np.ndarray  # (H, W) forward-marching mask
+
+
+def make_plan(camera: Camera, margin: float = 0.02) -> ShearWarpPlan:
+    axis, sign = choose_major_axis_np(camera)
+    u, v, d_a = _pixel_slopes_np(camera, axis)
+    return ShearWarpPlan(
+        axis=axis,
+        sign=sign,
+        bounds=_slope_bounds(u, v, d_a, sign, margin),
+        eye=np.asarray(camera.inv_mv)[:3, 3].astype(np.float32),
+        u=u,
+        v=v,
+        valid=(np.sign(d_a) == sign),
+    )
+
+
+# ============================================================ plain pipeline
+def _lerp_matrix(coords: torch.Tensor, n: int, inside: torch.Tensor) -> torch.Tensor:
+    """(..., M) fractional voxel coords → (..., n, M) two-tap linear
+    interpolation matrix with clamp-to-edge, zeroed outside the box."""
+    s = torch.clamp(coords, -0.5, n - 0.5)
+    i0f = torch.floor(torch.clamp(s, 0.0, float(n - 1)))
+    w = torch.clamp(s - i0f, 0.0, 1.0)
+    i0 = i0f.long()
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    grid = torch.arange(n, device=coords.device)[:, None]  # (n, 1)
+    m = (grid == i0[..., None, :]) * (1.0 - w[..., None, :]) + (
+        grid == i1[..., None, :]
+    ) * w[..., None, :]
+    return m * inside[..., None, :]
+
+
+def precompute_classified_volume(volume_zyx, tf, data_source_range):
+    """Pre-classification: the TF applied per voxel → 4 channel volumes."""
+    lo, hi = data_source_range
+    density = torch.clamp((volume_zyx.to(torch.float32) - lo) / (hi - lo), 0.0, 1.0)
+    rgba = lookup(tf, density)  # (Z, Y, X, 4)
+    return tuple(rgba[..., i] for i in range(4))
+
+
+def _exclusive_cumprod(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``concat([1, cumprod(x)[:-1]])`` along ``dim``."""
+    x = x.movedim(dim, 0)
+    out = torch.cat([torch.ones_like(x[:1]), torch.cumprod(x, dim=0)[:-1]], dim=0)
+    return out.movedim(0, dim)
+
+
+def _composite_planes(slab_r, slab_g, slab_b, alpha, corr, early_exit):
+    """Closed-form front-to-back compositing along the plane axis (K
+    leading) with the exact early exit: a plane contributes while the
+    alpha accumulated before it is ≤ ``early_exit``."""
+    a_corr = 1.0 - torch.pow(1.0 - torch.clamp(alpha, max=ALPHA_CLAMP), corr[None])
+    t_excl_u = _exclusive_cumprod(1.0 - a_corr, dim=0)
+    global_before = 1.0 - t_excl_u
+    m = (global_before <= early_exit).to(a_corr.dtype)
+    a_eff = a_corr * m
+    t_excl = _exclusive_cumprod(1.0 - a_eff, dim=0)
+    w = a_eff * t_excl
+    out_r = torch.sum(w * slab_r, dim=0)
+    out_g = torch.sum(w * slab_g, dim=0)
+    out_b = torch.sum(w * slab_b, dim=0)
+    out_a = 1.0 - torch.prod(1.0 - a_eff, dim=0)
+    return out_r, out_g, out_b, out_a
+
+
+def render_slope_grid(
+    volume_zyx: torch.Tensor,
+    tf: torch.Tensor,
+    eye,  # (3,) world
+    axis: int,
+    sign: float,
+    slope_bounds: Tuple[float, float, float, float],
+    world_min,
+    world_max,
+    params: RenderParams,
+    swp: ShearWarpParams,
+):
+    """The shear and composite stages on ``volume_zyx``'s device → (V, U,
+    4) slope-space image.  Returns (image, u_grid (U,), v_grid (V,))."""
+    dev = volume_zyx.device
+    f32 = torch.float32
+    K = swp.n_planes
+    V, U = swp.inter_size
+    wmin = np.asarray(world_min, np.float32)
+    wmax = np.asarray(world_max, np.float32)
+    eye = np.asarray(eye, np.float32)
+    perm = _PERM[axis]
+    b_axis, c_axis = _BC_AXES[axis]
+
+    if swp.classification == "pre":
+        # TF applied per voxel, RGBA interpolated.
+        chans = precompute_classified_volume(volume_zyx, tf, params.data_source_range)
+    else:
+        # Post-classification: interpolate DENSITY, classify per sample.
+        lo, hi = params.data_source_range
+        chans = [(volume_zyx.to(f32) - lo) / (hi - lo)]
+    chans = [ch.permute(perm) for ch in chans]  # each (A, C, B)
+    Na, Nc, Nb = chans[0].shape
+
+    wa0, wa1 = float(wmin[axis]), float(wmax[axis])
+    wb0, wb1 = float(wmin[b_axis]), float(wmax[b_axis])
+    wc0, wc1 = float(wmin[c_axis]), float(wmax[c_axis])
+    ea, eb, ec = (torch.tensor(float(eye[i]), dtype=f32, device=dev)
+                  for i in (axis, b_axis, c_axis))
+
+    # Plane positions, front-to-back in the marching direction.
+    dz = (wa1 - wa0) / K
+    j = torch.arange(K, dtype=f32, device=dev)
+    z = wa0 + (j + 0.5) * dz if sign > 0 else wa1 - (j + 0.5) * dz  # (K,)
+
+    u0, u1, v0, v1 = slope_bounds
+    ug = torch.linspace(u0, u1, U, dtype=f32, device=dev)
+    vg = torch.linspace(v0, v1, V, dtype=f32, device=dev)
+
+    # Axis-lerp matrix A (K, Na): a virtual plane is the lerp of two slices.
+    sa = (z - wa0) / (wa1 - wa0) * Na - 0.5
+    A = _lerp_matrix(sa[None, :], Na, torch.ones((1, K), dtype=f32, device=dev))[0].T
+
+    # Per-plane in-plane interpolation matrices (affine in u / v).
+    delta = (z - ea)[:, None]  # (K, 1)
+    xb = eb + ug[None, :] * delta  # (K, U) world b-coords
+    inside_b = ((xb >= wb0) & (xb < wb1)).to(f32)
+    Mb = _lerp_matrix((xb - wb0) / (wb1 - wb0) * Nb - 0.5, Nb, inside_b)  # (K, Nb, U)
+    xc = ec + vg[None, :] * delta  # (K, V)
+    inside_c = ((xc >= wc0) & (xc < wc1)).to(f32)
+    Mc = _lerp_matrix((xc - wc0) / (wc1 - wc0) * Nc - 0.5, Nc, inside_c)  # (K, Nc, V)
+
+    # Per-ray opacity-correction exponent: the Euclidean step dz·√(1+u²+v²)
+    # relative to the reference step.
+    length = torch.sqrt(1.0 + ug[None, :] ** 2 + vg[:, None] ** 2)  # (V, U)
+    corr = params.max_samples_per_ray * dz * length
+
+    slabs = []
+    for ch in chans:
+        vs = torch.einsum("ka,acb->kcb", A, ch)  # (K, Nc, Nb) virtual planes
+        s1 = torch.einsum("kcb,kbu->kcu", vs, Mb)  # resample b → u
+        slabs.append(torch.einsum("kcu,kcv->kvu", s1, Mc))  # c → v: (K, V, U)
+
+    if swp.classification != "pre":
+        # The matrices zero OUTSIDE-box samples; tf(0) may be opaque, so
+        # mask alpha with the inside indicator explicitly.
+        rgba = lookup(tf, slabs[0])  # (K, V, U, 4)
+        inside = inside_c[:, :, None] * inside_b[:, None, :]  # (K, V, U)
+        slabs = [rgba[..., 0], rgba[..., 1], rgba[..., 2], rgba[..., 3] * inside]
+
+    out = _composite_planes(*slabs, corr, params.early_exit)
+    return torch.stack(out, dim=-1), ug, vg
+
+
+def warp_to_screen(
+    inter: torch.Tensor,  # (V, U, 4) slope-space image
+    ug: torch.Tensor,
+    vg: torch.Tensor,
+    u: torch.Tensor,  # (H, W) per-pixel slopes
+    v: torch.Tensor,
+    valid: torch.Tensor,  # (H, W) forward-marching mask
+) -> torch.Tensor:
+    """The 2-D bilinear warp slope space → screen (one gather)."""
+    V, U, _ = inter.shape
+    du = (ug[-1] - ug[0]) / (U - 1)
+    dv = (vg[-1] - vg[0]) / (V - 1)
+    gu = torch.clamp((u - ug[0]) / du, 0.0, U - 1.0)
+    gv = torch.clamp((v - vg[0]) / dv, 0.0, V - 1.0)
+    iu0 = torch.floor(gu).long()
+    iv0 = torch.floor(gv).long()
+    iu1 = torch.clamp(iu0 + 1, max=U - 1)
+    iv1 = torch.clamp(iv0 + 1, max=V - 1)
+    wu = (gu - iu0)[..., None]
+    wv = (gv - iv0)[..., None]
+    flat = inter.reshape(V * U, 4)
+
+    def g(iv, iu):
+        return flat[iv * U + iu]  # (H, W, 4)
+
+    top = g(iv0, iu0) * (1 - wu) + g(iv0, iu1) * wu
+    bot = g(iv1, iu0) * (1 - wu) + g(iv1, iu1) * wu
+    out = top * (1 - wv) + bot * wv
+    return out * valid[..., None]
+
+
+def render(
+    volume_zyx: torch.Tensor,
+    tf: torch.Tensor,
+    camera: Camera,
+    params: RenderParams,
+    world_min,
+    world_max,
+    swp: Optional[ShearWarpParams] = None,
+    plan: Optional[ShearWarpPlan] = None,
+) -> torch.Tensor:
+    """Full plain shear-warp render → (H, W, 4) on ``volume_zyx``'s
+    device (bottom-up rows, like GL)."""
+    if swp is None:
+        swp = ShearWarpParams(n_planes=params.n_samples_per_ray)
+    if plan is None:
+        plan = make_plan(camera, swp.slope_margin)
+    inter, ug, vg = render_slope_grid(
+        volume_zyx, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
+        world_min, world_max, params, swp,
+    )
+    return warp_to_screen(inter, ug, vg, *plan_pixels(plan, inter.device))
+
+
+def plan_pixels(plan: ShearWarpPlan, device):
+    """The plan's per-pixel (u, v, valid) as tensors on ``device``."""
+    return tuple(
+        torch.as_tensor(np.asarray(a, np.float32), device=device)
+        for a in (plan.u, plan.v, plan.valid)
     )
 
 

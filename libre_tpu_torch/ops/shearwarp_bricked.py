@@ -330,6 +330,54 @@ class SweepTables:
     t_in: torch.Tensor  # (V, U) f32 carry-in transmittance
 
 
+def view_vector(
+    *,
+    world_min,
+    world_max,
+    axis: int,
+    eye,
+    sign: float,
+    slope_bounds: Tuple[float, float, float, float],
+    inter_size: Tuple[int, int],
+    max_samples_per_ray: float,
+) -> np.ndarray:
+    """(11,) f32 [wa0, wa1, eye_a, u0, du, dv, eb, ec, v0, sign, msr]: the
+    view vector :func:`sweep_tables` derives a frame's tables from."""
+    wmin = np.asarray(world_min, np.float32)
+    wmax = np.asarray(world_max, np.float32)
+    b_axis, c_axis = sw._BC_AXES[axis]
+    eye = np.asarray(eye, np.float32)
+    u0, u1, v0, v1 = slope_bounds
+    v_size, u_size = inter_size
+    return np.float32([
+        wmin[axis], wmax[axis], eye[axis],
+        u0, (u1 - u0) / (u_size - 1), (v1 - v0) / (v_size - 1),
+        eye[b_axis], eye[c_axis], v0, sign,
+        max_samples_per_ray,
+    ])
+
+
+def frame_vector(vs: np.ndarray, camera) -> np.ndarray:
+    """(43,) f32: the view vector ``vs`` | inv_proj (16) | inv_mv (16), all
+    a frame moves host → device (:func:`warp_frame` reads the rest)."""
+    return np.concatenate([
+        np.asarray(vs, np.float32),
+        np.asarray(camera.inv_proj, np.float32).ravel(),
+        np.asarray(camera.inv_mv, np.float32).ravel(),
+    ])
+
+
+def warp_frame(inter: torch.Tensor, fv: torch.Tensor, *, axis: int, viewport) -> torch.Tensor:
+    """Slope grid (V, U, 4) → (H, W, 4) screen image, with the slope grid
+    and the camera read from the device frame vector ``fv``
+    (:func:`frame_vector`)."""
+    return sw.warp_frame_device(
+        inter, fv[11:27].reshape(4, 4), fv[27:43].reshape(4, 4),
+        fv[3], fv[4], fv[5], fv[8], fv[9],
+        axis=axis, viewport=tuple(int(x) for x in viewport),
+    )
+
+
 def sweep_tables(
     fv: torch.Tensor,
     *,
@@ -390,6 +438,18 @@ def _taps(s: torch.Tensor, n: int):
     return i0, torch.clamp(i0 + 1, max=n - 1), w
 
 
+def mark_taps(touched, lo, hi, ic0, ic1, ib0, ib1, nb: int, rays: torch.Tensor) -> None:
+    """Set the flat texel mask ``touched`` at the 2×2 in-plane taps
+    (rows ``ic*`` (V,), columns ``ib*`` (U,)) of both slices, at flat
+    offsets ``lo`` and ``hi``, for the (V, U) ``rays`` that sample: the
+    texels a sweep kernel reads at one plane."""
+    for ic in (ic0, ic1):
+        for ib in (ib0, ib1):
+            o = (ic[:, None] * nb + ib[None, :])[rays]
+            touched[lo + o] = True
+            touched[hi + o] = True
+
+
 def post_sweep_reference(
     store: torch.Tensor,
     tf: torch.Tensor,
@@ -402,6 +462,7 @@ def post_sweep_reference(
     early_exit: float,
     samples: Optional[torch.Tensor] = None,
     planes: Optional[torch.Tensor] = None,
+    touched: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch sweep: the specification of ``csrc/post_sweep.cu``.
 
@@ -425,6 +486,9 @@ def post_sweep_reference(
     each ray fetches the store (not yet saturated, plane active, inside
     the box and the clip half-spaces): the kernel's work per ray.
     ``planes``, a (K,) bool tensor if given, is set where any ray fetches.
+    ``touched``, a bool tensor of the store's shape if given, is set at
+    every voxel the kernel reads: the 2×2 taps of both slices of each
+    fetched sample.
     """
     f32 = torch.float32
     dev = store.device
@@ -482,6 +546,8 @@ def post_sweep_reference(
             samples += fetch & alive
         if planes is not None:
             planes[k] = (fetch & alive).any()
+        if touched is not None:
+            mark_taps(touched.view(-1), lo, hi, ic0, ic1, ib0, ib1, nb, fetch & alive)
         m = alive.to(f32)
         a_eff = a_corr * m
         rgb = rgb + (a_eff * t)[..., None] * rgba[..., :3]
@@ -510,21 +576,28 @@ def _check_sweep_operands(store, tf, tables: SweepTables, what="post_sweep", **e
         "t_in": (tables.t_in, torch.float32, (v_size, u_size)),
         **extra,
     }
-    for name, (x, dtype, shape) in expect.items():
-        if x.device != dev:
-            raise ValueError(f"{what}: {name} on {x.device}, store on {dev}")
-        if x.dtype != dtype:
-            raise TypeError(f"{what}: {name} is {x.dtype}, needs {dtype}")
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"{what}: {name} shape {tuple(x.shape)} != {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
+    check_operands(what, dev, expect)
     if store.dim() != 3 or min(store.shape) < 1:
         raise ValueError(f"{what}: store shape {tuple(store.shape)}")
     if k_planes < 1 or v_size < 1 or u_size < 1:
         raise ValueError(f"{what}: empty plane or ray grid")
     if tf.data_ptr() % 16:
         raise ValueError(f"{what}: tf must be 16-byte aligned")
+
+
+def check_operands(what: str, dev: torch.device, expect) -> None:
+    """Raise unless every operand of ``expect``, ``name=(tensor, dtype,
+    shape or None)``, lies contiguous on ``dev`` with that dtype and
+    shape."""
+    for name, (x, dtype, shape) in expect.items():
+        if x.device != dev:
+            raise ValueError(f"{what}: {name} on {x.device}, operands on {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {x.dtype}, needs {dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{what}: {name} shape {tuple(x.shape)} != {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def post_sweep(
@@ -610,21 +683,12 @@ class StoreFrameRunner:
         )
 
     def view_vector(self, camera, sw_plan) -> np.ndarray:
-        """(43,) f32: [wa0, wa1, eye_a, u0, du, dv, eb, ec, v0, sign,
-        msr | inv_proj (16) | inv_mv (16)]."""
-        eye = np.asarray(sw_plan.eye, np.float32)
-        u0, u1, v0, v1 = sw_plan.bounds
-        fv = np.empty(43, np.float32)
-        fv[:11] = [
-            self.wmin[self.axis], self.wmax[self.axis], eye[self.axis],
-            u0, (u1 - u0) / (self.u_size - 1),
-            (v1 - v0) / (self.v_size - 1),
-            eye[self.b_axis], eye[self.c_axis], v0, sw_plan.sign,
-            self.max_spr,
-        ]
-        fv[11:27] = np.asarray(camera.inv_proj, np.float32).ravel()
-        fv[27:43] = np.asarray(camera.inv_mv, np.float32).ravel()
-        return fv
+        """(43,) f32 :func:`frame_vector` of this view."""
+        return frame_vector(view_vector(
+            world_min=self.wmin, world_max=self.wmax, axis=self.axis,
+            eye=sw_plan.eye, sign=sw_plan.sign, slope_bounds=sw_plan.bounds,
+            inter_size=(self.v_size, self.u_size), max_samples_per_ray=self.max_spr,
+        ), camera)
 
     def __call__(self, store, tf, camera, sw_plan=None) -> torch.Tensor:
         if sw_plan is None:
@@ -644,11 +708,7 @@ class StoreFrameRunner:
         )
         if self.viewport is None:
             return inter
-        return sw.warp_frame_device(
-            inter, fv[11:27].reshape(4, 4), fv[27:43].reshape(4, 4),
-            fv[3], fv[4], fv[5], fv[8], fv[9],
-            axis=self.axis, viewport=self.viewport,
-        )
+        return warp_frame(inter, fv, axis=self.axis, viewport=self.viewport)
 
 
 def render_store_frame(

@@ -95,30 +95,7 @@ def static_view(
     )
 
 
-def view_vector(
-    *,
-    world_min,
-    world_max,
-    axis: int,
-    eye,
-    sign: float,
-    slope_bounds: Tuple[float, float, float, float],
-    inter_size: Tuple[int, int],
-    max_samples_per_ray: float,
-) -> np.ndarray:
-    """(11,) f32 [wa0, wa1, eye_a, u0, du, dv, eb, ec, v0, sign, msr]."""
-    wmin = np.asarray(world_min, np.float32)
-    wmax = np.asarray(world_max, np.float32)
-    b_axis, c_axis = sw._BC_AXES[axis]
-    eye = np.asarray(eye, np.float32)
-    u0, u1, v0, v1 = slope_bounds
-    v_size, u_size = inter_size
-    return np.float32([
-        wmin[axis], wmax[axis], eye[axis],
-        u0, (u1 - u0) / (u_size - 1), (v1 - v0) / (v_size - 1),
-        eye[b_axis], eye[c_axis], v0, sign,
-        max_samples_per_ray,
-    ])
+view_vector = swb.view_vector
 
 
 # ================================================================ backward

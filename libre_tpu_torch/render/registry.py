@@ -3,8 +3,8 @@
 
 Renderers are registered classes dispatched by name; an unknown name
 raises (RenderPipeline.cpp:65-70).  The port registers ``bricked``, the
-product default, and the exact marcher's ``xla`` and ``pallas-exact``;
-``shearwarp`` is ROADMAP M8.
+product default, the exact marcher's ``xla`` and ``pallas-exact``, and
+the dense pre-classified ``shearwarp``.
 """
 
 from __future__ import annotations
@@ -59,6 +59,16 @@ class BrickedRenderer(RendererPlugin):
             camera, frustum, params=params, **kw
         )
         return img
+
+
+@register_renderer("shearwarp")
+class ShearWarpRenderer(RendererPlugin):
+    """Pre-classified shear-warp over a dense LOD level (K5 on the card)."""
+
+    def render(self, engine, camera, frustum, *, params=None, **kwargs):
+        allowed = {"level", "time_step", "n_planes", "backend"}
+        kw = {k: v for k, v in kwargs.items() if k in allowed}
+        return engine.render_shearwarp(camera, params=params, **kw)
 
 
 # The engine.render keywords ``pallas-exact`` passes on; ``xla`` passes

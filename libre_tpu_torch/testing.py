@@ -9,7 +9,9 @@ import numpy as np
 import torch
 
 from libre_tpu_torch.ops import exact
+from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops import shearwarp_bricked as swb
+from libre_tpu_torch.ops import shearwarp_dense as swd
 from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.ops.transfer_function import default_color_map
 
@@ -311,3 +313,105 @@ def smooth_volume(n, seed=7, device="cuda"):
         r2 = (x - float(c[0])) ** 2 + (y - float(c[1])) ** 2 + (z - float(c[2])) ** 2
         vol += a * torch.exp(-r2 / (2 * s * s))
     return torch.clamp(vol / vol.max(), 0.0, 1.0)
+
+
+# The dense sweep K5 vs its plain version takes K1's tolerances
+# (KERNEL_TOL_MAX, KERNEL_TOL_MEAN): the two share every sample's
+# arithmetic and order (sweep_sample.cuh, --fmad=false); powf and
+# torch.pow round differently, and where that moves a ray's alpha across
+# the early-exit threshold a plane apart, the pixel moves by at most
+# 1 − 0.999.  The dense autograd Function on the card vs on the CPU, each
+# gradient normalised by the CPU's max |·|, early exit off: the same plain
+# recompute, summed in another order (f32 einsum on the card, no TF32).
+DENSE_GRAD_TOL = 1e-4
+
+# The JAX package's dense test scene (tests/test_shearwarp_pallas.py:32-54):
+# a non-cubic box and four eyes covering every major axis and both signs.
+DENSE_BOX = (np.float32([-0.5, -0.4, -0.3]), np.float32([0.5, 0.4, 0.3]))
+DENSE_EYES = {"z-": (0.2, 0.1, 1.4), "x-": (1.4, 0.1, 0.2), "y-": (0.1, 1.4, -0.2),
+              "z+": (-0.2, -0.1, -1.4)}
+
+
+class DenseCase(NamedTuple):
+    """Operands of ``shearwarp_dense.pre_sweep``."""
+
+    chans: torch.Tensor  # (Na, Nc, Nb, 4)
+    tables: swb.SweepTables
+    plan_args: swd.SlopeGridPlanArgs
+
+
+def dense_case(case, seed, device, eye="z-"):
+    """Seeded operands of the dense sweep.
+
+    ``case`` = "scene": the JAX package's dense test scene, a 20×24×28
+    volume in ``DENSE_BOX``, zero outside a central block of random
+    densities in [0.5, 1), seen from ``DENSE_EYES[eye]`` (a 32² camera)
+    through a (24, 40) slope grid with 24 planes; the TF is the default
+    map with alpha × 8, and alpha 0 on its lower half, so the outer
+    slices classify empty (``act`` 0) and the early exit fires.
+
+    ``case`` = "slice": a random 512³ RGBA stack made on ``device``
+    (uniform channels; slices 0-39, 250-259 and 472-511 empty) under the
+    ``sweep_case`` view: eye at a = 1.4 marching toward −a through
+    [−0.5, 0.5]³, 512² slope rays in u ∈ [−0.45, 0.45], v ∈ [−0.4, 0.4],
+    K = 512, early exit 0.999.
+
+    Returns a :class:`DenseCase`."""
+    if case == "scene":
+        from libre_tpu_torch.apps.render_cli import build_camera
+
+        rng = np.random.default_rng(seed)
+        vol = np.zeros((20, 24, 28), np.float32)
+        vol[7:13, 8:16, 9:19] = rng.random((6, 8, 10), dtype=np.float32) * 0.5 + 0.5
+        tf = default_color_map()
+        tf[:, 3] = np.clip(8.0 * tf[:, 3], 0.0, 1.0)
+        tf[:128, 3] = 0.0
+        camera, _frustum = build_camera(32, 32, DENSE_EYES[eye], (0.0, 0.0, 0.0))
+        plan = sw.make_view_plan(camera)
+        params = RenderParams(n_samples_per_ray=24, data_source_range=(0.0, 1.0))
+        swp = sw.ShearWarpParams(n_planes=24, inter_size=(24, 40))
+        world = DENSE_BOX
+        chans = swd.classify_planes(
+            torch.from_numpy(vol).to(device), torch.from_numpy(tf).to(device),
+            plan.axis, params.data_source_range,
+        )
+    elif case == "slice":
+        n = 512
+        gen = torch.Generator(device=device).manual_seed(seed)
+        chans = torch.rand((n, n, n, 4), generator=gen, device=device)
+        for lo, hi in ((0, 40), (250, 260), (472, 512)):
+            chans[lo:hi] = 0.0
+        plan = sw.ViewPlan(axis=2, sign=-1.0, bounds=(-0.45, 0.45, -0.4, 0.4),
+                           eye=np.float32([0.1, 0.05, 1.4]))
+        params = RenderParams(n_samples_per_ray=n, data_source_range=(0.0, 1.0))
+        swp = sw.ShearWarpParams(n_planes=n, inter_size=(n, n))
+        world = (np.float32([-0.5] * 3), np.float32([0.5] * 3))
+    else:
+        raise ValueError(f"dense_case: unknown case {case!r}")
+    pa = swd.slope_grid_plan_args(plan, *world, params, swp)
+    _fv, tables = swd.sweep_operands(chans, pa, content=swd.slice_content(chans))
+    return DenseCase(chans, tables, pa)
+
+
+def dense_grad_case(device):
+    """The dense autograd Function's seeded case on ``device``: a random
+    20×24×28 volume in ``DENSE_BOX`` and the default TF (both requiring
+    grad), a cotangent g (24, 40, 4), and the plan of a 32² camera at
+    (0.3, 0.5, 1.2) over a (24, 40) grid with 24 planes, early exit off
+    (so no ray's mask can flip between two devices).
+
+    Returns (volume, tf, g, plan_args)."""
+    from libre_tpu_torch.apps.render_cli import build_camera
+
+    rng = np.random.default_rng(5)
+    vol = torch.from_numpy(rng.random((20, 24, 28), dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal((24, 40, 4)).astype(np.float32))
+    camera, _frustum = build_camera(32, 32, (0.3, 0.5, 1.2), (0.0, 0.0, 0.0))
+    params = RenderParams(n_samples_per_ray=24, data_source_range=(0.0, 1.0), early_exit=1.1)
+    pa = swd.slope_grid_plan_args(
+        sw.make_view_plan(camera), *DENSE_BOX, params,
+        sw.ShearWarpParams(n_planes=24, inter_size=(24, 40)),
+    )
+    tf = torch.from_numpy(default_color_map())
+    return (vol.to(device).requires_grad_(), tf.to(device).requires_grad_(),
+            g.to(device), pa)

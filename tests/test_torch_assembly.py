@@ -123,7 +123,7 @@ def test_native_uint8_assembly_matches_jax():
     ds, nodes, atlas, slot_of, rng = mem_scene()
     plan_j = swb_j.build_assembly_plan(ds, nodes, 2, slot_of, rng)
     want = np.asarray(swb_j.assemble_store(atlas.data, plan_j))
-    atlas_t = BrickAtlasT(atlas.n_slots, atlas.brick_shape, np.uint8)
+    atlas_t = BrickAtlasT(atlas.n_slots, atlas.brick_shape, np.uint8, device="cpu")
     assert atlas_t.data.dtype == torch.uint8
     flat = interop.atlas_from_jax(np.asarray(atlas.data), atlas.brick_shape)
     slots = sorted({slot_of(n) for n in nodes})
@@ -139,7 +139,7 @@ def test_atlas_free_list_and_capacity():
 
     assert atlas_capacity(10 * 24**3, (24, 24, 24), np.uint8) == 10
     assert atlas_capacity(10 * 24**3 * 4, (24, 24, 24), torch.float32) == 10
-    atlas = BrickAtlasT(2, (2, 3, 4), np.float32)
+    atlas = BrickAtlasT(2, (2, 3, 4), np.float32, device="cpu")
     s0, s1 = atlas.acquire(), atlas.acquire()
     with pytest.raises(AtlasFullError):
         atlas.acquire()

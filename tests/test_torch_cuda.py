@@ -16,10 +16,13 @@ from libre_tpu_torch.apps.render_cli import build_camera
 from libre_tpu_torch.data.datasource import DataSource, load_plugins
 from libre_tpu_torch.ops import exact
 from libre_tpu_torch.ops import shearwarp_bricked as swb
+from libre_tpu_torch.ops import shearwarp_dense as swd
 from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.render.engine import RenderEngine
 from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.testing import (
+    DENSE_EYES,
+    DENSE_GRAD_TOL,
     EXACT_GRAD_TOL_MAX,
     EXACT_TOL_MAX,
     EXACT_TOL_MEAN,
@@ -28,6 +31,8 @@ from libre_tpu_torch.testing import (
     GRAD_TOL_MEAN_EARLY_EXIT,
     KERNEL_TOL_MAX,
     KERNEL_TOL_MEAN,
+    dense_case,
+    dense_grad_case,
     exact_case,
     exact_grad_case,
     store_grad_case,
@@ -208,3 +213,61 @@ def test_render_exact_diff_on_card_matches_cpu(cuda):
         grads.append((vol.grad.cpu(), tf.grad.cpu()))
     for a, b in zip(*grads):
         assert float((a - b).abs().max() / b.abs().max()) <= EXACT_GRAD_TOL_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,eye", [("scene", eye) for eye in sorted(DENSE_EYES)] + [("slice", "z-")]
+)
+def test_pre_sweep_kernel_matches_plain(cuda, case, eye):
+    """K5 vs ``pre_sweep_reference`` on ``dense_case`` operands: the JAX
+    package's dense test scene from every axis and sign (empty slices, a
+    saturating TF) and a 512³ stack under 512² rays × 512 planes.
+    Tolerance: K1's, max 2e-3 (an early-exit flip), mean 1e-5 (powf)."""
+    c = dense_case(case, seed=0, device=cuda, eye=eye)
+    kw = c.plan_args.sweep_kwargs()
+    launches = swd.pre_sweep.launches
+    got = swd.pre_sweep(c.chans, c.tables, **kw)
+    want = swd.pre_sweep_reference(c.chans, c.tables, **kw)
+    torch.cuda.synchronize()
+    assert swd.pre_sweep.launches == launches + 1
+    err = (got - want).abs()
+    assert float(err.max()) <= KERNEL_TOL_MAX
+    assert float(err.mean()) <= KERNEL_TOL_MEAN
+    assert float((got[..., 3] > kw["early_exit"]).float().mean()) > 0  # early exit fired
+    assert int(c.tables.act.sum()) < c.tables.act.numel()  # empty planes skipped
+
+
+@pytest.mark.cuda
+def test_engine_shearwarp_on_card_matches_cpu(cuda):
+    """RenderEngine.render_shearwarp on the card (K5 over the classified
+    stack) vs on the CPU (the plain pipeline): same frame within the
+    kernel tolerance."""
+    load_plugins()
+    uri = "mem://#64,64,64,16?pattern=gradient"
+    camera, _frustum = build_camera(48, 48, (0.3, 0.2, 1.5), (0.0, 0.0, 0.0))
+    launches = swd.pre_sweep.launches
+    frames = [
+        RenderEngine(DataSource(uri), max_gpu_cache_mb=64, device=d)
+        .render_shearwarp(camera, n_planes=64).cpu()
+        for d in (cuda, "cpu")
+    ]
+    assert swd.pre_sweep.launches == launches + 1
+    assert float((frames[0] - frames[1]).abs().max()) <= KERNEL_TOL_MAX
+    assert float(frames[1][..., 3].max()) > 0
+
+
+@pytest.mark.cuda
+def test_render_slope_grid_fused_on_card_matches_cpu(cuda):
+    """The dense autograd Function on the card (classify + K5, recompute
+    backward) vs on the CPU, early exit off: forward within K1's max,
+    volume and TF gradients within 1e-4 of the CPU's largest."""
+    results = []
+    for dev in (cuda, "cpu"):
+        vol_t, tf_t, g, pa = dense_grad_case(dev)
+        out = swd.render_slope_grid_fused(vol_t, tf_t, pa)
+        (out * g).sum().backward()
+        results.append((out.detach().cpu(), vol_t.grad.cpu(), tf_t.grad.cpu()))
+    assert float((results[0][0] - results[1][0]).abs().max()) <= KERNEL_TOL_MAX
+    for a, b in zip(results[0][1:], results[1][1:]):
+        assert float((a - b).abs().max() / b.abs().max()) <= DENSE_GRAD_TOL

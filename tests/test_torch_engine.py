@@ -110,7 +110,7 @@ def test_unported_branches_raise(tmp_path):
         with pytest.raises(NotImplementedError, match=item):
             eng.render_bricked(cam_t, frustum, **kw, **extra)
     with pytest.raises(ValueError):
-        create_renderer("shearwarp")
+        create_renderer("no-such-renderer")
 
 
 def test_render_cli_writes_png(tmp_path, capsys):

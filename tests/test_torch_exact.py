@@ -102,7 +102,7 @@ def test_make_rays_matches_jax(eye, sample_index):
         cam_j.inv_proj, cam_j.inv_mv, cam_j.viewport, frag_override=frag
     )
     got = rays_t.make_rays(
-        cam_t.inv_proj, cam_t.inv_mv, cam_t.viewport, frag_override=frag
+        cam_t.inv_proj, cam_t.inv_mv, cam_t.viewport, frag_override=frag, device="cpu"
     )
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
@@ -250,7 +250,9 @@ def test_multi_brick_carry_matches_jax():
     assert float(carry_t[:, 3].max()) > 0.1
 
     eye_j, dirs_j, cos_j, _ = rays_j.make_rays(cam_j.inv_proj, cam_j.inv_mv, cam_j.viewport)
-    eye_t, dirs_t, cos_t, _ = rays_t.make_rays(cam_t.inv_proj, cam_t.inv_mv, cam_t.viewport)
+    eye_t, dirs_t, cos_t, _ = rays_t.make_rays(
+        cam_t.inv_proj, cam_t.inv_mv, cam_t.viewport, device="cpu"
+    )
     wmin = np.stack([b[0] for b in boxes])
     wmax = np.stack([b[1] for b in boxes])
     order = raycast_t.sort_bricks_front_to_back(wmin, wmax, np.asarray(eye_t))

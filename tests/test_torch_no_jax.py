@@ -1,8 +1,8 @@
 """The port imports neither jax nor anything of the JAX package: every
 libre_tpu_torch module imports, a tiny CPU frame renders through the
-bricked path and through the exact path, and the store trainer and the
-exact trainer each take a step, in a process where importing jax, optax
-or libre_tpu fails."""
+bricked path, the exact path and the dense shear-warp path (both
+backends), and the store trainer and the exact trainer each take a step,
+in a process where importing jax, optax or libre_tpu fails."""
 
 import os
 import subprocess
@@ -36,6 +36,9 @@ img, stats, _ = engine.render(
     screen_space_error=1.0, marcher="pallas")
 assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0
 assert stats.n_passes == 1 and stats.n_available > 1
+for backend in ("jnp", "pallas"):
+    img = engine.render_shearwarp(camera, n_planes=16, backend=backend)
+    assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0
 import numpy as np
 from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.train import StoreProblem, fit

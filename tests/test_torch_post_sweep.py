@@ -170,3 +170,23 @@ def test_sample_count():
     assert bool((counts["saturating"] <= counts["clear"]).all())
     assert int(counts["saturating"].sum()) < int(counts["clear"].sum())
     assert int(counts["clear"].min()) == 0 < int(counts["clear"].max())
+
+
+def test_touched_voxels_are_all_the_sweep_reads():
+    """``touched`` marks every voxel the sweep reads: overwriting the
+    others leaves the result bit-equal.  The early exit leaves a part of
+    the sampled slices unread."""
+    store, tf, tables, clip, kw = sweep_case((12, 10, 32, 16, 12, 14), 0, "cpu")
+    touched = torch.zeros(store.shape, dtype=torch.bool)
+    planes = torch.zeros(tables.a0.shape, dtype=torch.bool)
+    want, t_want = swb_t.post_sweep_reference(
+        store, tf, tables, clip, planes=planes, touched=touched, **kw
+    )
+    noise = torch.from_numpy(np.random.default_rng(5).random(store.shape, dtype=np.float32))
+    got, t = swb_t.post_sweep_reference(
+        torch.where(touched, store, noise), tf, tables, clip, **kw
+    )
+    assert torch.equal(got, want) and torch.equal(t, t_want)
+    slices = torch.unique(torch.cat([tables.a0[planes], tables.a1[planes]]))
+    assert 0 < int(touched.sum()) < slices.numel() * store.shape[1] * store.shape[2]
+    assert not bool(touched[~torch.isin(torch.arange(store.shape[0]), slices)].any())

@@ -24,13 +24,17 @@ Phases, each of which raises on failure (any failure exits non-zero):
    samples fetched), and the port on the card vs the port on the CPU on
    a small volume;
 6. the backward kernel vs plain PyTorch on seeded operands at 96×80 rays
-   × 128 planes and at 512² rays × 512 planes over a 512³ store, with the
-   early exit off (1.1, the training setting) and on (0.999, saturating
-   TF), the TF gradient on and off;
+   × 128 planes on every field of ``testing.FIELDS`` (random, flat, top,
+   smooth) and at 512² rays × 512 planes over a random 512³ store, with
+   the early exit off (1.1, the training setting) and on (0.999,
+   saturating TF), the TF gradient on and off;
 7. the training path: ``fit`` recovers the orbit's 512³ store and the TF
    from 4 orbit views (512² slope grids, K = 512) in 5 Adam steps from a
    flat init; every step launches the sweep and the backward kernel once
-   per view; a checkpoint round trip; step, kernel and plain times;
+   per view; a checkpoint round trip; step and plain times; the backward
+   kernel vs plain on view 0 over the trained store and over the truth
+   store, each timed with the TF gradient on and off (samples/s, share of
+   the bound);
 8. the exact marcher K3 vs plain PyTorch on seeded operands: the
    ``bench_exact`` shape (one 64³ f32 brick, 256² rays, 512 samples per
    ray) and a scattered 64-brick uint8 atlas with clip planes, a
@@ -48,16 +52,21 @@ Phases, each of which raises on failure (any failure exits non-zero):
    9-slot atlas (passes of 8 bricks) with 2 jittered samples per pixel;
 12. the exact backward K4 vs plain PyTorch on seeded operands, early exit
    off: the ``exact_fwd_bwd`` shape (one 64³ f32 brick, 256² rays, 512
-   samples per ray) and a (24, 144, 136) brick with two clip planes and
-   a jittered sample, nearest and trilinear; an autograd round trip of
+   samples per ray) on every field of ``testing.FIELDS`` and a (24, 144,
+   136) random brick with two clip planes and a jittered sample, nearest
+   and trilinear, the TF gradient on and off; an autograd round trip of
    ``render_exact_diff`` on the card vs the plain backward; the fwd+bwd
-   rate at the ``exact_fwd_bwd`` shape;
+   rate at the ``exact_fwd_bwd`` shape, K4 timed with the TF gradient on
+   and off;
 13. the exact training path at full width: ``init_exact_state`` from a
    flat 0.5 volume, ``make_exact_train_step`` with Adam (lr 5e-2) for 5
    steps over 4 views (512² rays, 512 samples per ray, trilinear) of a
    512³ smooth ground truth; K3 and K4 must launch once per step and the
    loss of view 0 must fall; step, kernel and plain times, samples per
-   view, K4 vs plain on the whole of view 0, K3 and K4 vs plain on a
+   view, K4 vs plain on the whole of view 0 over the trained volume and
+   over the ground truth (three seeded cotangents, K4 twice on each, its
+   TF gradient also against the plain version over float64 operands),
+   each timed with the TF gradient on and off; K3 and K4 vs plain on a
    64×64 window of it;
 14. the exact trainer on the card vs on the CPU: 2 SGD steps on a 32³
    volume seen by 24×20 rays;
@@ -113,15 +122,20 @@ TF_BYTES = 256 * 4 * 4
 # with the TF gradient), K3 per composited sample by filter, for a uint8
 # atlas (exact_march.cu).
 K1_OPS_PER_SAMPLE = 97
-K2_OPS_PER_SAMPLE = 175
+K2_OPS_PER_SAMPLE = 173
+# Of those, the TF gradient's: a run's bin test, 1 - wt, and the 8
+# products and 8 adds into the run (tf_grad.cuh's Run.add; a flush is per
+# run, not per sample, and not counted): what diff_tf=False does not do.
+K2_TF_OPS_PER_SAMPLE = 18
 K3_OPS_PER_SAMPLE = {"nearest": 69, "trilinear": 122}
 # K4 per sample of an f32 brick (exact_march_bwd.cu): K3's count without
 # the 8 (1) conversions and its composite (10), plus the recompute's
 # backward: the weight and prefix (8), the inversion (9), the opacity
-# correction's slope and gate (9), the TF gradient's products and shared
-# atomics (20), the density gates and slope (17), the taps' weights,
-# products and global atomics (44 trilinear, 1 nearest), T (2).
-K4_OPS_PER_SAMPLE = {"nearest": 124, "trilinear": 213}
+# correction's slope and gate (9), the TF gradient (18, as K2's), the
+# density gates and slope (17), the taps' weights, products and global
+# atomics (44 trilinear, 1 nearest), T (2).
+K4_OPS_PER_SAMPLE = {"nearest": 122, "trilinear": 211}
+K4_TF_OPS_PER_SAMPLE = 18  # the TF gradient's share: not done with diff_tf=False
 # K5 per composited sample (pre_sweep.cu): the early-exit test (2), the
 # sample point (4) and box test (4), both axes' taps (24), the RGBA lerps
 # (87: 7 four-channel lerps, each weight's 1 − w once), the opacity
@@ -217,10 +231,12 @@ def compare(got, want, what, tol=None):
     return mx
 
 
-def compare_grads(got, want, what, early_exit, tol_max=None):
+def compare_grads(got, want, what, early_exit, tol_max=None, expect_zero=False):
     """Normalised (max, mean) |got − want| / max |want|; raises past the
     backward kernels' tolerances (``tol_max``: the max with the early
-    exit off, by default K2's)."""
+    exit off, by default K2's).  With ``expect_zero`` (K4's density
+    gradient on the "top" field: every sample past the density gate) both
+    must be exactly zero; otherwise a zero plain gradient raises."""
     import torch
 
     from libre_tpu_torch.testing import (
@@ -232,6 +248,12 @@ def compare_grads(got, want, what, early_exit, tol_max=None):
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite kernel output")
     scale = float(want.abs().max())
+    if expect_zero:
+        mx = float(got.abs().max())
+        print(f"{what}: expected zero, max|kernel| {mx:.3e}, max|plain| {scale:.3e}")
+        if mx != 0.0 or scale != 0.0:
+            raise AssertionError(f"{what}: gradient not zero (kernel {mx}, plain {scale})")
+        return 0.0
     if scale == 0.0:
         raise AssertionError(f"{what}: the plain gradient is zero")
     err = (got - want).abs() / scale
@@ -244,6 +266,15 @@ def compare_grads(got, want, what, early_exit, tol_max=None):
     if bad:
         raise AssertionError(f"{what}: kernel disagrees with plain ({mx}, {mean})")
     return mx
+
+
+def rate(what, ms, samples, bound_ms, card):
+    """Print a kernel time with its samples per second and its share of
+    the bound."""
+    print(
+        f"  {what}: {ms:.4f} ms, {samples / (ms * 1e-3) / 1e9:.3f} G samples/s; bound "
+        f"{bound_ms:.4f} ms, kernel at {bound_ms / ms:.4f} of it {card}"
+    )
 
 
 def orbit_cameras(n=8, width=512, height=512):
@@ -287,7 +318,7 @@ def main() -> int:
     from libre_tpu_torch.ops import shearwarp as sw
     from libre_tpu_torch.ops import shearwarp_bricked as swb
     from libre_tpu_torch.ops import shearwarp_grad as swg
-    from libre_tpu_torch.testing import store_grad_case, sweep_case
+    from libre_tpu_torch.testing import FIELDS, store_grad_case, sweep_case
 
     # ------------------------------------------------------------- 2. build
     for name, secs in _kernels.build_all().items():
@@ -464,10 +495,13 @@ def main() -> int:
         raise AssertionError(f"card frame disagrees with the CPU port ({small_err})")
 
     # ---------------------------- 6. backward kernel vs plain, seeded
-    for shape in ((96, 80, 128, 64, 48, 56), (512, 512, 512, 512, 512, 512)):
+    # Every field at 96x80 rays x 128 planes, the random one also at 512^3.
+    k2_cases = [((96, 80, 128, 64, 48, 56), f) for f in FIELDS]
+    k2_cases.append(((512, 512, 512, 512, 512, 512), "random"))
+    for shape, field in k2_cases:
         for early_exit in (1.1, 0.999):
             store_s, tf_s, tables_s, out_s, t_s, g_s, kw_s = store_grad_case(
-                shape, seed=0, device=dev, early_exit=early_exit
+                shape, seed=0, device=dev, early_exit=early_exit, field=field
             )
             ds_ref, dtf_ref = swg.store_grid_backward_reference(
                 store_s, tf_s, tables_s, out_s, t_s, g_s, diff_tf=True, **kw_s
@@ -477,7 +511,8 @@ def main() -> int:
                     store_s, tf_s, tables_s, out_s, t_s, g_s, diff_tf=diff_tf, **kw_s
                 )
                 torch.cuda.synchronize()
-                what = f"seeded backward {shape} early_exit={early_exit} diff_tf={diff_tf}"
+                what = (f"seeded backward {shape} {field} early_exit={early_exit} "
+                        f"diff_tf={diff_tf}")
                 compare_grads(ds, ds_ref, f"{what}: d_store", early_exit)
                 if diff_tf:
                     compare_grads(dtf, dtf_ref, f"{what}: dtf", early_exit)
@@ -598,16 +633,6 @@ def main() -> int:
     bwd_err = float((ds - ds_ref).abs().max())
     del ds_ref
     fwd_ms = cuda_ms(lambda: swb.post_sweep(p_store, p_tf, tables, clip0, **fwd_kw), reps=10)
-    bwd_ms = cuda_ms(
-        lambda: swg.store_grid_backward(p_store, p_tf, tables, out, t_out, g, **bwd_kw),
-        reps=5, warmup=1,
-    )
-    bwd_no_tf_ms = cuda_ms(
-        lambda: swg.store_grid_backward(
-            p_store, p_tf, tables, out, t_out, g, **dict(bwd_kw, diff_tf=False)
-        ),
-        reps=5, warmup=1,
-    )
     in_box = []  # samples inside the box, per view: all fetched, no early exit
     for vs in views:
         tv = swb.sweep_tables(
@@ -623,28 +648,52 @@ def main() -> int:
         in_box.append(int((in_u * in_v).sum()))
     n_grid = v_size * u_size * runner.k_planes
     print(
-        f"training view 0: sweep {fwd_ms:.3f} ms, backward kernel {bwd_ms:.3f} ms "
-        f"(incl. zeroing the {na * nc * nb * 4} B d_store; {bwd_no_tf_ms:.3f} ms "
-        f"without the TF gradient), plain backward "
-        f"{bwd_plain_ms:.3f} ms (1 call); backward "
-        f"{in_box[0] / (bwd_ms * 1e-3) / 1e9:.3f} G samples/s {card}"
-    )
-    print(
         f"samples inside the box per view (all fetched, early exit off), of "
         f"{n_grid}: {in_box} ({', '.join(f'{x / n_grid:.4f}' for x in in_box)})"
     )
     # K2's bound: the store read and d_store written once, out, t_out, g and
     # the per-ray tables read, the TF and dtf; every in-box sample's
-    # operations (early exit off).
-    k2_bound = bound(
-        bytes_=2 * na * nc * nb * 4 + v_size * u_size * 15 * 4 + 2 * TF_BYTES
-        + runner.k_planes * 5 * 4,
-        ops=in_box[0] * K2_OPS_PER_SAMPLE,
+    # operations (early exit off).  Without the TF gradient: no dtf and
+    # none of the TF gradient's operations.
+    k2_bytes = (2 * na * nc * nb * 4 + v_size * u_size * 15 * 4 + 2 * TF_BYTES
+                + runner.k_planes * 5 * 4)
+    k2_bound = bound(bytes_=k2_bytes, ops=in_box[0] * K2_OPS_PER_SAMPLE)
+    k2_bound_no_tf = bound(bytes_=k2_bytes - TF_BYTES,
+                           ops=in_box[0] * (K2_OPS_PER_SAMPLE - K2_TF_OPS_PER_SAMPLE))
+    print(f"training view 0: sweep {fwd_ms:.3f} ms {card}")
+    print(f"  K2 bound on view 0: {k2_bound[0]:.4f} ms, {k2_bound[1]}-bound; without the "
+          f"TF gradient {k2_bound_no_tf[0]:.4f} ms, {k2_bound_no_tf[1]}-bound")
+    # The same view over the truth store (the orbit's 512^3 gradient-pattern
+    # store and the engine's TF: TF bins that differ from ray to ray and
+    # move along each ray), kernel vs plain.
+    out_t, t_out_t = swb.post_sweep(store, tf, tables, clip0, **fwd_kw)
+    ds, dtf = swg.store_grid_backward(store, tf, tables, out_t, t_out_t, g, **bwd_kw)
+    ds_ref, dtf_ref = swg.store_grid_backward_reference(
+        store, tf, tables, out_t, t_out_t, g, **bwd_kw
     )
+    torch.cuda.synchronize()
+    compare_grads(ds, ds_ref, "truth-store backward, view 0: d_store", EARLY_EXIT_OFF)
+    compare_grads(dtf, dtf_ref, "truth-store backward, view 0: dtf", EARLY_EXIT_OFF)
+    bwd_err = max(bwd_err, float((ds - ds_ref).abs().max()))
+    del ds, ds_ref
+    k2_ms = {}  # (state, diff_tf) -> ms, incl. zeroing the 512 MiB d_store
+    for state, operands in (("trained", (p_store, p_tf, tables, out, t_out)),
+                            ("truth", (store, tf, tables, out_t, t_out_t))):
+        for diff_tf in (True, False):
+            k2_ms[state, diff_tf] = cuda_ms(
+                lambda: swg.store_grid_backward(*operands, g, **dict(bwd_kw, diff_tf=diff_tf)),
+                reps=5, warmup=1,
+            )
+            rate(f"K2 on view 0, {state} state, diff_tf={diff_tf}", k2_ms[state, diff_tf],
+                 in_box[0], (k2_bound if diff_tf else k2_bound_no_tf)[0], card)
+    bwd_ms = k2_ms["trained", True]
     print(
-        f"  K2 bound on view 0: {k2_bound[0]:.4f} ms, {k2_bound[1]}-bound; kernel "
-        f"at {k2_bound[0] / bwd_ms:.4f} of it {card}"
+        f"training view 0: backward kernel {bwd_ms:.3f} ms (incl. zeroing the "
+        f"{na * nc * nb * 4} B d_store; {k2_ms['trained', False]:.3f} ms without the TF "
+        f"gradient; truth store {k2_ms['truth', True]:.3f} / {k2_ms['truth', False]:.3f} ms), "
+        f"plain backward {bwd_plain_ms:.3f} ms (1 call) {card}"
     )
+    del out_t, t_out_t
 
     # ---------------------------------------- 8. K3 vs plain, seeded cases
     from libre_tpu_torch.ops import exact
@@ -853,21 +902,41 @@ def main() -> int:
         slot = torch.zeros(1, dtype=torch.int32, device=volume.device)
         return (volume[None], slot, view.brick_boxes, tf_, view.ray_pack)
 
-    def compare_k4(got, want, what):
-        errs = [compare_grads(a, b, f"{what}: {name}", 1.1, EXACT_GRAD_TOL_MAX)
-                for name, a, b in zip(("d_volume", "d_tf"), got, want)]
-        return max(errs), max(float((a - b).abs().max()) for a, b in zip(got, want))
+    def k4_work_bound(volume, view, samples, filter_mode, diff_tf):
+        """K4's bound: the volume read and d_volume written once, the ray
+        pack, out and g read, the TF and (with the TF gradient) d_tf;
+        every sample's operations."""
+        ops = K4_OPS_PER_SAMPLE[filter_mode] - (0 if diff_tf else K4_TF_OPS_PER_SAMPLE)
+        return bound(
+            bytes_=2 * volume.numel() * 4 + view.n_rays * 16 * 4 + (1 + diff_tf) * TF_BYTES,
+            ops=samples * ops,
+        )
 
-    for case in ("bench", "wide"):
+    def compare_k4(got, want, what, zero_d_volume=False):
+        errs = [compare_grads(a, b, f"{what}: {name}", 1.1, EXACT_GRAD_TOL_MAX,
+                              expect_zero=zero_d_volume and name == "d_volume")
+                for name, a, b in zip(("d_volume", "d_tf"), got, want)]
+        return errs, max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+    # Both scenes on the random field, the bench scene on every other
+    # field; the TF gradient on, and off (d_volume as with it on, d_tf 0).
+    k4_cases = [("bench", f) for f in FIELDS] + [("wide", "random")]
+    for case, field in k4_cases:
         for filter_mode in ("nearest", "trilinear"):
-            c = exact_grad_case(case, seed=0, device=dev, filter_mode=filter_mode)
+            c = exact_grad_case(case, seed=0, device=dev, filter_mode=filter_mode, field=field)
             args = (c.volume, c.tf, c.view, c.out, c.g)
             got = exact.march_exact_backward(*args)
+            no_tf = exact.march_exact_backward(*args, diff_tf=False)
             want = exact.march_exact_backward_reference(*args)
             torch.cuda.synchronize()
-            compare_k4(got, want, f"seeded K4 {case} {tuple(c.volume.shape)} {filter_mode}, "
-                                  f"{c.view.n_rays} rays")
-            del c, args, got, want
+            what = f"seeded K4 {case} {field} {tuple(c.volume.shape)} {filter_mode}, " \
+                   f"{c.view.n_rays} rays"
+            compare_k4(got, want, what, zero_d_volume=field == "top")
+            compare_grads(no_tf[0], want[0], f"{what}, diff_tf=False: d_volume", 1.1,
+                          EXACT_GRAD_TOL_MAX, expect_zero=field == "top")
+            if float(no_tf[1].abs().max()) != 0.0:
+                raise AssertionError(f"{what}, diff_tf=False: d_tf is not zero")
+            del c, args, got, no_tf, want
 
     # The autograd round trip at the exact_fwd_bwd shape (trilinear), and
     # its rate: rays / (K3 + K4 + the product, sum and accumulation).
@@ -888,21 +957,24 @@ def main() -> int:
     with torch.no_grad():
         bench_k3_ms = cuda_ms(lambda: exact.render_exact_diff(c.volume, c.tf, c.view), reps=10)
     bench_k4_ms = cuda_ms(lambda: exact.march_exact_backward(*args), reps=10)
+    bench_k4_no_tf_ms = cuda_ms(lambda: exact.march_exact_backward(*args, diff_tf=False),
+                                reps=10)
     bench_samples = torch.zeros(c.view.n_rays, dtype=torch.int32, device=dev)
     exact.march_exact(*brick_args(c.volume, c.tf, c.view), torch.zeros_like(c.out),
                       c.view.eye, c.view.params,
                       max_steps=c.view.max_steps, width=c.view.width, samples=bench_samples)
     n_bench = int(bench_samples.sum())
-    bench_bound = bound(
-        bytes_=2 * c.volume.numel() * 4 + c.view.n_rays * 16 * 4 + 2 * TF_BYTES,
-        ops=n_bench * K4_OPS_PER_SAMPLE["trilinear"],
-    )
+    bench_bound = k4_work_bound(c.volume, c.view, n_bench, "trilinear", True)
     print(
         f"exact fwd+bwd at the exact_fwd_bwd shape (64^3 f32, 256x256 rays, 512 samples "
         f"per ray, trilinear, {n_bench} samples): {fb_ms:.4f} ms per step, "
         f"{c.view.n_rays / (fb_ms * 1e-3) / 1e6:.3f} Mrays/s; K3 {bench_k3_ms:.4f} ms, "
-        f"K4 {bench_k4_ms:.4f} ms ({n_bench / (bench_k4_ms * 1e-3) / 1e9:.3f} G samples/s; "
-        f"bound {bench_bound[0]:.4f} ms, {bench_bound[1]}) {card}"
+        f"K4 {bench_k4_ms:.4f} ms ({bench_bound[1]}-bound) {card}"
+    )
+    rate("K4 at the exact_fwd_bwd shape, diff_tf=True", bench_k4_ms, n_bench,
+         bench_bound[0], card)
+    rate("K4 at the exact_fwd_bwd shape, diff_tf=False", bench_k4_no_tf_ms, n_bench,
+         k4_work_bound(c.volume, c.view, n_bench, "trilinear", False)[0], card
     )
     del c, vol, tf_leaf, args, want
 
@@ -973,7 +1045,6 @@ def main() -> int:
         ("exact_march_bwd", "exact_march_kernel", "multi_tensor_apply", "Fill", "reduce"),
         card, ex_step_ms,
     )
-    del gt, ex_targets
 
     # View 0 with the trained state, kernel vs plain: the forward's out and
     # a seeded N(0, 1) cotangent in place of the loss's.
@@ -995,24 +1066,61 @@ def main() -> int:
     k3_view_ms = cuda_ms(lambda: exact.march_exact(*fwd_args, v0.eye, v0.params,
                                                    max_steps=v0.max_steps, width=v0.width),
                          reps=10)
-    k4_ms = cuda_ms(lambda: exact.march_exact_backward(*args), reps=5, warmup=1)
     n_view = int(samples0.sum())
-    # K4's bound: the volume read and d_volume written once, the ray pack,
-    # out and g read, the TF and d_tf; every sample's operations.
-    k4_bound = bound(
-        bytes_=2 * p_vol.numel() * 4 + v0.n_rays * 16 * 4 + 2 * TF_BYTES,
-        ops=n_view * K4_OPS_PER_SAMPLE[train_params.filter_mode],
-    )
+    # The same view over the 512^3 smooth ground truth with the default TF
+    # (the bins move every few samples along each ray), kernel vs plain;
+    # its forward is the training target of view 0.  Three seeded
+    # cotangents, K4 twice on each (its float atomics add in an order that
+    # changes from run to run), K4's and the plain version's d_tf also
+    # against the plain version over float64 operands.
+    gt_args = (gt, tf_default, v0, ex_targets[0], g0)
+    gt64 = (gt.double(), tf_default.double(), v0, ex_targets[0].double())
+    dtf_errs = {"plain": [], "float64": [], "run to run": [], "plain vs float64": []}
+    for seed in (0, 1, 2):
+        g_s = torch.randn(out0.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+        runs = [exact.march_exact_backward(*gt_args[:4], g_s) for _ in range(2)]
+        want = exact.march_exact_backward_reference(*gt_args[:4], g_s)
+        want64 = exact.march_exact_backward_reference(*gt64, g_s.double())[1]
+        torch.cuda.synchronize()
+        what = f"K4 on view 0 over the ground truth, cotangent seed {seed}"
+        for i, got in enumerate(runs):
+            (_, e_tf), mx = compare_k4(got, want, f"{what}, run {i + 1}")
+            k4_err = max(k4_err, mx)
+            dtf_errs["plain"].append(e_tf)
+            dtf_errs["float64"].append(compare_grads(
+                got[1], want64, f"{what}, run {i + 1}: d_tf vs float64", 1.1, EXACT_GRAD_TOL_MAX))
+        dtf_errs["run to run"].append(
+            float((runs[0][1] - runs[1][1]).abs().max()) / float(want64.abs().max()))
+        dtf_errs["plain vs float64"].append(compare_grads(
+            want[1], want64, f"{what}: the plain d_tf vs float64", 1.1, EXACT_GRAD_TOL_MAX))
+        del runs, want, want64
+    print("K4's d_tf over the ground truth, 3 cotangent seeds x 2 runs, largest error of its "
+          "largest entry: " + "; ".join(f"{k} {max(v):.3e}" for k, v in dtf_errs.items()))
+    del gt64
+    k4_bound = k4_work_bound(p_vol, v0, n_view, train_params.filter_mode, True)
+    k4_bound_no_tf = k4_work_bound(p_vol, v0, n_view, train_params.filter_mode, False)
+    k4_times = {}  # (state, diff_tf) -> ms, incl. zeroing the 512 MiB d_volume
+    for state, operands in (("trained", args), ("ground truth", gt_args)):
+        for diff_tf in (True, False):
+            k4_times[state, diff_tf] = cuda_ms(
+                lambda: exact.march_exact_backward(*operands, diff_tf=diff_tf), reps=5, warmup=1
+            )
+            rate(f"K4 on view 0, {state}, diff_tf={diff_tf}", k4_times[state, diff_tf], n_view,
+                 (k4_bound if diff_tf else k4_bound_no_tf)[0], card)
+    k4_ms = k4_times["trained", True]
     print(
         f"training view 0: {n_view} samples ({n_view / v0.n_rays:.1f} per ray, at most "
         f"{int(samples0.max())}); K3 {k3_view_ms:.4f} ms, K4 {k4_ms:.4f} ms (incl. zeroing "
-        f"the {p_vol.numel() * 4} B d_volume; {n_view / (k4_ms * 1e-3) / 1e9:.3f} G "
-        f"samples/s), plain backward {k4_plain_ms:.3f} ms (1 call) {card}"
+        f"the {p_vol.numel() * 4} B d_volume; {k4_times['trained', False]:.4f} ms without the "
+        f"TF gradient; ground truth {k4_times['ground truth', True]:.4f} / "
+        f"{k4_times['ground truth', False]:.4f} ms), plain backward {k4_plain_ms:.3f} ms "
+        f"(1 call) {card}"
     )
     print(
-        f"  K4 bound on view 0: {k4_bound[0]:.4f} ms, {k4_bound[1]}-bound; kernel at "
-        f"{k4_bound[0] / k4_ms:.4f} of it {card}"
+        f"  K4 bound on view 0: {k4_bound[0]:.4f} ms, {k4_bound[1]}-bound; without the TF "
+        f"gradient {k4_bound_no_tf[0]:.4f} ms {card}"
     )
+    del gt, ex_targets, gt_args
 
     # K3 and K4 vs plain on a 64x64 window of view 0's rays (the 512^3
     # brick, long rays, the early exit off).
@@ -1171,8 +1279,8 @@ def main() -> int:
         raise AssertionError(
             f"the orbit classified {len(dense_engine._classified_cache)} stacks, expected 1"
         )
-    (chans, content), = [dense_engine._classified_cache.get(k)
-                         for k in list(dense_engine._classified_cache)]
+    (chans, content, _tf, _version), = [dense_engine._classified_cache.get(k)
+                                        for k in list(dense_engine._classified_cache)]
     level = dense_engine.info.root_node.depth - 1
     print(
         f"dense main path: level {level}, classified stack {tuple(chans.shape)} = "

@@ -28,14 +28,15 @@
 // nor scatter (exact_pallas.py:1433-1440); none of that is carried over.
 // Density gradients go straight to global memory with float atomics (8 taps
 // trilinear, 1 nearest) into a d_volume the wrapper zeroes.  TF gradients go
-// to a per-CTA 256x4 shared-memory table with shared atomics, added to the
-// global d_tf once per CTA (as store_grid_bwd.cu), so no second TF pass.
+// through tf_grad.cuh, as store_grid_bwd.cu's: a run per thread in
+// registers, warp-aggregated flushes into the CTA's shared 256x4 table,
+// added to the global d_tf once per CTA, so no second TF pass.  With
+// diff_tf = 0 (the TF needs no gradient) the accumulator is skipped.
 //
-// What bounds it: per sample, the forward's 8 (1) dependent loads, 8 (1)
-// global RED atomics and 8 shared atomics; same-bin contention on the shared
-// TF table where neighbouring rays see similar densities; the serial per-ray
-// loop (up to ~890 samples at 512 samples per unit).  Warp-level
-// pre-reduction of the TF bins is left for later.
+// What bounds it: per sample, the forward's 8 (1) dependent loads and 8 (1)
+// global RED atomics into d_volume, and the serial per-ray loop (up to ~890
+// samples at 512 samples per unit); the TF gradient adds a few percent on
+// a training view.
 //
 // Numerics: f32, IEEE division, powf, no FMA contraction (--fmad=false): the
 // inversion subtracts the prefix from a total that the forward accumulated in
@@ -45,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "exact_sample.cuh"
+#include "tf_grad.cuh"
 
 namespace {
 
@@ -63,15 +65,17 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
     const float4* __restrict__ g,        // (R,) cotangent of out
     float* __restrict__ d_volume,        // (BZ, BY, BX), zeroed by the wrapper
     float* __restrict__ d_tf,            // (256, 4), zeroed by the wrapper
-    int n_rays, int width, int bx, int by, int bz, int max_steps, float ex,
-    float ey, float ez, float step, float mult, float add, float corr) {
+    int diff_tf, int n_rays, int width, int bx, int by, int bz, int max_steps,
+    float ex, float ey, float ez, float step, float mult, float add,
+    float corr) {
   __shared__ float4 s_tf[kTfSize];
-  __shared__ float s_dtf[kTfSize * 4];
+  __shared__ float s_dtf[tfgrad::kTableFloats];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
   for (int i = tid; i < kTfSize; i += n_threads) s_tf[i] = tf[i];
-  for (int i = tid; i < kTfSize * 4; i += n_threads) s_dtf[i] = 0.0f;
+  if (diff_tf) tfgrad::zero_table(s_dtf, tid, n_threads);
   __syncthreads();
+  tfgrad::Run run;
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -112,17 +116,7 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
         const float wr = w * gv.x, wg = w * gv.y, wb = w * gv.z;
 
         // TF lerp -> bins i0 (1 - w) and i1 (w).
-        const float w0 = 1.0f - q.w;
-        float* b0 = s_dtf + 4 * q.i0;
-        float* b1 = s_dtf + 4 * q.i1;
-        atomicAdd(b0, wr * w0);
-        atomicAdd(b0 + 1, wg * w0);
-        atomicAdd(b0 + 2, wb * w0);
-        atomicAdd(b0 + 3, dav * w0);
-        atomicAdd(b1, wr * q.w);
-        atomicAdd(b1 + 1, wg * q.w);
-        atomicAdd(b1 + 2, wb * q.w);
-        atomicAdd(b1 + 3, dav * q.w);
+        if (diff_tf) run.add(s_dtf, q.i0, q.w, wr, wg, wb, dav);
 
         // TF slope -> density gates -> data range -> the fetch's taps.
         if (dens > 0.0f && dens < 1.0f && q.s > 0.0f && q.s < (float)(kTfSize - 1)) {
@@ -150,10 +144,10 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
       });
     }
   }
-  __syncthreads();
-  for (int i = tid; i < kTfSize * 4; i += n_threads) {
-    const float v = s_dtf[i];
-    if (v != 0.0f) atomicAdd(d_tf + i, v);
+  if (diff_tf) {  // uniform over the block
+    run.flush(s_dtf);  // the ray's last run, if any
+    __syncthreads();
+    tfgrad::add_table(s_dtf, d_tf, tid, n_threads);
   }
 }
 
@@ -162,9 +156,9 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
 extern "C" int exact_march_bwd(
     const void* brick, const void* boxes, const void* tf, const void* rays,
     const void* out, const void* g, void* d_volume, void* d_tf,
-    int trilinear, int n_rays, int width, int bx, int by, int bz, int max_steps,
-    float ex, float ey, float ez, float step, float mult, float add, float corr,
-    void* stream) {
+    int trilinear, int diff_tf, int n_rays, int width, int bx, int by, int bz,
+    int max_steps, float ex, float ey, float ez, float step, float mult,
+    float add, float corr, void* stream) {
   const dim3 block(kTileX, kTileY);
   const int height = (n_rays + width - 1) / width;
   const dim3 grid((width + kTileX - 1) / kTileX, (height + kTileY - 1) / kTileY);
@@ -172,8 +166,8 @@ extern "C" int exact_march_bwd(
 #define EXACT_MARCH_BWD_ARGS                                                   \
   (const float*)brick, (const float4*)boxes, (const float4*)tf,                \
       (const float*)rays, (const float4*)out, (const float4*)g,                \
-      (float*)d_volume, (float*)d_tf, n_rays, width, bx, by, bz, max_steps,    \
-      ex, ey, ez, step, mult, add, corr
+      (float*)d_volume, (float*)d_tf, diff_tf, n_rays, width, bx, by, bz,      \
+      max_steps, ex, ey, ez, step, mult, add, corr
   if (trilinear)
     exact_march_bwd_kernel<true><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
   else

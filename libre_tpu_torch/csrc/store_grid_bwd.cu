@@ -27,19 +27,19 @@
 // Density gradient: each sample's ddens goes to the 8 store voxels it read,
 // weighted (1-wa | wa) x (1-wb | wb) x (1-wc | wc), with global float atomics
 // into a d_store the wrapper zeroes.  This replaces the TPU's slice-resident
-// d0/d1 output blocks and their coverage masks.  TF gradient: per CTA, a
-// 256x4 shared-memory accumulator takes drgba = (w g_r, w g_g, w g_b, da)
-// split (1 - wt) to bin i0 and wt to bin i1 with shared atomics, and is added
-// to the global dtf once per CTA.  That drops the TPU kernel's (K, V, U)
-// per-plane w / da outputs (512 MiB each at 512^2 x 512), the second
-// recompute pass and the rank-16 one-hot scatter.  With diff_tf = 0 the
-// accumulator is skipped.
+// d0/d1 output blocks and their coverage masks.  TF gradient: drgba =
+// (w g_r, w g_g, w g_b, da) split (1 - wt) to bin i0 and wt to bin i1, through
+// tf_grad.cuh (shared with exact_march_bwd.cu): a run per thread in
+// registers, flushed when i0 changes and at the ray's end, warp-aggregated
+// flushes into the CTA's shared 256x4 table, added to the global dtf once
+// per CTA.  That drops the TPU kernel's (K, V, U) per-plane w / da outputs
+// (512 MiB each at 512^2 x 512), the second recompute pass and the rank-16
+// one-hot scatter.  With diff_tf = 0 the accumulator is skipped.
 //
-// What bounds it: 8 global RED atomics and 8 shared atomics per sample on top
-// of the forward's 8 store loads; heavy same-bin contention on the shared TF
-// accumulator when neighbouring rays see the same density (a smooth field);
-// and the serial per-ray loop.  Warp-level pre-reduction, per-warp TF copies
-// and tile-local d_store accumulation in shared memory are left for later.
+// What bounds it: 8 global RED atomics into d_store per sample on top of the
+// forward's 8 store loads, and the serial per-ray loop; the TF gradient
+// adds ~10% on a training view, more where the bin moves every sample.
+// Tile-local d_store accumulation in shared memory is left for later.
 //
 // Numerics: f32, powf, no fast-math, no FMA contraction (--fmad=false, as
 // post_sweep.cu): the gradient jumps where a sample crosses a TF texel whose
@@ -51,6 +51,7 @@
 #include <cuda_runtime.h>
 
 #include "sweep_sample.cuh"
+#include "tf_grad.cuh"
 
 namespace {
 
@@ -79,13 +80,13 @@ __global__ void __launch_bounds__(256) store_grid_bwd_kernel(
     float wc0, float wc1, float sb_scale, float sc_scale, float early_exit,
     int diff_tf) {
   __shared__ float4 s_tf[kTfSize];
-  __shared__ float s_dtf[kTfSize * 4];
+  __shared__ float s_dtf[tfgrad::kTableFloats];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
   for (int i = tid; i < kTfSize; i += n_threads) s_tf[i] = tf[i];
-  if (diff_tf)
-    for (int i = tid; i < kTfSize * 4; i += n_threads) s_dtf[i] = 0.0f;
+  if (diff_tf) tfgrad::zero_table(s_dtf, tid, n_threads);
   __syncthreads();
+  tfgrad::Run run;
 
   const int u = blockIdx.x * blockDim.x + threadIdx.x;
   const int v = blockIdx.y * blockDim.y + threadIdx.y;
@@ -163,28 +164,14 @@ __global__ void __launch_bounds__(256) store_grid_bwd_kernel(
         atomicAdd(d_store + lo + r1 + tb.i1, e11 * wl);
         atomicAdd(d_store + hi + r1 + tb.i1, e11 * w_a);
       }
-      if (diff_tf) {
-        const float w0 = 1.0f - wt;
-        float* b0 = s_dtf + 4 * i0;
-        float* b1 = s_dtf + 4 * i1;
-        atomicAdd(b0, wr * w0);
-        atomicAdd(b0 + 1, wg * w0);
-        atomicAdd(b0 + 2, wb * w0);
-        atomicAdd(b0 + 3, dav * w0);
-        atomicAdd(b1, wr * wt);
-        atomicAdd(b1 + 1, wg * wt);
-        atomicAdd(b1 + 2, wb * wt);
-        atomicAdd(b1 + 3, dav * wt);
-      }
+      if (diff_tf) run.add(s_dtf, i0, wt, wr, wg, wb, dav);
       t = t * (1.0f - a_corr);
     }
   }
   if (diff_tf) {  // uniform over the block
+    run.flush(s_dtf);  // the ray's last run, if any
     __syncthreads();
-    for (int i = tid; i < kTfSize * 4; i += n_threads) {
-      const float x = s_dtf[i];
-      if (x != 0.0f) atomicAdd(dtf + i, x);
-    }
+    tfgrad::add_table(s_dtf, dtf, tid, n_threads);
   }
 }
 

@@ -47,7 +47,7 @@ SIGNATURES: Dict[str, List] = {
     "post_sweep": [_P] * 14 + [_I] * 6 + [_F] * 7 + [_P],
     "store_grid_bwd": [_P] * 16 + [_I] * 6 + [_F] * 7 + [_P],
     "exact_march": [_P] * 9 + [_I] * 9 + [_F] * 8 + [_P],
-    "exact_march_bwd": [_P] * 8 + [_I] * 7 + [_F] * 7 + [_P],
+    "exact_march_bwd": [_P] * 8 + [_I] * 8 + [_F] * 7 + [_P],
     "pre_sweep": [_P] * 9 + [_I] * 5 + [_F] * 7 + [_P],
 }
 

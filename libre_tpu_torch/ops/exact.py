@@ -164,13 +164,17 @@ def march_exact_backward(
     view: "ExactView",
     out: torch.Tensor,
     g: torch.Tensor,
+    *,
+    diff_tf: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Recompute backward of :func:`render_exact_diff`'s forward, early
     exit off → (d_volume (Z, Y, X), d_tf (256, 4)).
 
     Operands and result as :func:`march_exact_backward_reference`: the
     (Z, Y, X) f32 volume filling ``view``'s box, the TF, the forward's
-    output ``out`` (marched from a zero carry) and its cotangent ``g``.
+    output ``out`` (marched from a zero carry) and its cotangent ``g``;
+    with ``diff_tf`` false the TF gradient is not accumulated and
+    ``d_tf`` comes back zero.
     On a CUDA tensor this zeroes the gradients and launches
     ``csrc/exact_march_bwd.cu`` on the current stream, in tiles of
     ``view.width`` rays per row (``march_exact_backward.launches`` counts
@@ -185,7 +189,7 @@ def march_exact_backward(
     _check_operands(who, volume_zyx[None], None, boxes, tf, rays, params, {"out": out, "g": g})
     _require_no_early_exit(who, params)
     if volume_zyx.device.type == "cpu":
-        return march_exact_backward_reference(volume_zyx, tf, view, out, g)
+        return march_exact_backward_reference(volume_zyx, tf, view, out, g, diff_tf=diff_tf)
     if volume_zyx.device.type != "cuda":
         raise ValueError(f"{who}: no kernel for device {volume_zyx.device}")
     for name, x in (("boxes", boxes), ("tf", tf), ("out", out), ("g", g)):
@@ -203,7 +207,7 @@ def march_exact_backward(
         _kernels.launch(
             "exact_march_bwd",
             volume_zyx, boxes, tf, rays, out, g, d_volume, d_tf,
-            int(params.filter_mode == "trilinear"), n_rays, int(view.width),
+            int(params.filter_mode == "trilinear"), int(diff_tf), n_rays, int(view.width),
             bx, by, bz, int(view.max_steps), ex, ey, ez, params.step_size,
             1.0 / (hi - lo), -lo / (hi - lo), params.alpha_correction,
         )
@@ -292,7 +296,8 @@ def _march_view(volume_zyx, tf, view: ExactView, carry) -> torch.Tensor:
 
 class RenderExactDiff(torch.autograd.Function):
     """Forward: K3 from a zero carry; backward: K4 (or their plain
-    versions on the CPU).  Saves (volume, tf, out), as the JAX package's
+    versions on the CPU), accumulating the TF gradient only when the TF
+    needs one.  Saves (volume, tf, out), as the JAX package's
     ``_red_fwd``."""
 
     @staticmethod
@@ -308,8 +313,11 @@ class RenderExactDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         volume_zyx, tf, out = ctx.saved_tensors
-        d_volume, d_tf = march_exact_backward(volume_zyx, tf, ctx.view, out, g.contiguous())
-        return d_volume, d_tf, None
+        diff_tf = ctx.needs_input_grad[1]
+        d_volume, d_tf = march_exact_backward(
+            volume_zyx, tf, ctx.view, out, g.contiguous(), diff_tf=diff_tf
+        )
+        return d_volume, (d_tf if diff_tf else None), None
 
 
 def render_exact_diff(volume_zyx: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:

@@ -316,6 +316,8 @@ def march_exact_backward_reference(
     view,
     out: torch.Tensor,
     g: torch.Tensor,
+    *,
+    diff_tf: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch recompute backward of a one-brick exact march with
     the early exit off: the specification of K4.
@@ -324,7 +326,8 @@ def march_exact_backward_reference(
     ``exact.ExactView``: its ray pack, one-row brick boxes, eye, params and
     march length); ``tf`` (256, 4) f32; ``out`` the forward's (R, 4)
     output (marched from a zero carry) and ``g`` its cotangent.  Returns
-    (d_volume (Z, Y, X), d_tf (256, 4)).
+    (d_volume (Z, Y, X), d_tf (256, 4)); ``d_tf`` is zero when
+    ``diff_tf`` is false.
 
     Re-marches each ray's samples front to back in blocks of rays ×
     ``CHUNK`` samples, carrying the transmittance T and the inclusive
@@ -334,7 +337,11 @@ def march_exact_backward_reference(
     dα = T·D − (TOT − P)/(1 − α) + g_a·T_fin/(1 − α).  Then through the
     opacity correction and the alpha-clamp gate, the TF lerp (into bins
     i0 and i1), the gates 0 < density < 1 and 0 < s_tf < 255 (strict, as
-    the JAX kernel's), the data-range scale and the fetch's taps.
+    the JAX kernel's), the data-range scale and the fetch's taps.  ``d_tf``
+    is summed in float64 and returned in ``tf``'s dtype: a training view
+    puts tens of millions of samples into TF texel 0 alone: summed in f32,
+    the plain version's own rounding would be the largest error a
+    comparison with the kernel sees.
     """
     params = view.params
     lo_, hi_ = params.data_source_range
@@ -346,7 +353,7 @@ def march_exact_backward_reference(
     brick_flat = volume_zyx.reshape(-1)
     box = view.brick_boxes.cpu()[0]
     d_flat = torch.zeros_like(brick_flat)
-    d_tf = torch.zeros_like(tf)
+    d_tf = torch.zeros(tf.shape, dtype=torch.float64, device=tf.device)
 
     for r0 in range(0, out.shape[0], RAY_BLOCK):
         sl = slice(r0, r0 + RAY_BLOCK)
@@ -376,15 +383,16 @@ def march_exact_backward_reference(
             pw = torch.pow(torch.clamp(1.0 - a_cl, min=1e-12), corr - 1.0)
             dav = dalpha * corr * pw * (c[..., 3] < ALPHA_CLAMP)
             dch = torch.stack([w * g_r, w * g_g, w * g_b, dav], dim=-1)
-            d_tf.index_add_(0, i0.reshape(-1), (dch * (1.0 - wt)[..., None]).reshape(-1, 4))
-            d_tf.index_add_(0, i1.reshape(-1), (dch * wt[..., None]).reshape(-1, 4))
+            if diff_tf:
+                for i, wi in ((i0, 1.0 - wt), (i1, wt)):
+                    d_tf.index_add_(0, i.reshape(-1), (dch * wi[..., None]).reshape(-1, 4).double())
             gate = (density > 0.0) & (density < 1.0) & (s > 0.0) & (s < n_tf - 1)
             dd = ((dch * (c1 - c0)).sum(dim=-1) * n_tf * mult) * gate
             for idx, wgt in taps:
                 d_flat.index_add_(0, idx.reshape(-1), (dd if wgt is None else dd * wgt).reshape(-1))
             trans = trans * torch.prod(one_m, dim=1, keepdim=True)
             prefix = p_incl[:, -1:]
-    return d_flat.reshape(volume_zyx.shape), d_tf
+    return d_flat.reshape(volume_zyx.shape), d_tf.to(tf.dtype)
 
 
 def render_rays(

@@ -128,8 +128,11 @@ def store_grid_backward_reference(
     chained through the early-exit mask, the opacity correction, the
     alpha clamp and the TF lerp's slope; ``ddens`` is scattered into the
     8 store voxels the sample read and ``drgba`` = (w·g_rgb, ∂L/∂α) into
-    the two TF texels.  Returns (d_store (Na, Nc, Nb), dtf (256, 4));
-    ``dtf`` is zero when ``diff_tf`` is false."""
+    the two TF texels, summed in float64 (a training view puts tens of
+    millions of samples into a few texels: summed in f32, the plain
+    version's own rounding would be the largest error a comparison with
+    the kernel sees).  Returns (d_store (Na, Nc, Nb), dtf (256, 4) in
+    ``tf``'s dtype); ``dtf`` is zero when ``diff_tf`` is false."""
     f32 = torch.float32
     dev = store.device
     _na, nc, nb = store.shape
@@ -148,7 +151,7 @@ def store_grid_backward_reference(
     tot = (g_rgb * (out[..., :3] - tables.rgb_in[..., :3])).sum(-1)
 
     d_flat = torch.zeros_like(flat)
-    dtf = torch.zeros_like(tf)
+    dtf = torch.zeros(tf.shape, dtype=torch.float64, device=dev)
     t = tables.t_in.clone()
     p = torch.zeros_like(t)
     for k in range(tables.a0.shape[0]):
@@ -210,10 +213,10 @@ def store_grid_backward_reference(
             d_flat.index_add_(0, (hi + o).reshape(-1), (e * wa).reshape(-1))
         if diff_tf:
             drgba = torch.cat([wg, dav[..., None]], dim=-1)
-            dtf.index_add_(0, i0.reshape(-1), (drgba * (1.0 - wt)[..., None]).reshape(-1, 4))
-            dtf.index_add_(0, i1.reshape(-1), (drgba * wt[..., None]).reshape(-1, 4))
+            for i, wi in ((i0, 1.0 - wt), (i1, wt)):
+                dtf.index_add_(0, i.reshape(-1), (drgba * wi[..., None]).reshape(-1, 4).double())
         t = t * (1.0 - a_eff)
-    return d_flat.reshape(store.shape), dtf
+    return d_flat.reshape(store.shape), dtf.to(tf.dtype)
 
 
 def store_grid_backward(

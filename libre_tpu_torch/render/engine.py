@@ -233,8 +233,9 @@ class RenderEngine:
         # Derived device tensors, byte-accounted against the shared
         # device budget (LRU across both pools): classified plane stacks
         # (dense path) keyed by (level, time_step, axis, id(TF), data
-        # range), and assembled density stores (bricked path) keyed by
-        # (axis, set ids, time_step, data range, level).  Several entries
+        # range), each holding its TF and the TF's version, and assembled
+        # density stores (bricked path) keyed by (axis, set ids,
+        # time_step, data range, level).  Several entries
         # let orbiting across an axis boundary reuse instead of rebuild.
         self._classified_cache = _ByteLRU(self.device_budget)
         self._store_cache = _ByteLRU(self.device_budget)
@@ -512,9 +513,10 @@ class RenderEngine:
         steady frame is the view vector upload, the sweep
         (``shearwarp_dense.pre_sweep``: K5 on the card) and the warp;
         "jnp" runs the plain pipeline (``shearwarp.render``); "auto" takes
-        "pallas" on a CUDA engine and "jnp" elsewhere.  The cache keys on
-        ``id(transfer_function)``: assign a new TF tensor to re-classify,
-        an edit in place is not seen."""
+        "pallas" on a CUDA engine and "jnp" elsewhere.  A cached stack
+        holds the TF tensor it was classified with and its ``_version``:
+        it is reused only for that same tensor, unedited, so assigning a
+        new TF tensor or editing the TF in place both re-classify."""
         if backend not in SHEARWARP_BACKENDS:
             raise ValueError(
                 f"render_shearwarp: backend {backend!r} is not one of {SHEARWARP_BACKENDS}"
@@ -544,17 +546,19 @@ class RenderEngine:
             )
 
         plan = sw.make_view_plan(camera, swp.slope_margin)
+        # The entry keeps its TF alive, so no other tensor can take its id
+        # while the entry exists; the version catches edits in place.
         key = (level, time_step, plan.axis, id(tf), params.data_source_range)
         cached = self._classified_cache.get(key)
-        if cached is None:
+        if cached is None or cached[2] is not tf or cached[3] != tf._version:
             chans = swd.classify_planes(
                 torch.from_numpy(volume).to(self.device), tf, plan.axis,
                 params.data_source_range,
             )
             content = swd.slice_content(chans)
-            cached = (chans, content)
+            cached = (chans, content, tf, tf._version)
             self._classified_cache.put(key, cached, _nbytes(chans) + _nbytes(content))
-        chans, content = cached
+        chans, content = cached[:2]
         pa = swd.slope_grid_plan_args(plan, -half, half, params, swp)
         return swd.render_frame(
             chans, chans.shape[1], chans.shape[2], camera, pa, content=content

@@ -79,17 +79,58 @@ def sweep_case(shape, seed, device):
     return store, dev(tf), tables, dev(clip_m), kw
 
 
-def store_grad_case(shape, seed, device, early_exit):
+# The density fields of the backward kernels' seeded cases.  "random" is
+# uniform noise: neighbouring samples fall in unrelated TF bins.  The
+# others exercise the TF-gradient runs of csrc/tf_grad.cuh: "flat" puts
+# every sample in one bin (the trainers' flat-0.5 start), "top" in bin
+# 255, where i0 == i1, and "smooth" moves the bin every few samples.
+FIELDS = ("random", "flat", "top", "smooth")
+
+
+def field_volume(field, shape, seed, device):
+    """A seeded f32 density field of ``shape`` on ``device``, for the
+    ``FIELDS`` other than "random": "flat" a constant 0.5 (TF coordinate
+    127.5: bins 127 and 128), "top" a constant 1.25 (clamped to 1: bin
+    255 with i0 == i1, and no density gradient), "smooth" the sum of
+    three plane waves of at most one period across the box, their
+    directions and phases drawn with numpy from ``seed``, scaled to
+    [0.1, 0.9]."""
+    if field == "flat":
+        return torch.full(shape, 0.5, dtype=torch.float32, device=device)
+    if field == "top":
+        return torch.full(shape, 1.25, dtype=torch.float32, device=device)
+    if field != "smooth":
+        raise ValueError(f"field_volume: unknown field {field!r}")
+    rng = np.random.default_rng(seed)
+    axes = [torch.linspace(-1.0, 1.0, n, dtype=torch.float32, device=device) for n in shape]
+    vol = torch.zeros(shape, dtype=torch.float32, device=device)
+    for _ in range(3):
+        k = rng.uniform(-np.pi, np.pi, 3).astype(np.float32)
+        phase = float(rng.uniform(0.0, 2.0 * np.pi))
+        vol += torch.sin(
+            float(k[0]) * axes[0][:, None, None] + float(k[1]) * axes[1][None, :, None]
+            + float(k[2]) * axes[2][None, None, :] + phase
+        )
+    vol = (vol - vol.min()) / (vol.max() - vol.min())
+    return 0.1 + 0.8 * vol
+
+
+def store_grad_case(shape, seed, device, early_exit, field="random"):
     """Seeded operands of the backward sweep: the ``sweep_case`` view and
     store (SENTINEL holes, every 7th plane inactive) with no clip planes,
     the forward's ``out``/``t_out`` from ``post_sweep`` and a standard
     normal cotangent ``g``.  With ``early_exit`` < 1 the TF saturates
     (alpha × 8) so the early exit fires; otherwise it is the default map.
-    ``shape`` = (V, U, K, Na, Nc, Nb).
+    ``shape`` = (V, U, K, Na, Nc, Nb).  ``field`` (``FIELDS``) other than
+    "random" replaces the store's densities outside the holes with
+    ``field_volume``.
 
     Returns (store, tf, tables, out, t_out, g, keyword arguments of
     ``store_grid_backward`` without ``diff_tf``)."""
     store, tf, tables, clip, kw = sweep_case(shape, seed, device)
+    if field != "random":
+        dens = field_volume(field, tuple(store.shape), seed, device)
+        store = torch.where(store == swb.SENTINEL, swb.SENTINEL, dens).contiguous()
     if early_exit >= 1.0:
         tf = torch.as_tensor(default_color_map()).to(device)
     kw = dict(wb=kw["wb"], wc=kw["wc"], early_exit=early_exit)
@@ -276,11 +317,12 @@ def _exact_scene_view(case, device, **params):
     )
 
 
-def exact_grad_case(case, seed, device, *, filter_mode="trilinear"):
-    """Seeded K4 operands over scene ``case`` of ``EXACT_SCENES``: a
-    random f32 volume, the default TF, the early exit off; ``g`` is a
-    standard normal cotangent and ``out`` the forward (``march_exact``,
-    so K3 on a CUDA device)."""
+def exact_grad_case(case, seed, device, *, filter_mode="trilinear", field="random"):
+    """Seeded K4 operands over scene ``case`` of ``EXACT_SCENES``: an f32
+    volume (uniform random, or ``field_volume(field)`` for the other
+    ``FIELDS``), the default TF, the early exit off; ``g`` is a standard
+    normal cotangent and ``out`` the forward (``march_exact``, so K3 on a
+    CUDA device)."""
     if case not in EXACT_SCENES:
         raise ValueError(f"exact_grad_case: unknown case {case!r}")
     rng = np.random.default_rng(seed)
@@ -288,7 +330,10 @@ def exact_grad_case(case, seed, device, *, filter_mode="trilinear"):
         case, device, data_source_range=(0.0, 1.0), filter_mode=filter_mode, early_exit=1.1
     )
     shape = EXACT_SCENES[case][0]
+    # Drawn for every field, so that g is the same for all of them.
     volume = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(device)
+    if field != "random":
+        volume = field_volume(field, shape, seed, device)
     tf = torch.from_numpy(default_color_map()).to(device)
     with torch.no_grad():
         out = exact.render_exact_diff(volume, tf, view)

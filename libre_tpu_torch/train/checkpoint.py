@@ -31,9 +31,10 @@ def save_checkpoint(
 def restore_checkpoint(
     path: str,
     optimizer: Optional[torch.optim.Optimizer] = None,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, torch.Tensor]:
-    """Load the params saved at ``path`` onto ``device``; if
+    """Load the params saved at ``path`` onto ``device`` (the card unless
+    the caller asks for the CPU); if
     ``optimizer`` is given, load the saved optimizer state into it (it
     must have been built over the restored params' shapes)."""
     state = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)

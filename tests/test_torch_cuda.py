@@ -26,6 +26,7 @@ from libre_tpu_torch.testing import (
     EXACT_GRAD_TOL_MAX,
     EXACT_TOL_MAX,
     EXACT_TOL_MEAN,
+    FIELDS,
     GRAD_TOL_MAX,
     GRAD_TOL_MAX_EARLY_EXIT,
     GRAD_TOL_MEAN_EARLY_EXIT,
@@ -45,6 +46,23 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def assert_grad_close(got, want, tol_max, tol_mean=None, expect_zero=False):
+    """|got − want| normalised by max |want| within ``tol_max`` (and its
+    mean within ``tol_mean``).  With ``expect_zero`` (K4's density
+    gradient on the "top" field: every sample past the density gate) both
+    must be exactly zero; otherwise the plain gradient must not be."""
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    if expect_zero:
+        assert scale == 0.0 and float(got.abs().max()) == 0.0
+        return
+    assert scale > 0.0
+    err = (got - want).abs() / scale
+    assert float(err.max()) <= tol_max
+    if tol_mean is not None:
+        assert float(err.mean()) <= tol_mean
 
 
 @pytest.mark.cuda
@@ -121,6 +139,28 @@ def test_store_grid_bwd_kernel_matches_plain(cuda, early_exit, diff_tf):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [1.1, 0.999])
+@pytest.mark.parametrize("field", FIELDS)
+def test_store_grid_bwd_kernel_fields(cuda, field, early_exit):
+    """K2 with the TF gradient on each seeded field (``FIELDS``: bins
+    unrelated from sample to sample, one bin, bin 255, a bin that moves
+    every few samples) vs its plain version, at the tolerances of
+    ``test_store_grid_bwd_kernel_matches_plain``."""
+    store, tf, tables, out, t_out, g, kw = store_grad_case(
+        (96, 80, 128, 64, 48, 56), seed=0, device=cuda, early_exit=early_exit, field=field
+    )
+    got = swg.store_grid_backward(store, tf, tables, out, t_out, g, diff_tf=True, **kw)
+    want = swg.store_grid_backward_reference(store, tf, tables, out, t_out, g, diff_tf=True, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if early_exit < 1.0:
+            assert_grad_close(a, b, GRAD_TOL_MAX_EARLY_EXIT, GRAD_TOL_MEAN_EARLY_EXIT)
+        else:
+            assert_grad_close(a, b, GRAD_TOL_MAX)
+    assert float(want[1].abs().max()) > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])
 @pytest.mark.parametrize("case", ["bricks", "single"])
@@ -194,6 +234,40 @@ def test_exact_march_bwd_kernel_matches_plain(cuda, case, filter_mode):
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max() / b.abs().max()) <= EXACT_GRAD_TOL_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("field", [f for f in FIELDS if f != "random"])
+def test_exact_march_bwd_kernel_fields(cuda, field, filter_mode):
+    """K4 vs its plain version at the bench_exact shape on the flat, top
+    and smooth fields (``FIELDS``), at the tolerance of
+    ``test_exact_march_bwd_kernel_matches_plain``."""
+    c = exact_grad_case("bench", seed=0, device=cuda, filter_mode=filter_mode, field=field)
+    args = (c.volume, c.tf, c.view, c.out, c.g)
+    got = exact.march_exact_backward(*args)
+    want = exact.march_exact_backward_reference(*args)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert_grad_close(a, b, EXACT_GRAD_TOL_MAX, expect_zero=field == "top" and i == 0)
+    assert float(want[1].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", FIELDS)
+def test_exact_march_bwd_kernel_without_tf_gradient(cuda, field):
+    """K4 with ``diff_tf=False``: d_volume within the kernel tolerance of
+    the ``diff_tf=True`` launch (float atomics add in another order), and
+    d_tf exactly zero."""
+    c = exact_grad_case("bench", seed=0, device=cuda, field=field)
+    args = (c.volume, c.tf, c.view, c.out, c.g)
+    launches = exact.march_exact_backward.launches
+    d_vol, d_tf = exact.march_exact_backward(*args)
+    d_vol_off, d_tf_off = exact.march_exact_backward(*args, diff_tf=False)
+    torch.cuda.synchronize()
+    assert exact.march_exact_backward.launches == launches + 2
+    assert_grad_close(d_vol_off, d_vol, EXACT_GRAD_TOL_MAX, expect_zero=field == "top")
+    assert float(d_tf_off.abs().max()) == 0.0 and float(d_tf.abs().max()) > 0
 
 
 @pytest.mark.cuda

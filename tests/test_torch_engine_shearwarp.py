@@ -25,6 +25,7 @@ from libre_tpu_torch.data.datasource import DataSource as DataSourceT
 from libre_tpu_torch.data.datasource import load_plugins as load_plugins_t
 from libre_tpu_torch.ops import shearwarp_dense as swd
 from libre_tpu_torch.ops.reference import Camera as CameraT, RenderParams as ParamsT
+from libre_tpu_torch.ops.transfer_function import default_color_map
 from libre_tpu_torch.render.engine import RenderEngine as EngineT
 from libre_tpu_torch.render.registry import create_renderer
 from libre_tpu_torch.utils.image import read_image
@@ -80,8 +81,9 @@ def test_render_shearwarp_matches_jax(case, backend):
 
 
 def test_classified_stack_cache():
-    """Steady frames reuse the stack; a new TF object re-classifies, an
-    edit in place does not (the JAX engine's key, id(TF))."""
+    """Steady frames reuse the stack; an edit of the TF in place
+    re-classifies into the same entry (its version moved), a new TF object
+    into a new one."""
     _cam_j, cam_t, _ = view((0.2, 0.1, 1.4))
     eng = EngineT(DataSourceT(URI), max_gpu_cache_mb=64, device="cpu")
     kw = dict(n_planes=32, backend="pallas")
@@ -91,14 +93,40 @@ def test_classified_stack_cache():
     assert len(eng._classified_cache) == 1
     assert torch.equal(eng.render_shearwarp(cam_t, **kw), first)
     assert len(eng._classified_cache) == 1
-    eng.transfer_function[:, 3] = 0.0  # in place: the cached stack stays
-    assert torch.equal(eng.render_shearwarp(cam_t, **kw), first)
-    eng.transfer_function = eng.transfer_function.clone()  # a new object
+    eng.transfer_function[:, 3] = 0.0  # in place: re-classified
     cleared = eng.render_shearwarp(cam_t, **kw)
-    assert len(eng._classified_cache) == 2
+    assert len(eng._classified_cache) == 1
     assert float(cleared[..., 3].max()) == 0.0
+    eng.transfer_function = eng.transfer_function.clone()  # a new object
+    assert torch.equal(eng.render_shearwarp(cam_t, **kw), cleared)
+    assert len(eng._classified_cache) == 2
     with pytest.raises(ValueError):
         eng.render_shearwarp(cam_t, backend="mxu")
+
+
+def test_swapped_tfs_give_their_own_frames():
+    """Three TFs swapped on one engine, each a new tensor assigned over the
+    last, so that but for the cache entries the old ones would be freed
+    and their ids free for reuse: every frame, over two rounds of swaps,
+    equals a fresh engine's with that TF."""
+    _cam_j, cam_t, _ = view((0.2, 0.1, 1.4))
+    kw = dict(n_planes=32, backend="pallas")
+    base = default_color_map()
+    tfs = [base, base[::-1].copy(), np.clip(base * 3.0, 0.0, 1.0)]
+    fresh = []
+    for tf in tfs:
+        eng = EngineT(DataSourceT(URI), max_gpu_cache_mb=64, device="cpu")
+        eng.transfer_function = torch.from_numpy(tf.copy())
+        fresh.append(eng.render_shearwarp(cam_t, **kw))
+    assert not torch.equal(fresh[0], fresh[1]) and not torch.equal(fresh[0], fresh[2])
+    eng = EngineT(DataSourceT(URI), max_gpu_cache_mb=64, device="cpu")
+    for _round in range(2):
+        for tf, want in zip(tfs, fresh):
+            eng.transfer_function = torch.from_numpy(tf.copy())
+            assert torch.equal(eng.render_shearwarp(cam_t, **kw), want)
+    # An edit in place re-classifies: the same tensor, now TF 1's table.
+    eng.transfer_function.copy_(torch.from_numpy(tfs[1]))
+    assert torch.equal(eng.render_shearwarp(cam_t, **kw), fresh[1])
 
 
 def test_shearwarp_renderer():

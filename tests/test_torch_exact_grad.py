@@ -44,6 +44,7 @@ from libre_tpu.ops import transfer_function as tf_j
 from libre_tpu_torch.ops import exact
 from libre_tpu_torch.ops import rays as rays_t
 from libre_tpu_torch.ops import reference as ref_t
+from libre_tpu_torch.testing import field_volume
 from tests.test_torch_exact import cameras, shared_jitter
 
 torch.set_num_threads(1)
@@ -194,6 +195,58 @@ def test_wide_brick_matches_oracle():
     assert_grads_close(got, want)
     assert np.abs(want[0][:, :, 128:]).max() > 1e-3
     assert np.abs(got[0][:, :, 128:]).max() > 1e-3
+
+
+@pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("field", ["flat", "top", "smooth"])
+def test_field_backward_matches_jax(field, filter_mode):
+    """On a flat 0.5 volume (every sample in TF bins 127/128), a constant
+    1.25 (bin 255, i0 == i1, no density gradient) and a smooth one (the
+    bin moves every few samples): the plain K4 vs the JAX oracle and the
+    JAX Pallas backward (interpret mode), at the tolerances above."""
+    vol, tf, gw, p_j, p_t = scene(filter_mode)
+    vol = field_volume(field, vol.shape, seed=0, device="cpu").numpy()
+    cam_j, cam_t = cameras([0.25, 0.12, 1.4], img=16)
+    out, *got = port_grads(vol, tf, gw, cam_t, p_t)
+    assert_grads_close(got, oracle_grads(vol, tf, gw, cam_j, p_j))
+    assert_grads_close(got, pallas_grads(vol, tf, gw, cam_j, p_j))
+    d_vol, d_tf = got
+    assert out[:, 3].max() > 0.1
+    if field == "top":
+        assert np.abs(d_vol).max() == 0.0
+        assert np.abs(d_tf[:255]).max() == 0.0 and np.abs(d_tf[255]).max() > 0
+    elif field == "flat":
+        assert np.abs(np.delete(d_tf, [127, 128], axis=0)).max() == 0.0
+        assert np.abs(d_vol).max() > 0
+    else:
+        assert (np.abs(d_tf).max(axis=1) > 0).sum() > 50 and np.abs(d_vol).max() > 0
+
+
+def test_tf_without_grad():
+    """A TF that needs no gradient: ``render_exact_diff`` gives the same
+    d_volume and leaves ``tf.grad`` None; the plain K4 and its wrapper
+    with ``diff_tf=False`` give that d_volume and a zero d_tf."""
+    vol, tf, gw, _p_j, p_t = scene()
+    _cam_j, cam_t = cameras([0.25, 0.12, 1.4], img=16)
+    view = exact.exact_view(cam_t, p_t, GMIN, GMAX, device="cpu")
+    g = torch.from_numpy(gw)
+    grads = []
+    for tf_needs_grad in (True, False):
+        v = torch.from_numpy(vol).requires_grad_()
+        t = torch.from_numpy(tf).requires_grad_(tf_needs_grad)
+        (exact.render_exact_diff(v, t, view) * g).sum().backward()
+        grads.append((v.grad, t.grad))
+    (dv_on, dtf_on), (dv_off, dtf_off) = grads
+    assert dtf_off is None and float(dtf_on.abs().max()) > 0.1
+    assert torch.equal(dv_on, dv_off)
+    with torch.no_grad():
+        out = exact.render_exact_diff(torch.from_numpy(vol), torch.from_numpy(tf), view)
+    args = (torch.from_numpy(vol), torch.from_numpy(tf), view, out, g)
+    for backward in (exact.march_exact_backward_reference, exact.march_exact_backward):
+        dv, dtf = backward(*args, diff_tf=False)
+        assert torch.equal(dv, dv_on) and float(dtf.abs().max()) == 0.0
+        dv, dtf = backward(*args)
+        assert torch.equal(dv, dv_on) and torch.equal(dtf, dtf_on)
 
 
 @pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])

@@ -22,21 +22,34 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from libre_tpu.ops import shearwarp as sw_j
 from libre_tpu.ops import shearwarp_grad as swg_j
 from libre_tpu_torch import interop
 from libre_tpu_torch.ops import shearwarp_bricked as swb_t
 from libre_tpu_torch.ops import shearwarp_grad as swg_t
-from libre_tpu_torch.testing import store_grad_case
+from libre_tpu_torch.testing import field_volume, store_grad_case
 from tests.test_shearwarp_grad import (
-    AXIS, GMAX, GMIN, K, PARAMS, U_SIZE, V_SIZE, setup,
+    AXIS, GMAX, GMIN, K, N, PARAMS, U_SIZE, V_SIZE, oracle_fn, setup,
 )
 
 torch.set_num_threads(1)
 
 
-def scene(tf_scale, diff_tf=True):
-    """(JAX operands, port operands) of the test_shearwarp_grad scene."""
+def field_vol(field):
+    """The scene's (N, N, N) volume as ``field_volume(field)``."""
+    return field_volume(field, (N, N, N), seed=3, device="cpu").numpy()
+
+
+def scene(tf_scale, diff_tf=True, field="random"):
+    """(JAX operands, port operands) of the test_shearwarp_grad scene; a
+    ``field`` other than "random" replaces its volume with
+    ``field_vol(field)``."""
     vol, store_j, tf_j, vs_j, _ = setup(tf_scale=tf_scale)
+    if field != "random":
+        real = np.transpose(field_vol(field), sw_j._PERM[AXIS])
+        store = np.array(store_j)
+        store[: real.shape[0], : real.shape[1], : real.shape[2]] = real
+        store_j = jnp.asarray(store)
     fine = vol.shape
     kw = dict(
         na_store=fine[0], na_real=fine[0], nc_real=fine[1], nb_real=fine[2],
@@ -101,6 +114,47 @@ def test_gradients_match_jax(tf_scale, diff_tf, backward):
     else:
         assert tf.grad is None and np.abs(np.asarray(dtf_j)).max() == 0.0
     assert float(store.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("field", ["flat", "top", "smooth"])
+def test_field_gradients_match_jax(field):
+    """On a flat 0.5 volume (every sample in TF bins 127/128), a constant
+    1.25 (bin 255, i0 == i1) and a smooth one (the bin moves every few
+    samples): the plain K2's d_store and dtf == jax.grad of the JAX
+    function with its Pallas backward in interpret mode (1e-4) and
+    jax.grad of its plane oracle (3e-4, the bound test_shearwarp_grad.py
+    holds the JAX backward to), each normalised by its max |·|."""
+    (store_j, tf_j, vs_j, kw), (store_t, tf_t, vs_t, static) = scene(1.0, field=field)
+    g = cotangent()
+    static_j = swg_j.static_view(kc=16, interpret=True, backward="pallas", **kw)
+    ds_j, dtf_j = jax.grad(
+        lambda s, t: jnp.sum(swg_j.render_store_grid_diff(s, t, vs_j, static_j) * g),
+        argnums=(0, 1),
+    )(store_j, tf_j)
+    ds_j = interop.store_grad_from_jax(np.asarray(ds_j), tuple(store_t.shape))
+    oracle = oracle_fn((N, N, N))
+    dv_o, dtf_o = jax.grad(
+        lambda v, t: jnp.sum(oracle(v, t) * g), argnums=(0, 1)
+    )(jnp.asarray(field_vol(field)), tf_j)
+    ds_o = np.transpose(np.asarray(dv_o), sw_j._PERM[AXIS])
+
+    store = store_t.clone().requires_grad_()
+    tf = tf_t.clone().requires_grad_()
+    (swg_t.render_store_grid_diff(store, tf, vs_t, static) * torch.from_numpy(g)).sum().backward()
+    assert_close_normalised(store.grad.numpy(), ds_j, 1e-4)
+    assert_close_normalised(tf.grad.numpy(), np.asarray(dtf_j), 1e-4)
+    assert_close_normalised(store.grad.numpy(), ds_o, 3e-4)
+    assert_close_normalised(tf.grad.numpy(), np.asarray(dtf_o), 3e-4)
+    dtf = tf.grad.numpy()
+    if field == "top":  # clamped: no density gradient, the TF's only in bin 255
+        assert float(store.grad.abs().max()) == 0.0
+        assert np.abs(dtf[:255]).max() == 0.0 and np.abs(dtf[255]).max() > 0
+    elif field == "flat":
+        assert np.abs(np.delete(dtf, [127, 128], axis=0)).max() == 0.0
+        assert float(store.grad.abs().max()) > 0
+    else:
+        assert (np.abs(dtf).max(axis=1) > 0).sum() > 50  # many bins
+        assert float(store.grad.abs().max()) > 0
 
 
 @pytest.mark.parametrize("diff_tf", [True, False])

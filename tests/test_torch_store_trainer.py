@@ -10,6 +10,8 @@ zero, m/√v is ±1 for any tiny difference, so params may differ by a whole
 learning rate; it is held to converging instead.
 """
 
+import inspect
+
 import numpy as np
 import optax
 import pytest
@@ -148,15 +150,28 @@ def test_checkpoint_round_trip(tmp_path):
     path = str(tmp_path / "ckpt.pt")
     save_checkpoint(path, params, opt)
 
-    restored = restore_checkpoint(path)
+    restored = restore_checkpoint(path, device="cpu")
     params2, opt2, step2 = start(restored["store"], restored["tf"])
-    restore_checkpoint(path, opt2)
+    restore_checkpoint(path, opt2, device="cpu")
     for k in params:
         assert torch.equal(params[k].detach(), params2[k].detach())
     step(params, targets)
     step2(params2, targets)
     for k in params:
         assert torch.equal(params[k].detach(), params2[k].detach())
+
+
+def test_restore_checkpoint_device(tmp_path):
+    """``restore_checkpoint`` loads onto the card unless asked for the CPU;
+    asked for it, it returns CPU tensors equal to those saved."""
+    path = str(tmp_path / "params.pt")
+    saved = {"store": torch.linspace(0.0, 1.0, 12).reshape(2, 6), "tf": torch.ones(256, 4)}
+    save_checkpoint(path, saved)
+    restored = restore_checkpoint(path, device="cpu")
+    assert sorted(restored) == ["store", "tf"]
+    for k, v in restored.items():
+        assert v.device.type == "cpu" and torch.equal(v, saved[k])
+    assert inspect.signature(restore_checkpoint).parameters["device"].default == "cuda"
 
 
 def test_sharded_trainers_are_m9():

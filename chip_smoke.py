@@ -12,17 +12,21 @@ Phases, each of which raises on failure (any failure exits non-zero):
 3. kernel vs plain PyTorch on seeded inputs (SENTINEL holes, two clip
    planes, inactive planes, a saturating transfer function that fires
    the early exit) at 96×80 rays × 128 planes and at the slice shape
-   (512² rays × 512 planes over a 512³ store);
+   (512² rays × 512 planes over a 512³ store), from every view of
+   ``testing.SWEEP_VIEWS`` (on axis, the eye inside the volume, oblique):
+   bit-equal, and the plain plane lists (``tile_planes_reference``) a
+   superset of the planes each tile fetches at;
 4. the main path: ``render_cli.main`` on a 512³ uint8 ``mem://`` volume
    at 512×512 (default LOD selection: a mixed-LOD set), then an 8-pose
    orbit through ``RenderEngine.render_bricked`` at screen-space error 1
    (all 4096 finest bricks, a 512³ store) within one major axis, so
    frames 2-8 reuse the cached store; the sweep kernel must launch once
    per frame;
-5. kernel vs plain on the main path's own operands (timed, with the
-   work behind the time: active planes, rays that fetch, early exits,
-   samples fetched), and the port on the card vs the port on the CPU on
-   a small volume;
+5. kernel vs plain on the main path's own operands, bit-equal (timed,
+   with the work behind the time: active planes, rays that fetch, early
+   exits, samples fetched, planes listed per tile), the same for the
+   CLI frame's recorded launch, and the port on the card vs the port on
+   the CPU on a small volume;
 6. the backward kernel vs plain PyTorch on seeded operands at 96×80 rays
    × 128 planes on every field of ``testing.FIELDS`` (random, flat, top,
    smooth) and at 512² rays × 512 planes over a random 512³ store, with
@@ -34,20 +38,27 @@ Phases, each of which raises on failure (any failure exits non-zero):
    per view; a checkpoint round trip; step and plain times; the backward
    kernel vs plain on view 0 over the trained store and over the truth
    store, each timed with the TF gradient on and off (samples/s, share of
-   the bound);
+   the bound); K1 on view 0 bit-equal to plain, with its bound;
 8. the exact marcher K3 vs plain PyTorch on seeded operands: the
    ``bench_exact`` shape (one 64³ f32 brick, 256² rays, 512 samples per
-   ray) and a scattered 64-brick uint8 atlas with clip planes, a
-   saturating transfer function and a carry in, nearest and trilinear;
+   ray) and a scattered 64-brick uint8 atlas with clip planes and a carry
+   in, from every view of ``testing.EXACT_BRICK_VIEWS`` (a saturating TF
+   off axis; the eye inside the volume, inside a brick; rays along brick
+   faces; a jittered sample), nearest and trilinear: images, per-brick
+   use flags equal, per-ray sample counts equal but on rays the early
+   exit ended, and the plain brick lists (``tile_bricks_reference``) a
+   superset of the bricks each tile samples;
 9. the exact main path: ``render_cli --renderer pallas-exact`` and then
    ``--renderer xla`` on the 512³ volume at 512×512 (the same frame), and
    an 8-pose orbit through ``RenderEngine.render(marcher="pallas")`` at
    screen-space error 1 (all 4096 finest bricks, 512 samples per ray) on
    the bricked orbit's engine; K3 must launch once per pass per sample;
    frame, select and kernel times and the work behind them (samples
-   composited, bricks sampled, rays ended by the early exit);
+   composited, bricks sampled, bricks listed per tile, rays ended by the
+   early exit); K3 on the CLI frames' recorded launches;
 10. K3 vs plain on a 64×64 window of the orbit view's rays (the plain
-   version over all 512² rays and 4096 bricks would take minutes);
+   version over all 512² rays and 4096 bricks would take minutes), with
+   phase 8's checks of counts and lists;
 11. the exact path on the card vs on the CPU, on a small volume through a
    9-slot atlas (passes of 8 bricks) with 2 jittered samples per pixel;
 12. the exact backward K4 vs plain PyTorch on seeded operands, early exit
@@ -66,8 +77,8 @@ Phases, each of which raises on failure (any failure exits non-zero):
    view, K4 vs plain on the whole of view 0 over the trained volume and
    over the ground truth (three seeded cotangents, K4 twice on each, its
    TF gradient also against the plain version over float64 operands),
-   each timed with the TF gradient on and off; K3 and K4 vs plain on a
-   64×64 window of it;
+   each timed with the TF gradient on and off; K3's bound on view 0; K3
+   (with its sample counts) and K4 vs plain on a 64×64 window of it;
 14. the exact trainer on the card vs on the CPU: 2 SGD steps on a 32³
    volume seen by 24×20 rays;
 15. the dense pre-classified sweep K5 vs plain PyTorch on seeded
@@ -84,7 +95,10 @@ Phases, each of which raises on failure (any failure exits non-zero):
    a small volume, and the autograd Function's forward and gradients on
    the card vs on the CPU.
 
-Prints one JSON line describing the kernels (with each kernel's bound:
+Prints every kernel's launch sites on the main paths (launches, time
+per launch on the site's operands, bound, and launches × (time − bound),
+the port's rule-2 ranking), then one JSON line describing the kernels
+(with each kernel's bound:
 the larger of its bytes over the HBM rate and its f32 operations over
 their peak, from this run's work), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -128,6 +142,9 @@ K2_OPS_PER_SAMPLE = 173
 # run, not per sample, and not counted): what diff_tf=False does not do.
 K2_TF_OPS_PER_SAMPLE = 18
 K3_OPS_PER_SAMPLE = {"nearest": 69, "trilinear": 122}
+# Of those, the casts of a uint8 atlas's taps to f32, which an f32 atlas
+# does not do.
+K3_CAST_OPS = {"nearest": 1, "trilinear": 8}
 # K4 per sample of an f32 brick (exact_march_bwd.cu): K3's count without
 # the 8 (1) conversions and its composite (10), plus the recompute's
 # backward: the weight and prefix (8), the inversion (9), the opacity
@@ -277,6 +294,132 @@ def rate(what, ms, samples, bound_ms, card):
     )
 
 
+class Recorder:
+    """Records the operands of every launch of the named kernels while it
+    is entered, by wrapping ``_kernels.launch`` (the wrappers' launch
+    counts are untouched); ``calls`` holds (name, args) in order."""
+
+    def __init__(self, *names):
+        self.names, self.calls = names, []
+
+    def __enter__(self):
+        from libre_tpu_torch.ops import _kernels
+
+        self.real = _kernels.launch
+
+        def launch(name, *args):
+            if name in self.names:
+                self.calls.append((name, args))
+            return self.real(name, *args)
+
+        _kernels.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from libre_tpu_torch.ops import _kernels
+
+        _kernels.launch = self.real
+
+
+def k1_operands(args):
+    """(store, tf, tables, clip, keyword arguments) of a recorded
+    ``post_sweep`` launch, and its (out, t_out)."""
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+
+    (store, tf, a0, a1, wa, dl, act, view, corr, clip, rgb_in, t_in, out, t_out,
+     _k, _nc, _nb, _v, _u, n_clip, wb0, wb1, wc0, wc1, _sb, _sc, early_exit) = args
+    tables = swb.SweepTables(a0=a0, a1=a1, wa=wa, dl=dl, act=act, view=view, corr=corr,
+                             rgb_in=rgb_in, t_in=t_in)
+    kw = dict(n_clip=n_clip, wb=(wb0, wb1), wc=(wc0, wc1), early_exit=early_exit)
+    return (store, tf, tables, clip, kw), (out, t_out)
+
+
+def k1_work(store, tf, tables, clip, kw):
+    """K1's work on these operands, from the plain sweep: a dict of its
+    output (``want``, ``t_want``), the per-ray ``samples`` fetched, the
+    (K,) ``planes`` and (TV, TU, K) tiles' ``fetches`` at which some ray
+    fetches, the number of store voxels ``touched`` under the taps, and
+    K1's ``bound``: those voxels read once, the per-ray operands and
+    outputs, the TF and the plane tables; the fetched samples' operations."""
+    import torch
+
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+
+    dev = store.device
+    v_size, u_size = tables.corr.shape
+    k_planes = tables.a0.shape[0]
+    rows, cols = swb.SWEEP_TILE
+    samples = torch.zeros((v_size, u_size), dtype=torch.int64, device=dev)
+    planes = torch.zeros(k_planes, dtype=torch.bool, device=dev)
+    touched = torch.zeros(store.shape, dtype=torch.bool, device=dev)
+    fetches = torch.zeros((-(-v_size // rows), -(-u_size // cols), k_planes),
+                          dtype=torch.bool, device=dev)
+    want, t_want = swb.post_sweep_reference(store, tf, tables, clip, samples=samples,
+                                            planes=planes, touched=touched, fetches=fetches,
+                                            **kw)
+    n_touched = int(touched.sum())
+    return dict(
+        want=want, t_want=t_want, samples=samples, planes=planes, fetches=fetches,
+        touched=n_touched,
+        bound=bound(bytes_=n_touched * 4 + v_size * u_size * 11 * 4 + TF_BYTES + k_planes * 5 * 4,
+                    ops=int(samples.sum()) * K1_OPS_PER_SAMPLE),
+    )
+
+
+def k3_counts(args):
+    """Relaunch a recorded ``exact_march`` with fresh per-ray sample
+    counts and per-brick use flags (not counted as a main-path launch):
+    (out, samples, used)."""
+    import torch
+
+    from libre_tpu_torch.ops import _kernels
+
+    args = list(args)
+    carry, n_bricks = args[5], args[11]
+    out = torch.empty_like(carry)
+    samples = torch.zeros(carry.shape[0], dtype=torch.int32, device=carry.device)
+    used = torch.zeros(n_bricks, dtype=torch.int32, device=carry.device)
+    args[6:9] = out, samples, used
+    _kernels.launch("exact_march", *args)
+    return out, samples, used
+
+
+def k3_bound_of(samples, used, slot_bytes, n_bricks, n_rays, filter_mode, f32_atlas):
+    """K3's bound: the bricks some ray samples (their atlas slots) read
+    once, the boxes, slots, ray pack, carry in and out and the TF; the
+    composited samples' operations (an f32 atlas casts nothing)."""
+    ops = K3_OPS_PER_SAMPLE[filter_mode] - (K3_CAST_OPS[filter_mode] if f32_atlas else 0)
+    return bound(
+        bytes_=int(used.sum()) * slot_bytes + n_bricks * (16 + 1) * 4
+        + n_rays * (8 + 4 + 4) * 4 + TF_BYTES,
+        ops=int(samples.sum()) * ops,
+    )
+
+
+def check_k3_counts(got, want, what, early_exit):
+    """K3's per-ray sample counts and per-brick use flags against the
+    plain march's: the flags equal; a count may differ only on a ray that
+    one of the two ended by the early exit (the plain version folds
+    chunks in closed form, so its alpha crosses the threshold a sample
+    apart on some rays), and on at most one ray in 200 (the cap of
+    tests/test_torch_cuda.py).  Returns the number of such rays."""
+    (out, samples, used), (out_p, samples_p, used_p) = got, want
+    if not bool((used == used_p).all()):
+        raise AssertionError(f"{what}: K3's used bricks differ from the plain march's")
+    moved = samples != samples_p
+    ended = (out[:, 3] > early_exit) | (out_p[:, 3] > early_exit)
+    if bool((moved & ~ended).any()):
+        raise AssertionError(f"{what}: K3's sample counts differ from plain on rays "
+                             f"the early exit did not end")
+    flips = int(moved.sum())
+    if flips > samples.shape[0] // 200:
+        raise AssertionError(f"{what}: K3's sample counts differ from plain on {flips} "
+                             f"of {samples.shape[0]} rays")
+    print(f"  {what}: used bricks equal; sample counts equal but on {flips} rays "
+          f"ended by the early exit")
+    return flips
+
+
 def orbit_cameras(n=8, width=512, height=512):
     from libre_tpu_torch.apps.render_cli import build_camera
 
@@ -318,25 +461,38 @@ def main() -> int:
     from libre_tpu_torch.ops import shearwarp as sw
     from libre_tpu_torch.ops import shearwarp_bricked as swb
     from libre_tpu_torch.ops import shearwarp_grad as swg
-    from libre_tpu_torch.testing import FIELDS, store_grad_case, sweep_case
+    from libre_tpu_torch.testing import FIELDS, SWEEP_VIEWS, store_grad_case, sweep_case
 
     # ------------------------------------------------------------- 2. build
     for name, secs in _kernels.build_all().items():
         print(f"build {name}: {secs:.2f} s ({_kernels.library_path(name).name})")
 
     # ------------------------------------------- 3. kernel vs plain, seeded
-    for shape in ((96, 80, 128, 64, 48, 56), (512, 512, 512, 512, 512, 512)):
-        store, tf, tables, clip, kw = sweep_case(shape, seed=0, device=dev)
-        got, t_got = swb.post_sweep(store, tf, tables, clip, **kw)
-        want, t_want = swb.post_sweep_reference(store, tf, tables, clip, **kw)
-        torch.cuda.synchronize()
-        compare(got, want, f"seeded sweep V,U,K,Na,Nc,Nb={shape}")
-        compare(t_got, t_want, f"seeded transmittance {shape}")
-        saturated = float((got[..., 3] > 0.999).float().mean())
-        print(f"  early exit reached by {saturated:.3f} of the rays")
-        if saturated == 0.0:
-            raise AssertionError("the seeded case never fired the early exit")
-        del store, tables, got, want
+    # Every view of SWEEP_VIEWS (on axis, the eye inside the volume, an
+    # oblique one) at both shapes: K1 bit-equal to the plain sweep, and
+    # its plane lists a superset of the planes each tile fetches at.
+    for view in SWEEP_VIEWS:
+        for shape in ((96, 80, 128, 64, 48, 56), (512, 512, 512, 512, 512, 512)):
+            store, tf, tables, clip, kw = sweep_case(shape, seed=0, device=dev, view=view)
+            got, t_got = swb.post_sweep(store, tf, tables, clip, **kw)
+            work = k1_work(store, tf, tables, clip, kw)
+            want, t_want, fetches = work["want"], work["t_want"], work["fetches"]
+            lists = swb.tile_planes_reference(tables, kw["wb"], kw["wc"])
+            torch.cuda.synchronize()
+            what = f"seeded sweep {view} V,U,K,Na,Nc,Nb={shape}"
+            compare(got, want, what)
+            compare(t_got, t_want, f"seeded transmittance {view} {shape}")
+            if not (torch.equal(got, want) and torch.equal(t_got, t_want)):
+                raise AssertionError(f"{what}: K1 is not bit-equal to the plain sweep")
+            if not bool((fetches <= lists).all()):
+                raise AssertionError(f"{what}: a tile fetches at a plane off its list")
+            saturated = float((got[..., 3] > 0.999).float().mean())
+            print(f"  bit-equal; early exit reached by {saturated:.3f} of the rays; tiles list "
+                  f"{int(lists.sum())} of {lists.numel()} (tile, plane) pairs and fetch at "
+                  f"{int(fetches.sum())}")
+            if view == "axis" and saturated == 0.0:
+                raise AssertionError("the seeded case never fired the early exit")
+            del store, tables, got, want, fetches, lists, work
 
     # --------------------------------------------------------- 4. main path
     from libre_tpu_torch.apps import render_cli
@@ -348,7 +504,7 @@ def main() -> int:
     poses = orbit_cameras()
     swb.post_sweep.launches = 0
     swg.store_grid_backward.launches = 0
-    with tempfile.TemporaryDirectory() as out_dir:
+    with tempfile.TemporaryDirectory() as out_dir, Recorder("post_sweep") as k1_cli:
         t0 = time.perf_counter()
         rc = render_cli.main([
             "--volume", URI, "--width", "512", "--height", "512",
@@ -431,16 +587,26 @@ def main() -> int:
     )
     kw = dict(n_clip=runner.n_clip, wb=runner.wb, wc=runner.wc,
               early_exit=runner.early_exit)
-    got, _ = swb.post_sweep(store, tf, tables, runner.clip, **kw)
-    samples = torch.zeros((runner.v_size, runner.u_size), dtype=torch.int64, device=dev)
-    planes = torch.zeros(runner.k_planes, dtype=torch.bool, device=dev)
-    touched = torch.zeros(store.shape, dtype=torch.bool, device=dev)
-    want, t_want = swb.post_sweep_reference(
-        store, tf, tables, runner.clip, samples=samples, planes=planes, touched=touched,
-        **kw
-    )
+    got, t_got = swb.post_sweep(store, tf, tables, runner.clip, **kw)
+    work = k1_work(store, tf, tables, runner.clip, kw)
+    want, t_want, samples, planes = work["want"], work["t_want"], work["samples"], work["planes"]
+    fetches, k1_bound = work["fetches"], work["bound"]
+    lists = swb.tile_planes_reference(tables, runner.wb, runner.wc)
+    rows, cols = swb.SWEEP_TILE
     torch.cuda.synchronize()
     max_err = compare(got, want, "main-path sweep")
+    if not (torch.equal(got, want) and torch.equal(t_got, t_want)):
+        raise AssertionError("main-path sweep: K1 is not bit-equal to the plain sweep")
+    if not bool((fetches <= lists).all()):
+        raise AssertionError("main-path sweep: a tile fetches at a plane off its list")
+    n_tiles = lists[..., 0].numel()
+    print(
+        f"  bit-equal; the {n_tiles} tiles of {rows}x{cols} rays list "
+        f"{int(lists.sum()) / n_tiles:.1f} planes each on average (of {int(tables.act.sum())} "
+        f"active), at most {int(lists.sum(dim=-1).max())}; they fetch at "
+        f"{int(fetches.sum()) / n_tiles:.1f}"
+    )
+    del fetches, lists
     ms = cuda_ms(lambda: swb.post_sweep(store, tf, tables, runner.clip, **kw), reps=20)
     plain_ms = cuda_ms(
         lambda: swb.post_sweep_reference(store, tf, tables, runner.clip, **kw),
@@ -464,22 +630,36 @@ def main() -> int:
         f"mean {fetched / max(1, int((samples > 0).sum())):.1f} per fetching ray; "
         f"kernel {fetched / (ms * 1e-3) / 1e9:.3f} G samples/s {card}"
     )
-    # K1's bound: the store voxels under the taps of the fetched samples,
-    # each read once, plus the per-ray operands and outputs; the fetched
-    # samples' operations.
     slices = torch.unique(torch.cat([tables.a0[planes], tables.a1[planes]]))
     _na, s_nc, s_nb = store.shape
-    n_touched = int(touched.sum())
-    k1_bound = bound(
-        bytes_=n_touched * 4 + n_rays * 11 * 4 + TF_BYTES + runner.k_planes * 5 * 4,
-        ops=fetched * K1_OPS_PER_SAMPLE,
-    )
+    n_touched = work["touched"]
     print(
         f"  K1 bound: {n_touched} store voxels read ({n_touched / (slices.numel() * s_nc * s_nb):.4f} "
         f"of the {slices.numel()} slices of the {int(planes.sum())} planes fetched); "
         f"{k1_bound[0]:.4f} ms, {k1_bound[1]}-bound; kernel at {k1_bound[0] / ms:.4f} of it {card}"
     )
-    del touched
+    del work
+    # K1's launch sites on the main paths: (kernel, site, launches, ms per
+    # launch on the site's operands, bound), printed with the kernels line.
+    sites = [("K1", "StoreFrameRunner, orbit frames (sse 1)", launches - cli_launches, ms,
+              k1_bound)]
+    # The CLI frame's launch (sse 4), on the operands it was given.
+    (_name, cli_args), = k1_cli.calls
+    cli_ops, (cli_out, cli_t) = k1_operands(cli_args)
+    cli_work = k1_work(*cli_ops)
+    k1_cli_bound = cli_work["bound"]
+    torch.cuda.synchronize()
+    if not (torch.equal(cli_out, cli_work["want"]) and torch.equal(cli_t, cli_work["t_want"])):
+        raise AssertionError("render_cli's sweep: K1 is not bit-equal to the plain sweep")
+    k1_cli_ms = cuda_ms(lambda: _kernels.launch("post_sweep", *cli_args), reps=20)
+    sites.insert(0, ("K1", "StoreFrameRunner, render_cli frame (sse 4)", cli_launches,
+                     k1_cli_ms, k1_cli_bound))
+    print(
+        f"K1 on render_cli's operands (store {tuple(cli_ops[0].shape)}): {k1_cli_ms:.4f} ms, "
+        f"bit-equal to plain; {int(cli_work['samples'].sum())} samples fetched; bound "
+        f"{k1_cli_bound[0]:.4f} ms ({k1_cli_bound[1]}) {card}"
+    )
+    del cli_ops, cli_args, cli_out, cli_work, k1_cli
 
     from libre_tpu_torch.apps.render_cli import build_camera
 
@@ -633,6 +813,16 @@ def main() -> int:
     bwd_err = float((ds - ds_ref).abs().max())
     del ds_ref
     fwd_ms = cuda_ms(lambda: swb.post_sweep(p_store, p_tf, tables, clip0, **fwd_kw), reps=10)
+    # K1 on the training view: bit-equal to plain, and its bound.
+    train_work = k1_work(p_store, p_tf, tables, clip0, fwd_kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, train_work["want"]) and torch.equal(t_out, train_work["t_want"])):
+        raise AssertionError("training view 0: K1 is not bit-equal to the plain sweep")
+    rate("K1 on training view 0 (bit-equal to plain)", fwd_ms, int(train_work["samples"].sum()),
+         train_work["bound"][0], card)
+    sites.append(("K1", "RenderStoreGridDiff forward and render_views (store training)",
+                  train_fwd_launches, fwd_ms, train_work["bound"]))
+    del train_work
     in_box = []  # samples inside the box, per view: all fetched, no early exit
     for vs in views:
         tv = swb.sweep_tables(
@@ -696,31 +886,55 @@ def main() -> int:
     del out_t, t_out_t
 
     # ---------------------------------------- 8. K3 vs plain, seeded cases
-    from libre_tpu_torch.ops import exact
+    from libre_tpu_torch.ops import exact, raycast
     from libre_tpu_torch.ops.reference import RenderParams
-    from libre_tpu_torch.testing import EXACT_TOL_MAX, EXACT_TOL_MEAN, exact_case
+    from libre_tpu_torch.testing import (
+        EXACT_BRICK_VIEWS,
+        EXACT_TOL_MAX,
+        EXACT_TOL_MEAN,
+        exact_case,
+    )
 
     exact_tol = (EXACT_TOL_MAX, EXACT_TOL_MEAN)
-    for case, dtype in (("single", torch.float32), ("bricks", torch.uint8)):
+
+    # The bench brick, and the multi-brick views of EXACT_BRICK_VIEWS (off
+    # axis with a saturating TF; the eye inside the volume and inside a
+    # brick; rays along brick faces; a jittered sample), clip planes and a
+    # carry in.
+    for case, dtype in [("single", torch.float32)] + [(v, torch.uint8) for v in EXACT_BRICK_VIEWS]:
         for filter_mode in ("nearest", "trilinear"):
             c = exact_case(case, seed=0, device=dev, filter_mode=filter_mode, dtype=dtype)
-            args = (c.atlas, c.slots, c.boxes, c.tf, c.rays, c.carry, c.eye, c.params)
-            got = exact.march_exact(*args, max_steps=c.max_steps, width=c.width)
-            want = exact.march_exact_reference(*args, max_steps=c.max_steps)
-            torch.cuda.synchronize()
             what = (f"seeded K3 {case} {tuple(c.atlas.shape)} {c.atlas.dtype} "
                     f"{filter_mode}, {c.carry.shape[0]} rays")
+            args = (c.atlas, c.slots, c.boxes, c.tf, c.rays, c.carry, c.eye, c.params)
+            n_rays, n_bricks = c.carry.shape[0], c.slots.shape[0]
+            counts = [(torch.zeros(n_rays, dtype=torch.int32, device=dev),
+                       torch.zeros(n_bricks, dtype=torch.int32, device=dev)) for _ in range(2)]
+            # The plain march's bricks sampled per tile, against K3's lists.
+            lists = raycast.tile_bricks_reference(c.rays, c.boxes, c.eye, c.width)
+            tile_used = torch.zeros_like(lists)
+            got = exact.march_exact(*args, max_steps=c.max_steps, width=c.width,
+                                    samples=counts[0][0], used=counts[0][1])
+            want = exact.march_exact_reference(*args, max_steps=c.max_steps,
+                                               samples=counts[1][0], used=counts[1][1],
+                                               width=c.width, tile_used=tile_used)
+            torch.cuda.synchronize()
             compare(got, want, what, exact_tol)
+            check_k3_counts((got, *counts[0]), (want, *counts[1]), what, c.params.early_exit)
+            if not bool((tile_used <= lists).all()):
+                raise AssertionError(f"{what}: a tile samples a brick off its list")
+            print(f"  tiles list {int(lists.sum())} of {lists.numel()} (tile, brick) pairs and "
+                  f"sample {int(tile_used.sum())}")
             saturated = float((got[:, 3] > c.params.early_exit).float().mean())
             print(f"  early exit reached by {saturated:.3f} of the rays")
             if saturated == 0.0:
                 raise AssertionError(f"{what}: the early exit never fired")
-            del c, args, got, want
+            del c, args, got, want, lists, tile_used
 
     # --------------------------------------- 9. the exact main path
     exact.march_exact.launches = 0
     cli_ok = {}
-    with tempfile.TemporaryDirectory() as out_dir:
+    with tempfile.TemporaryDirectory() as out_dir, Recorder("exact_march") as k3_cli:
         for renderer in ("pallas-exact", "xla"):
             t0 = time.perf_counter()
             rc = render_cli.main([
@@ -813,16 +1027,39 @@ def main() -> int:
     composited = int(k3_samples.sum())
     used_bricks = int(k3_used.sum())
     ended = float((frame[:, 3] > exact_params.early_exit).float().mean())
-    # K3's bound: the bricks some ray samples (their atlas slots) read
-    # once, the boxes, slots, ray pack, carry in and out and the TF; the
-    # composited samples' operations.
-    k3_bound = bound(
-        bytes_=used_bricks * engine.atlas.slot_bytes + len(order) * (16 + 1) * 4
-        + n_rays * (8 + 4 + 4) * 4 + TF_BYTES,
-        ops=composited * K3_OPS_PER_SAMPLE[exact_params.filter_mode],
+    k3_bound = k3_bound_of(k3_samples, k3_used, engine.atlas.slot_bytes, len(order), n_rays,
+                           exact_params.filter_mode, atlas.dtype == torch.float32)
+    lists = raycast.tile_bricks_reference(pack, boxes, eye_np, 512)
+    n_tiles = lists[..., 0].numel()
+    print(
+        f"  K3's brick lists on the orbit view: the {n_tiles} tiles of 16x8 rays list "
+        f"{int(lists.sum()) / n_tiles:.1f} of the pass's {len(order)} bricks on average, at "
+        f"most {int(lists.sum(dim=-1).max())}"
     )
+    del lists
+    sites.append(("K3", "RenderEngine.render, orbit frames (sse 1)",
+                  exact_launches - exact_cli_launches, k3_ms, k3_bound))
+    # The CLI frames' launches (sse 4; the two renderers march the same
+    # operands), on the operands they were given.
+    cli_times = []
+    for _name, cli_args in k3_cli.calls:
+        cli_frame, cli_samples, cli_used = k3_counts(cli_args)
+        cli_atlas = cli_args[0]
+        cli_bound = k3_bound_of(cli_samples, cli_used, cli_atlas[0].numel() * cli_atlas.element_size(),
+                                cli_args[11], cli_args[12],
+                                "trilinear" if cli_args[10] else "nearest",
+                                cli_atlas.dtype == torch.float32)
+        cli_times.append(cuda_ms(lambda: _kernels.launch("exact_march", *cli_args), reps=20))
+        print(
+            f"K3 on a render_cli frame's operands ({cli_args[12]} rays, {cli_args[11]} bricks, "
+            f"{int(cli_samples.sum())} samples composited, {int(cli_used.sum())} bricks sampled): "
+            f"{cli_times[-1]:.4f} ms; bound {cli_bound[0]:.4f} ms ({cli_bound[1]}) {card}"
+        )
+    sites.insert(len(sites) - 1, ("K3", "RenderEngine.render, render_cli frames (sse 4)",
+                                  exact_cli_launches, float(np.mean(cli_times)), cli_bound))
+    del k3_cli, cli_args, cli_atlas, cli_frame
     # The same frame from only the bricks some ray samples: what the
-    # per-ray slab tests of the other bricks cost.
+    # other bricks still cost (their culling in each tile's prologue).
     keep = k3_used.bool()
     sampled_args = (atlas, slots[keep].contiguous(), boxes[keep].contiguous(), tf, pack,
                     carry0, eye_np, exact_params)
@@ -843,8 +1080,8 @@ def main() -> int:
     )
     print(
         f"  the same frame from the {used_bricks} sampled bricks alone: kernel "
-        f"{k3_sampled_ms:.4f} ms (the slab tests of the other {len(order) - used_bricks} "
-        f"bricks cost the difference) {card}"
+        f"{k3_sampled_ms:.4f} ms (culling the other {len(order) - used_bricks} bricks per "
+        f"tile costs the difference) {card}"
     )
 
     # ------------------ 10. K3 vs plain on a window of the main path's rays
@@ -853,13 +1090,23 @@ def main() -> int:
     sub = sub.reshape(8, -1).contiguous()
     sub_args = (atlas, slots, boxes, tf, sub, torch.zeros((SUBSET * SUBSET, 4), device=dev),
                 eye_np, exact_params)
-    got = exact.march_exact(*sub_args, max_steps=max_steps, width=SUBSET)
+    counts = [(torch.zeros(SUBSET * SUBSET, dtype=torch.int32, device=dev),
+               torch.zeros(len(order), dtype=torch.int32, device=dev)) for _ in range(2)]
+    lists = raycast.tile_bricks_reference(sub, boxes, eye_np, SUBSET)
+    tile_used = torch.zeros_like(lists)
+    got = exact.march_exact(*sub_args, max_steps=max_steps, width=SUBSET,
+                            samples=counts[0][0], used=counts[0][1])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = exact.march_exact_reference(*sub_args, max_steps=max_steps)
+    want = exact.march_exact_reference(*sub_args, max_steps=max_steps, samples=counts[1][0],
+                                       used=counts[1][1], width=SUBSET, tile_used=tile_used)
     torch.cuda.synchronize()
     k3_plain_ms = (time.perf_counter() - t0) * 1e3
-    k3_err = compare(got, want, f"main-path K3, {SUBSET}x{SUBSET} window", exact_tol)
+    what = f"main-path K3, {SUBSET}x{SUBSET} window"
+    k3_err = compare(got, want, what, exact_tol)
+    check_k3_counts((got, *counts[0]), (want, *counts[1]), what, exact_params.early_exit)
+    if not bool((tile_used <= lists).all()):
+        raise AssertionError(f"{what}: a tile samples a brick off its list")
     k3_sub_ms = cuda_ms(lambda: exact.march_exact(*sub_args, max_steps=max_steps, width=SUBSET),
                         reps=20)
     print(
@@ -1067,6 +1314,13 @@ def main() -> int:
                                                    max_steps=v0.max_steps, width=v0.width),
                          reps=10)
     n_view = int(samples0.sum())
+    # K3's bound on the training view: the one f32 brick read once.
+    used0 = torch.ones(1, dtype=torch.int32)
+    k3_train_bound = k3_bound_of(samples0, used0, p_vol.numel() * 4, 1, v0.n_rays,
+                                 train_params.filter_mode, True)
+    rate("K3 on exact training view 0", k3_view_ms, n_view, k3_train_bound[0], card)
+    sites.append(("K3", "RenderExactDiff forward (exact training)", ex_fwd_launches,
+                  k3_view_ms, k3_train_bound))
     # The same view over the 512^3 smooth ground truth with the default TF
     # (the bins move every few samples along each ray), kernel vs plain;
     # its forward is the training target of view 0.  Three seeded
@@ -1128,15 +1382,19 @@ def main() -> int:
     sub = v0.ray_pack.reshape(8, 512, 512)[:, lo:lo + SUBSET, lo:lo + SUBSET]
     w0 = dataclasses.replace(v0, ray_pack=sub.reshape(8, -1).contiguous(), width=SUBSET)
     sub_fwd = (*brick_args(p_vol, p_tf, w0), torch.zeros((w0.n_rays, 4), device=dev))
+    counts = [(torch.zeros(w0.n_rays, dtype=torch.int32, device=dev),
+               torch.zeros(1, dtype=torch.int32, device=dev)) for _ in range(2)]
     out_w = exact.march_exact(*sub_fwd, w0.eye, w0.params, max_steps=w0.max_steps,
-                              width=w0.width)
+                              width=w0.width, samples=counts[0][0], used=counts[0][1])
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    want_w = exact.march_exact_reference(*sub_fwd, w0.eye, w0.params, max_steps=w0.max_steps)
+    want_w = exact.march_exact_reference(*sub_fwd, w0.eye, w0.params, max_steps=w0.max_steps,
+                                         samples=counts[1][0], used=counts[1][1])
     torch.cuda.synchronize()
     k3_plain_window_ms = (time.perf_counter() - t1) * 1e3
-    k3_train_err = compare(out_w, want_w, f"K3 on a {SUBSET}x{SUBSET} window of training "
-                                          f"view 0", exact_tol)
+    what = f"K3 on a {SUBSET}x{SUBSET} window of training view 0"
+    k3_train_err = compare(out_w, want_w, what, exact_tol)
+    check_k3_counts((out_w, *counts[0]), (want_w, *counts[1]), what, train_params.early_exit)
     g_w = g0.reshape(512, 512, 4)[lo:lo + SUBSET, lo:lo + SUBSET].reshape(-1, 4).contiguous()
     sub_args = (p_vol, p_tf, w0, out_w, g_w)
     got = exact.march_exact_backward(*sub_args)
@@ -1425,6 +1683,24 @@ def main() -> int:
     loaded =[m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
     if loaded:
         raise AssertionError(f"imported {loaded[:5]}")
+
+    # The rule-2 ranking of the port's kernels: per launch site on the
+    # main paths, launches x (ms per launch - bound), from this run.
+    sites += [
+        ("K2", "RenderStoreGridDiff backward (store training)", train_bwd_launches, bwd_ms,
+         k2_bound),
+        ("K4", "RenderExactDiff backward (exact training)", ex_bwd_launches, k4_ms, k4_bound),
+        ("K5", "render_frame, render_cli and orbit frames", dense_launches, k5_ms, k5_bound),
+    ]
+    print(f"launch sites on the main paths: launches, ms per launch on the site's operands, "
+          f"bound, launches x (ms - bound) {card}")
+    above = {}
+    for kernel, site, n, site_ms, (b_ms, b_by) in sites:
+        above[kernel] = above.get(kernel, 0.0) + n * (site_ms - b_ms)
+        print(f"  {kernel} {site}: {n} launches, {site_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{n * (site_ms - b_ms):.3f} ms")
+    print("  by kernel: " + "; ".join(f"{k} {v:.3f} ms" for k, v in
+                                      sorted(above.items(), key=lambda kv: -kv[1])))
 
     print(json.dumps({"kernels": [
         {

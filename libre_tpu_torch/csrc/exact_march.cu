@@ -3,15 +3,34 @@
 // Replaces the TPU kernel libre_tpu/ops/exact_pallas.py::_make_exact_kernel
 // (launched by _compiled_group from render_exact_rays and the engine's
 // _march_pass_pallas).  The plain PyTorch specification is
-// libre_tpu_torch/ops/raycast.py::march_exact_reference; the wrapper is
+// libre_tpu_torch/ops/raycast.py::march_exact_reference, and
+// tile_bricks_reference beside it that of the brick lists; the wrapper is
 // libre_tpu_torch/ops/exact.py::march_exact.
 //
-// One thread per ray, in 16x8 screen tiles so that neighbouring rays fetch
-// neighbouring voxels.  Each thread walks the pass's bricks in the engine's
-// front-to-back order with its (r, g, b, a) carry in registers.  Per brick:
-// the slab test of ops/rays.intersect_box (zero direction components nudged
-// to 1e-10), the brick's interval (lo, hi] = (max(t0, t_lo), min(t1, t_hi)],
-// then the global sample grid t_n = tn_global + n*step from
+// One CTA per 16x8 screen tile of rays, one thread per ray, so that
+// neighbouring rays fetch neighbouring voxels.
+//
+// Brick lists.  All rays start at the eye (ex, ey, ez), a kernel uniform.
+// In a prologue the tile's rays reduce their unit directions to a cone: its
+// axis (their normalised sum) and its half-angle (the largest angle to the
+// axis, plus kConeAngleMargin).  Then, kBrickChunk bricks of the pass at a
+// time, the CTA's threads test each brick's bounding sphere, grown by
+// kConeRadiusMargin of its radius, against the cone: a sphere that holds
+// the eye always passes; any other passes iff the angle between the axis
+// and its centre is at most the cone's half-angle plus the angle the
+// sphere subtends.  A sample at t > 0 of a ray in the cone that lies in the
+// brick lies in the sphere, so the survivors are a superset of the bricks
+// any ray of the tile samples; the margins cover the f32 rounding of the
+// slab test and of the test itself.  The survivors are written in the
+// pass's front-to-back order (compact.cuh) to a list in
+// shared memory, then marched; shared memory does not grow with n_bricks.
+// Once every ray of the tile is done, the CTA culls and marches no further
+// chunk.
+//
+// Per listed brick each thread runs what it always ran: the slab test of
+// ops/rays.intersect_box (zero direction components nudged to 1e-10), the
+// brick's interval (lo, hi] = (max(t0, t_lo), min(t1, t_hi)], then the
+// global sample grid t_n = tn_global + n*step from
 // n0 = floor((max(lo, t_near_plane) - tn_global) / step) - 1 (a lower bound:
 // membership is tested per sample), n >= n_start, stopping at the first
 // t_n > hi since t is monotone in n.  Each member sample fetches the brick in
@@ -21,7 +40,9 @@
 // shared memory, applies the opacity correction 1 - (1 - min(a, 1-1/256))^corr
 // with powf and composites front to back.  A sample is skipped iff the
 // accumulated alpha before it exceeds early_exit; from then on nothing
-// changes, so the thread leaves both loops.  That is exact.
+// changes, so the thread leaves both loops.  That is exact.  A brick left
+// off the list is one no ray of the tile takes a sample of, so the rays
+// composite the same samples in the same order as over every brick.
 //
 // The TPU kernel bucketed samples into volume slabs, bounded a c-window and
 // composited chunks in closed form because Mosaic has no arbitrary gather
@@ -31,10 +52,8 @@
 //
 // What bounds it: per sample, 1 (nearest) or 8 (trilinear) dependent loads
 // from the brick, which neighbouring rays mostly share through L1/L2, and the
-// serial compositing chain.  Known extra cost: every ray slab-tests every
-// brick of the pass (4096 per ray on a 512^3 volume at screen-space error 1),
-// a loop of box loads that all threads of a warp share; culling bricks per
-// screen tile is later work.
+// serial compositing chain.  The lists take the slab tests of the bricks
+// no ray of a tile samples out of every ray's loop.
 //
 // Numerics: f32 throughout, IEEE division, powf (not __powf), no fast-math and
 // no FMA contraction (ops/_kernels.py builds with --fmad=false): the per-ray
@@ -48,6 +67,7 @@
 
 #include <cstdint>
 
+#include "compact.cuh"
 #include "exact_sample.cuh"
 
 namespace {
@@ -56,9 +76,53 @@ using exact::kTileX;
 using exact::kTileY;
 using exact::kAlphaClamp;
 using exact::kTfSize;
+constexpr int kThreads = kTileX * kTileY;
+constexpr int kWarps = kThreads / 32;
+// Bricks culled into one list before they are marched.
+constexpr int kBrickChunk = 1024;
+// The cone test's margins (raycast.CONE_RADIUS_MARGIN, CONE_ANGLE_MARGIN).
+constexpr float kConeRadiusMargin = 1e-3f;
+constexpr float kConeAngleMargin = 1e-5f;
+constexpr float kPi = 3.14159265358979f;
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// The angle between the unit axis a and the vector w: atan2(|a x w|, a.w),
+// accurate at small angles too.
+__device__ __forceinline__ float angle_to(float ax, float ay, float az, float wx,
+                                          float wy, float wz) {
+  const float kx = ay * wz - az * wy, ky = az * wx - ax * wz, kz = ax * wy - ay * wx;
+  return atan2f(sqrtf(kx * kx + ky * ky + kz * kz), ax * wx + ay * wy + az * wz);
+}
+
+// Whether the brick box (p.xyz, (p.w, q.x, q.y)) may hold a sample of a ray
+// from the eye inside the cone (axis a, half-angle theta): its bounding
+// sphere, grown by kConeRadiusMargin, holds the eye or meets the cone.
+__device__ __forceinline__ bool in_cone(float4 p, float4 q, float ex, float ey,
+                                        float ez, float ax, float ay, float az,
+                                        float theta) {
+  const float hx = 0.5f * (p.w - p.x), hy = 0.5f * (q.x - p.y), hz = 0.5f * (q.y - p.z);
+  const float wx = 0.5f * (p.x + p.w) - ex;
+  const float wy = 0.5f * (p.y + q.x) - ey;
+  const float wz = 0.5f * (p.z + q.y) - ez;
+  const float rad = sqrtf(hx * hx + hy * hy + hz * hz) * (1.0f + kConeRadiusMargin);
+  const float d = sqrtf(wx * wx + wy * wy + wz * wz);
+  if (!(d > rad)) return true;
+  return !(angle_to(ax, ay, az, wx, wy, wz) > theta + asinf(rad / d));
+}
 
 template <typename T, bool kTrilinear>
-__global__ void __launch_bounds__(kTileX* kTileY) exact_march_kernel(
+__global__ void __launch_bounds__(kThreads) exact_march_kernel(
     const T* __restrict__ atlas,        // (n_slots, BZ, BY, BX)
     const int* __restrict__ slots,      // (B,)
     const float4* __restrict__ boxes,   // (B, 4) float4, raycast.BOX_FLOATS
@@ -72,51 +136,111 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_kernel(
     float ex, float ey, float ez, float step, float mult, float add, float corr,
     float early_exit) {
   __shared__ float4 s_tf[kTfSize];
+  __shared__ int s_list[kBrickChunk];
+  __shared__ float s_red[kWarps][4];
+  __shared__ int s_count[kWarps];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < kTfSize; i += blockDim.x * blockDim.y) s_tf[i] = tf[i];
-  __syncthreads();
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < kTfSize; i += kThreads) s_tf[i] = tf[i];
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= width) return;
   const int r = y * width + x;
-  if (r >= n_rays) return;
-
-  const exact::Ray ray = exact::load_ray(rays, n_rays, r);
-  const size_t brick_voxels = (size_t)bx * by * bz;
-
-  const float4 c_in = carry[r];
-  float cr = c_in.x, cg = c_in.y, cb = c_in.z, ca = c_in.w;
+  const bool valid = x < width && r < n_rays;
+  exact::Ray ray = {};
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f, ca = 0.0f;
   int count = 0;
-  bool done = ca > early_exit;
-
-  for (int b = 0; b < n_bricks && !done; ++b) {
-    exact::Span span;
-    if (!exact::brick_span(ray, __ldg(boxes + 4 * b), __ldg(boxes + 4 * b + 1), ex,
-                           ey, ez, step, max_steps, &span))
-      continue;
-    const float4 s = __ldg(boxes + 4 * b + 2), o = __ldg(boxes + 4 * b + 3);
-    const T* brick = atlas + (size_t)__ldg(slots + b) * brick_voxels;
-    int brick_count = 0;
-    exact::for_each_sample(span, ray.tng, step, [&](float t) {
-      const exact::Taps k =
-          exact::taps_at<kTrilinear>(ray, t, ex, ey, ez, s, o, bx, by, bz);
-      const float raw = exact::fetch<T, kTrilinear>(brick, k, bx, by);
-      const exact::TfTaps q = exact::tf_taps(exact::normalise(raw, mult, add));
-      const float4 src = sweep::lerp4(s_tf[q.i0], s_tf[q.i1], q.w);
-      const float alpha = 1.0f - powf(1.0f - fminf(src.w, kAlphaClamp), corr);
-      const float w = alpha * (1.0f - ca);
-      cr = cr + src.x * w;
-      cg = cg + src.y * w;
-      cb = cb + src.z * w;
-      ca = ca + w;
-      ++brick_count;
-      done = ca > early_exit;
-      return done;
-    });
-    count += brick_count;
-    if (used != nullptr && brick_count > 0) used[b] = 1;
+  bool done = true;
+  // This ray's unit direction; a zero or non-finite one widens the cone to
+  // every direction.
+  float ux = 0.0f, uy = 0.0f, uz = 0.0f;
+  bool any_dir = false;
+  if (valid) {
+    ray = exact::load_ray(rays, n_rays, r);
+    const float4 c_in = carry[r];
+    cr = c_in.x, cg = c_in.y, cb = c_in.z, ca = c_in.w;
+    done = ca > early_exit;
+    const float norm = sqrtf(ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz);
+    if (norm > 0.0f && norm < 3e38f) {
+      ux = ray.dx / norm;
+      uy = ray.dy / norm;
+      uz = ray.dz / norm;
+    } else {
+      any_dir = true;
+    }
   }
+
+  // The tile's cone: axis = the normalised sum of its unit directions,
+  // half-angle = the largest angle to the axis.
+  const float sx = warp_sum(ux), sy = warp_sum(uy), sz = warp_sum(uz);
+  if (lane == 0) {
+    s_red[warp][0] = sx;
+    s_red[warp][1] = sy;
+    s_red[warp][2] = sz;
+  }
+  any_dir = __syncthreads_or(any_dir);
+  float ax = 0.0f, ay = 0.0f, az = 0.0f;
+  for (int w = 0; w < kWarps; ++w) {
+    ax += s_red[w][0];
+    ay += s_red[w][1];
+    az += s_red[w][2];
+  }
+  const float an = sqrtf(ax * ax + ay * ay + az * az);
+  ax /= an, ay /= an, az /= an;
+  const float mine = valid ? angle_to(ax, ay, az, ux, uy, uz) : 0.0f;
+  const float warp_theta = warp_max(mine);
+  if (lane == 0) s_red[warp][3] = warp_theta;
+  __syncthreads();
+  float theta = 0.0f;
+  for (int w = 0; w < kWarps; ++w) theta = fmaxf(theta, s_red[w][3]);
+  if (any_dir || !(an > 0.0f) || !(theta <= kPi)) theta = kPi;
+  theta += kConeAngleMargin;
+
+  const size_t brick_voxels = (size_t)bx * by * bz;
+  for (int chunk = 0; chunk < n_bricks; chunk += kBrickChunk) {
+    // Every thread is done with the last chunk's list here.
+    if (!__syncthreads_or(!done)) break;
+    const int chunk_end = min(chunk + kBrickChunk, n_bricks);
+    int n_list = 0;
+    for (int base = chunk; base < chunk_end; base += kThreads) {
+      const int b = base + tid;
+      const bool keep = b < chunk_end && in_cone(__ldg(boxes + 4 * b),
+                                                 __ldg(boxes + 4 * b + 1), ex, ey,
+                                                 ez, ax, ay, az, theta);
+      compact::append<kWarps>(keep, tid, s_count, n_list,
+                              [&](int pos) { s_list[pos] = b; });
+    }
+
+    for (int i = 0; i < n_list && !done; ++i) {
+      const int b = s_list[i];
+      exact::Span span;
+      if (!exact::brick_span(ray, __ldg(boxes + 4 * b), __ldg(boxes + 4 * b + 1), ex,
+                             ey, ez, step, max_steps, &span))
+        continue;
+      const float4 s = __ldg(boxes + 4 * b + 2), o = __ldg(boxes + 4 * b + 3);
+      const T* brick = atlas + (size_t)__ldg(slots + b) * brick_voxels;
+      int brick_count = 0;
+      exact::for_each_sample(span, ray.tng, step, [&](float t) {
+        const exact::Taps k =
+            exact::taps_at<kTrilinear>(ray, t, ex, ey, ez, s, o, bx, by, bz);
+        const float raw = exact::fetch<T, kTrilinear>(brick, k, bx, by);
+        const exact::TfTaps q = exact::tf_taps(exact::normalise(raw, mult, add));
+        const float4 src = sweep::lerp4(s_tf[q.i0], s_tf[q.i1], q.w);
+        const float alpha = 1.0f - powf(1.0f - fminf(src.w, kAlphaClamp), corr);
+        const float w = alpha * (1.0f - ca);
+        cr = cr + src.x * w;
+        cg = cg + src.y * w;
+        cb = cb + src.z * w;
+        ca = ca + w;
+        ++brick_count;
+        done = ca > early_exit;
+        return done;
+      });
+      count += brick_count;
+      if (used != nullptr && brick_count > 0) used[b] = 1;
+    }
+  }
+  if (!valid) return;
   out[r] = make_float4(cr, cg, cb, ca);
   if (samples != nullptr) samples[r] += count;
 }

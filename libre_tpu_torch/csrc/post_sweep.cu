@@ -2,33 +2,60 @@
 //
 // Replaces the TPU kernel libre_tpu/ops/shearwarp_bricked.py::_make_post_kernel
 // (launched by _post_call from _compiled_store_frame).  The plain PyTorch
-// specification is libre_tpu_torch/ops/shearwarp_bricked.py::post_sweep_reference.
+// specification is libre_tpu_torch/ops/shearwarp_bricked.py::post_sweep_reference;
+// tile_planes_reference beside it is the specification of the plane lists.
 //
-// One thread per slope ray (v, u), threadIdx.x along u so that neighbouring
-// threads read neighbouring b addresses of the store.  Each thread loops over
-// the K virtual planes front to back with its (r, g, b, t) carry in registers:
-// the TPU's sequential grid axis becomes this in-thread loop.  Per plane the
-// density is fetched directly as 2 slices x 2x2 taps from the unpadded
-// (Na, Nc, Nb) f32 store (the TPU kernel built one-hot interpolation matrices
-// for its matrix unit because it has no gather); the order of the lerps is
-// the reference's: axis, then b, then c.  The 256x4 transfer function sits in
-// shared memory (4 KB).
+// One CTA per 32x4 tile of slope rays (v, u), one thread per ray, threadIdx.x
+// along u so that neighbouring threads read neighbouring b addresses of the
+// store.  Each thread composites front to back with its (r, g, b, t) carry in
+// registers: the TPU's sequential grid axis becomes each thread's walk over
+// its tile's list of planes.  Per plane the density is fetched as 2 slices
+// x 2x2 taps of the unpadded (Na, Nc, Nb) f32 store (the TPU kernel built
+// one-hot interpolation matrices for its matrix unit because it has no
+// gather); the order of the lerps is the reference's: axis, then b, then c.
+// The 256x4 transfer function sits in shared memory (4 KB).
 //
-// Early exit: once 1 - t > early_exit the reference's composite mask stays 0
-// for the rest of the ray, so the thread leaves its loop.  That is exact and
-// replaces the TPU kernel's whole-grid saturation flag and its hit mask.
+// Plane list.  In a prologue the CTA lists, kPlaneChunk planes at a time,
+// the planes its tile can fetch at: act[k] != 0 and the window
+// [wb0, wb1) x [wc0, wc1) overlapping the tile's sample points
+// xb = eb + ug*dl[k], xc = ec + vg*dl[k].  In f32 too, xb is monotone in the
+// ray's u and xc in its v (each is a chain of rounded adds and products),
+// so the tile's first and last rays bound them.  The list keeps the planes'
+// front-to-back order (compact.cuh) and holds each plane's
+// slices, axis weight and dl as one 16-byte struct, so the walk reads one
+// shared word per plane instead of five global ones.  The per-ray window,
+// clip, SENTINEL and early-exit tests stay as they were, so the list only
+// has to be a superset of the planes the tile's rays fetch at.
 //
-// What bounds it: the store reads, 8 four-byte loads per sample with little
-// reuse inside a thread (the current slice pair, 2 MB at 512^2, sits in the
-// 50 MB L2), and the serial per-ray loop.  wgmma, TMA staging of slice tiles
-// and a tile-per-block layout are left for later work.
+// The walk.  Each thread walks its tile's list with no barrier, running
+// per plane what the old loop over all K planes ran: the window and clip
+// tests, the 8 taps from the store (neighbouring rays share them through
+// L1), the SENTINEL test, the TF lookup and the composite; it leaves the
+// walk at its early exit, and a warp leaves it with its last ray.  A CTA
+// whose rays have all exited lists no further chunk.  These were built
+// and measured slower on the card (PERF.md section 6): staging each
+// plane's (c, b) footprint in shared memory with cp.async behind a
+// per-plane barrier (every warp then waits for the block's slowest),
+// prefetching the next
+// plane's taps into registers or into L2, and 32x8, 64x4 or 16x16 tiles
+// (with those this code compiled to 48 registers and a spill).
+//
+// The early exit is exact: once 1 - t > early_exit the reference's
+// composite mask stays 0 for the rest of the ray; that replaces the TPU
+// kernel's whole-grid saturation flag and its hit mask.
+//
+// What bounds it: the serial per-ray chain (taps, TF lookup, powf,
+// composite) and its latency at the occupancy its registers allow, not
+// bytes.
 //
 // Numerics: f32 throughout, powf (not __powf), no fast-math and no FMA
 // contraction (ops/_kernels.py builds with --fmad=false), so each sample
-// rounds as the reference's does and the early-exit test follows it.
+// rounds as the reference's does and the early-exit test follows it: the
+// output is bit for bit the reference's.
 
 #include <cuda_runtime.h>
 
+#include "compact.cuh"
 #include "sweep_sample.cuh"
 
 namespace {
@@ -37,8 +64,54 @@ using sweep::kAlphaClamp;
 using sweep::kTfSize;
 using sweep::Taps;
 constexpr int kMaxClip = 8;
+constexpr int kTileU = 32;
+constexpr int kTileV = 4;
+constexpr int kThreads = kTileU * kTileV;
+constexpr int kWarps = kThreads / 32;
+// Planes one prologue lists.
+constexpr int kPlaneChunk = 512;
 
-__global__ void __launch_bounds__(256) post_sweep_kernel(
+// One listed plane: its two slices, axis weight and dl (one 16-byte load).
+struct alignas(16) Plane {
+  int a0, a1;
+  float wa, dl;
+};
+
+// The prologue: writes to s_planes, in front-to-back order, the planes
+// k0 .. k0 + chunk - 1 this CTA's tile of rays can fetch at (act[k] != 0
+// and the window overlapping the sample points of the tile's first and
+// last rays), and returns how many.  Every thread of the CTA calls it.
+__device__ __forceinline__ int list_planes(
+    Plane* s_planes, int* s_count, const int* __restrict__ act,
+    const int* __restrict__ a0, const int* __restrict__ a1,
+    const float* __restrict__ wa, const float* __restrict__ dl,
+    const float* __restrict__ view, int k0, int chunk, int u_size, int v_size,
+    float wb0, float wb1, float wc0, float wc1, int tid) {
+  const int u_first = blockIdx.x * kTileU, v_first = blockIdx.y * kTileV;
+  const float eb = view[3], ec = view[4];
+  const float ug_first = view[0] + view[1] * (float)u_first;
+  const float ug_last = view[0] + view[1] * (float)min(u_first + kTileU - 1, u_size - 1);
+  const float vg_first = view[5] + view[2] * (float)v_first;
+  const float vg_last = view[5] + view[2] * (float)min(v_first + kTileV - 1, v_size - 1);
+  int n_list = 0;
+  for (int base = 0; base < chunk; base += kThreads) {
+    const int k = k0 + base + tid;
+    bool keep = false;
+    if (base + tid < chunk && act[k] != 0) {
+      const float delta = dl[k];
+      const float xb_a = eb + ug_first * delta, xb_b = eb + ug_last * delta;
+      const float xc_a = ec + vg_first * delta, xc_b = ec + vg_last * delta;
+      keep = fmaxf(xb_a, xb_b) >= wb0 && fminf(xb_a, xb_b) < wb1 &&
+             fmaxf(xc_a, xc_b) >= wc0 && fminf(xc_a, xc_b) < wc1;
+    }
+    compact::append<kWarps>(keep, tid, s_count, n_list, [&](int pos) {
+      s_planes[pos] = Plane{a0[k], a1[k], wa[k], dl[k]};
+    });
+  }
+  return n_list;
+}
+
+__global__ void __launch_bounds__(kThreads) post_sweep_kernel(
     const float* __restrict__ store,   // (Na, Nc, Nb)
     const float4* __restrict__ tf,     // (256,) rgba
     const int* __restrict__ a0,        // (K,)
@@ -58,67 +131,81 @@ __global__ void __launch_bounds__(256) post_sweep_kernel(
     float sc_scale, float early_exit) {
   __shared__ float4 s_tf[kTfSize];
   __shared__ float4 s_clip[kMaxClip];
+  __shared__ Plane s_planes[kPlaneChunk];
+  __shared__ int s_count[kWarps];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < kTfSize; i += blockDim.x * blockDim.y) s_tf[i] = tf[i];
+  for (int i = tid; i < kTfSize; i += kThreads) s_tf[i] = tf[i];
   if (tid < kMaxClip)
     s_clip[tid] = make_float4(clip[4 * tid], clip[4 * tid + 1],
                               clip[4 * tid + 2], clip[4 * tid + 3]);
-  __syncthreads();
 
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  const int v = blockIdx.y * blockDim.y + threadIdx.y;
-  if (u >= u_size || v >= v_size) return;
-
-  const float u0 = view[0], du = view[1], dv = view[2];
-  const float eb = view[3], ec = view[4], v0 = view[5], eye_a = view[6];
-  const float ug = u0 + du * (float)u;
-  const float vg = v0 + dv * (float)v;
+  const int u = blockIdx.x * kTileU + threadIdx.x;
+  const int v = blockIdx.y * kTileV + threadIdx.y;
+  const bool valid = u < u_size && v < v_size;
   const int ray = v * u_size + u;
-  const float cexp = corr[ray];
-  float r = rgb_in[4 * ray], g = rgb_in[4 * ray + 1], b = rgb_in[4 * ray + 2];
-  float t = t_in[ray];
+  const float eb = view[3], ec = view[4], eye_a = view[6];
+  const float ug = view[0] + view[1] * (float)u;
+  const float vg = view[5] + view[2] * (float)v;
+  float cexp = 0.0f, r = 0.0f, g = 0.0f, b = 0.0f, t = 1.0f;
+  if (valid) {
+    cexp = corr[ray];
+    r = rgb_in[4 * ray];
+    g = rgb_in[4 * ray + 1];
+    b = rgb_in[4 * ray + 2];
+    t = t_in[ray];
+  }
+  bool alive = valid && !(1.0f - t > early_exit);
   const size_t plane = (size_t)nc * nb;
 
-  for (int k = 0; k < k_planes; ++k) {
-    if (1.0f - t > early_exit) break;  // composite mask is 0 from here on
-    if (act[k] == 0) continue;
-    const float delta = dl[k];
-    const float xb = eb + ug * delta;
-    const float xc = ec + vg * delta;
-    if (!(xb >= wb0 && xb < wb1 && xc >= wc0 && xc < wc1)) continue;
-    const float z = delta + eye_a;
-    bool keep = true;
-    for (int p = 0; p < n_clip; ++p) {
-      const float4 c = s_clip[p];
-      keep = keep && (c.x * z + c.y * xb + c.z * xc + c.w >= 0.0f);
+  for (int k0 = 0; k0 < k_planes; k0 += kPlaneChunk) {
+    // Prologue: list this chunk's planes the tile can fetch at, kThreads
+    // at a time.  Its barriers also publish s_tf and s_clip and keep the
+    // last chunk's list until every thread is done with it.
+    if (!__syncthreads_or(alive)) break;
+    const int n_list = list_planes(s_planes, s_count, act, a0, a1, wa, dl, view,
+                                   k0, min(kPlaneChunk, k_planes - k0), u_size,
+                                   v_size, wb0, wb1, wc0, wc1, tid);
+    for (int j = 0; j < n_list && alive; ++j) {
+      const Plane q = s_planes[j];
+      const float xb = eb + ug * q.dl;
+      const float xc = ec + vg * q.dl;
+      if (!(xb >= wb0 && xb < wb1 && xc >= wc0 && xc < wc1)) continue;
+      const float z = q.dl + eye_a;
+      bool keep = true;
+      for (int p = 0; p < n_clip; ++p) {
+        const float4 c = s_clip[p];
+        keep = keep && (c.x * z + c.y * xb + c.z * xc + c.w >= 0.0f);
+      }
+      if (!keep) continue;
+
+      const Taps tb = sweep::taps((xb - wb0) * sb_scale - 0.5f, nb);
+      const Taps tc = sweep::taps((xc - wc0) * sc_scale - 0.5f, nc);
+      const float dens = sweep::density(store + (size_t)q.a0 * plane,
+                                        store + (size_t)q.a1 * plane, q.wa, tb, tc, nb);
+      if (!(dens > -0.5f)) continue;  // a SENTINEL (uncovered) voxel contributed
+
+      const float s = sweep::tf_coord(dens);
+      const float i0f = floorf(s);
+      const float wt = s - i0f;
+      const int i0 = (int)i0f;
+      const float4 c = sweep::lerp4(s_tf[i0], s_tf[min(i0 + 1, kTfSize - 1)], wt);
+
+      const float a_corr = 1.0f - powf(1.0f - fminf(c.w, kAlphaClamp), cexp);
+      const float w = a_corr * t;
+      r += w * c.x;
+      g += w * c.y;
+      b += w * c.z;
+      t = t * (1.0f - a_corr);
+      alive = !(1.0f - t > early_exit);  // composite mask is 0 from here on
     }
-    if (!keep) continue;
-
-    const Taps tb = sweep::taps((xb - wb0) * sb_scale - 0.5f, nb);
-    const Taps tc = sweep::taps((xc - wc0) * sc_scale - 0.5f, nc);
-    const float dens = sweep::density(store + (size_t)a0[k] * plane,
-                                      store + (size_t)a1[k] * plane, wa[k],
-                                      tb, tc, nb);
-    if (!(dens > -0.5f)) continue;  // a SENTINEL (uncovered) voxel contributed
-
-    const float s = sweep::tf_coord(dens);
-    const float i0f = floorf(s);
-    const float wt = s - i0f;
-    const int i0 = (int)i0f;
-    const float4 c = sweep::lerp4(s_tf[i0], s_tf[min(i0 + 1, kTfSize - 1)], wt);
-
-    const float a_corr = 1.0f - powf(1.0f - fminf(c.w, kAlphaClamp), cexp);
-    const float w = a_corr * t;
-    r += w * c.x;
-    g += w * c.y;
-    b += w * c.z;
-    t = t * (1.0f - a_corr);
   }
-  out[4 * ray] = r;
-  out[4 * ray + 1] = g;
-  out[4 * ray + 2] = b;
-  out[4 * ray + 3] = 1.0f - t;
-  t_out[ray] = t;
+  if (valid) {
+    out[4 * ray] = r;
+    out[4 * ray + 1] = g;
+    out[4 * ray + 2] = b;
+    out[4 * ray + 3] = 1.0f - t;
+    t_out[ray] = t;
+  }
 }
 
 }  // namespace
@@ -130,9 +217,8 @@ extern "C" int post_sweep(
     void* out, void* t_out, int k_planes, int nc, int nb, int v_size,
     int u_size, int n_clip, float wb0, float wb1, float wc0, float wc1,
     float sb_scale, float sc_scale, float early_exit, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((u_size + block.x - 1) / block.x,
-                  (v_size + block.y - 1) / block.y);
+  const dim3 block(kTileU, kTileV);
+  const dim3 grid((u_size + kTileU - 1) / kTileU, (v_size + kTileV - 1) / kTileV);
   post_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)store, (const float4*)tf, (const int*)a0, (const int*)a1,
       (const float*)wa, (const float*)dl, (const int*)act, (const float*)view,

@@ -46,6 +46,12 @@ BOX_FLOATS = 16
 # The plain march works on blocks of RAY_BLOCK rays × CHUNK samples.
 CHUNK = 32
 RAY_BLOCK = 16384
+# K3's screen tile of rays, (rows, columns): one CTA each.
+BRICK_TILE = (8, 16)
+# K3's cone test (exact_march.cu): a brick's bounding sphere grows by this
+# share of its radius, the tile's cone by this many radians.
+CONE_RADIUS_MARGIN = 1e-3
+CONE_ANGLE_MARGIN = 1e-5
 
 
 def ray_pack(
@@ -94,6 +100,81 @@ def brick_boxes(world_min, world_max, tex_min, tex_max) -> torch.Tensor:
     return torch.cat(
         [wmin, wmax[:, :1], wmax[:, 1:], zero, s, o[:, :1], o[:, 1:], zero], dim=1
     ).contiguous()
+
+
+def _angle(axis: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The angle between the unit ``axis`` and ``w`` (broadcast over the
+    last dim): atan2(|axis × w|, axis·w), accurate at small angles."""
+    across = torch.linalg.norm(torch.cross(axis, w, dim=-1), dim=-1)
+    return torch.atan2(across, (axis * w).sum(dim=-1))
+
+
+def ray_tiles(n_rays: int, width: int, tile=BRICK_TILE) -> Tuple[int, int, torch.Tensor]:
+    """K3's tiling of ``n_rays`` rays in rows of ``width``: (TY, TX, the
+    (R,) tile index ty·TX + tx of each ray)."""
+    rows, cols = tile
+    height = -(-n_rays // width)
+    n_ty, n_tx = -(-height // rows), -(-width // cols)
+    r = torch.arange(n_rays)
+    return n_ty, n_tx, (r // width // rows) * n_tx + (r % width) // cols
+
+
+def tile_bricks_reference(
+    ray_pack: torch.Tensor,
+    boxes: torch.Tensor,
+    eye,
+    width: int,
+    tile=BRICK_TILE,
+) -> torch.Tensor:
+    """Plain torch brick lists: the specification of K3's prologue.
+
+    → (TY, TX, B) bool: brick b is on the list of the ``tile`` = (rows,
+    columns) tile (ty, tx) of the rays (``ray_pack`` (8, R), in rows of
+    ``width``) iff its bounding sphere, grown by ``CONE_RADIUS_MARGIN`` of
+    its radius, holds the eye, or the angle between the tile's cone axis
+    (the normalised sum of its rays' unit directions) and the sphere's
+    centre is at most the cone's half-angle (the largest angle of a ray to
+    the axis, plus ``CONE_ANGLE_MARGIN``) plus the angle the sphere
+    subtends.  A superset of the bricks any ray of the tile samples (at
+    t > 0).  A tile holding a zero or non-finite direction lists every
+    brick; a tile with no ray lists none.
+    """
+    f32 = torch.float32
+    dev = ray_pack.device
+    n_rays = ray_pack.shape[1]
+    n_ty, n_tx, tile_of = ray_tiles(n_rays, width, tile)
+    tile_of = tile_of.to(dev)
+    n_tiles = n_ty * n_tx
+    dirs = ray_pack[:3].T
+    norm = torch.linalg.norm(dirs, dim=-1)
+    good = (norm > 0.0) & (norm < 3e38)
+    unit = torch.where(good[:, None], dirs / norm[:, None], torch.zeros_like(dirs))
+    axis = torch.zeros((n_tiles, 3), dtype=f32, device=dev).index_add_(0, tile_of, unit)
+    axis_norm = torch.linalg.norm(axis, dim=-1)
+    axis = axis / axis_norm[:, None]
+    theta = torch.zeros(n_tiles, dtype=f32, device=dev).scatter_reduce_(
+        0, tile_of, _angle(axis[tile_of], unit), reduce="amax"
+    )
+    bad = torch.zeros(n_tiles, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, tile_of, (~good).to(torch.int32), reduce="amax"
+    )
+    wide = (bad > 0) | ~(axis_norm > 0.0) | ~(theta <= np.pi)
+    theta = torch.where(wide, torch.full_like(theta, np.float32(np.pi)), theta)
+    theta = theta + CONE_ANGLE_MARGIN
+
+    p, q = boxes[:, 0:4].to(dev), boxes[:, 4:8].to(dev)
+    lo = torch.stack([p[:, 0], p[:, 1], p[:, 2]], dim=-1)
+    hi = torch.stack([p[:, 3], q[:, 0], q[:, 1]], dim=-1)
+    eye_t = torch.as_tensor(np.asarray(eye, np.float32), device=dev)
+    w = 0.5 * (lo + hi) - eye_t
+    rad = torch.linalg.norm(0.5 * (hi - lo), dim=-1) * (1.0 + CONE_RADIUS_MARGIN)
+    d = torch.linalg.norm(w, dim=-1)
+    holds_eye = ~(d > rad)
+    subtends = torch.asin(torch.clamp(rad / d, max=1.0))
+    lists = ~(_angle(axis[:, None, :], w[None, :, :]) > theta[:, None] + subtends[None, :])
+    lists = lists | holds_eye[None, :]
+    has_ray = torch.zeros(n_tiles, dtype=torch.bool, device=dev).index_fill_(0, tile_of, True)
+    return (lists & has_ray[:, None]).reshape(n_ty, n_tx, -1)
 
 
 def _exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
@@ -251,6 +332,9 @@ def march_exact_reference(
     max_steps: int,
     samples: Optional[torch.Tensor] = None,
     used: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
+    only: Optional[torch.Tensor] = None,
+    tile_used: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch exact march of one pass: the specification of K3.
 
@@ -271,12 +355,24 @@ def march_exact_reference(
     ``samples`` ((R,) int32) and ``used`` ((B,) int32), if given, count
     the samples each ray composites and flag (1) the bricks that
     composite any.
+
+    With the rays in rows of ``width`` (K3's ``BRICK_TILE`` tiles):
+    ``only``, a (TY, TX, B) bool tensor of brick lists per tile if given
+    (:func:`tile_bricks_reference`), restricts each ray to its tile's
+    listed bricks, as K3 walks them; ``tile_used``, a (TY, TX, B) bool
+    tensor if given, is set where some ray of the tile composites a
+    sample of the brick.
     """
     lo_, hi_ = params.data_source_range
     mult = 1.0 / (hi_ - lo_)
     add = -lo_ / (hi_ - lo_)
     dims = tuple(reversed(atlas.shape[1:]))
     box_rows = boxes.cpu()
+    tile_of = None
+    if only is not None or tile_used is not None:
+        tile_of = ray_tiles(carry.shape[0], width)[2].to(carry.device)
+    only_flat = None if only is None else only.reshape(-1, slots.shape[0])
+    used_flat = None if tile_used is None else tile_used.view(-1, slots.shape[0])
 
     out = carry.clone()
     for r0 in range(0, carry.shape[0], RAY_BLOCK):
@@ -291,6 +387,8 @@ def march_exact_reference(
             )):
                 if ci == 0:
                     brick_flat = atlas[slot].reshape(-1).float()
+                if only_flat is not None:
+                    valid = valid & only_flat[tile_of[sl], b][:, None]
                 raw = _fetch(brick_flat, _taps(tex_x, tex_y, tex_z, dims, params.filter_mode))
                 density = torch.clamp(raw * mult + add, 0.0, 1.0)
                 src_r, src_g, src_b, src_a = _tf_lookup_channels(tf, density)
@@ -304,6 +402,8 @@ def march_exact_reference(
             count += brick_count
             if used is not None and bool((brick_count > 0).any()):
                 used[b] = 1
+            if used_flat is not None:
+                used_flat[tile_of[sl][brick_count > 0], b] = True
         out[sl] = torch.stack(state, dim=-1)
         if samples is not None:
             samples[sl] += count

@@ -450,6 +450,45 @@ def mark_taps(touched, lo, hi, ic0, ic1, ib0, ib1, nb: int, rays: torch.Tensor) 
             touched[hi + o] = True
 
 
+# K1's tile of slope rays, (rows along v, columns along u): one CTA each.
+SWEEP_TILE = (4, 32)
+
+
+def tile_planes_reference(
+    tables: SweepTables,
+    wb: Tuple[float, float],
+    wc: Tuple[float, float],
+    tile: Tuple[int, int] = SWEEP_TILE,
+) -> torch.Tensor:
+    """Plain torch plane lists: the specification of K1's prologue.
+
+    → (TV, TU, K) bool: plane k is on the list of the ``tile`` = (rows,
+    columns) tile (tv, tu) of slope rays iff ``act[k] != 0`` and the
+    window [wb0, wb1) × [wc0, wc1) overlaps the tile's sample points
+    xb = eb + ug·dl[k], xc = ec + vg·dl[k], bounded by its first and last
+    rays (each is monotone in u or v in f32, rounding included).  A
+    superset of the planes any ray of the tile fetches at: the per-ray
+    window, clip, SENTINEL and early-exit tests are the sweep's.
+    """
+    rows, cols = tile
+    v_size, u_size = tables.corr.shape
+    u0, du, dv, eb, ec, v0 = tables.view[:6]
+
+    def first_last(n, size):  # (tiles, 2) first and last ray index of each tile
+        first = torch.arange(0, n, size, device=tables.corr.device)
+        return torch.stack([first, torch.clamp(first + size - 1, max=n - 1)], dim=-1)
+
+    ug = u0 + du * first_last(u_size, cols).to(torch.float32)  # (TU, 2)
+    vg = v0 + dv * first_last(v_size, rows).to(torch.float32)  # (TV, 2)
+    xb = eb + ug[:, :, None] * tables.dl  # (TU, 2, K)
+    xc = ec + vg[:, :, None] * tables.dl  # (TV, 2, K)
+    xb_lo, xb_hi = xb.amin(dim=1), xb.amax(dim=1)
+    xc_lo, xc_hi = xc.amin(dim=1), xc.amax(dim=1)
+    in_b = (xb_hi >= wb[0]) & (xb_lo < wb[1])
+    in_c = (xc_hi >= wc[0]) & (xc_lo < wc[1])
+    return in_c[:, None, :] & in_b[None, :, :] & (tables.act != 0)
+
+
 def post_sweep_reference(
     store: torch.Tensor,
     tf: torch.Tensor,
@@ -463,6 +502,8 @@ def post_sweep_reference(
     samples: Optional[torch.Tensor] = None,
     planes: Optional[torch.Tensor] = None,
     touched: Optional[torch.Tensor] = None,
+    only: Optional[torch.Tensor] = None,
+    fetches: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch sweep: the specification of ``csrc/post_sweep.cu``.
 
@@ -488,7 +529,11 @@ def post_sweep_reference(
     ``planes``, a (K,) bool tensor if given, is set where any ray fetches.
     ``touched``, a bool tensor of the store's shape if given, is set at
     every voxel the kernel reads: the 2×2 taps of both slices of each
-    fetched sample.
+    fetched sample.  ``only``, a (TV, TU, K) bool tensor of plane lists
+    per ``SWEEP_TILE`` tile if given (:func:`tile_planes_reference`),
+    restricts each ray to its tile's listed planes, as K1 walks them.
+    ``fetches``, a (TV, TU, K) bool tensor if given, is set where some ray
+    of the tile fetches at the plane.
     """
     f32 = torch.float32
     dev = store.device
@@ -503,6 +548,13 @@ def post_sweep_reference(
     vg = v0 + dv * torch.arange(v_size, dtype=f32, device=dev)
     flat = store.reshape(-1)
     plane = nc * nb
+
+    rows, cols = SWEEP_TILE
+    tile_v = torch.arange(v_size, device=dev) // rows
+    tile_u = torch.arange(u_size, device=dev) // cols
+
+    def per_ray(mask_k):  # (TV, TU) → (V, U)
+        return mask_k[tile_v][:, tile_u]
 
     rgb = tables.rgb_in[..., :3].clone()
     t = tables.t_in.clone()
@@ -534,6 +586,8 @@ def post_sweep_reference(
                 + clip[p, 2] * xc[:, None] + clip[p, 3]
             )
             fetch = fetch & (expr >= 0.0)
+        if only is not None:
+            fetch = fetch & per_ray(only[..., k])
         mask = fetch & (dens > -0.5)
 
         rgba = lookup(tf, dens)
@@ -546,6 +600,11 @@ def post_sweep_reference(
             samples += fetch & alive
         if planes is not None:
             planes[k] = (fetch & alive).any()
+        if fetches is not None:
+            tv, tu = fetches.shape[:2]
+            hit = torch.zeros((tv * rows, tu * cols), dtype=torch.bool, device=dev)
+            hit[:v_size, :u_size] = fetch & alive
+            fetches[..., k] = hit.reshape(tv, rows, tu, cols).any(dim=3).any(dim=1)
         if touched is not None:
             mark_taps(touched.view(-1), lo, hi, ic0, ic1, ib0, ib1, nb, fetch & alive)
         m = alive.to(f32)

@@ -27,11 +27,25 @@ GRAD_TOL_MAX_EARLY_EXIT = 1e-2
 GRAD_TOL_MEAN_EARLY_EXIT = 1e-5
 
 
-def sweep_case(shape, seed, device):
+# The seeded sweep views, by name: (eye_a, eb, ec, sign, slope bounds
+# (u0, u1, v0, v1)) over the box [−0.5, 0.5]³.  "axis" is the
+# tests/test_bricked.py scene (eye at a = 1.4, marching toward −a);
+# "inside" puts the eye inside the volume (dl changes sign along the
+# sweep), marching toward +a; "oblique" takes slopes up to 2.5, so that a
+# tile's rays spread over most of a slice at the far planes and most
+# tiles see the box at a few planes only.
+SWEEP_VIEWS = {
+    "axis": (1.4, 0.1, 0.05, -1.0, (-0.45, 0.45, -0.4, 0.4)),
+    "inside": (-0.15, 0.1, -0.05, 1.0, (-0.6, 0.6, -0.5, 0.5)),
+    "oblique": (1.4, 0.3, -0.2, -1.0, (-2.5, 2.5, -2.0, 2.0)),
+}
+
+
+def sweep_case(shape, seed, device, view="axis"):
     """Seeded sweep operands: a random (Na, Nc, Nb) density store with
     SENTINEL holes, a saturating TF, two clip planes, every 7th plane
-    inactive; view as the tests/test_bricked.py scene (eye at a = 1.4,
-    marching toward −a).  ``shape`` = (V, U, K, Na, Nc, Nb).
+    inactive, seen from ``SWEEP_VIEWS[view]``.  ``shape`` = (V, U, K, Na,
+    Nc, Nb).
 
     Returns (store, tf, tables, clip, keyword arguments of post_sweep)."""
     v_size, u_size, k_planes, na, nc, nb = shape
@@ -46,11 +60,10 @@ def sweep_case(shape, seed, device):
 
     tf = default_color_map()
     tf[:, 3] = np.clip(8.0 * tf[:, 3], 0.0, 1.0)
-    eye_a, eb, ec, sign = 1.4, 0.1, 0.05, -1.0
+    eye_a, eb, ec, sign, (u0, u1, v0, v1) = SWEEP_VIEWS[view]
     a0, a1, wa, dl, _z, dz = swb.plane_tables(
         na=na, k_planes=k_planes, wa0=-0.5, wa1=0.5, eye_a=eye_a, sign=sign
     )
-    u0, u1, v0, v1 = -0.45, 0.45, -0.4, 0.4
     du, dv = (u1 - u0) / (u_size - 1), (v1 - v0) / (v_size - 1)
     ug = u0 + du * np.arange(u_size, dtype=np.float32)
     vg = v0 + dv * np.arange(v_size, dtype=np.float32)
@@ -167,6 +180,21 @@ class ExactCase(NamedTuple):
     width: int
 
 
+# The multi-brick exact views, by case: (eye, look-at point, (width,
+# height), subpixel sample, saturating TF).  "bricks" looks at the grid
+# from off axis; "inside" puts the eye inside the volume on a corner of
+# eight bricks, "in_brick" inside one brick; "grazing" looks down −z with
+# an odd width, so its middle column of rays runs in the x = 0 brick
+# faces; "jitter" marches the jittered subpixel sample 1.
+EXACT_BRICK_VIEWS = {
+    "bricks": ((0.55, 0.4, 1.3), (0.0, 0.0, 0.0), (100, 70), 0, True),
+    "inside": ((0.0, 0.25, -0.25), (0.3, -0.2, 0.4), (48, 40), 0, False),
+    "in_brick": ((0.37, -0.13, 0.11), (-0.4, 0.2, -0.3), (48, 40), 0, False),
+    "grazing": ((0.0, 0.13, 1.3), (0.0, 0.13, 0.0), (33, 24), 0, False),
+    "jitter": ((-0.6, 0.35, 1.1), (0.0, 0.0, 0.0), (48, 40), 1, False),
+}
+
+
 def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float32):
     """Seeded operands of the exact march.
 
@@ -174,12 +202,13 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
     ``bench_exact`` shape: one 64³ random brick filling [−0.5, 0.5]³, 256²
     rays), the default TF, zero carry.
 
-    ``case`` = "bricks": a 4×4×4 grid of 16³ bricks with 2-voxel ghosts
-    (20³ slots, random ghost voxels) scattered over a 72-slot atlas and
-    marched front to back; 100×70 rays (ragged 16×8 tiles) from an
-    off-axis eye; 256 samples per ray; two clip planes; a saturating TF
-    (alpha × 8) so the early exit fires; a seeded carry in, with every
-    9th ray already past the early-exit threshold.
+    Any case of ``EXACT_BRICK_VIEWS``: a 4×4×4 grid of 16³ bricks with
+    2-voxel ghosts (20³ slots, random ghost voxels) scattered over a
+    72-slot atlas and marched front to back, seen through that view's
+    camera (ragged 16×8 tiles); 256 samples per ray; two clip planes; the
+    default TF, or with "saturating TF" alpha × 8 so the early exit
+    fires; a seeded carry in, with every 9th ray already past the
+    early-exit threshold.
 
     ``dtype`` is the atlas's: float32 (data range [0, 1]) or uint8 (data
     range [0, 255]).  Returns an :class:`ExactCase`."""
@@ -196,11 +225,12 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
     tf = default_color_map()
     if case == "single":
         shape = (1, *EXACT_SCENES["bench"][0])
-    elif case == "bricks":
-        grid, brick, ghost, n_slots = 4, 16, 2, 72
-        width, height, eye, spr = 100, 70, (0.55, 0.4, 1.3), 256
+    elif case in EXACT_BRICK_VIEWS:
+        grid, brick, ghost, n_slots, spr = 4, 16, 2, 72, 256
+        eye, target, (width, height), sample, saturating = EXACT_BRICK_VIEWS[case]
         clip = np.float32([[1.0, 0.0, 0.0, 0.3], [0.0, -1.0, 0.5, 0.2]])
-        tf[:, 3] = np.clip(8.0 * tf[:, 3], 0.0, 1.0)
+        if saturating:
+            tf[:, 3] = np.clip(8.0 * tf[:, 3], 0.0, 1.0)
         padded = brick + 2 * ghost
         shape = (n_slots, padded, padded, padded)
     else:
@@ -234,7 +264,7 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
     cells = np.stack(np.meshgrid(*[np.arange(grid)] * 3, indexing="ij"), -1)
     wmin = (cells.reshape(-1, 3) / grid - 0.5).astype(np.float32)
     wmax = ((cells.reshape(-1, 3) + 1) / grid - 0.5).astype(np.float32)
-    camera, _frustum = build_camera(width, height, eye, (0.0, 0.0, 0.0))
+    camera, _frustum = build_camera(width, height, eye, target)
     eye_np = np.asarray(camera.inv_mv, np.float32)[:3, 3]
     order = sort_bricks_front_to_back(wmin, wmax, eye_np)
     slots = rng.permutation(n_slots)[: len(wmin)][order].astype(np.int32)
@@ -245,7 +275,7 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
     )
 
     eye_t, dirs, cos_z, _ = ray_ops.make_rays(
-        camera.inv_proj, camera.inv_mv, camera.viewport, device=device
+        camera.inv_proj, camera.inv_mv, camera.viewport, sample_index=sample, device=device
     )
     dirs = dirs.reshape(-1, 3)
     tnp = ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)

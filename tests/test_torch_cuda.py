@@ -14,7 +14,7 @@ import torch
 
 from libre_tpu_torch.apps.render_cli import build_camera
 from libre_tpu_torch.data.datasource import DataSource, load_plugins
-from libre_tpu_torch.ops import exact
+from libre_tpu_torch.ops import exact, raycast
 from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops import shearwarp_dense as swd
 from libre_tpu_torch.ops import shearwarp_grad as swg
@@ -23,6 +23,7 @@ from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.testing import (
     DENSE_EYES,
     DENSE_GRAD_TOL,
+    EXACT_BRICK_VIEWS,
     EXACT_GRAD_TOL_MAX,
     EXACT_TOL_MAX,
     EXACT_TOL_MEAN,
@@ -32,6 +33,7 @@ from libre_tpu_torch.testing import (
     GRAD_TOL_MEAN_EARLY_EXIT,
     KERNEL_TOL_MAX,
     KERNEL_TOL_MEAN,
+    SWEEP_VIEWS,
     dense_case,
     dense_grad_case,
     exact_case,
@@ -85,6 +87,29 @@ def test_post_sweep_kernel_matches_plain(cuda, shape):
         assert float(err.max()) <= KERNEL_TOL_MAX
         assert float(err.mean()) <= KERNEL_TOL_MEAN
     assert float((got[..., 3] > 0.999).float().mean()) > 0  # early exit fired
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [(96, 80, 128, 64, 48, 56), (512, 512, 512, 512, 512, 512)]
+)
+@pytest.mark.parametrize("view", sorted(SWEEP_VIEWS))
+def test_post_sweep_kernel_bit_equal(cuda, view, shape):
+    """K1 walks per-tile plane lists; on every seeded view (on axis, the
+    eye inside the volume, oblique; K != Na and K = Na) its colour,
+    alpha and transmittance are bit-equal to ``post_sweep_reference``,
+    and the plain lists hold every plane a tile fetches at."""
+    store, tf, tables, clip, kw = sweep_case(shape, seed=0, device=cuda, view=view)
+    got, t_got = swb.post_sweep(store, tf, tables, clip, **kw)
+    v_size, u_size = tables.corr.shape
+    rows, cols = swb.SWEEP_TILE
+    fetches = torch.zeros((-(-v_size // rows), -(-u_size // cols), tables.a0.shape[0]),
+                          dtype=torch.bool, device=cuda)
+    want, t_want = swb.post_sweep_reference(store, tf, tables, clip, fetches=fetches, **kw)
+    lists = swb.tile_planes_reference(tables, kw["wb"], kw["wc"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(t_got, t_want)
+    assert bool((fetches <= lists).all()) and int(fetches.sum()) > 0
 
 
 @pytest.mark.cuda
@@ -192,6 +217,43 @@ def test_exact_march_kernel_matches_plain(cuda, case, filter_mode, dtype):
     torch.testing.assert_close(counts[0][1], counts[1][1], rtol=0, atol=0)
     flips = int((counts[0][0] != counts[1][0]).sum())
     assert flips <= n_rays // 200, flips  # only early-exit flips move a count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("case", sorted(EXACT_BRICK_VIEWS))
+def test_exact_march_kernel_brick_lists(cuda, case, filter_mode):
+    """K3 walks per-tile brick lists; from every multi-brick view (off
+    axis with a saturating TF, the eye inside the volume and inside a
+    brick, rays along brick faces, a jittered sample; clip planes, a carry
+    in) it holds the tolerances of ``test_exact_march_kernel_matches_plain``,
+    flags the plain march's bricks, counts its samples on every ray the
+    early exit did not end (and on all but one ray in 200), and the plain
+    lists hold every brick a tile samples."""
+    c = exact_case(case, seed=0, device=cuda, filter_mode=filter_mode, dtype=torch.uint8)
+    n_rays, n_bricks = c.carry.shape[0], c.slots.shape[0]
+    counts = [
+        (torch.zeros(n_rays, dtype=torch.int32, device=cuda),
+         torch.zeros(n_bricks, dtype=torch.int32, device=cuda))
+        for _ in range(2)
+    ]
+    lists = raycast.tile_bricks_reference(c.rays, c.boxes, c.eye, c.width)
+    tile_used = torch.zeros_like(lists)
+    args = (c.atlas, c.slots, c.boxes, c.tf, c.rays, c.carry, c.eye, c.params)
+    got = exact.march_exact(*args, max_steps=c.max_steps, width=c.width,
+                            samples=counts[0][0], used=counts[0][1])
+    want = exact.march_exact_reference(*args, max_steps=c.max_steps, samples=counts[1][0],
+                                       used=counts[1][1], width=c.width, tile_used=tile_used)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert float(err.max()) <= EXACT_TOL_MAX
+    assert float(err.mean()) <= EXACT_TOL_MEAN
+    assert torch.equal(counts[0][1], counts[1][1])
+    ended = (got[:, 3] > c.params.early_exit) | (want[:, 3] > c.params.early_exit)
+    moved = counts[0][0] != counts[1][0]
+    assert not bool((moved & ~ended).any())
+    assert int(moved.sum()) <= n_rays // 200, int(moved.sum())
+    assert bool((tile_used <= lists).all()) and int(tile_used.sum()) > 0
 
 
 @pytest.mark.cuda

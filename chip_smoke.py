@@ -84,13 +84,17 @@ Phases, each of which raises on failure (any failure exits non-zero):
 15. the dense pre-classified sweep K5 vs plain PyTorch on seeded
    operands: the JAX package's dense test scene (20×24×28, a (24, 40)
    grid, 24 planes) from all four eyes, with empty slices and a
-   saturating TF, and a 512³ RGBA stack under 512² rays × 512 planes;
+   saturating TF, a 512³ RGBA stack under 512² rays × 512 planes, and a
+   stack with empty slices under every view of ``testing.SWEEP_VIEWS``
+   (ragged tiles, K ≠ Na and K = Na): bit-equal, and the plain plane
+   lists a superset of the planes each tile composites at;
 16. the dense main path: ``render_cli --renderer shearwarp`` on the 512³
    volume at 512×512 (level 4, a 2 GiB classified stack, K = 512), then
    the 8-pose orbit through ``RenderEngine.render_shearwarp``, frames 2-8
    on the cached stack; K5 must launch once per frame and no plain
    version may run; first-frame split (level assembly, classify), steady
-   frames, K5 and plain times on the last pose and the work behind them;
+   frames, K5 (bit-equal) and plain times on the last pose and the work
+   behind them: planes listed per tile and composited at;
 17. the dense path on the card (K5) vs on the CPU (the plain pipeline) on
    a small volume, and the autograd Function's forward and gradients on
    the card vs on the CPU.
@@ -1444,26 +1448,47 @@ def main() -> int:
 
     # ----------------------------------------- 15. K5 vs plain, seeded cases
     from libre_tpu_torch.ops import shearwarp_dense as swd
-    from libre_tpu_torch.testing import DENSE_EYES, DENSE_GRAD_TOL, dense_case, dense_grad_case
+    from libre_tpu_torch.testing import (
+        DENSE_EYES,
+        DENSE_GRAD_TOL,
+        DENSE_SWEEP_SHAPES,
+        dense_case,
+        dense_grad_case,
+        dense_plain,
+    )
 
-    for case, eye in [("scene", e) for e in DENSE_EYES] + [("slice", "z-")]:
-        c = dense_case(case, seed=0, device=dev, eye=eye)
-        kw = c.plan_args.sweep_kwargs()
+    # The JAX dense scene from four eyes, the 512^3 stack (K = Na) and a
+    # stack with empty slices under every sweep view, ragged tiles with
+    # K != Na and K = Na: K5 bit-equal to plain, its plain plane lists a
+    # superset of the planes each tile composites at.
+    dense_cases = (
+        [("scene", dict(eye=e)) for e in DENSE_EYES] + [("slice", {})]
+        + [("sweep", dict(view=v, shape=s)) for v in SWEEP_VIEWS
+           for s in DENSE_SWEEP_SHAPES]
+    )
+    for case, args in dense_cases:
+        c = dense_case(case, seed=0, device=dev, **args)
+        kw = c.kw
         got = swd.pre_sweep(c.chans, c.tables, **kw)
-        want = swd.pre_sweep_reference(c.chans, c.tables, **kw)
+        want, fetches, lists = dense_plain(c)
         torch.cuda.synchronize()
         k_planes = c.tables.a0.shape[0]
         v_size, u_size = c.tables.corr.shape
-        what = (f"seeded K5 {case} {eye if case == 'scene' else ''} {tuple(c.chans.shape)}, "
-                f"{v_size}x{u_size} rays x {k_planes} planes")
+        what = (f"seeded K5 {case} {' '.join(str(a) for a in args.values())} "
+                f"{tuple(c.chans.shape)}, {v_size}x{u_size} rays x {k_planes} planes")
         compare(got, want, what)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: K5 is not bit-equal to the plain sweep")
+        if not bool((fetches <= lists).all()):
+            raise AssertionError(f"{what}: a tile composites at a plane off its list")
         n_act = int(c.tables.act.sum())
         saturated = float((got[..., 3] > kw["early_exit"]).float().mean())
-        print(f"  active planes {n_act}/{k_planes}, early exit reached by {saturated:.3f} "
-              f"of the rays")
-        if saturated == 0.0 or n_act == k_planes:
+        print(f"  bit-equal; active planes {n_act}/{k_planes}, early exit reached by "
+              f"{saturated:.3f} of the rays; tiles list {int(lists.sum())} of {lists.numel()} "
+              f"(tile, plane) pairs and composite at {int(fetches.sum())}")
+        if n_act == k_planes or (case != "sweep" and saturated == 0.0):
             raise AssertionError(f"{what}: no early exit or no empty plane")
-        del c, got, want
+        del c, got, want, lists, fetches
 
     # ------------------------------------------------- 16. the dense main path
     # The plain sweep and the plain pipeline must not run on the card's
@@ -1586,10 +1611,16 @@ def main() -> int:
     k5_samples = torch.zeros((vh, vw), dtype=torch.int64, device=dev)
     k5_planes = torch.zeros(dense_k, dtype=torch.bool, device=dev)
     k5_touched = torch.zeros(chans.shape[:3], dtype=torch.bool, device=dev)
+    k5_lists = swb.tile_planes_reference(tables, kw["wb"], kw["wc"])
+    k5_fetches = torch.zeros_like(k5_lists)
     want = swd.pre_sweep_reference(chans, tables, samples=k5_samples, planes=k5_planes,
-                                   touched=k5_touched, **kw)
+                                   touched=k5_touched, fetches=k5_fetches, **kw)
     torch.cuda.synchronize()
     k5_err = compare(got, want, "main-path K5")
+    if not torch.equal(got, want):
+        raise AssertionError("main-path K5 is not bit-equal to the plain sweep")
+    if not bool((k5_fetches <= k5_lists).all()):
+        raise AssertionError("main-path K5: a tile composites at a plane off its list")
     k5_ms = cuda_ms(lambda: swd.pre_sweep(chans, tables, **kw), reps=20)
     k5_plain_ms = cuda_ms(lambda: swd.pre_sweep_reference(chans, tables, **kw),
                           reps=3, warmup=1)
@@ -1631,6 +1662,14 @@ def main() -> int:
         f"({composited / (n_rays * dense_k):.4f} of the grid); kernel "
         f"{composited / (k5_ms * 1e-3) / 1e9:.3f} G samples/s {card}"
     )
+    n_tiles = k5_lists[..., 0].numel()
+    print(
+        f"  bit-equal; the {n_tiles} tiles of {swb.SWEEP_TILE[0]}x{swb.SWEEP_TILE[1]} rays "
+        f"list {int(k5_lists.sum()) / n_tiles:.1f} planes each on average (of "
+        f"{int(tables.act.sum())} active), at most {int(k5_lists.sum(dim=-1).max())}; they "
+        f"composite at {int(k5_fetches.sum()) / n_tiles:.1f}"
+    )
+    del k5_lists, k5_fetches
     print(
         f"  K5 bound: {k5_texels} RGBA texels read ({k5_texels / (slices.numel() * d_nc * d_nb):.4f} "
         f"of the {slices.numel()} slices of the planes sampled); {k5_bound[0]:.4f} ms, "

@@ -1,6 +1,7 @@
 // Block-wide ordered compaction: how the forward kernels build their
-// per-tile work lists in shared memory, post_sweep.cu (K1) its planes and
-// exact_march.cu (K3) its bricks.
+// per-tile work lists in shared memory, the sweeps post_sweep.cu (K1) and
+// pre_sweep.cu (K5) their planes (sweep_list.cuh) and exact_march.cu (K3)
+// its bricks.
 #pragma once
 
 #include <cuda_runtime.h>

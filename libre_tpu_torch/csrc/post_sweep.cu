@@ -16,16 +16,12 @@
 // The 256x4 transfer function sits in shared memory (4 KB).
 //
 // Plane list.  In a prologue the CTA lists, kPlaneChunk planes at a time,
-// the planes its tile can fetch at: act[k] != 0 and the window
-// [wb0, wb1) x [wc0, wc1) overlapping the tile's sample points
-// xb = eb + ug*dl[k], xc = ec + vg*dl[k].  In f32 too, xb is monotone in the
-// ray's u and xc in its v (each is a chain of rounded adds and products),
-// so the tile's first and last rays bound them.  The list keeps the planes'
-// front-to-back order (compact.cuh) and holds each plane's
-// slices, axis weight and dl as one 16-byte struct, so the walk reads one
-// shared word per plane instead of five global ones.  The per-ray window,
-// clip, SENTINEL and early-exit tests stay as they were, so the list only
-// has to be a superset of the planes the tile's rays fetch at.
+// the planes its tile can fetch at (sweep_list.cuh, shared with the dense
+// sweep K5): act[k] != 0 and the window overlapping the sample points of
+// the tile's first and last rays, in front-to-back order, one 16-byte
+// struct per plane.  The per-ray window, clip, SENTINEL and early-exit
+// tests stay as they were, so the list only has to be a superset of the
+// planes the tile's rays fetch at.
 //
 // The walk.  Each thread walks its tile's list with no barrier, running
 // per plane what the old loop over all K planes ran: the window and clip
@@ -55,61 +51,21 @@
 
 #include <cuda_runtime.h>
 
-#include "compact.cuh"
+#include "sweep_list.cuh"
 #include "sweep_sample.cuh"
 
 namespace {
 
 using sweep::kAlphaClamp;
+using sweep::kPlaneChunk;
 using sweep::kTfSize;
+using sweep::kThreads;
+using sweep::kTileU;
+using sweep::kTileV;
+using sweep::kWarps;
+using sweep::Plane;
 using sweep::Taps;
 constexpr int kMaxClip = 8;
-constexpr int kTileU = 32;
-constexpr int kTileV = 4;
-constexpr int kThreads = kTileU * kTileV;
-constexpr int kWarps = kThreads / 32;
-// Planes one prologue lists.
-constexpr int kPlaneChunk = 512;
-
-// One listed plane: its two slices, axis weight and dl (one 16-byte load).
-struct alignas(16) Plane {
-  int a0, a1;
-  float wa, dl;
-};
-
-// The prologue: writes to s_planes, in front-to-back order, the planes
-// k0 .. k0 + chunk - 1 this CTA's tile of rays can fetch at (act[k] != 0
-// and the window overlapping the sample points of the tile's first and
-// last rays), and returns how many.  Every thread of the CTA calls it.
-__device__ __forceinline__ int list_planes(
-    Plane* s_planes, int* s_count, const int* __restrict__ act,
-    const int* __restrict__ a0, const int* __restrict__ a1,
-    const float* __restrict__ wa, const float* __restrict__ dl,
-    const float* __restrict__ view, int k0, int chunk, int u_size, int v_size,
-    float wb0, float wb1, float wc0, float wc1, int tid) {
-  const int u_first = blockIdx.x * kTileU, v_first = blockIdx.y * kTileV;
-  const float eb = view[3], ec = view[4];
-  const float ug_first = view[0] + view[1] * (float)u_first;
-  const float ug_last = view[0] + view[1] * (float)min(u_first + kTileU - 1, u_size - 1);
-  const float vg_first = view[5] + view[2] * (float)v_first;
-  const float vg_last = view[5] + view[2] * (float)min(v_first + kTileV - 1, v_size - 1);
-  int n_list = 0;
-  for (int base = 0; base < chunk; base += kThreads) {
-    const int k = k0 + base + tid;
-    bool keep = false;
-    if (base + tid < chunk && act[k] != 0) {
-      const float delta = dl[k];
-      const float xb_a = eb + ug_first * delta, xb_b = eb + ug_last * delta;
-      const float xc_a = ec + vg_first * delta, xc_b = ec + vg_last * delta;
-      keep = fmaxf(xb_a, xb_b) >= wb0 && fminf(xb_a, xb_b) < wb1 &&
-             fmaxf(xc_a, xc_b) >= wc0 && fminf(xc_a, xc_b) < wc1;
-    }
-    compact::append<kWarps>(keep, tid, s_count, n_list, [&](int pos) {
-      s_planes[pos] = Plane{a0[k], a1[k], wa[k], dl[k]};
-    });
-  }
-  return n_list;
-}
 
 __global__ void __launch_bounds__(kThreads) post_sweep_kernel(
     const float* __restrict__ store,   // (Na, Nc, Nb)
@@ -162,9 +118,9 @@ __global__ void __launch_bounds__(kThreads) post_sweep_kernel(
     // at a time.  Its barriers also publish s_tf and s_clip and keep the
     // last chunk's list until every thread is done with it.
     if (!__syncthreads_or(alive)) break;
-    const int n_list = list_planes(s_planes, s_count, act, a0, a1, wa, dl, view,
-                                   k0, min(kPlaneChunk, k_planes - k0), u_size,
-                                   v_size, wb0, wb1, wc0, wc1, tid);
+    const int n_list = sweep::list_planes(
+        s_planes, s_count, act, a0, a1, wa, dl, view, k0,
+        min(kPlaneChunk, k_planes - k0), u_size, v_size, wb0, wb1, wc0, wc1, tid);
     for (int j = 0; j < n_list && alive; ++j) {
       const Plane q = s_planes[j];
       const float xb = eb + ug * q.dl;

@@ -3,43 +3,64 @@
 // Replaces the TPU kernel libre_tpu/ops/shearwarp_pallas.py::_make_kernel
 // (launched by _fused_call from _compiled_renderer and _compiled_frame).  The
 // plain PyTorch specification is libre_tpu_torch/ops/shearwarp_dense.py::
-// pre_sweep_reference.
+// pre_sweep_reference; shearwarp_bricked.py::tile_planes_reference is the
+// specification of the plane lists.
 //
 // K1's program (post_sweep.cu) without its TF lookup, SENTINEL test and clip
-// planes: one thread per slope ray (v, u), threadIdx.x along u, looping over
-// the K virtual planes front to back with its (r, g, b, t) carry in registers.
-// The classified stack is (Na, Nc, Nb) float4 RGBA, so each of a sample's 8
-// taps (2 slices x 2x2 in-plane) is one 16-byte load straight from global
-// memory / L2; the lerps run per channel in the reference's order (axis, then
-// b, then c: sweep::rgba).  The TPU kernel resampled with one-hot
-// interpolation matrices on its matrix unit and padded Nc, Nb to 128 lanes;
-// neither is needed here.
+// planes.  One CTA per 32x4 tile of slope rays (v, u), one thread per ray,
+// threadIdx.x along u so that neighbouring threads read neighbouring b
+// addresses.  Each thread composites front to back with its (r, g, b, t)
+// carry in registers.  The classified stack is (Na, Nc, Nb) float4 RGBA, so
+// each of a sample's 8 taps (2 slices x 2x2 in-plane) is one 16-byte load;
+// the lerps run per channel in the reference's order (axis, then b, then c:
+// sweep::rgba).  The TPU kernel resampled with one-hot interpolation
+// matrices on its matrix unit and padded Nc, Nb to 128 lanes; neither is
+// needed here.
 //
-// Skipping, all exact: a plane whose two slices hold no alpha (act = 0)
-// composites as the identity; so does a sample outside the half-open b/c box
-// (its RGBA is 0); and once 1 - t > early_exit the composite mask stays 0 for
-// the rest of the ray, so the thread leaves its loop.  That replaces the TPU
-// kernel's whole-grid saturation flag and hit mask.
+// Plane list.  In a prologue the CTA lists, kPlaneChunk planes at a time,
+// the planes its tile can sample at (sweep_list.cuh, K1's lists): act[k] != 0
+// (a plane whose two slices hold no alpha composites as the identity) and
+// the window overlapping the sample points of the tile's first and last
+// rays.  Each thread then walks the list with no barrier, keeping the
+// per-ray window test (a sample outside the half-open b/c box has RGBA 0)
+// and leaving at its early exit: once 1 - t > early_exit the composite mask
+// stays 0 for the rest of the ray.  A CTA whose rays have all exited lists
+// no further chunk.  That replaces the TPU kernel's whole-grid saturation
+// flag and hit mask.
 //
-// What bounds it: the stack reads, 8 x 16 bytes per sample with little reuse
-// inside a thread (a slice pair is 8 MB at 512^2, inside the 50 MB L2), and the
-// serial per-ray loop.  wgmma, TMA staging of slice tiles and a tile-per-block
-// layout are left for later work.
+// A carried slice was measured slower on the card and not kept (PERF.md
+// section 6): each thread kept the 2x2 taps of the slice its next sample
+// shares and took them from registers instead of loading them again.  It
+// was exact and carried 28% of the taps on the orbit view, but its 91
+// registers against 62 cost more occupancy than the loads it saved.
+//
+// What bounds it: the serial per-ray chain (taps, powf, composite) and its
+// latency at the occupancy its registers allow, not bytes: a slice pair is
+// 8 MB at 512^2, inside the 50 MB L2, and the resident CTAs walk the planes
+// roughly together.
 //
 // Numerics: f32 throughout, powf (not __powf), no fast-math and no FMA
 // contraction (ops/_kernels.py builds with --fmad=false), so each sample
-// rounds as the reference's does and the early-exit test follows it.
+// rounds as the reference's does and the early-exit test follows it: the
+// output is bit for bit the reference's.
 
 #include <cuda_runtime.h>
 
+#include "sweep_list.cuh"
 #include "sweep_sample.cuh"
 
 namespace {
 
 using sweep::kAlphaClamp;
+using sweep::kPlaneChunk;
+using sweep::kThreads;
+using sweep::kTileU;
+using sweep::kTileV;
+using sweep::kWarps;
+using sweep::Plane;
 using sweep::Taps;
 
-__global__ void __launch_bounds__(256) pre_sweep_kernel(
+__global__ void __launch_bounds__(kThreads) pre_sweep_kernel(
     const float4* __restrict__ chans,  // (Na, Nc, Nb) rgba
     const int* __restrict__ a0,        // (K,)
     const int* __restrict__ a1,        // (K,)
@@ -52,44 +73,56 @@ __global__ void __launch_bounds__(256) pre_sweep_kernel(
     int k_planes, int nc, int nb, int v_size, int u_size, float wb0,
     float wb1, float wc0, float wc1, float sb_scale, float sc_scale,
     float early_exit) {
-  const int u = blockIdx.x * blockDim.x + threadIdx.x;
-  const int v = blockIdx.y * blockDim.y + threadIdx.y;
-  if (u >= u_size || v >= v_size) return;
-
-  const float u0 = view[0], du = view[1], dv = view[2];
-  const float eb = view[3], ec = view[4], v0 = view[5];
-  const float ug = u0 + du * (float)u;
-  const float vg = v0 + dv * (float)v;
+  __shared__ Plane s_planes[kPlaneChunk];
+  __shared__ int s_count[kWarps];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int u = blockIdx.x * kTileU + threadIdx.x;
+  const int v = blockIdx.y * kTileV + threadIdx.y;
+  const bool valid = u < u_size && v < v_size;
   const int ray = v * u_size + u;
-  const float cexp = corr[ray];
+  const float eb = view[3], ec = view[4];
+  const float ug = view[0] + view[1] * (float)u;
+  const float vg = view[5] + view[2] * (float)v;
+  const float cexp = valid ? corr[ray] : 0.0f;
   float r = 0.0f, g = 0.0f, b = 0.0f, t = 1.0f;
+  bool alive = valid;
   const size_t plane = (size_t)nc * nb;
 
-  for (int k = 0; k < k_planes; ++k) {
-    if (1.0f - t > early_exit) break;  // composite mask is 0 from here on
-    if (act[k] == 0) continue;
-    const float delta = dl[k];
-    const float xb = eb + ug * delta;
-    const float xc = ec + vg * delta;
-    if (!(xb >= wb0 && xb < wb1 && xc >= wc0 && xc < wc1)) continue;
+  for (int k0 = 0; k0 < k_planes; k0 += kPlaneChunk) {
+    // Prologue: list this chunk's planes the tile can sample at.  Its
+    // barriers keep the last chunk's list until every thread is done
+    // with it.
+    if (!__syncthreads_or(alive)) break;
+    const int n_list = sweep::list_planes(
+        s_planes, s_count, act, a0, a1, wa, dl, view, k0,
+        min(kPlaneChunk, k_planes - k0), u_size, v_size, wb0, wb1, wc0, wc1, tid);
+    for (int j = 0; j < n_list && alive; ++j) {
+      const Plane q = s_planes[j];
+      const float xb = eb + ug * q.dl;
+      const float xc = ec + vg * q.dl;
+      if (!(xb >= wb0 && xb < wb1 && xc >= wc0 && xc < wc1)) continue;
 
-    const Taps tb = sweep::taps((xb - wb0) * sb_scale - 0.5f, nb);
-    const Taps tc = sweep::taps((xc - wc0) * sc_scale - 0.5f, nc);
-    const float4 c = sweep::rgba(chans + (size_t)a0[k] * plane,
-                                 chans + (size_t)a1[k] * plane, wa[k], tb, tc,
-                                 nb);
+      const Taps tb = sweep::taps((xb - wb0) * sb_scale - 0.5f, nb);
+      const Taps tc = sweep::taps((xc - wc0) * sc_scale - 0.5f, nc);
+      const sweep::Quad lo = sweep::quad(chans + (size_t)q.a0 * plane, tb, tc, nb);
+      const sweep::Quad hi = sweep::quad(chans + (size_t)q.a1 * plane, tb, tc, nb);
+      const float4 c = sweep::rgba(lo, hi, q.wa, tb, tc);
 
-    const float a_corr = 1.0f - powf(1.0f - fminf(c.w, kAlphaClamp), cexp);
-    const float w = a_corr * t;
-    r += w * c.x;
-    g += w * c.y;
-    b += w * c.z;
-    t = t * (1.0f - a_corr);
+      const float a_corr = 1.0f - powf(1.0f - fminf(c.w, kAlphaClamp), cexp);
+      const float w = a_corr * t;
+      r += w * c.x;
+      g += w * c.y;
+      b += w * c.z;
+      t = t * (1.0f - a_corr);
+      alive = !(1.0f - t > early_exit);  // composite mask is 0 from here on
+    }
   }
-  out[4 * ray] = r;
-  out[4 * ray + 1] = g;
-  out[4 * ray + 2] = b;
-  out[4 * ray + 3] = 1.0f - t;
+  if (valid) {
+    out[4 * ray] = r;
+    out[4 * ray + 1] = g;
+    out[4 * ray + 2] = b;
+    out[4 * ray + 3] = 1.0f - t;
+  }
 }
 
 }  // namespace
@@ -101,9 +134,8 @@ extern "C" int pre_sweep(const void* chans, const void* a0, const void* a1,
                          float wb0, float wb1, float wc0, float wc1,
                          float sb_scale, float sc_scale, float early_exit,
                          void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((u_size + block.x - 1) / block.x,
-                  (v_size + block.y - 1) / block.y);
+  const dim3 block(kTileU, kTileV);
+  const dim3 grid((u_size + kTileU - 1) / kTileU, (v_size + kTileV - 1) / kTileV);
   pre_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float4*)chans, (const int*)a0, (const int*)a1, (const float*)wa,
       (const float*)dl, (const int*)act, (const float*)view,

@@ -61,18 +61,31 @@ __device__ __forceinline__ float4 lerp4(float4 c0, float4 c1, float wt) {
                      c0.w * (1.0f - wt) + c1.w * wt);
 }
 
-// Pre-classified RGBA at one sample from (Nc, Nb) float4 slices lo (weight
+// The 2x2 in-plane float4 taps of one (Nc, Nb) RGBA slice at a sample:
+// rows tc.i0, tc.i1 x columns tb.i0, tb.i1.
+struct Quad {
+  float4 v00, v01, v10, v11;
+};
+
+__device__ __forceinline__ Quad quad(const float4* __restrict__ s, Taps tb, Taps tc,
+                                     int nb) {
+  const size_t r0 = (size_t)tc.i0 * nb, r1 = (size_t)tc.i1 * nb;
+  return Quad{s[r0 + tb.i0], s[r0 + tb.i1], s[r1 + tb.i0], s[r1 + tb.i1]};
+}
+
+// Pre-classified RGBA at one sample from the taps of slices lo (weight
 // 1 - w_a) and hi (weight w_a): per channel, density()'s order (axis lerp at
 // each 2x2 tap, then along b, then along c).  The dense sweep (pre_sweep.cu)
 // uses it; its plain PyTorch specification is libre_tpu_torch/ops/
-// shearwarp_dense.py::pre_sweep_reference.
-__device__ __forceinline__ float4 rgba(const float4* lo, const float4* hi,
-                                       float w_a, Taps tb, Taps tc, int nb) {
-  const size_t r0 = (size_t)tc.i0 * nb, r1 = (size_t)tc.i1 * nb;
-  const float4 v00 = lerp4(lo[r0 + tb.i0], hi[r0 + tb.i0], w_a);
-  const float4 v01 = lerp4(lo[r0 + tb.i1], hi[r0 + tb.i1], w_a);
-  const float4 v10 = lerp4(lo[r1 + tb.i0], hi[r1 + tb.i0], w_a);
-  const float4 v11 = lerp4(lo[r1 + tb.i1], hi[r1 + tb.i1], w_a);
+// shearwarp_dense.py::pre_sweep_reference.  K5 loads each slice's four taps
+// together (quad), then lerps: with the two slices' loads interleaved per
+// tap it took 64 registers against 62 and ran slower (PERF.md section 6).
+__device__ __forceinline__ float4 rgba(const Quad& lo, const Quad& hi, float w_a, Taps tb,
+                                       Taps tc) {
+  const float4 v00 = lerp4(lo.v00, hi.v00, w_a);
+  const float4 v01 = lerp4(lo.v01, hi.v01, w_a);
+  const float4 v10 = lerp4(lo.v10, hi.v10, w_a);
+  const float4 v11 = lerp4(lo.v11, hi.v11, w_a);
   return lerp4(lerp4(v00, v01, tb.w), lerp4(v10, v11, tb.w), tc.w);
 }
 

@@ -450,8 +450,27 @@ def mark_taps(touched, lo, hi, ic0, ic1, ib0, ib1, nb: int, rays: torch.Tensor) 
             touched[hi + o] = True
 
 
-# K1's tile of slope rays, (rows along v, columns along u): one CTA each.
+# The tile of slope rays of K1 and K5, (rows along v, columns along u):
+# one CTA each.
 SWEEP_TILE = (4, 32)
+
+
+def tile_to_rays(mask: torch.Tensor, v_size: int, u_size: int) -> torch.Tensor:
+    """A (TV, TU) mask over ``SWEEP_TILE`` tiles → the (V, U) mask of
+    their rays."""
+    rows, cols = SWEEP_TILE
+    dev = mask.device
+    return mask[torch.arange(v_size, device=dev) // rows][:, torch.arange(u_size, device=dev) // cols]
+
+
+def rays_to_tiles(mask: torch.Tensor, tv: int, tu: int) -> torch.Tensor:
+    """A (V, U) mask of rays → the (tv, tu) mask of the ``SWEEP_TILE``
+    tiles holding any of them."""
+    rows, cols = SWEEP_TILE
+    v_size, u_size = mask.shape
+    hit = torch.zeros((tv * rows, tu * cols), dtype=torch.bool, device=mask.device)
+    hit[:v_size, :u_size] = mask
+    return hit.reshape(tv, rows, tu, cols).any(dim=3).any(dim=1)
 
 
 def tile_planes_reference(
@@ -460,7 +479,8 @@ def tile_planes_reference(
     wc: Tuple[float, float],
     tile: Tuple[int, int] = SWEEP_TILE,
 ) -> torch.Tensor:
-    """Plain torch plane lists: the specification of K1's prologue.
+    """Plain torch plane lists: the specification of the prologue of K1
+    and K5 (``csrc/sweep_list.cuh``).
 
     → (TV, TU, K) bool: plane k is on the list of the ``tile`` = (rows,
     columns) tile (tv, tu) of slope rays iff ``act[k] != 0`` and the
@@ -468,7 +488,7 @@ def tile_planes_reference(
     xb = eb + ug·dl[k], xc = ec + vg·dl[k], bounded by its first and last
     rays (each is monotone in u or v in f32, rounding included).  A
     superset of the planes any ray of the tile fetches at: the per-ray
-    window, clip, SENTINEL and early-exit tests are the sweep's.
+    window, clip, SENTINEL and early-exit tests are the sweeps'.
     """
     rows, cols = tile
     v_size, u_size = tables.corr.shape
@@ -549,13 +569,6 @@ def post_sweep_reference(
     flat = store.reshape(-1)
     plane = nc * nb
 
-    rows, cols = SWEEP_TILE
-    tile_v = torch.arange(v_size, device=dev) // rows
-    tile_u = torch.arange(u_size, device=dev) // cols
-
-    def per_ray(mask_k):  # (TV, TU) → (V, U)
-        return mask_k[tile_v][:, tile_u]
-
     rgb = tables.rgb_in[..., :3].clone()
     t = tables.t_in.clone()
     for k in range(tables.a0.shape[0]):
@@ -587,7 +600,7 @@ def post_sweep_reference(
             )
             fetch = fetch & (expr >= 0.0)
         if only is not None:
-            fetch = fetch & per_ray(only[..., k])
+            fetch = fetch & tile_to_rays(only[..., k], v_size, u_size)
         mask = fetch & (dens > -0.5)
 
         rgba = lookup(tf, dens)
@@ -601,10 +614,7 @@ def post_sweep_reference(
         if planes is not None:
             planes[k] = (fetch & alive).any()
         if fetches is not None:
-            tv, tu = fetches.shape[:2]
-            hit = torch.zeros((tv * rows, tu * cols), dtype=torch.bool, device=dev)
-            hit[:v_size, :u_size] = fetch & alive
-            fetches[..., k] = hit.reshape(tv, rows, tu, cols).any(dim=3).any(dim=1)
+            fetches[..., k] = rays_to_tiles(fetch & alive, *fetches.shape[:2])
         if touched is not None:
             mark_taps(touched.view(-1), lo, hi, ic0, ic1, ib0, ib1, nb, fetch & alive)
         m = alive.to(f32)

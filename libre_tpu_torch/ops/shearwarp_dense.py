@@ -77,6 +77,8 @@ def pre_sweep_reference(
     samples: Optional[torch.Tensor] = None,
     planes: Optional[torch.Tensor] = None,
     touched: Optional[torch.Tensor] = None,
+    only: Optional[torch.Tensor] = None,
+    fetches: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain torch sweep: the specification of ``csrc/pre_sweep.cu``.
 
@@ -99,7 +101,12 @@ def pre_sweep_reference(
     ``planes``, a (K,) bool tensor if given, is set where any ray does.
     ``touched``, an (Na, Nc, Nb) bool tensor if given, is set at every
     texel the kernel reads: the 2×2 taps of both slices of each sample
-    counted in ``samples``.
+    counted in ``samples``.  ``only``, a (TV, TU, K) bool tensor of plane
+    lists per ``SWEEP_TILE`` tile if given
+    (``shearwarp_bricked.tile_planes_reference``), restricts each ray to
+    its tile's listed planes, as K5 walks them; ``fetches``, a (TV, TU, K)
+    bool tensor if given, is set where some ray of the tile composites at
+    the plane.
     """
     f32 = torch.float32
     dev = chans.device
@@ -140,6 +147,8 @@ def pre_sweep_reference(
         inside_u = (xb >= wb0) & (xb < wb1)
         inside_v = (xc >= wc0) & (xc < wc1)
         fetch = inside_v[:, None] & inside_u[None, :] & (tables.act[k] != 0)
+        if only is not None:
+            fetch = fetch & swb.tile_to_rays(only[..., k], v_size, u_size)
         alpha = rgba[..., 3] * fetch.to(f32)
         a_corr = 1.0 - torch.pow(
             1.0 - torch.clamp(alpha, max=ALPHA_CLAMP), tables.corr
@@ -149,6 +158,8 @@ def pre_sweep_reference(
             samples += fetch & alive
         if planes is not None:
             planes[k] = (fetch & alive).any()
+        if fetches is not None:
+            fetches[..., k] = swb.rays_to_tiles(fetch & alive, *fetches.shape[:2])
         if touched is not None:
             swb.mark_taps(touched.view(-1), lo, hi, ic0, ic1, ib0, ib1, nb, fetch & alive)
         a_eff = a_corr * alive.to(f32)

@@ -3,6 +3,7 @@ their plain PyTorch versions (``chip_smoke.py`` and the CUDA tests)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -412,10 +413,15 @@ class DenseCase(NamedTuple):
 
     chans: torch.Tensor  # (Na, Nc, Nb, 4)
     tables: swb.SweepTables
-    plan_args: swd.SlopeGridPlanArgs
+    kw: dict  # wb, wc, early_exit
 
 
-def dense_case(case, seed, device, eye="z-"):
+# The "sweep" dense case's shapes (V, U, K, Na, Nc, Nb): ragged tiles in u
+# and v with K ≠ Na, and K = Na.
+DENSE_SWEEP_SHAPES = ((40, 72, 80, 48, 40, 44), (20, 40, 48, 48, 24, 28))
+
+
+def dense_case(case, seed, device, eye="z-", view="axis", shape=DENSE_SWEEP_SHAPES[0]):
     """Seeded operands of the dense sweep.
 
     ``case`` = "scene": the JAX package's dense test scene, a 20×24×28
@@ -430,6 +436,13 @@ def dense_case(case, seed, device, eye="z-"):
     ``sweep_case`` view: eye at a = 1.4 marching toward −a through
     [−0.5, 0.5]³, 512² slope rays in u ∈ [−0.45, 0.45], v ∈ [−0.4, 0.4],
     K = 512, early exit 0.999.
+
+    ``case`` = "sweep": a random (Na, Nc, Nb, 4) stack of ``shape`` = (V,
+    U, K, Na, Nc, Nb) (alpha in [0, 0.5); slices 0-3, 20-23 and 44-47
+    empty) under the ``sweep_case`` tables of ``SWEEP_VIEWS[view]``, with
+    ``act`` from the stack's slice content: with the eye inside the volume
+    ("inside") dl changes sign along the sweep, which runs toward +a
+    there and toward −a on the other views.
 
     Returns a :class:`DenseCase`."""
     if case == "scene":
@@ -461,11 +474,32 @@ def dense_case(case, seed, device, eye="z-"):
         params = RenderParams(n_samples_per_ray=n, data_source_range=(0.0, 1.0))
         swp = sw.ShearWarpParams(n_planes=n, inter_size=(n, n))
         world = (np.float32([-0.5] * 3), np.float32([0.5] * 3))
+    elif case == "sweep":
+        _store, _tf, tables, _clip, kw = sweep_case(shape, seed, device, view=view)
+        _v, _u, _k, na, nc, nb = shape
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        chans = torch.rand((na, nc, nb, 4), generator=gen, device=device)
+        chans[..., 3] *= 0.5
+        for lo, hi in ((0, 4), (20, 24), (44, 48)):
+            chans[lo:hi] = 0.0
+        content = swd.slice_content(chans)
+        act = content[tables.a0.long()] | content[tables.a1.long()]
+        kw = dict(wb=kw["wb"], wc=kw["wc"], early_exit=kw["early_exit"])
+        return DenseCase(chans, dataclasses.replace(tables, act=act), kw)
     else:
         raise ValueError(f"dense_case: unknown case {case!r}")
     pa = swd.slope_grid_plan_args(plan, *world, params, swp)
     _fv, tables = swd.sweep_operands(chans, pa, content=swd.slice_content(chans))
-    return DenseCase(chans, tables, pa)
+    return DenseCase(chans, tables, pa.sweep_kwargs())
+
+
+def dense_plain(c: DenseCase):
+    """(plain sweep, (TV, TU, K) planes each tile composites at, plain
+    plane lists) of a :class:`DenseCase`."""
+    lists = swb.tile_planes_reference(c.tables, c.kw["wb"], c.kw["wc"])
+    fetches = torch.zeros_like(lists)
+    want = swd.pre_sweep_reference(c.chans, c.tables, fetches=fetches, **c.kw)
+    return want, fetches, lists
 
 
 def dense_grad_case(device):

@@ -23,6 +23,7 @@ from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.testing import (
     DENSE_EYES,
     DENSE_GRAD_TOL,
+    DENSE_SWEEP_SHAPES,
     EXACT_BRICK_VIEWS,
     EXACT_GRAD_TOL_MAX,
     EXACT_TOL_MAX,
@@ -36,6 +37,7 @@ from libre_tpu_torch.testing import (
     SWEEP_VIEWS,
     dense_case,
     dense_grad_case,
+    dense_plain,
     exact_case,
     exact_grad_case,
     store_grad_case,
@@ -358,20 +360,39 @@ def test_render_exact_diff_on_card_matches_cpu(cuda):
 def test_pre_sweep_kernel_matches_plain(cuda, case, eye):
     """K5 vs ``pre_sweep_reference`` on ``dense_case`` operands: the JAX
     package's dense test scene from every axis and sign (empty slices, a
-    saturating TF) and a 512³ stack under 512² rays × 512 planes.
-    Tolerance: K1's, max 2e-3 (an early-exit flip), mean 1e-5 (powf)."""
+    saturating TF) and a 512³ stack under 512² rays × 512 planes (K =
+    Na).  Bit-equal, within K1's tolerance a fortiori, and the plain plane
+    lists hold every plane a tile composites at."""
     c = dense_case(case, seed=0, device=cuda, eye=eye)
-    kw = c.plan_args.sweep_kwargs()
+    kw = c.kw
     launches = swd.pre_sweep.launches
     got = swd.pre_sweep(c.chans, c.tables, **kw)
-    want = swd.pre_sweep_reference(c.chans, c.tables, **kw)
+    want, fetches, lists = dense_plain(c)
     torch.cuda.synchronize()
     assert swd.pre_sweep.launches == launches + 1
     err = (got - want).abs()
     assert float(err.max()) <= KERNEL_TOL_MAX
     assert float(err.mean()) <= KERNEL_TOL_MEAN
+    assert torch.equal(got, want)
+    assert bool((fetches <= lists).all()) and int(fetches.sum()) > 0
     assert float((got[..., 3] > kw["early_exit"]).float().mean()) > 0  # early exit fired
     assert int(c.tables.act.sum()) < c.tables.act.numel()  # empty planes skipped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DENSE_SWEEP_SHAPES)
+@pytest.mark.parametrize("view", sorted(SWEEP_VIEWS))
+def test_pre_sweep_kernel_bit_equal(cuda, view, shape):
+    """K5 walks per-tile plane lists; on a classified stack with empty
+    slices under every seeded view (ragged tiles, both sweep directions, dl changing sign;
+    K ≠ Na and K = Na) it is bit-equal to ``pre_sweep_reference``, and the
+    plain lists hold every plane a tile composites at."""
+    c = dense_case("sweep", seed=0, device=cuda, view=view, shape=shape)
+    got = swd.pre_sweep(c.chans, c.tables, **c.kw)
+    want, fetches, lists = dense_plain(c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((fetches <= lists).all()) and int(fetches.sum()) > 0
 
 
 @pytest.mark.cuda

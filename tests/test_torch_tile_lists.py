@@ -1,14 +1,16 @@
-"""The per-tile work lists of K1 (``csrc/post_sweep.cu``) and K3
-(``csrc/exact_march.cu``), through their plain versions
-``shearwarp_bricked.tile_planes_reference`` and
+"""The per-tile work lists of K1 (``csrc/post_sweep.cu``), K5
+(``csrc/pre_sweep.cu``) and K3 (``csrc/exact_march.cu``), through their
+plain versions ``shearwarp_bricked.tile_planes_reference`` and
 ``raycast.tile_bricks_reference``.
 
 Over seeded views (the eye inside the volume, the eye inside a brick,
 rays grazing a brick face, an oblique major axis, K ≠ Na, two clip
-planes, a jittered sample, a carry in), each list must be a superset of
-the work its tile does, and restricting the plain sweep or march to the
-lists must change nothing: the sweep bit for bit, the march in its image,
-its per-ray sample counts and its per-brick use flags.
+planes, a jittered sample, a carry in; for K5 the JAX package's dense
+scene from four eyes and a classified stack with empty slices under the
+sweep views), each list must be a superset of the work its tile does, and
+restricting the plain sweep or march to the lists must change nothing:
+the sweeps bit for bit, the march in its image, its per-ray sample counts
+and its per-brick use flags.
 """
 
 import dataclasses
@@ -18,7 +20,17 @@ import torch
 
 from libre_tpu_torch.ops import raycast
 from libre_tpu_torch.ops import shearwarp_bricked as swb
-from libre_tpu_torch.testing import EXACT_BRICK_VIEWS, exact_case, sweep_case
+from libre_tpu_torch.ops import shearwarp_dense as swd
+from libre_tpu_torch.testing import (
+    DENSE_EYES,
+    DENSE_SWEEP_SHAPES,
+    EXACT_BRICK_VIEWS,
+    SWEEP_VIEWS,
+    dense_case,
+    dense_plain,
+    exact_case,
+    sweep_case,
+)
 
 torch.set_num_threads(1)
 
@@ -33,6 +45,39 @@ SWEEP_CASES = {
 }
 
 
+# Dense (K5) cases: (dense_case case, eye or view, shape).  The "sweep"
+# stack is ragged in u and v with K ≠ Na; "dense_same_k" has K = Na.
+DENSE_CASES = {
+    **{f"dense_scene_{eye}": ("scene", eye, None) for eye in DENSE_EYES},
+    **{f"dense_{view}": ("sweep", view, DENSE_SWEEP_SHAPES[0]) for view in SWEEP_VIEWS},
+    "dense_same_k": ("sweep", "oblique", DENSE_SWEEP_SHAPES[1]),
+}
+
+
+def _view(name):
+    """The SWEEP_VIEWS view of a case, or None for the dense scene."""
+    if name in SWEEP_CASES:
+        return SWEEP_CASES[name][0]
+    case, view, _shape = DENSE_CASES[name]
+    return view if case == "sweep" else None
+
+
+def _dense(name):
+    case, arg, shape = DENSE_CASES[name]
+    if case == "scene":
+        return dense_case("scene", seed=3, device="cpu", eye=arg)
+    return dense_case("sweep", seed=3, device="cpu", view=arg, shape=shape)
+
+
+def _tables(name):
+    """(tables, wb, wc) of a sweep or dense case."""
+    if name in DENSE_CASES:
+        c = _dense(name)
+        return c.tables, c.kw["wb"], c.kw["wc"]
+    _store, _tf, tables, _clip, kw = _sweep(name)
+    return tables, kw["wb"], kw["wc"]
+
+
 def _sweep(name):
     view, shape, carry = SWEEP_CASES[name]
     store, tf, tables, clip, kw = sweep_case(shape, seed=3, device="cpu", view=view)
@@ -45,8 +90,15 @@ def _sweep(name):
     return store, tf, tables, clip, kw
 
 
-@pytest.fixture(scope="module", params=sorted(SWEEP_CASES))
+@pytest.fixture(scope="module", params=sorted(SWEEP_CASES) + sorted(DENSE_CASES))
 def sweep_lists(request):
+    """K1's plain sweep (colour and alpha, transmittance) or K5's (colour
+    and alpha) over all planes and over the lists."""
+    if request.param in DENSE_CASES:
+        c = _dense(request.param)
+        want, fetches, lists = dense_plain(c)
+        got = swd.pre_sweep_reference(c.chans, c.tables, only=lists, **c.kw)
+        return request.param, c.tables, lists, fetches, (want,), (got,)
     store, tf, tables, clip, kw = _sweep(request.param)
     lists = swb.tile_planes_reference(tables, kw["wb"], kw["wc"])
     fetches = torch.zeros_like(lists)
@@ -65,9 +117,10 @@ def test_plane_lists_cover_fetches(sweep_lists):
 
 def test_sweep_restricted_to_plane_lists_is_bit_equal(sweep_lists):
     """(b) The plain sweep over each tile's listed planes only is bit-equal
-    to the sweep over all K planes: colour, alpha and transmittance."""
+    to the sweep over all K planes: colour, alpha and (K1) transmittance."""
     _name, _tables, _lists, _fetches, want, got = sweep_lists
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_plane_lists_leave_planes_out(sweep_lists):
@@ -78,27 +131,27 @@ def test_plane_lists_leave_planes_out(sweep_lists):
     name, tables, lists, _fetches, _want, _got = sweep_lists
     active = tables.act != 0
     assert not bool(lists[..., ~active].any())
-    if SWEEP_CASES[name][0] != "inside":
+    if _view(name) != "inside":
         assert int(lists.sum(dim=-1).min()) < int(active.sum())
-    if SWEEP_CASES[name][0] == "oblique":
+    if _view(name) == "oblique":
         assert int(lists.sum()) < lists.numel() // 4
 
 
-@pytest.mark.parametrize("name", sorted(SWEEP_CASES))
+@pytest.mark.parametrize("name", sorted(SWEEP_CASES) + sorted(DENSE_CASES))
 def test_plane_lists_bound_each_ray(name):
     """Every ray of a tile whose sample point lies in the window at an
     active plane finds that plane on its tile's list (the window test
     alone, before clip planes, SENTINEL and early exit)."""
-    _store, _tf, tables, _clip, kw = _sweep(name)
-    lists = swb.tile_planes_reference(tables, kw["wb"], kw["wc"])
+    tables, wb, wc = _tables(name)
+    lists = swb.tile_planes_reference(tables, wb, wc)
     v_size, u_size = tables.corr.shape
     u0, du, dv, eb, ec, v0 = tables.view[:6]
     ug = u0 + du * torch.arange(u_size, dtype=torch.float32)
     vg = v0 + dv * torch.arange(v_size, dtype=torch.float32)
     xb = eb + ug[:, None] * tables.dl  # (U, K)
     xc = ec + vg[:, None] * tables.dl  # (V, K)
-    in_b = (xb >= kw["wb"][0]) & (xb < kw["wb"][1])
-    in_c = (xc >= kw["wc"][0]) & (xc < kw["wc"][1])
+    in_b = (xb >= wb[0]) & (xb < wb[1])
+    in_c = (xc >= wc[0]) & (xc < wc[1])
     inside = in_c[:, None, :] & in_b[None, :, :] & (tables.act != 0)  # (V, U, K)
     rows, cols = swb.SWEEP_TILE
     per_ray = lists[torch.arange(v_size) // rows][:, torch.arange(u_size) // cols]

@@ -168,6 +168,34 @@ EXACT_TRAIN_N = 512
 EXACT_TRAIN_ORDER = (0, 1, 2, 3, 0)
 
 
+# The TPU gather probes still to port (benchmarks/probe_*.py, ROADMAP queue
+# 2), each as (bytes, f32 operations) from its shapes: each input read once
+# and each output written once, where a gather reads only the table entries
+# its indices can reach (at most one per index); one add per gathered value
+# in the probes that sum over a loop of LOOP = 512, three per two-tap lerp
+# (P12).
+PROBE_WORK = {
+    "P1 probe_gather.py:53 take_flat": (3 * 1024 * 4, 0),
+    "P2 probe_gather.py:71 take_along_lane": (3 * 1024 * 4, 0),
+    "P3 probe_gather.py:90 take_along_sublane": (3 * 1024 * 4, 0),
+    "P4 probe_gather.py:115 onehot_mxu (P3's lookup)": (3 * 1024 * 4, 0),
+    "P5 probe_gather2.py:44 lane_gather_loop": (3 * 1024 * 4, 512 * 1024),
+    "P6 probe_gather2.py:66 lane_gather_wide": ((8 * 1024 + 2 * 1024) * 4, 512 * 1024),
+    "P7 probe_gather2.py:83 sublane_gather_fullshape": (3 * 512 * 128 * 4, 0),
+    "P8 probe_gather2.py:104 sublane_gather_8": (3 * 1024 * 4, 512 * 1024),
+    "P9 probe_gather2.py:122 row_take": ((2 * 8 * 128 + 128) * 4, 0),
+    "P10 probe_gather_axis0.py:18 mk(axis), each axis": (3 * 128 * 128 * 4, 0),
+    "P11 probe_kernel_gather.py:41 f1/k1": ((2 * 512 * 64 * 256 + 256) * 4, 0),
+    "P12 probe_kernel_gather.py:83 f2/k2": ((512 * 64 * 256 + 4 * 256 + 512 * 4 * 64 * 256) * 4,
+                                            512 * 4 * 64 * 256 * 3),
+    "P13 probe_kernel_gather.py:119 f3/k3": ((2 * 64 * 512 + 256) * 4, 0),
+    "P14 probe_pallas_gather.py:53 take_flat": ((32768 + 2 * 1024 * 128) * 4, 0),
+    "P15 probe_pallas_gather.py:78 take_2d_table": ((32768 + 3 * 1024 * 128) * 4, 0),
+    "P16 probe_pallas_gather.py:98 take_along_lanes": (3 * 1024 * 4, 0),
+    "P17 probe_pallas_gather.py:128 onehot_tf": ((256 * 4 + 1024 * 128 + 1024 * 128 * 4) * 4, 0),
+}
+
+
 def bound(bytes_, ops):
     """(ms, "bytes" or "operations"): the larger of the two times."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -435,10 +463,361 @@ def orbit_cameras(n=8, width=512, height=512):
     return poses
 
 
+OOC_URI = "mem://#1024,1024,1024,64?pattern=gradient"
+OOC_MB = 512  # the squeezed orbit's device budget: an atlas of 719 slots
+INCORE_MB = 10240  # an atlas of every brick and a derived budget over the 4 GiB store
+OOC_FINEST = 4  # min_lod: the finest level of the 1024^3 volume in 64^3 bricks
+
+
+class UploadClock:
+    """Times an atlas's uploads apart, by wrapping its instance methods:
+    host stacking (``_stack``) and pinning (``_pinned``) on the host
+    clock, the copy into the slots (``_copy``: host → device and the
+    indexed write) by CUDA events on the atlas's stream.  ``take()``
+    returns and resets the sums (after a synchronise)."""
+
+    def __init__(self, atlas):
+        import torch
+
+        self.atlas = atlas
+        self.real = (atlas._stack, atlas._pinned, atlas._copy)
+        self.reset()
+
+        def stack(bricks):
+            t = time.perf_counter()
+            out = self.real[0](bricks)
+            self.stack_s += time.perf_counter() - t
+            self.bricks += out.shape[0]
+            self.bytes += out.nbytes
+            return out
+
+        def pinned(bricks):
+            t = time.perf_counter()
+            out = self.real[1](bricks)
+            self.pin_s += time.perf_counter() - t
+            return out
+
+        def copy(slots, host):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(atlas.stream)
+            self.real[2](slots, host)
+            end.record(atlas.stream)
+            self.events.append((start, end))
+            self.slots.extend(int(x) for x in slots)
+
+        atlas._stack, atlas._pinned, atlas._copy = stack, pinned, copy
+
+    def reset(self):
+        self.bricks, self.bytes, self.stack_s, self.pin_s = 0, 0, 0.0, 0.0
+        self.events, self.slots = [], []
+
+    def take(self):
+        out = dict(bricks=self.bricks, bytes=self.bytes, stack_ms=self.stack_s * 1e3,
+                   pin_ms=self.pin_s * 1e3,
+                   copy_ms=sum(a.elapsed_time(b) for a, b in self.events), slots=self.slots)
+        self.reset()
+        return out
+
+    def close(self):
+        self.atlas._stack, self.atlas._pinned, self.atlas._copy = self.real
+
+
+def phase_out_of_core(dev, card):
+    """18. The out-of-core slab multipass and the upload pipeline on the
+    reference's own out-of-core demo size (benchmarks/demo_out_of_core.py,
+    OOC_RUN_r05.json): a 1024^3 uint8 volume in 64^3 bricks, rendered at
+    its finest level (4096 bricks, a 4 GiB store).  ``render_cli`` at the
+    default 3072 MB budget; an 8-pose orbit at 512 MB (two warm laps, a
+    measured one) against the same orbit in core, bit for bit; the
+    asynchronous ``render_bricked`` and ``render`` on cold engines; and
+    ``upload_view`` behind a frame's kernels.  Bricks are generated once,
+    by the CLI frame, and served from a memo to the later engines.
+    Returns (K1 launch sites, K1 launches on its main paths, K1's max |d|
+    against plain)."""
+    import torch
+
+    from libre_tpu_torch.apps import render_cli
+    from libre_tpu_torch.data import memory
+    from libre_tpu_torch.data.datasource import DataSource, load_plugins
+    from libre_tpu_torch.ops import _kernels
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.render.engine import RenderEngine
+    from libre_tpu_torch.utils.image import read_image
+
+    load_plugins()
+    t_phase = time.perf_counter()
+    memo = {}
+    real_get_data = memory.MemoryDataSource.get_data
+    real_render_slabs = RenderEngine._render_slabs
+    real_plain = swb.post_sweep_reference
+    slab_frames, plain_calls = [], []
+
+    def get_data(self, lod_node):
+        key = (self.volume_info.voxels, lod_node.node_id.id)
+        if key not in memo:
+            memo[key] = real_get_data(self, lod_node)
+        return memo[key]
+
+    def render_slabs(self, render_nodes, render_level, fine_dims, *args):
+        slab_frames.append((len(render_nodes), render_level, fine_dims, self.device_budget.budget))
+        return real_render_slabs(self, render_nodes, render_level, fine_dims, *args)
+
+    def plain(*args, **kwargs):
+        plain_calls.append(1)
+        return real_plain(*args, **kwargs)
+
+    memory.MemoryDataSource.get_data = get_data
+    RenderEngine._render_slabs = render_slabs
+    swb.post_sweep_reference = plain
+    try:
+        # ---------------------------------------------- the CLI frame
+        swb.post_sweep.launches = 0
+        with tempfile.TemporaryDirectory() as out_dir, Recorder("post_sweep") as k1_cli:
+            t0 = time.perf_counter()
+            rc = render_cli.main([
+                "--volume", OOC_URI, "--width", "512", "--height", "512",
+                "--min-lod", str(OOC_FINEST), "--output-dir", out_dir,
+            ])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            png = read_image(os.path.join(out_dir, "frame_000000.png"))
+        cli_launches = swb.post_sweep.launches
+        # ------------------------------------------ end of the CLI frame
+        if rc != 0 or png.shape[:2] != (512, 512) or png.max() == 0:
+            raise AssertionError(f"render_cli at 1024^3: rc {rc}, {png.shape}, max {png.max()}")
+        (n_bricks, level, dims, budget), = slab_frames
+        if plain_calls:
+            raise AssertionError("the out-of-core CLI frame ran the plain sweep")
+        n_passes = len(k1_cli.calls)
+        if n_passes < 2 or cli_launches != n_passes:
+            raise AssertionError(f"render_cli at 1024^3: {n_passes} passes, {cli_launches} K1 "
+                                 f"launches")
+        print(f"out-of-core render_cli 512x512 frame at the default 3072 MB: render level "
+              f"{level}, {n_bricks} bricks, store {dims} = {int(np.prod(dims)) * 4} B over a "
+              f"{budget} B derived budget, {n_passes} slab passes, {cli_launches} K1 launches; "
+              f"{cli_s:.3f} s incl. generating the bricks {card}")
+        cli_ops, (cli_out, cli_t) = k1_operands(k1_cli.calls[0][1])
+        cli_work = k1_work(*cli_ops)
+        torch.cuda.synchronize()
+        if not (torch.equal(cli_out, cli_work["want"]) and torch.equal(cli_t, cli_work["t_want"])):
+            raise AssertionError("render_cli at 1024^3, pass 1: K1 is not bit-equal to plain")
+        cli_args = k1_cli.calls[0][1]
+        cli_ms = cuda_ms(lambda: _kernels.launch("post_sweep", *cli_args), reps=10)
+        cli_bound = cli_work["bound"]
+        print(f"  K1 on pass 1's operands (slab {tuple(cli_ops[0].shape)}, "
+              f"{cli_ops[2].a0.shape[0]} planes): {cli_ms:.4f} ms, bit-equal to plain; bound "
+              f"{cli_bound[0]:.4f} ms ({cli_bound[1]}) {card}")
+        del k1_cli, cli_ops, cli_out, cli_t, cli_work, cli_args
+        torch.cuda.empty_cache()
+        print(f"phase 18, CLI frame: {time.perf_counter() - t_phase:.1f} s")
+
+        # ------------------------------------------- the out-of-core orbit
+        poses = orbit_cameras()
+        kw = dict(screen_space_error=1.0, min_lod=OOC_FINEST)
+        ooc = RenderEngine(DataSource(OOC_URI), max_gpu_cache_mb=OOC_MB, device=dev)
+        clock = UploadClock(ooc.atlas)
+        passes = []
+        real_nodes = ooc._slab_nodes
+
+        def slab_nodes(*args):
+            passes.append(real_nodes(*args))
+            return passes[-1]
+
+        ooc._slab_nodes = slab_nodes
+        for _lap in range(2):
+            for camera, frustum in poses:
+                ooc.render_bricked(camera, frustum, **kw)
+        torch.cuda.synchronize()
+        clock.take()
+        rows, ooc_frames = [], []
+        evictions = ooc.texture_cache.statistics.evictions
+        swb.post_sweep.launches = 0
+        plain_calls.clear()
+        for i, (camera, frustum) in enumerate(poses):
+            passes.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            at_start = torch.cuda.memory_allocated(dev)
+            before = swb.post_sweep.launches
+            t0 = time.perf_counter()
+            img, stats = ooc.render_bricked(camera, frustum, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            up = clock.take()
+            ev = ooc.texture_cache.statistics.evictions
+            rows.append(dict(ms=ms, passes=stats.n_passes, nonempty=sum(1 for p in passes if p),
+                             launches=swb.post_sweep.launches - before, evicted=ev - evictions,
+                             peak=torch.cuda.max_memory_allocated(dev), at_start=at_start, **up))
+            evictions = ev
+            ooc_frames.append(img)
+        orbit_launches = swb.post_sweep.launches
+        # ------------------------------------- end of the out-of-core orbit
+        if plain_calls:
+            raise AssertionError(f"the out-of-core orbit ran the plain sweep {len(plain_calls)} times")
+        for i, r in enumerate(rows):
+            if r["passes"] < 2 or r["evicted"] <= 0 or r["launches"] != r["nonempty"]:
+                raise AssertionError(f"out-of-core frame {i}: {r['passes']} passes, {r['evicted']} "
+                                     f"evictions, {r['launches']} K1 launches for {r['nonempty']} "
+                                     f"passes with bricks")
+            refilled = len(r["slots"]) - len(set(r["slots"]))
+            print(f"  out-of-core frame {i}: {r['ms']:.3f} ms, {r['passes']} passes "
+                  f"({r['nonempty']} with bricks, as many K1 launches), {r['evicted']} evictions, "
+                  f"{r['bricks']} bricks = {r['bytes']} B uploaded ({refilled} slot refills within "
+                  f"the frame): stack {r['stack_ms']:.3f} ms, pin {r['pin_ms']:.3f} ms (host), copy "
+                  f"{r['copy_ms']:.3f} ms (device); peak allocated {r['peak']} B, "
+                  f"{r['peak'] - r['at_start']} B above the frame's start {card}")
+        med = lambda xs: float(np.median(xs))  # noqa: E731
+        ooc_ms = [r["ms"] for r in rows]
+        print(f"out-of-core orbit at {OOC_MB} MB ({ooc.atlas.n_slots}-slot atlas, "
+              f"{ooc.device_budget.budget} B derived budget): frame median {med(ooc_ms):.3f} ms, "
+              f"min {min(ooc_ms):.3f} ms; per frame (medians) {med([r['passes'] for r in rows])} "
+              f"passes, {med([r['bricks'] for r in rows])} bricks, {med([r['bytes'] for r in rows])} "
+              f"B uploaded; host stacking {med([r['stack_ms'] for r in rows]):.3f} ms, pinning "
+              f"{med([r['pin_ms'] for r in rows]):.3f} ms; copies {med([r['copy_ms'] for r in rows]):.3f} "
+              f"ms of device time on the frame's stream, serialised with the kernels (0 ms "
+              f"overlapped); peak allocated above a frame's start "
+              f"{max(r['peak'] - r['at_start'] for r in rows)} B against the {OOC_MB} MB budget "
+              f"{card}")
+        print(f"phase 18, out-of-core orbit: {time.perf_counter() - t_phase:.1f} s")
+
+        # K1 on every pass of the last frame, bit-equal to plain and timed.
+        camera, frustum = poses[-1]
+        with Recorder("post_sweep") as k1_ooc:
+            last, _ = ooc.render_bricked(camera, frustum, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(last, ooc_frames[-1]):
+            raise AssertionError("the out-of-core frame is not reproducible")
+        pass_ms, pass_bounds, pass_by = [], [], []
+        for _name, args in k1_ooc.calls:
+            ops, (out, t_out) = k1_operands(args)
+            work = k1_work(*ops)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, work["want"]) and torch.equal(t_out, work["t_want"])):
+                raise AssertionError("an out-of-core pass: K1 is not bit-equal to plain")
+            pass_ms.append(cuda_ms(lambda: _kernels.launch("post_sweep", *args), reps=10))
+            pass_bounds.append(work["bound"][0])
+            pass_by.append(work["bound"][1])
+            del ops, out, t_out, work
+        print(f"K1 on the {len(pass_ms)} passes of the last out-of-core frame, each bit-equal to "
+              f"plain: {sum(pass_ms):.4f} ms in all, per pass mean {med(pass_ms):.4f} ms "
+              f"(min {min(pass_ms):.4f}, max {max(pass_ms):.4f}); bound per pass mean "
+              f"{float(np.mean(pass_bounds)):.4f} ms, {sum(pass_bounds):.4f} ms in all {card}")
+        del k1_ooc
+
+        unprofiled = med(ooc_ms)
+
+        def ooc_frame():
+            ooc.render_bricked(camera, frustum, **kw)
+            torch.cuda.synchronize()
+
+        profiled("one out-of-core frame", ooc_frame,
+                 ("post_sweep_kernel", "index", "elementwise", "reduce", "cat", "copy"), card,
+                 unprofiled)
+
+        # upload_view for the next pose behind the current frame's kernels.
+        t0 = time.perf_counter()
+        ooc.render_bricked(poses[0][0], poses[0][1], **kw)
+        t1 = time.perf_counter()
+        clock.reset()
+        n_up = ooc.upload_view(poses[1][1], 512, **kw)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        up = clock.take()
+        print(f"upload_view of pose 1 after pose 0's frame was enqueued: {n_up} bricks, "
+              f"{(t2 - t1) * 1e3:.3f} ms host (select, stack {up['stack_ms']:.3f} ms, pin "
+              f"{up['pin_ms']:.3f} ms), frame + upload_view {(t3 - t0) * 1e3:.3f} ms to the "
+              f"synchronise; upload_view's copies {up['copy_ms']:.3f} ms device {card}")
+        clock.close()
+        del ooc, clock, last
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------ the in-core orbit
+        incore = RenderEngine(DataSource(OOC_URI), max_gpu_cache_mb=INCORE_MB, device=dev)
+        slab_frames.clear()
+        for camera, frustum in poses:
+            incore.render_bricked(camera, frustum, **kw)
+        torch.cuda.synchronize()
+        incore_ms = []
+        for i, (camera, frustum) in enumerate(poses):
+            t0 = time.perf_counter()
+            img, stats = incore.render_bricked(camera, frustum, **kw)
+            torch.cuda.synchronize()
+            incore_ms.append((time.perf_counter() - t0) * 1e3)
+            if stats.n_passes != 1 or not torch.equal(img, ooc_frames[i]):
+                raise AssertionError(f"pose {i}: the out-of-core frame is not the in-core frame "
+                                     f"bit for bit ({stats.n_passes} in-core passes)")
+        if slab_frames:
+            raise AssertionError("the in-core orbit went out of core")
+        with Recorder("post_sweep") as k1_in:
+            incore.render_bricked(poses[-1][0], poses[-1][1], **kw)
+        (_name, in_args), = k1_in.calls
+        in_ms = cuda_ms(lambda: _kernels.launch("post_sweep", *in_args), reps=10)
+        print(f"K1 in core on the last pose (one sweep of {in_args[14]} planes over the "
+              f"{tuple(in_args[0].shape)} store): {in_ms:.4f} ms, against {sum(pass_ms):.4f} ms for "
+              f"the out-of-core frame's {len(pass_ms)} passes {card}")
+        del k1_in, in_args
+        print(f"in-core orbit at {INCORE_MB} MB: frame median {med(incore_ms):.3f} ms, min "
+              f"{min(incore_ms):.3f} ms; every out-of-core frame bit-equal to its in-core frame; "
+              f"ooc_vs_incore {med(incore_ms) / med(ooc_ms):.4f} (in-core / out-of-core frame "
+              f"median) {card}")
+        sync_bricked = ooc_frames[0]
+        sync_exact = incore.render(poses[0][0], poses[0][1], **kw)[0]
+        del incore, ooc_frames
+        torch.cuda.empty_cache()
+        print(f"phase 18, in-core orbit: {time.perf_counter() - t_phase:.1f} s")
+
+        # ------------------------------------------------------ async frames
+        camera, frustum = poses[0]
+        for method, want in (("render_bricked", sync_bricked), ("render", sync_exact)):
+            cold = RenderEngine(DataSource(OOC_URI), max_gpu_cache_mb=INCORE_MB, device=dev)
+            futures = []
+            t0 = time.perf_counter()
+            for frames in range(1, 51):
+                out = getattr(cold, method)(camera, frustum, synchronous=False, **kw)
+                img, stats = out[0], out[1]
+                futures += stats.pending_uploads
+                if stats.rendering_done:
+                    break
+            else:
+                raise AssertionError(f"async {method} not done after 50 frames")
+            torch.cuda.synchronize()
+            async_s = time.perf_counter() - t0
+            for f in futures:
+                f.result()
+            if frames < 2 or not torch.equal(img, want):
+                raise AssertionError(f"async {method}: {frames} frames; the last is not the "
+                                     f"synchronous frame bit for bit")
+            print(f"async {method} on a cold engine: done after {frames} frames, {async_s:.3f} s "
+                  f"({len(futures)} upload batches); the last frame bit-equal to the synchronous "
+                  f"one {card}")
+            del cold
+            torch.cuda.empty_cache()
+    finally:
+        memory.MemoryDataSource.get_data = real_get_data
+        RenderEngine._render_slabs = real_render_slabs
+        swb.post_sweep_reference = real_plain
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    sites = [
+        ("K1", "render_bricked out of core, render_cli frame (1024^3, 3072 MB, pass 1)",
+         cli_launches, cli_ms, cli_bound),
+        ("K1", f"render_bricked out of core, orbit (1024^3, {OOC_MB} MB, per pass)",
+         orbit_launches, med(pass_ms),
+         (float(np.mean(pass_bounds)), max(set(pass_by), key=pass_by.count))),
+    ]
+    return sites, cli_launches + orbit_launches, 0.0
+
+
 def main() -> int:
     import torch
 
     # ---------------------------------------------------------- 1. the card
+    t_last = [time.perf_counter()]
+
+    def phase_done(n):
+        now = time.perf_counter()
+        print(f"phase {n}: {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -467,10 +846,12 @@ def main() -> int:
     from libre_tpu_torch.ops import shearwarp_grad as swg
     from libre_tpu_torch.testing import FIELDS, SWEEP_VIEWS, store_grad_case, sweep_case
 
+    phase_done(1)
     # ------------------------------------------------------------- 2. build
     for name, secs in _kernels.build_all().items():
         print(f"build {name}: {secs:.2f} s ({_kernels.library_path(name).name})")
 
+    phase_done(2)
     # ------------------------------------------- 3. kernel vs plain, seeded
     # Every view of SWEEP_VIEWS (on axis, the eye inside the volume, an
     # oblique one) at both shapes: K1 bit-equal to the plain sweep, and
@@ -498,6 +879,7 @@ def main() -> int:
                 raise AssertionError("the seeded case never fired the early exit")
             del store, tables, got, want, fetches, lists, work
 
+    phase_done(3)
     # --------------------------------------------------------- 4. main path
     from libre_tpu_torch.apps import render_cli
     from libre_tpu_torch.data.datasource import DataSource, load_plugins
@@ -582,6 +964,7 @@ def main() -> int:
         f"store frame {store_frame_ms:.3f} ms {card}"
     )
 
+    phase_done(4)
     # -------------------------- 5. kernel vs plain at the main path's shape
     sw_plan = sw.make_view_plan(camera)
     fv = torch.from_numpy(runner.view_vector(camera, sw_plan)).to(dev)
@@ -678,6 +1061,7 @@ def main() -> int:
     if small_err > SMALL_TOL_MAX or float(on_cpu[..., 3].max()) <= 0.0:
         raise AssertionError(f"card frame disagrees with the CPU port ({small_err})")
 
+    phase_done(5)
     # ---------------------------- 6. backward kernel vs plain, seeded
     # Every field at 96x80 rays x 128 planes, the random one also at 512^3.
     k2_cases = [((96, 80, 128, 64, 48, 56), f) for f in FIELDS]
@@ -708,6 +1092,7 @@ def main() -> int:
                 raise AssertionError("the seeded backward case never fired the early exit")
             del store_s, tables_s, out_s, ds, ds_ref
 
+    phase_done(6)
     # ------------------------------------------------ 7. the training path
     from libre_tpu_torch.train import (
         StoreProblem,
@@ -889,6 +1274,7 @@ def main() -> int:
     )
     del out_t, t_out_t
 
+    phase_done(7)
     # ---------------------------------------- 8. K3 vs plain, seeded cases
     from libre_tpu_torch.ops import exact, raycast
     from libre_tpu_torch.ops.reference import RenderParams
@@ -935,6 +1321,7 @@ def main() -> int:
                 raise AssertionError(f"{what}: the early exit never fired")
             del c, args, got, want, lists, tile_used
 
+    phase_done(8)
     # --------------------------------------- 9. the exact main path
     exact.march_exact.launches = 0
     cli_ok = {}
@@ -1088,6 +1475,7 @@ def main() -> int:
         f"tile costs the difference) {card}"
     )
 
+    phase_done(9)
     # ------------------ 10. K3 vs plain on a window of the main path's rays
     lo = (512 - SUBSET) // 2
     sub = pack.reshape(8, 512, 512)[:, lo:lo + SUBSET, lo:lo + SUBSET]
@@ -1121,6 +1509,7 @@ def main() -> int:
         e.unpin()
     del args, sampled_args, sub_args, pack, frame
 
+    phase_done(10)
     # --------------------------------------------- 11. card vs CPU, exact
     # A 9-slot atlas forces passes of 8 bricks, the carry threaded through
     # them; two jittered samples per pixel.
@@ -1145,6 +1534,7 @@ def main() -> int:
     if small_err > EXACT_TOL_MAX or float(on_cpu[..., 3].max()) <= 0.0:
         raise AssertionError(f"card exact frame disagrees with the CPU port ({small_err})")
 
+    phase_done(11)
     # ---------------------------------------- 12. K4 vs plain, seeded cases
     from libre_tpu_torch.testing import EXACT_GRAD_TOL_MAX, exact_grad_case
 
@@ -1229,6 +1619,7 @@ def main() -> int:
     )
     del c, vol, tf_leaf, args, want
 
+    phase_done(12)
     # ---------------------------------- 13. the exact training path, full width
     from libre_tpu_torch.ops.transfer_function import default_color_map
     from libre_tpu_torch.testing import smooth_volume
@@ -1416,6 +1807,7 @@ def main() -> int:
     )
     del state, p_vol, args, sub_args, got, want, want_w, fwd_args, sub_fwd
 
+    phase_done(13)
     # ------------------------------------ 14. the exact trainer, card vs CPU
     # The same start and target on both devices: the target is the CPU's.
     rng = np.random.default_rng(3)
@@ -1446,6 +1838,7 @@ def main() -> int:
     if small_err > 1e-4 or moved < 1e-3:
         raise AssertionError(f"card exact trainer disagrees with the CPU port ({small_err})")
 
+    phase_done(14)
     # ----------------------------------------- 15. K5 vs plain, seeded cases
     from libre_tpu_torch.ops import shearwarp_dense as swd
     from libre_tpu_torch.testing import (
@@ -1490,6 +1883,7 @@ def main() -> int:
             raise AssertionError(f"{what}: no early exit or no empty plane")
         del c, got, want, lists, fetches
 
+    phase_done(15)
     # ------------------------------------------------- 16. the dense main path
     # The plain sweep and the plain pipeline must not run on the card's
     # main path: count their calls.  The first frame's level assembly and
@@ -1687,6 +2081,7 @@ def main() -> int:
              steady[len(steady) // 2])
     del got, want, tables, dense_frames, frame
 
+    phase_done(16)
     # ----------------------------------------- 17. dense, card vs CPU
     camera, _frustum = build_camera(48, 48, (0.3, 0.2, 1.5), (0.0, 0.0, 0.0))
     k5_before = swd.pre_sweep.launches
@@ -1719,7 +2114,11 @@ def main() -> int:
     if fwd_err > SMALL_TOL_MAX or max(grad_errs) > DENSE_GRAD_TOL:
         raise AssertionError(f"card autograd disagrees with the CPU ({fwd_err}, {grad_errs})")
 
-    loaded =[m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
+    phase_done(17)
+    # ---------------- 18. out of core and asynchronous, at 1024^3 (its own timers)
+    ooc_sites, ooc_launches, ooc_err = phase_out_of_core(dev, card)
+
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
     if loaded:
         raise AssertionError(f"imported {loaded[:5]}")
 
@@ -1730,7 +2129,7 @@ def main() -> int:
          k2_bound),
         ("K4", "RenderExactDiff backward (exact training)", ex_bwd_launches, k4_ms, k4_bound),
         ("K5", "render_frame, render_cli and orbit frames", dense_launches, k5_ms, k5_bound),
-    ]
+    ] + ooc_sites
     print(f"launch sites on the main paths: launches, ms per launch on the site's operands, "
           f"bound, launches x (ms - bound) {card}")
     above = {}
@@ -1741,14 +2140,19 @@ def main() -> int:
     print("  by kernel: " + "; ".join(f"{k} {v:.3f} ms" for k, v in
                                       sorted(above.items(), key=lambda kv: -kv[1])))
 
+    print(f"bounds of the TPU gather probes still to port, from their shapes {card}")
+    for probe, (b, ops) in PROBE_WORK.items():
+        b_ms, b_by = bound(b, ops)
+        print(f"  {probe}: {b} B, {ops} f32 operations: {b_ms * 1e3:.5f} us ({b_by})")
+
     print(json.dumps({"kernels": [
         {
             "name": "post_sweep",
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/post_sweep.cu",
             "replaces": "libre_tpu/ops/shearwarp_bricked.py:78",
-            "launches": launches + train_fwd_launches,
-            "max_abs_err": max_err,
+            "launches": launches + train_fwd_launches + ooc_launches,
+            "max_abs_err": max(max_err, ooc_err),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": k1_bound[0],

@@ -198,6 +198,12 @@ class LRUCache(Generic[T]):
                     self._on_evict(victim, entry.value)
             return True
 
+    def holds(self, entry: CacheEntry[T]) -> bool:
+        """True while ``entry`` is the resident entry of its id, i.e. it
+        was not evicted; counts no access."""
+        with self._lock:
+            return self._entries.get(entry.cache_id) is entry
+
     def purge(self, cache_id: Optional[int] = None) -> None:
         """Drop entries unconditionally (Cache.h:84-95)."""
         with self._lock:

@@ -7,8 +7,13 @@ with a free-list allocator, filled by async host→device copies; and the
 GL TexturePool free-list (livre/core/render/TexturePool.cpp:89-127).
 
 The pool is a ``(n_slots, BZ, BY, BX)`` tensor in the dataset's native
-dtype; slot writes are in-place copies from pinned host memory with
-``non_blocking=True`` on the current stream.
+dtype.  A batch upload stacks its bricks on the host (:meth:`_stack`),
+copies them into pinned memory (:meth:`_pinned`) and writes them into
+their slots with one asynchronous copy and one indexed write
+(:meth:`_copy`) on the atlas's stream: the stream that was current when
+the atlas was made.  Every upload, from any thread, lands on that stream,
+so a kernel enqueued there before an upload into a slot reads the slot
+before the upload writes it, and one enqueued after reads the upload.
 """
 
 from __future__ import annotations
@@ -56,10 +61,13 @@ class BrickAtlas:
         )
         self._free: List[int] = list(range(self.n_slots - 1, -1, -1))
         self._lock = threading.Lock()
-        # Orders slot writes against gathers issued from other threads
-        # (upload pool vs. the frame thread): a gather enqueued after an
-        # upload returned must see that upload.
+        # Orders slot writes from several threads (upload pool vs. the
+        # frame thread) on the atlas's stream.
         self._data_lock = threading.Lock()
+        self.stream = (
+            torch.cuda.current_stream(self.device)
+            if self.device.type == "cuda" else None
+        )
 
     @property
     def data(self) -> torch.Tensor:
@@ -88,36 +96,48 @@ class BrickAtlas:
         with self._lock:
             self._free.append(int(slot))
 
-    def _host(self, bricks_zyx: np.ndarray) -> torch.Tensor:
-        """Host tensor of the atlas dtype, pinned when the atlas is on a
-        GPU so the copy can run asynchronously."""
-        bricks = np.asarray(bricks_zyx)
+    def _stack(self, bricks_zyx) -> np.ndarray:
+        """(N, BZ, BY, BX) contiguous host array of a batch of bricks,
+        given as one array or a sequence of (BZ, BY, BX) arrays."""
+        if isinstance(bricks_zyx, np.ndarray):
+            bricks = np.ascontiguousarray(bricks_zyx)
+        else:
+            bricks = np.stack(bricks_zyx)
         if bricks.shape[-3:] != self.brick_shape:
             raise ValueError(
                 f"brick shape {bricks.shape} != slot {self.brick_shape}"
             )
-        host = torch.from_numpy(np.ascontiguousarray(bricks)).to(self.dtype)
+        return bricks
+
+    def _pinned(self, bricks: np.ndarray) -> torch.Tensor:
+        """Host tensor of the atlas dtype, pinned when the atlas is on a
+        GPU so the copy can run asynchronously."""
+        host = torch.from_numpy(bricks).to(self.dtype)
         if self.device.type == "cuda":
             host = host.pin_memory()
         return host
 
-    def upload(self, slot: int, brick_zyx: np.ndarray) -> None:
-        """Write a (BZ, BY, BX) brick into ``slot`` (async copy)."""
-        host = self._host(brick_zyx)
-        with self._data_lock:
-            self._data[int(slot)].copy_(host, non_blocking=True)
-
-    def upload_many(self, slots, bricks_zyx: np.ndarray) -> None:
-        """Write a batch of bricks ((N, BZ, BY, BX)) in one copy and one
-        indexed write."""
-        host = self._host(bricks_zyx)
-        idx = torch.as_tensor(np.asarray(slots, np.int64)).to(
-            self.device, non_blocking=True
-        )
+    def _copy(self, slots, host: torch.Tensor) -> None:
+        """Write ``host`` (N, BZ, BY, BX) into ``slots`` on the atlas's
+        stream: one host → device copy and one indexed write."""
         bits = _BITS_AS.get(self.dtype, self.dtype)
-        with self._data_lock:
+        idx = torch.as_tensor(np.asarray(slots, np.int64))
+        if self.device.type == "cuda":
+            # A copy from pageable memory would wait for the stream.
+            idx = idx.pin_memory()
+        with self._data_lock, torch.cuda.stream(self.stream):
+            idx = idx.to(self.device, non_blocking=True)
             dev = host.to(self.device, non_blocking=True)
             self._data.view(bits).index_copy_(0, idx, dev.view(bits))
+
+    def upload(self, slot: int, brick_zyx: np.ndarray) -> None:
+        """Write a (BZ, BY, BX) brick into ``slot`` (async copy)."""
+        self.upload_many([slot], np.asarray(brick_zyx)[None])
+
+    def upload_many(self, slots, bricks_zyx) -> None:
+        """Write a batch of bricks ((N, BZ, BY, BX), or N arrays of
+        (BZ, BY, BX)) into ``slots``."""
+        self._copy(slots, self._pinned(self._stack(bricks_zyx)))
 
     def gather(self, slots) -> torch.Tensor:
         """The given slots as a stacked (N, BZ, BY, BX) tensor."""

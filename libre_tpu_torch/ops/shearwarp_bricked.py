@@ -22,12 +22,17 @@ The per-frame tables of the sweep (plane tables, plane activity, opacity
 correction, carry) are derived on the device from one 43-float view
 vector (:func:`sweep_tables`), so a steady-state frame moves only that
 vector host → device.
+
+Out of core, a frame is swept in A-slab passes (:func:`make_slab_plans`,
+:class:`SlabSweep`): each pass assembles only its slices and sweeps its
+planes of the global tables onto the carry of the previous pass, which
+composes bit for bit to one sweep (:func:`render_bricked_slope_grid`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +88,45 @@ def plane_tables(
     a0 = i0.astype(np.int32)
     a1 = np.minimum(a0 + 1, na - 1).astype(np.int32)
     return a0, a1, wa, (z - eye_a).astype(np.float32), z.astype(np.float32), dz
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabPlan:
+    """One A-slab pass: the store slices it assembles and its planes."""
+
+    a_lo: int  # first render-level slice assembled for this pass
+    a_hi_incl: int  # last slice assembled (includes the +1 lerp boundary)
+    k_lo: int  # first global plane index of this pass
+    k_hi: int  # one past the last plane
+
+
+def make_slab_plans(a0: np.ndarray, na: int, max_slices: int) -> List[SlabPlan]:
+    """Partition the march into A-slab passes of ≤ ``max_slices``
+    assembled slices each, covering every plane once in march order.
+    ``a0`` holds the global front-to-back plane tables' lower slice
+    indices.  Consecutive planes share slices, so slab boundaries repeat
+    one slice; its assembled values are the same both times, which keeps
+    the passes' composite bit-equal to one sweep."""
+    k_total = len(a0)
+    if na <= max_slices:
+        return [SlabPlan(0, na - 1, 0, k_total)]
+    plans: List[SlabPlan] = []
+    k = 0
+    width = max(2, max_slices)
+    while k < k_total:
+        lo = int(a0[k])
+        if int(a0[k_total - 1]) >= lo:  # marching toward +A
+            s_lo, s_hi = lo, min(lo + width - 1, na - 1)
+        else:  # marching toward −A: a0 decreasing
+            s_hi, s_lo = min(lo + 1, na - 1), max(0, lo + 1 - (width - 1))
+        tail = a0[k:]
+        need_hi = np.minimum(tail + 1, na - 1)
+        in_slab = (tail >= s_lo) & (need_hi <= s_hi)
+        run = int(np.argmin(in_slab)) if not in_slab.all() else len(in_slab)
+        run = max(run, 1)
+        plans.append(SlabPlan(s_lo, s_hi, k, k + run))
+        k += run
+    return plans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -716,27 +760,30 @@ def post_sweep(
 post_sweep.launches = 0
 
 
-# =================================================== steady-state frames
-class StoreFrameRunner:
-    """Steady-state frame from a cached assembled store.
+# =================================================== frames and slab passes
+class SlabSweep:
+    """One view's sweep of K1 over an assembled store, whole or in A-slab
+    passes (``libre_tpu.ops.shearwarp_bricked.SlabSweep``).
 
-    Holds everything camera-independent (clip rows, statics, coverage
-    flags); per frame only the 43-float view vector crosses host →
-    device, and the sweep tables, the sweep and the warp run on the
-    store's device."""
+    Holds everything camera-independent (clip rows, box, statics).  The
+    frame's global plane tables come from the view vector on the device
+    (:meth:`tables`); :meth:`run_pass` sweeps one slab's planes with the
+    (rgb, transmittance) of the previous pass as its carry, the
+    multipass accumulation of GLRaycastPipeline.cpp:148-186.  The plane
+    grid is global, so the passes compose bit for bit to one sweep."""
 
     def __init__(
-        self, store, plan, *, params: RenderParams, swp: sw.ShearWarpParams,
-        world_min, world_max, clip_planes_world=None, content=None,
-        viewport=None,
+        self, *, device, axis: int, na: int, params: RenderParams,
+        swp: sw.ShearWarpParams, world_min, world_max,
+        clip_planes_world=None, viewport=None,
     ):
         wmin = np.asarray(world_min, np.float32)
         wmax = np.asarray(world_max, np.float32)
-        self.device = store.device
-        self.axis = plan.axis
-        self.b_axis, self.c_axis = sw._BC_AXES[self.axis]
-        self.na = plan.fine_dims[0]
-        clip_m, self.n_clip = clip_matrix(clip_planes_world, self.axis)
+        self.device = torch.device(device)
+        self.axis = axis
+        self.b_axis, self.c_axis = sw._BC_AXES[axis]
+        self.na = na
+        clip_m, self.n_clip = clip_matrix(clip_planes_world, axis)
         self.clip = torch.from_numpy(clip_m).to(self.device)
         self.v_size, self.u_size = swp.inter_size
         self.k_planes = swp.n_planes
@@ -746,18 +793,76 @@ class StoreFrameRunner:
         self.early_exit = float(params.early_exit)
         self.max_spr = float(params.max_samples_per_ray)
         self.slope_margin = swp.slope_margin
-        self.content = content
         self.viewport = (
             tuple(int(x) for x in viewport) if viewport is not None else None
         )
 
+    def view(self, eye, sign: float, slope_bounds) -> np.ndarray:
+        """(11,) f32 :func:`view_vector` of this view."""
+        return view_vector(
+            world_min=self.wmin, world_max=self.wmax, axis=self.axis,
+            eye=eye, sign=sign, slope_bounds=slope_bounds,
+            inter_size=(self.v_size, self.u_size), max_samples_per_ray=self.max_spr,
+        )
+
     def view_vector(self, camera, sw_plan) -> np.ndarray:
         """(43,) f32 :func:`frame_vector` of this view."""
-        return frame_vector(view_vector(
-            world_min=self.wmin, world_max=self.wmax, axis=self.axis,
-            eye=sw_plan.eye, sign=sw_plan.sign, slope_bounds=sw_plan.bounds,
-            inter_size=(self.v_size, self.u_size), max_samples_per_ray=self.max_spr,
-        ), camera)
+        return frame_vector(self.view(sw_plan.eye, sw_plan.sign, sw_plan.bounds), camera)
+
+    def tables(self, fv: torch.Tensor, content: Optional[torch.Tensor] = None) -> SweepTables:
+        """The frame's global :func:`sweep_tables` from the view vector on
+        the device, with the initial carry."""
+        return sweep_tables(
+            fv, na=self.na, k_planes=self.k_planes, v_size=self.v_size,
+            u_size=self.u_size, content=content,
+        )
+
+    def sweep(self, store, tf, tables: SweepTables) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K1 (:func:`post_sweep`) over ``store`` with these tables."""
+        return post_sweep(
+            store, tf, tables, self.clip, n_clip=self.n_clip, wb=self.wb,
+            wc=self.wc, early_exit=self.early_exit,
+        )
+
+    def run_pass(self, slab, tf, tables: SweepTables, sp: SlabPlan, carry):
+        """Sweep planes [sp.k_lo, sp.k_hi) of the global ``tables`` over
+        ``slab``, the assembled slices [sp.a_lo, sp.a_hi_incl], onto the
+        ``carry`` (rgb + alpha (V, U, 4), transmittance (V, U)) → the next
+        carry.  Plane activity comes from the slab's own coverage."""
+        kr = slice(sp.k_lo, sp.k_hi)
+        a0 = (tables.a0[kr] - sp.a_lo).contiguous()
+        a1 = (tables.a1[kr] - sp.a_lo).contiguous()
+        content = store_content(slab)
+        return self.sweep(slab, tf, dataclasses.replace(
+            tables, a0=a0, a1=a1, wa=tables.wa[kr].contiguous(),
+            dl=tables.dl[kr].contiguous(), act=content[a0.long()] | content[a1.long()],
+            rgb_in=carry[0], t_in=carry[1],
+        ))
+
+    def warp(self, inter: torch.Tensor, fv: torch.Tensor) -> torch.Tensor:
+        """The slope grid on screen (:func:`warp_frame`), or the slope grid
+        itself without a viewport."""
+        if self.viewport is None:
+            return inter
+        return warp_frame(inter, fv, axis=self.axis, viewport=self.viewport)
+
+
+class StoreFrameRunner(SlabSweep):
+    """Steady-state frame from a cached assembled store: per frame only
+    the 43-float view vector crosses host → device, and the sweep tables,
+    one sweep and the warp run on the store's device."""
+
+    def __init__(
+        self, store, plan, *, params: RenderParams, swp: sw.ShearWarpParams,
+        world_min, world_max, clip_planes_world=None, content=None,
+        viewport=None,
+    ):
+        super().__init__(
+            device=store.device, axis=plan.axis, na=plan.fine_dims[0],
+            params=params, swp=swp, world_min=world_min, world_max=world_max,
+            clip_planes_world=clip_planes_world, viewport=viewport,
+        )
+        self.content = content
 
     def __call__(self, store, tf, camera, sw_plan=None) -> torch.Tensor:
         if sw_plan is None:
@@ -767,17 +872,8 @@ class StoreFrameRunner:
                 f"view major axis {sw_plan.axis} != store axis {self.axis}"
             )
         fv = torch.from_numpy(self.view_vector(camera, sw_plan)).to(self.device)
-        tables = sweep_tables(
-            fv, na=self.na, k_planes=self.k_planes, v_size=self.v_size,
-            u_size=self.u_size, content=self.content,
-        )
-        inter, _t = post_sweep(
-            store, tf, tables, self.clip, n_clip=self.n_clip, wb=self.wb,
-            wc=self.wc, early_exit=self.early_exit,
-        )
-        if self.viewport is None:
-            return inter
-        return warp_frame(inter, fv, axis=self.axis, viewport=self.viewport)
+        inter, _t = self.sweep(store, tf, self.tables(fv, self.content))
+        return self.warp(inter, fv)
 
 
 def render_store_frame(
@@ -804,3 +900,47 @@ def render_store_frame(
         content=content, viewport=camera.viewport if to_screen else None,
     )
     return runner(store, tf, camera, sw_plan)
+
+
+def render_bricked_slope_grid(
+    atlas_data: torch.Tensor,
+    plan: AssemblyPlan,
+    tf: torch.Tensor,  # (256, 4) on the atlas's device
+    *,
+    eye,
+    sign: float,
+    slope_bounds: Tuple[float, float, float, float],
+    world_min,
+    world_max,
+    params: RenderParams,
+    swp: sw.ShearWarpParams,
+    clip_planes_world: Optional[np.ndarray] = None,
+    max_slab_slices: Optional[int] = None,
+    store: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Slope-space frame of the rendering set → (V, U, 4).
+
+    Assembles the density store in A-slab passes of ≤ ``max_slab_slices``
+    slices each and sweeps K1 over each with the carry threaded through,
+    the memory-bounded multipass of GLRaycastPipeline.cpp:148-186.  A
+    prebuilt whole ``store`` (:func:`assemble_store`) is swept in one
+    pass."""
+    na = plan.fine_dims[0]
+    sweep = SlabSweep(
+        device=atlas_data.device, axis=plan.axis, na=na, params=params,
+        swp=swp, world_min=world_min, world_max=world_max,
+        clip_planes_world=clip_planes_world,
+    )
+    fv = torch.from_numpy(sweep.view(eye, sign, slope_bounds)).to(sweep.device)
+    tables = sweep.tables(fv)
+    if store is not None or max_slab_slices is None or na <= max_slab_slices:
+        plans = [SlabPlan(0, na - 1, 0, swp.n_planes)]
+    else:
+        plans = make_slab_plans(tables.a0.cpu().numpy(), na, max_slab_slices)
+    carry = (tables.rgb_in, tables.t_in)
+    for sp in plans:
+        slab = store if store is not None else assemble_store(
+            atlas_data, plan, sp.a_lo, sp.a_hi_incl
+        )
+        carry = sweep.run_pass(slab, tf, tables, sp, carry)
+    return carry[0]

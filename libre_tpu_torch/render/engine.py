@@ -17,23 +17,28 @@ Per frame, as in renderers/glRaycaster/GLRaycastPipeline.cpp:78-350:
     (level, time step, axis, TF) into an RGBA plane stack, cached, and
     swept by the pre-classified kernel (``ops/shearwarp_dense.py``).
 
-Implemented: the synchronous in-core branch of :meth:`render_bricked`,
-the synchronous multipass :meth:`render` and :meth:`render_shearwarp`.
-The out-of-core slab multipass and asynchronous rendering (ROADMAP M5)
-and histogram collection (ROADMAP M6) raise ``NotImplementedError``.
+When the assembled store exceeds the derived-cache budget or the
+rendering set exceeds the atlas's slots, :meth:`render_bricked` renders
+in A-slab passes, paging each slab's bricks through the atlas.  With
+``synchronous=False`` both :meth:`render_bricked` and :meth:`render`
+render what is resident (or its nearest resident ancestor) and upload
+the rest on a thread pool, for progressive refinement.  Histogram
+collection (ROADMAP M6) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from libre_tpu_torch.core.cache import LRUCache
+from libre_tpu_torch.core.cache import CacheEntry, LRUCache
 from libre_tpu_torch.core.clip_planes import ClipPlanes
 from libre_tpu_torch.core.frustum import Frustum
 from libre_tpu_torch.core.nodeid import NodeId
@@ -60,13 +65,47 @@ SHEARWARP_BACKENDS = ("auto", "pallas", "jnp")
 
 @dataclasses.dataclass
 class RenderStatistics:
-    """Availability counters (FrameInfo.h RenderStatistics)."""
+    """Availability counters (FrameInfo.h RenderStatistics).
+
+    ``pending_uploads`` holds the futures of the uploads an asynchronous
+    frame started, so that the caller can render again when they land
+    (RenderingDone = false → redraw, GLRaycastPipeline.cpp:241-308)."""
 
     n_available: int = 0
     n_not_available: int = 0
     n_render_available: int = 0
     n_passes: int = 0
     rendering_done: bool = True
+    pending_uploads: List = dataclasses.field(default_factory=list, repr=False)
+
+
+def compute_rendering_set(
+    visibles: Sequence[NodeId], is_loaded
+) -> Tuple[List[NodeId], bool]:
+    """Progressive-LOD fallback (RenderingSetGeneratorFilter.ipp:27-134).
+
+    For each visible node take it if loaded, else its nearest loaded
+    ancestor; drop nodes whose substitute or an ancestor of it is already
+    in the set (looked up by id, one probe per ancestor).  Returns (render
+    list, rendering_done = every visible was loaded itself)."""
+    chosen: List[NodeId] = []
+    seen = set()
+    done = True
+    for node in visibles:
+        pick: Optional[NodeId] = None
+        if is_loaded(node):
+            pick = node
+        else:
+            done = False
+            for anc in node.parents():
+                if is_loaded(anc):
+                    pick = anc
+                    break
+        if pick is not None and pick.id not in seen:
+            if not any(anc.id in seen for anc in pick.parents()):
+                seen.add(pick.id)
+                chosen.append(pick)
+    return chosen, done
 
 
 class _SharedByteBudget:
@@ -160,6 +199,10 @@ class _ByteLRU:
 
 # Share of the device budget the brick atlas preallocates.
 ATLAS_FRACTION = 0.5
+# Bricks per batch of an asynchronous frame's uploads: each batch is
+# resident as soon as its copy is enqueued, so frames refine batch by
+# batch.
+UPLOAD_BATCH = 256
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -181,6 +224,7 @@ class RenderEngine:
         datasource: DataSource,
         max_gpu_cache_mb: int = 3072,
         max_cpu_cache_mb: int = 8192,
+        n_upload_threads: int = 4,
         filter_mode: str = "nearest",
         device="cuda",
     ):
@@ -224,6 +268,12 @@ class RenderEngine:
             n_slots * self.atlas.slot_bytes,
             on_evict=lambda cid, slot: self.atlas.release(slot),
         )
+        # Asynchronous datasource → host loads and host → atlas uploads
+        # (the Tuyau upload executors, GLRaycastPipeline.cpp:58-75).
+        self._upload_pool = ThreadPoolExecutor(max_workers=n_upload_threads)
+        # Node ids of the bricks whose asynchronous upload is under way.
+        self._uploading: set = set()
+        self._uploading_lock = threading.Lock()
 
         self.transfer_function = torch.from_numpy(default_color_map()).to(
             self.device
@@ -247,35 +297,89 @@ class RenderEngine:
         data = self.datasource.get_data(NodeId(cache_id))
         return data, data.nbytes
 
-    def _upload_nodes(self, nodes: Sequence[NodeId]) -> List:
+    def _upload_async(self, nodes: Sequence[NodeId]) -> List:
+        """Start the uploads of the ``nodes`` neither resident nor already
+        under way, at most ``n_slots − 1`` of them, on the upload pool in
+        batches of ``UPLOAD_BATCH`` bricks; returns the futures."""
+        with self._uploading_lock:
+            todo = [
+                n for n in nodes
+                if not self.is_resident(n) and n.id not in self._uploading
+            ][: max(1, self.atlas.n_slots - 1)]
+            self._uploading.update(n.id for n in todo)
+        return [
+            self._upload_pool.submit(self._upload_batch, todo[i : i + UPLOAD_BATCH])
+            for i in range(0, len(todo), UPLOAD_BATCH)
+        ]
+
+    def _upload_batch(self, nodes: Sequence[NodeId]) -> None:
+        try:
+            for e in self._upload_nodes(nodes):
+                e.unpin()
+        finally:
+            with self._uploading_lock:
+                self._uploading.difference_update(n.id for n in nodes)
+
+    def _upload_nodes(self, nodes: Sequence[NodeId]) -> List[CacheEntry]:
         """Batched host → atlas upload: one copy for every missing brick.
-        Returns the texture-cache entries in ``nodes`` order."""
-        entries = {id(n): self.texture_cache.get(n.id) for n in nodes}
-        missing = [n for n in nodes if entries[id(n)] is None]
-        if missing:
-            self.prefetch_batch(missing)
-            datas = [self.data_cache.load(n.id).value for n in missing]
-            self.texture_cache.ensure_budget(
-                self.atlas.slot_bytes * len(missing)
-            )
-            slots = [self.atlas.acquire() for _ in missing]
-            try:
-                self.atlas.upload_many(slots, np.stack(datas))
-            except Exception:
-                for s in slots:
-                    self.atlas.release(s)
-                raise
-            for n, s in zip(missing, slots):
-                e = self.texture_cache.load(
-                    n.id,
-                    loader=lambda cid, s=s: (s, self.atlas.slot_bytes),
-                )
-                if e.value != s:
-                    # Another thread inserted this node first; return
-                    # our pre-acquired slot to the pool.
-                    self.atlas.release(s)
-                entries[id(n)] = e
-        return [entries[id(n)] for n in nodes]
+        Returns the texture-cache entries in ``nodes`` order, pinned: the
+        caller unpins them once the kernels that read their slots are
+        enqueued.  An entry that an upload thread evicted between its
+        lookup and its pin is uploaded again."""
+        entries: Dict[int, CacheEntry] = {}
+        try:
+            while True:
+                for n in nodes:
+                    if id(n) not in entries:
+                        e = self.texture_cache.get(n.id)
+                        if e is not None:
+                            entries[id(n)] = e.pin()
+                missing = [n for n in nodes if id(n) not in entries]
+                if missing:
+                    self._upload_missing(missing, entries)
+                stale = [n for n in nodes if not self.texture_cache.holds(entries[id(n)])]
+                if not stale:
+                    return [entries[id(n)] for n in nodes]
+                for n in stale:
+                    entries.pop(id(n)).unpin()
+        except BaseException:
+            for e in entries.values():
+                e.unpin()
+            raise
+
+    def _upload_missing(self, missing: Sequence[NodeId], entries: Dict[int, CacheEntry]) -> None:
+        """Upload ``missing`` in one batch and add their entries, pinned,
+        to ``entries`` (keyed by ``id`` of the node)."""
+        self.prefetch_batch(missing)
+        datas = [self.data_cache.load(n.id).value for n in missing]
+        self.texture_cache.ensure_budget(self.atlas.slot_bytes * len(missing))
+        slots: List[int] = []
+        try:
+            for _ in missing:
+                slots.append(self.atlas.acquire())
+            self.atlas.upload_many(slots, datas)
+        except BaseException:
+            for s in slots:
+                self.atlas.release(s)
+            raise
+        for n, s in zip(missing, slots):
+            e = self.texture_cache.load(
+                n.id, loader=lambda cid, s=s: (s, self.atlas.slot_bytes)
+            ).pin()
+            if e.value != s:
+                # Another thread inserted this node first; return our
+                # pre-acquired slot to the pool.
+                self.atlas.release(s)
+            entries[id(n)] = e
+
+    def prefetch(self, nodes: Sequence[NodeId]) -> List:
+        """Asynchronous datasource → host loads on the upload pool;
+        returns the futures."""
+        return [
+            self._upload_pool.submit(self.data_cache.load, node.id)
+            for node in nodes
+            if node.id not in self.data_cache
+        ]
 
     def prefetch_batch(self, nodes: Sequence[NodeId]) -> None:
         """Blocking batched datasource → host load of all missing bricks
@@ -291,6 +395,54 @@ class RenderEngine:
 
     def is_resident(self, node: NodeId) -> bool:
         return node.id in self.texture_cache
+
+    def prefetch_view(
+        self,
+        frustum: Frustum,
+        window_height: int,
+        screen_space_error: float = 4.0,
+        min_lod: int = 0,
+        max_lod: int = (1 << 4) - 1,
+        data_range: Tuple[float, float] = (0.0, 1.0),
+        clip_planes: Optional[ClipPlanes] = None,
+        time_step: int = 0,
+    ) -> List:
+        """Camera-path look-ahead: asynchronous datasource → host loads of
+        the next frame's visible set while this frame's kernels run
+        (GLRenderUploadFilter.cpp:79-107).  Returns the futures."""
+        visibles = self.select(
+            frustum, window_height, screen_space_error, min_lod,
+            max_lod, data_range, clip_planes, time_step,
+        )
+        return self.prefetch(visibles)
+
+    def upload_view(
+        self,
+        frustum: Frustum,
+        window_height: int,
+        screen_space_error: float = 4.0,
+        min_lod: int = 0,
+        max_lod: int = (1 << 4) - 1,
+        data_range: Tuple[float, float] = (0.0, 1.0),
+        clip_planes: Optional[ClipPlanes] = None,
+        time_step: int = 0,
+    ) -> int:
+        """Atlas-level look-ahead: push the next frame's visible bricks
+        datasource → host → atlas.  Call it after this frame's kernels
+        are enqueued: the uploads go on the atlas's stream behind them, so
+        an eviction cannot reach a slot they read, and the host's part of
+        the upload runs while they do.  Returns the number of bricks
+        uploaded (at most ``n_slots − 1``)."""
+        visibles = self.select(
+            frustum, window_height, screen_space_error, min_lod,
+            max_lod, data_range, clip_planes, time_step,
+        )
+        missing = [n for n in visibles if not self.is_resident(n)]
+        missing = missing[: max(1, self.atlas.n_slots - 1)]
+        if missing:
+            for e in self._upload_nodes(missing):
+                e.unpin()
+        return len(missing)
 
     # --------------------------------------------------------------- frame
     def select(
@@ -316,6 +468,45 @@ class RenderEngine:
             time_step,
         )
 
+    def _slab_nodes(
+        self, rendering_set: Sequence[NodeId], axis: int,
+        a_lo: int, a_hi_incl: int, render_level: int,
+    ) -> List[NodeId]:
+        """Rendering-set nodes whose level-local tile layers, with the +1
+        guard layer of the upsample taps, meet render-level A-rows
+        [a_lo, a_hi_incl]: the bricks a slab pass must have in the atlas."""
+        info = self.info
+        perm = sw._PERM[axis]
+        ba = (info.block_size[2], info.block_size[1], info.block_size[0])[perm[0]]
+        # Node positions are (x, y, z); the major axis is array dim
+        # perm[0] of (Z, Y, X), so position component 2 − perm[0].
+        pos_idx = 2 - perm[0]
+        out = []
+        for n in rendering_set:
+            f = 1 << (render_level - n.level)
+            c_lo = max(0, int(np.floor((a_lo + 0.5) / f - 0.5)) - 1)
+            c_hi = int(np.ceil((a_hi_incl + 0.5) / f - 0.5)) + 1
+            if c_lo // ba <= n.position[pos_idx] <= c_hi // ba:
+                out.append(n)
+        return out
+
+    def _rendering_nodes(self, visibles: Sequence[NodeId], synchronous: bool, stats):
+        """The frame's rendering set.  Synchronous: every visible brick,
+        loaded to the host cache first.  Otherwise: what is resident, or
+        its nearest resident ancestor (:func:`compute_rendering_set`), with
+        uploads of the rest started on the upload pool (:meth:`_upload_async`)."""
+        if synchronous:
+            self.prefetch_batch(visibles)
+            render_nodes = list(visibles)
+        else:
+            render_nodes, stats.rendering_done = compute_rendering_set(
+                visibles, self.is_resident
+            )
+            stats.pending_uploads = self._upload_async(visibles)
+        stats.n_available = len(render_nodes)
+        stats.n_not_available = len(visibles) - len(render_nodes)
+        return render_nodes
+
     def render_bricked(
         self,
         camera: Camera,
@@ -335,14 +526,14 @@ class RenderEngine:
         brick atlas → ((H, W, 4) f32 tensor on the engine's device,
         statistics).
 
-        The rendering set is assembled once into a density store cached
-        per (axis, set); each later frame of the same set is one view
-        vector upload, the sweep kernel and the warp."""
-        if not synchronous:
-            raise NotImplementedError(
-                "render_bricked(synchronous=False): asynchronous rendering "
-                "is ROADMAP M5"
-            )
+        In core, the rendering set is assembled once into a density store
+        cached per (axis, set); each later frame of the same set is one
+        view vector upload, the sweep kernel and the warp.  When the store
+        exceeds the derived-cache budget or the set exceeds the atlas's
+        slots, the frame runs in A-slab passes: each pass pages its
+        bricks into the atlas (in atlas-sized chunks if they do not fit),
+        assembles its slab and sweeps its planes onto the carry, bit for
+        bit one sweep (GLRaycastPipeline.cpp:148-186)."""
         if collect_histogram:
             raise NotImplementedError(
                 "render_bricked(collect_histogram=True): histograms are "
@@ -354,9 +545,7 @@ class RenderEngine:
             data_range, clip_planes, time_step,
         )
         stats = RenderStatistics()
-        self.prefetch_batch(visibles)
-        render_nodes = list(visibles)
-        stats.n_available = len(render_nodes)
+        render_nodes = self._rendering_nodes(visibles, synchronous, stats)
         stats.n_render_available = len(render_nodes)
 
         info = self.info
@@ -396,12 +585,11 @@ class RenderEngine:
         # bytes, which are already spoken for.
         budget = self.device_budget.budget
         if store_bytes > budget or len(render_nodes) > self.atlas.n_slots:
-            raise NotImplementedError(
-                f"render_bricked: a {store_bytes} B store over "
-                f"{len(render_nodes)} bricks exceeds the {budget} B store "
-                f"budget or the {self.atlas.n_slots}-slot atlas; the "
-                "out-of-core slab multipass is ROADMAP M5"
+            img = self._render_slabs(
+                render_nodes, render_level, (na, nc, nb), camera, sw_plan,
+                params, swp, clip_arr, stats,
             )
+            return img, stats
 
         set_key = (
             axis,
@@ -412,7 +600,7 @@ class RenderEngine:
         )
         cached = self._store_cache.get(set_key)
         if cached is None:
-            entries = [e.pin() for e in self._upload_nodes(render_nodes)]
+            entries = self._upload_nodes(render_nodes)
             try:
                 slot_of = {
                     n.id: e.value for n, e in zip(render_nodes, entries)
@@ -455,6 +643,75 @@ class RenderEngine:
             self._frame_runners[rkey] = runner
         img = runner(store, self.transfer_function, camera, sw_plan)
         return img, stats
+
+    def _render_slabs(
+        self, render_nodes, render_level, fine_dims, camera, sw_plan,
+        params, swp, clip_arr, stats,
+    ) -> torch.Tensor:
+        """The out-of-core frame: A-slab passes with per-slab atlas
+        paging.  Each pass makes only its own bricks resident (evicting
+        earlier slabs' least recently used ones), assembles its slab and
+        sweeps its planes of the frame's global tables onto the carry.
+        Uploads go on the atlas's stream, behind the kernels enqueued
+        before them, so an evicted slot is refilled only after its last
+        reader ran."""
+        na, nc, nb = fine_dims
+        axis = sw_plan.axis
+        half = np.asarray(self.info.world_size, np.float32) * 0.5
+        # Slab height: the derived budget, and whole block layers of the
+        # render level that fit the atlas (a pass's bricks are resident
+        # together while its slab is assembled).
+        max_slices = max(2, int(self.device_budget.budget // (nc * nb * 4)))
+        bs = max(1, int(self.info.block_size[0]))
+        bricks_per_layer = max(1, (-(-nc // bs)) * (-(-nb // bs)))
+        layers_fit = max(1, self.atlas.n_slots // bricks_per_layer)
+        max_slices = min(max_slices, layers_fit * bs)
+        sweep = swb.SlabSweep(
+            device=self.device, axis=axis, na=na, params=params, swp=swp,
+            world_min=-half, world_max=half, clip_planes_world=clip_arr,
+            viewport=camera.viewport,
+        )
+        fv = torch.from_numpy(sweep.view_vector(camera, sw_plan)).to(self.device)
+        tables = sweep.tables(fv)
+        plans = swb.make_slab_plans(tables.a0.cpu().numpy(), na, max_slices)
+        stats.n_passes = len(plans)
+        pass_nodes = [
+            self._slab_nodes(render_nodes, axis, sp.a_lo, sp.a_hi_incl, render_level)
+            for sp in plans
+        ]
+        tf = self.transfer_function
+        carry = (tables.rgb_in, tables.t_in)
+        cap = max(1, self.atlas.n_slots - 1)
+        for pi, sp in enumerate(plans):
+            if pi + 1 < len(plans) and pass_nodes[pi + 1]:
+                # Look-ahead: the next pass's datasource → host loads run
+                # on the upload pool while this pass's kernels run.
+                self.prefetch(pass_nodes[pi + 1])
+            slab_nodes = pass_nodes[pi]
+            if not slab_nodes:
+                # No brick covers the slab: every sample masks to zero,
+                # so skipping the pass is exact.
+                continue
+            # A slab may need more bricks than the atlas holds: page them
+            # in atlas-sized chunks and combine the parts by maximum.  The
+            # parts own disjoint voxels over the SENTINEL background.
+            slab = None
+            for cs in range(0, len(slab_nodes), cap):
+                chunk = slab_nodes[cs : cs + cap]
+                entries = self._upload_nodes(chunk)
+                try:
+                    slot_of = {n.id: e.value for n, e in zip(chunk, entries)}
+                    plan = swb.build_assembly_plan(
+                        self.datasource, chunk, axis, lambda n: slot_of[n.id],
+                        params.data_source_range, render_level=render_level,
+                    )
+                    part = swb.assemble_store(self.atlas.data, plan, sp.a_lo, sp.a_hi_incl)
+                finally:
+                    for e in entries:
+                        e.unpin()
+                slab = part if slab is None else torch.maximum(slab, part)
+            carry = sweep.run_pass(slab, tf, tables, sp, carry)
+        return sweep.warp(carry[0], fv)
 
     # ---------------------------------------------------------- shearwarp
     def _level_volume(self, level: int, time_step: int = 0) -> np.ndarray:
@@ -586,7 +843,11 @@ class RenderEngine:
         distance and marched in passes of at most ``atlas.n_slots − 1``
         atlas-resident bricks, the per-ray (rgb, a) carried from pass to
         pass (GLRaycastPipeline.cpp:148-186), once per jittered subpixel
-        sample (fragRaycast.glsl:121-127) and averaged.
+        sample (fragRaycast.glsl:121-127) and averaged.  With
+        ``synchronous=False`` it renders what is resident, or its nearest
+        resident ancestor, uploads the rest on the upload pool and
+        reports ``rendering_done=False`` until every visible brick was
+        resident (renderAsync, GLRaycastPipeline.cpp:241-308).
 
         ``marcher`` is "auto", "pallas" or "xla": the JAX package's two
         marchers give the same image, and here all three run the same
@@ -596,10 +857,6 @@ class RenderEngine:
         """
         if marcher not in MARCHERS:
             raise ValueError(f"render: marcher {marcher!r} is not one of {MARCHERS}")
-        if not synchronous:
-            raise NotImplementedError(
-                "render(synchronous=False): asynchronous rendering is ROADMAP M5"
-            )
         if collect_histogram:
             raise NotImplementedError(
                 "render(collect_histogram=True): histograms are ROADMAP M6"
@@ -610,9 +867,7 @@ class RenderEngine:
             data_range, clip_planes, time_step,
         )
         stats = RenderStatistics()
-        self.prefetch_batch(visibles)
-        render_nodes = list(visibles)
-        stats.n_available = len(render_nodes)
+        render_nodes = self._rendering_nodes(visibles, synchronous, stats)
 
         if params is None:
             max_level = max((n.level for n in render_nodes), default=0)
@@ -646,7 +901,7 @@ class RenderEngine:
                 pass_nodes = order_nodes[start : start + batch]
                 if si == 0:
                     stats.n_passes += 1
-                entries = [e.pin() for e in self._upload_nodes(pass_nodes)]
+                entries = self._upload_nodes(pass_nodes)
                 try:
                     slots, boxes = self._pass_operands(
                         pass_nodes, [e.value for e in entries]

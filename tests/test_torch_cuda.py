@@ -428,3 +428,94 @@ def test_render_slope_grid_fused_on_card_matches_cpu(cuda):
     assert float((results[0][0] - results[1][0]).abs().max()) <= KERNEL_TOL_MAX
     for a, b in zip(results[0][1:], results[1][1:]):
         assert float((a - b).abs().max() / b.abs().max()) <= DENSE_GRAD_TOL
+
+
+def _ooc_frame(engine, camera, frustum, monkeypatch, **kw):
+    """One ``render_bricked`` frame with its K1 launches, its slab passes'
+    brick lists, the atlas copies' slots and the plain sweeps counted."""
+    passes, copies, plain = [], [], []
+    real_nodes, real_copy = engine._slab_nodes, engine.atlas._copy
+    real_plain = swb.post_sweep_reference
+    monkeypatch.setattr(engine, "_slab_nodes", lambda *a: passes.append(real_nodes(*a))
+                        or passes[-1])
+    monkeypatch.setattr(engine.atlas, "_copy", lambda slots, host: (
+        copies.append(list(slots)), real_copy(slots, host)))
+    monkeypatch.setattr(swb, "post_sweep_reference", lambda *a, **k: (
+        plain.append(1), real_plain(*a, **k))[1])
+    before = swb.post_sweep.launches
+    img, stats = engine.render_bricked(camera, frustum, **kw)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    return img, stats, swb.post_sweep.launches - before, passes, copies, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["slabs", "clipped", "chunks"])
+def test_out_of_core_frame_bit_equal_on_card(cuda, case, monkeypatch):
+    """The out-of-core frame on the card is the in-core frame bit for bit:
+    K1 launches once per pass with bricks and not for an empty one, no
+    plain sweep runs; with a 20-slot atlas ("chunks") slabs are paged in
+    chunks and a slot is evicted and refilled between two passes of the
+    frame."""
+    from libre_tpu_torch.core.clip_planes import ClipPlanes
+
+    load_plugins()
+    uri = "mem://#64,64,64,16?pattern=gradient"
+    camera, frustum = build_camera(64, 48, (0.3, 0.2, 1.5), (0.0, 0.0, 0.0))
+    kw = dict(screen_space_error=1.0, n_planes=64, min_lod=2)
+    if case == "clipped":
+        kw["clip_planes"] = ClipPlanes([[0.0, 0.0, 1.0, -0.05]])  # keep z ≥ 0.05
+    whole, s_whole = RenderEngine(DataSource(uri), max_gpu_cache_mb=64, device=cuda) \
+        .render_bricked(camera, frustum, **kw)
+    slot_bytes = 24 ** 3
+    budget = 1 if case != "chunks" else 20 * slot_bytes * 2 / 2**20
+    engine = RenderEngine(DataSource(uri), max_gpu_cache_mb=budget, device=cuda)
+    img, stats, launches, passes, copies, plain = _ooc_frame(
+        engine, camera, frustum, monkeypatch, **kw)
+    assert s_whole.n_passes == 1 and stats.n_passes == len(passes) > 1
+    assert launches == sum(1 for p in passes if p) and not plain
+    assert torch.equal(img, whole) and float(img[..., 3].max()) > 0.1
+    if case == "clipped":
+        assert launches < stats.n_passes
+    if case == "chunks":
+        assert engine.atlas.n_slots == 20 and engine.texture_cache.statistics.evictions > 0
+        refilled = {s for c in copies for s in c}
+        assert sum(len(c) for c in copies) > len(refilled)
+
+
+@pytest.mark.cuda
+def test_async_frames_converge_on_card(cuda):
+    """Asynchronous ``render_bricked`` and ``render`` on cold engines: the
+    uploads run on the pool's threads onto the atlas's stream while frames
+    are enqueued, and the frame after they land is the synchronous frame
+    bit for bit."""
+    import threading
+
+    load_plugins()
+    uri = "mem://#64,64,64,16?pattern=gradient"
+    camera, frustum = build_camera(48, 48, (0.3, 0.2, 1.5), (0.0, 0.0, 0.0))
+    params = RenderParams(n_samples_per_ray=128, filter_mode="trilinear")
+    for method, kw in (("render_bricked", dict(n_planes=64, min_lod=2)),
+                       ("render", dict(params=params))):
+        sync = getattr(RenderEngine(DataSource(uri), max_gpu_cache_mb=64, device=cuda), method)(
+            camera, frustum, screen_space_error=1.0, **kw)[0]
+        engine = RenderEngine(DataSource(uri), max_gpu_cache_mb=64, device=cuda)
+        assert engine.atlas.stream == torch.cuda.current_stream(cuda)
+        threads = []
+        real_copy = engine.atlas._copy
+        engine.atlas._copy = lambda slots, host: (threads.append(threading.get_ident()),
+                                                  real_copy(slots, host))
+        frames = 0
+        while True:
+            out = getattr(engine, method)(camera, frustum, screen_space_error=1.0,
+                                          synchronous=False, **kw)
+            img, stats = out[0], out[1]
+            frames += 1
+            if stats.rendering_done:
+                break
+            for f in stats.pending_uploads:
+                f.result(timeout=60)
+            assert frames < 20
+        torch.cuda.synchronize()
+        assert frames > 1 and threading.get_ident() not in threads[:1]
+        assert torch.equal(img, sync), method

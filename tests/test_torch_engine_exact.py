@@ -143,10 +143,34 @@ def test_marchers_agree_and_params_default():
 def test_render_unported_branches_raise():
     _cam_j, cam_t, _fr_j, fr_t = view((0.3, 0.2, 1.4))
     eng = EngineT(DataSourceT(GRADIENT), max_gpu_cache_mb=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="M5"):
-        eng.render(cam_t, fr_t, synchronous=False)
     with pytest.raises(NotImplementedError, match="M6"):
         eng.render(cam_t, fr_t, collect_histogram=True)
+
+
+def test_render_async_matches_jax():
+    """``render(synchronous=False)`` on a cold engine converges, once its
+    uploads land, to the synchronous frame bit for bit and to the JAX
+    engine's (``marcher="xla"``) within ATOL."""
+    cam_j, cam_t, fr_j, fr_t = view((0.3, 0.2, 1.4))
+    params_t = ParamsT(n_samples_per_ray=64, data_source_range=(0.0, 255.0),
+                       filter_mode="trilinear")
+    eng = EngineT(DataSourceT(GRADIENT), max_gpu_cache_mb=16, device="cpu")
+    img, stats, _ = eng.render(cam_t, fr_t, params=params_t, screen_space_error=1.0,
+                          synchronous=False)
+    assert not stats.rendering_done and stats.n_available == 0 and stats.n_passes == 0
+    for f in stats.pending_uploads:
+        f.result(timeout=60)
+    img, stats, _ = eng.render(cam_t, fr_t, params=params_t, screen_space_error=1.0,
+                          synchronous=False)
+    assert stats.rendering_done and stats.n_available > 1
+    sync, _, _ = EngineT(DataSourceT(GRADIENT), max_gpu_cache_mb=16, device="cpu") \
+        .render(cam_t, fr_t, params=params_t, screen_space_error=1.0)
+    np.testing.assert_array_equal(img.numpy(), sync.numpy())
+    want, _, _ = EngineJ(DataSourceJ(GRADIENT), max_gpu_cache_mb=16).render(
+        cam_j, fr_j, params=ParamsJ(n_samples_per_ray=64, data_source_range=(0.0, 255.0),
+                                    filter_mode="trilinear"),
+        screen_space_error=1.0, marcher="xla")
+    np.testing.assert_allclose(img.numpy(), np.asarray(want), rtol=0, atol=ATOL)
 
 
 def test_render_cli_exact_renderers(tmp_path, capsys):

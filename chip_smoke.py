@@ -98,6 +98,15 @@ Phases, each of which raises on failure (any failure exits non-zero):
 17. the dense path on the card (K5) vs on the CPU (the plain pipeline) on
    a small volume, and the autograd Function's forward and gradients on
    the card vs on the CPU.
+18. the out-of-core slab multipass and the asynchronous uploads at 1024³
+   (``phase_out_of_core``);
+19. the gather probes P1-P17 (``libre_tpu_torch/benchmarks``, the JAX
+   package's ``benchmarks/probe_*.py``) through each module's ``main`` at
+   full shape: each probe's kernel (``csrc/probe_take.cu``,
+   ``probe_take_along.cu``, ``probe_tf_nearest.cu``,
+   ``probe_tf_linear.cu``) bit-equal to its plain version and to its
+   PyTorch library call, timed in a CUDA graph and from Python; the four
+   kernels' launch counts set to 0 before and read after.
 
 Prints every kernel's launch sites on the main paths (launches, time
 per launch on the site's operands, bound, and launches × (time − bound),
@@ -168,31 +177,31 @@ EXACT_TRAIN_N = 512
 EXACT_TRAIN_ORDER = (0, 1, 2, 3, 0)
 
 
-# The TPU gather probes still to port (benchmarks/probe_*.py, ROADMAP queue
-# 2), each as (bytes, f32 operations) from its shapes: each input read once
-# and each output written once, where a gather reads only the table entries
-# its indices can reach (at most one per index); one add per gathered value
-# in the probes that sum over a loop of LOOP = 512, three per two-tap lerp
-# (P12).
+# The gather probes P1-P17 (benchmarks/probe_*.py, ported as
+# libre_tpu_torch/benchmarks on ops/gather.py), each as (bytes, f32
+# operations) from its shapes: each input read once and each output written
+# once, where a gather reads only the table entries its indices can reach
+# (at most one per index); one add per gathered value in the probes that
+# sum over a loop of LOOP = 512, three per two-tap lerp (P12).
 PROBE_WORK = {
-    "P1 probe_gather.py:53 take_flat": (3 * 1024 * 4, 0),
-    "P2 probe_gather.py:71 take_along_lane": (3 * 1024 * 4, 0),
-    "P3 probe_gather.py:90 take_along_sublane": (3 * 1024 * 4, 0),
-    "P4 probe_gather.py:115 onehot_mxu (P3's lookup)": (3 * 1024 * 4, 0),
-    "P5 probe_gather2.py:44 lane_gather_loop": (3 * 1024 * 4, 512 * 1024),
-    "P6 probe_gather2.py:66 lane_gather_wide": ((8 * 1024 + 2 * 1024) * 4, 512 * 1024),
-    "P7 probe_gather2.py:83 sublane_gather_fullshape": (3 * 512 * 128 * 4, 0),
-    "P8 probe_gather2.py:104 sublane_gather_8": (3 * 1024 * 4, 512 * 1024),
-    "P9 probe_gather2.py:122 row_take": ((2 * 8 * 128 + 128) * 4, 0),
-    "P10 probe_gather_axis0.py:18 mk(axis), each axis": (3 * 128 * 128 * 4, 0),
-    "P11 probe_kernel_gather.py:41 f1/k1": ((2 * 512 * 64 * 256 + 256) * 4, 0),
-    "P12 probe_kernel_gather.py:83 f2/k2": ((512 * 64 * 256 + 4 * 256 + 512 * 4 * 64 * 256) * 4,
-                                            512 * 4 * 64 * 256 * 3),
-    "P13 probe_kernel_gather.py:119 f3/k3": ((2 * 64 * 512 + 256) * 4, 0),
-    "P14 probe_pallas_gather.py:53 take_flat": ((32768 + 2 * 1024 * 128) * 4, 0),
-    "P15 probe_pallas_gather.py:78 take_2d_table": ((32768 + 3 * 1024 * 128) * 4, 0),
-    "P16 probe_pallas_gather.py:98 take_along_lanes": (3 * 1024 * 4, 0),
-    "P17 probe_pallas_gather.py:128 onehot_tf": ((256 * 4 + 1024 * 128 + 1024 * 128 * 4) * 4, 0),
+    "P1": (3 * 1024 * 4, 0),
+    "P2": (3 * 1024 * 4, 0),
+    "P3": (3 * 1024 * 4, 0),
+    "P4": (3 * 1024 * 4, 0),
+    "P5": (3 * 1024 * 4, 512 * 1024),
+    "P6": ((8 * 1024 + 2 * 1024) * 4, 512 * 1024),
+    "P7": (3 * 512 * 128 * 4, 0),
+    "P8": (3 * 1024 * 4, 512 * 1024),
+    "P9": ((2 * 8 * 128 + 128) * 4, 0),
+    "P10 axis 1": (3 * 128 * 128 * 4, 0),
+    "P10 axis 0": (3 * 128 * 128 * 4, 0),
+    "P11": ((2 * 512 * 64 * 256 + 256) * 4, 0),
+    "P12": ((512 * 64 * 256 + 4 * 256 + 512 * 4 * 64 * 256) * 4, 512 * 4 * 64 * 256 * 3),
+    "P13": ((2 * 64 * 512 + 256) * 4, 0),
+    "P14": ((32768 + 2 * 1024 * 128) * 4, 0),
+    "P15": ((32768 + 3 * 1024 * 128) * 4, 0),
+    "P16": (3 * 1024 * 4, 0),
+    "P17": ((256 * 4 + 1024 * 128 + 1024 * 128 * 4) * 4, 0),
 }
 
 
@@ -805,6 +814,70 @@ def phase_out_of_core(dev, card):
          (float(np.mean(pass_bounds)), max(set(pass_by), key=pass_by.count))),
     ]
     return sites, cli_launches + orbit_launches, 0.0
+
+
+def phase_probes(dev, card):
+    """19. The gather probes P1-P17 through the port's own entry points
+    (``python -m libre_tpu_torch.benchmarks.<module>``'s ``main``) at
+    their full shapes: each probe's kernel bit-equal to its plain version
+    and its library call (``_probe.run`` raises otherwise), timed in a
+    CUDA graph and from Python, with the plain version and the library
+    call.  The four gather kernels' counts are set to 0 just before and
+    read just after; each must have launched, as often as its probes say.
+    Returns the probes' entries of the ``kernels`` line."""
+    import importlib
+
+    from libre_tpu_torch.benchmarks import MODULES
+    from libre_tpu_torch.ops import gather
+
+    t_phase = time.perf_counter()
+    for wrapper in gather.KERNELS.values():
+        wrapper.launches = 0
+    results = []
+    for name in MODULES:
+        results += importlib.import_module(f"libre_tpu_torch.benchmarks.{name}").main(dev)
+    counts = {kernel: wrapper.launches for kernel, wrapper in gather.KERNELS.items()}
+    for kernel, n in counts.items():
+        per_probe = sum(r["launches"] for r in results if r["kernel"] == kernel)
+        if n == 0 or n != per_probe:
+            raise AssertionError(f"{kernel}: {n} launches, its probes counted {per_probe}")
+    if [r["probe"] for r in results] != list(PROBE_WORK):
+        raise AssertionError(f"probes {[r['probe'] for r in results]} vs {list(PROBE_WORK)}")
+    print(f"gather probes: us per call in a CUDA graph (from Python), bound, kernel / library "
+          f"{card}")
+    entries, slower = [], []
+    for r in results:
+        b_ms, b_by = bound(*PROBE_WORK[r["probe"]])
+        lib = r["library_ms"]
+        vs_lib = f"{r['ms'] / lib:.3f}" if lib is not None else "no library call"
+        print(f"  {r['probe']} {r['kernel']}: {r['ms'] * 1e3:.3f} ({r['ms_call'] * 1e3:.3f}) us; "
+              f"plain {r['plain_ms'] * 1e3:.3f} us; library {r['library']}"
+              + (f" {lib * 1e3:.3f} ({r['library_call_ms'] * 1e3:.3f}) us" if lib is not None
+                 else "")
+              + f"; bound {b_ms * 1e3:.5f} us ({b_by}), kernel at {b_ms / r['ms']:.4f} of it; "
+              f"kernel / library {vs_lib}; {r['launches']} launches")
+        if lib is not None and r["ms"] > lib:
+            slower.append((r["ms"] / lib, r["probe"], r["kernel"]))
+        entries.append({
+            "name": r["kernel"],
+            "probe": r["probe"],
+            "route": "cuda",
+            "source": f"libre_tpu_torch/csrc/{r['kernel']}.cu",
+            "replaces": r["replaces"],
+            "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib,
+        })
+    print("  launches: " + "; ".join(f"{k} {n}" for k, n in counts.items()))
+    print("  kernels slower than their library call (rule 2's order), kernel / library: "
+          + ("; ".join(f"{p} {k} {x:.3f}" for x, p, k in sorted(slower, reverse=True))
+             or "none"))
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def main() -> int:
@@ -2117,6 +2190,8 @@ def main() -> int:
     phase_done(17)
     # ---------------- 18. out of core and asynchronous, at 1024^3 (its own timers)
     ooc_sites, ooc_launches, ooc_err = phase_out_of_core(dev, card)
+    # ----------------------- 19. the gather probes P1-P17 (their own timers)
+    probe_entries = phase_probes(dev, card)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
     if loaded:
@@ -2139,11 +2214,6 @@ def main() -> int:
               f"{n * (site_ms - b_ms):.3f} ms")
     print("  by kernel: " + "; ".join(f"{k} {v:.3f} ms" for k, v in
                                       sorted(above.items(), key=lambda kv: -kv[1])))
-
-    print(f"bounds of the TPU gather probes still to port, from their shapes {card}")
-    for probe, (b, ops) in PROBE_WORK.items():
-        b_ms, b_by = bound(b, ops)
-        print(f"  {probe}: {b} B, {ops} f32 operations: {b_ms * 1e3:.5f} us ({b_by})")
 
     print(json.dumps({"kernels": [
         {
@@ -2211,7 +2281,7 @@ def main() -> int:
             "bound_by": k5_bound[1],
             "library_ms": None,
         },
-    ]}))
+    ] + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

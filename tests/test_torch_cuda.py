@@ -8,13 +8,16 @@ jax is not installed:
 """
 
 import dataclasses
+import importlib
 
 import pytest
 import torch
 
 from libre_tpu_torch.apps.render_cli import build_camera
+from libre_tpu_torch.benchmarks import MODULES as PROBE_MODULES
+from libre_tpu_torch.benchmarks._probe import plain_of
 from libre_tpu_torch.data.datasource import DataSource, load_plugins
-from libre_tpu_torch.ops import exact, raycast
+from libre_tpu_torch.ops import exact, gather, raycast
 from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops import shearwarp_dense as swd
 from libre_tpu_torch.ops import shearwarp_grad as swg
@@ -519,3 +522,90 @@ def test_async_frames_converge_on_card(cuda):
         torch.cuda.synchronize()
         assert frames > 1 and threading.get_ident() not in threads[:1]
         assert torch.equal(img, sync), method
+
+
+PROBES = [p for m in PROBE_MODULES
+          for p in importlib.import_module(f"libre_tpu_torch.benchmarks.{m}").PROBES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", PROBES, ids=lambda p: p.id)
+def test_gather_probe_kernel_bit_equal(cuda, probe):
+    """Each gather probe (P1-P17) at its full shape: one launch of its
+    kernel, bit-equal to the plain version on the same seeded inputs."""
+    fn, args, _work = probe.build(device=cuda, seed=0)
+    launches = fn.func.launches
+    got = fn(*args)
+    want = plain_of(fn)(*args)
+    torch.cuda.synchronize()
+    assert fn.func.launches == launches + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def _edge_densities(shape, g, cuda):
+    d = torch.rand(shape, generator=g, device=cuda) * 2.0 - 0.5
+    special = torch.tensor([0.0, -0.0, 1.0, 255 / 256, 256 / 255, -1 / 255, 1.5], device=cuda)
+    d.view(-1)[: special.numel()] = special
+    return d
+
+
+GATHER_EDGES = {
+    # densities below 0 and at or above 1: clipped (P11, P13) or zero (P17)
+    "nearest clip": lambda g, c: (gather.tf_nearest, (_edge_densities((8, 64, 256), g, c),
+                                                      torch.rand(256, generator=g, device=c)),
+                                  dict(scale=256.0, outside="clip")),
+    "nearest zero": lambda g, c: (gather.tf_nearest, (_edge_densities((1024, 128), g, c),
+                                                      torch.rand(256, 4, generator=g, device=c)),
+                                  dict(scale=255.0, outside="zero")),
+    "linear": lambda g, c: (gather.tf_linear, (_edge_densities((8, 64, 256), g, c),
+                                               torch.rand(4, 256, generator=g, device=c)), {}),
+    # a table and a grid of indices that are not multiples of the block
+    "linear ragged": lambda g, c: (gather.tf_linear, (torch.rand(3, 7, 13, generator=g, device=c),
+                                                      torch.rand(3, 17, generator=g, device=c)),
+                                   {}),
+    # negative indices wrap with a floored modulo; every loop wraps
+    "loop wrap": lambda g, c: (gather.take_along, (
+        torch.randn(9, 40, generator=g, device=c),
+        torch.randint(-100, 100, (9, 33), generator=g, device=c, dtype=torch.int32)),
+        dict(axis=1, loop=77, mod=37)),
+    "sublane loop": lambda g, c: (gather.take_along, (
+        torch.randn(12, 5, generator=g, device=c),
+        torch.randint(0, 12, (7, 5), generator=g, device=c, dtype=torch.int32)),
+        dict(axis=0, loop=30, mod=11)),
+    # the last entry of the table, by flat index, by rows and by (row, lane)
+    "last entries": lambda g, c: (gather.take, (
+        torch.randn(300, 7, generator=g, device=c),
+        torch.full((5, 3), 299, device=c, dtype=torch.int32)), dict(row=7)),
+    "row lane": lambda g, c: (gather.take, (
+        torch.randn(31, 7, generator=g, device=c),
+        torch.tensor([30, 0, 30], device=c, dtype=torch.int32),
+        torch.tensor([6, 6, 0], device=c, dtype=torch.int32)), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GATHER_EDGES))
+def test_gather_kernels_edges(cuda, case):
+    """Inputs the probes' own never reach, kernel bit-equal to plain."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    wrapper, args, kw = GATHER_EDGES[case](g, cuda)
+    got = wrapper(*args, **kw)
+    want = wrapper.reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gather_kernels_out_of_range_index_gives_nan(cuda):
+    """An index past its table reads nothing and gives NaN (jnp's fill
+    mode); the others are unaffected."""
+    table = torch.arange(16.0, device=cuda)
+    idx = torch.tensor([3, 16, -1, 15], device=cuda, dtype=torch.int32)
+    got = gather.take(table, idx).cpu()
+    assert got[0] == 3.0 and got[3] == 15.0 and bool(got[1:3].isnan().all())
+    lane = torch.tensor([1, 3, 4, -1], device=cuda, dtype=torch.int32)
+    got = gather.take(table.reshape(4, 4), idx % 4, lane).cpu()
+    assert got[0] == 13.0 and got[1] == 3.0 and bool(got[2:].isnan().all())
+    idx = torch.tensor([[3, 8], [-1, 7]], device=cuda, dtype=torch.int32)
+    got = gather.take_along(table.reshape(2, 8), idx, 1).cpu()
+    assert got[0, 0] == 3.0 and got[1, 1] == 15.0 and bool(got[[0, 1], [1, 0]].isnan().all())

@@ -1,8 +1,9 @@
 """The port imports neither jax nor anything of the JAX package: every
 libre_tpu_torch module imports, a tiny CPU frame renders through the
 bricked path, the exact path and the dense shear-warp path (both
-backends), and the store trainer and the exact trainer each take a step,
-in a process where importing jax, optax or libre_tpu fails."""
+backends), the store trainer and the exact trainer each take a step, and
+a gather probe runs its plain version, in a process where importing jax,
+optax or libre_tpu fails."""
 
 import os
 import subprocess
@@ -65,6 +66,11 @@ view = exact_view(camera, exact_params, device="cpu")
 loss = make_exact_train_step(view)(state, torch.zeros(view.n_rays, 4))
 assert np.isfinite(float(loss)) and state.step == 1
 assert float(state.params["density"].grad.abs().max()) > 0
+from libre_tpu_torch.benchmarks import probe_gather2
+from libre_tpu_torch.ops import gather
+fn, args, work = probe_gather2.build_lane_gather_loop(device="cpu")
+out = gather.take_along(*args, axis=1, loop=probe_gather2.LOOP, mod=128)
+assert out.shape == (8, 128) and work == 512 * 1024 and torch.equal(out, fn(*args))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "libre_tpu")
                 and sys.modules[m] is not None)

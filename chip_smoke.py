@@ -99,14 +99,23 @@ Phases, each of which raises on failure (any failure exits non-zero):
    a small volume, and the autograd Function's forward and gradients on
    the card vs on the CPU.
 18. the out-of-core slab multipass and the asynchronous uploads at 1024³
-   (``phase_out_of_core``);
+   (``phase_out_of_core``), with one out-of-core frame and one
+   asynchronous run rendered while a side stream is current, each
+   bit-equal to its default-stream frame;
 19. the gather probes P1-P17 (``libre_tpu_torch/benchmarks``, the JAX
    package's ``benchmarks/probe_*.py``) through each module's ``main`` at
    full shape: each probe's kernel (``csrc/probe_take.cu``,
    ``probe_take_along.cu``, ``probe_tf_nearest.cu``,
    ``probe_tf_linear.cu``) bit-equal to its plain version and to its
    PyTorch library call, timed in a CUDA graph and from Python; the four
-   kernels' launch counts set to 0 before and read after.
+   kernels' launch counts set to 0 before and read after;
+20. the interactive service (``phase_serve``): ``RenderService`` on the
+   512³ volume at 512×512 driven over HTTP on 127.0.0.1 (orbit, colormap,
+   the exact renderer, the 2×2 layout, an asynchronous frame), K1's and
+   K3's counts set to 0 before and read after; each served frame
+   bit-equal to the engine's own frame, each histogram equal to numpy's
+   bincount over the frame's bricks; request latency, histogram and JPEG
+   times.
 
 Prints every kernel's launch sites on the main paths (launches, time
 per launch on the site's operands, bound, and launches × (time − bound),
@@ -120,6 +129,7 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -695,6 +705,19 @@ def phase_out_of_core(dev, card):
         torch.cuda.synchronize()
         if not torch.equal(last, ooc_frames[-1]):
             raise AssertionError("the out-of-core frame is not reproducible")
+        # The same frame while a side stream is current: the engine runs it
+        # on the atlas's stream, and the side stream may read it at once.
+        side = torch.cuda.Stream(dev)
+        with torch.cuda.stream(side):
+            side_img, side_stats = ooc.render_bricked(camera, frustum, **kw)
+            side_img = side_img.clone()
+        torch.cuda.synchronize()
+        if side_stats.n_passes < 2 or not torch.equal(side_img, ooc_frames[-1]):
+            raise AssertionError("the out-of-core frame under a side stream is not the "
+                                 "default-stream frame bit for bit")
+        print(f"out-of-core frame of the last pose under a side stream: {side_stats.n_passes} "
+              f"passes, bit-equal to the default-stream frame")
+        del side_img
         pass_ms, pass_bounds, pass_by = [], [], []
         for _name, args in k1_ooc.calls:
             ops, (out, t_out) = k1_operands(args)
@@ -777,18 +800,24 @@ def phase_out_of_core(dev, card):
 
         # ------------------------------------------------------ async frames
         camera, frustum = poses[0]
-        for method, want in (("render_bricked", sync_bricked), ("render", sync_exact)):
+        # The last run renders while a side stream is current, its image
+        # cloned on that stream.
+        for method, want, stream in (("render_bricked", sync_bricked, None),
+                                     ("render", sync_exact, None),
+                                     ("render_bricked", sync_bricked, torch.cuda.Stream(dev))):
             cold = RenderEngine(DataSource(OOC_URI), max_gpu_cache_mb=INCORE_MB, device=dev)
             futures = []
             t0 = time.perf_counter()
-            for frames in range(1, 51):
-                out = getattr(cold, method)(camera, frustum, synchronous=False, **kw)
-                img, stats = out[0], out[1]
-                futures += stats.pending_uploads
-                if stats.rendering_done:
-                    break
-            else:
-                raise AssertionError(f"async {method} not done after 50 frames")
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                for frames in range(1, 51):
+                    out = getattr(cold, method)(camera, frustum, synchronous=False, **kw)
+                    img = out[0].clone() if stream is not None else out[0]
+                    stats = out[1]
+                    futures += stats.pending_uploads
+                    if stats.rendering_done:
+                        break
+                else:
+                    raise AssertionError(f"async {method} not done after 50 frames")
             torch.cuda.synchronize()
             async_s = time.perf_counter() - t0
             for f in futures:
@@ -796,9 +825,10 @@ def phase_out_of_core(dev, card):
             if frames < 2 or not torch.equal(img, want):
                 raise AssertionError(f"async {method}: {frames} frames; the last is not the "
                                      f"synchronous frame bit for bit")
-            print(f"async {method} on a cold engine: done after {frames} frames, {async_s:.3f} s "
-                  f"({len(futures)} upload batches); the last frame bit-equal to the synchronous "
-                  f"one {card}")
+            under = " under a side stream" if stream is not None else ""
+            print(f"async {method}{under} on a cold engine: done after {frames} frames, "
+                  f"{async_s:.3f} s ({len(futures)} upload batches); the last frame bit-equal to "
+                  f"the synchronous default-stream one {card}")
             del cold
             torch.cuda.empty_cache()
     finally:
@@ -878,6 +908,253 @@ def phase_probes(dev, card):
              or "none"))
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     return entries
+
+
+SERVE_SSE = 1.0  # phase 20's orbit: all 4096 finest bricks, one 512^3 store, as in phase 4
+SERVE_ASYNC = {"synchronous": False, "max_lod": 2}  # a set no earlier step uploaded
+
+
+def brick_bins(brick, overlap, lo, hi):
+    """256 bins of a padded brick's interior by numpy, in the reference's
+    order of rounding: the f64 normalisation cast to f32, times 256 in
+    f32, truncated, clipped to [0, 255]."""
+    ox, oy, oz = overlap
+    core = brick[oz : brick.shape[0] - oz or None, oy : brick.shape[1] - oy or None,
+                 ox : brick.shape[2] - ox or None]
+    norm = ((core.astype(np.float64) - lo) / (hi - lo)).astype(np.float32)
+    idx = np.clip((norm * np.float32(256)).astype(np.int32), 0, 255)
+    return np.bincount(idx.ravel(), minlength=256).astype(np.int64), core.size
+
+
+def phase_serve(dev, card, uri=URI, size=512):
+    """20. The interactive service on the card: ``RenderService`` on the
+    512^3 volume at 512x512 with the default 3072 MB, on 127.0.0.1, driven
+    over HTTP with urllib: the 8-pose orbit as ``PUT /camera``, each
+    followed by ``POST /image-jpeg`` and ``GET /histogram``; a ``PUT
+    /colormap`` with the store cache untouched and one frame; ``PUT /params
+    {"renderer": "exact"}`` and one frame (K3); the 2x2 layout and one
+    frame (4 bricked views); an asynchronous frame of a set not yet
+    uploaded (``max_lod`` 2), converged; ``GET /statistics`` and ``POST
+    /exit``.  K1's and K3's counts are set to 0 just before and read just
+    after.  Then each served frame (the array before JPEG encoding) is
+    held bit-equal to the engine's own frame at the same camera and state,
+    the async frame to the synchronous one, and each histogram's bins to
+    numpy's over the frame's bricks, their sum to bricks x 32^3.  Returns
+    (K1 launches, K3 launches)."""
+    import urllib.request
+
+    import torch
+
+    from libre_tpu_torch.apps.serve import RenderService
+    from libre_tpu_torch.ops import exact
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.utils import image
+
+    t_phase = time.perf_counter()
+    svc = RenderService(uri, width=size, height=size, host="127.0.0.1", port=0, device=dev)
+    engine = svc.engine
+    served, hist_calls, jpeg_ms = [], [], []
+    real_frame, real_hist, real_jpeg = svc.render_frame, engine.accumulate_histogram, image.encode_jpeg
+    real_select, real_view = engine.select, engine.render_bricked
+    # Host ms of each call, for the split of an orbit request (one call of
+    # each per orbit request): render_frame, its engine frame, the frame's
+    # LOD selection.
+    split = {"render_frame": [], "render_bricked": [], "select": []}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def render_frame(progressive=False):
+        t0 = time.perf_counter()
+        canvas = real_frame(progressive)
+        split["render_frame"].append((time.perf_counter() - t0) * 1e3)
+        served.append(dict(
+            canvas=canvas, mv=svc.frame_data.camera_settings.get_modelview_matrix().copy(),
+            color_map=np.array(svc.frame_data.render_settings.color_map),
+            params=dict(svc.server.params), layout=svc.layout, hist=svc._histogram,
+            sets=[]))
+        return canvas
+
+    def accumulate_histogram(nodes, *args):
+        t0 = time.perf_counter()
+        out = real_hist(nodes, *args)
+        hist_calls.append(((time.perf_counter() - t0) * 1e3, list(nodes)))
+        return out
+
+    def encode_jpeg(img, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_jpeg(img, *args, **kwargs)
+        jpeg_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    svc.render_frame, engine.accumulate_histogram, image.encode_jpeg = (
+        render_frame, accumulate_histogram, encode_jpeg)
+    engine.select = timed("select", real_select)
+    engine.render_bricked = timed("render_bricked", real_view)
+    svc.server.start()
+    host, port = svc.server.address
+    base = f"http://{host}:{port}"
+
+    def call(path, method="GET", body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(base + path, data=data, method=method)
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            raw = resp.read()
+            return json.loads(raw) if "json" in resp.headers.get("Content-Type", "") else raw
+
+    latency, hists, steps = [], [], []
+
+    def frame(step):
+        n_hist = len(hist_calls)
+        t0 = time.perf_counter()
+        jpeg = call("/image-jpeg", "POST", {})
+        latency.append((time.perf_counter() - t0) * 1e3)
+        if jpeg[:2] != b"\xff\xd8":
+            raise AssertionError(f"serve {step}: /image-jpeg gave no JPEG")
+        hists.append(call("/histogram"))
+        served[-1]["sets"] = [nodes for _ms, nodes in hist_calls[n_hist:]]
+        steps.append(step)
+
+    try:
+        call("/params", "PUT", {"synchronous": True, "sse": SERVE_SSE})
+        swb.post_sweep.launches = 0
+        exact.march_exact.launches = 0
+        for i, (_camera, frustum) in enumerate(orbit_cameras(width=size, height=size)):
+            call("/camera", "PUT", {"modelview": frustum.mv.tolist()})
+            frame(f"orbit {i}")
+        keys = list(engine._store_cache)
+        cm = np.roll(np.asarray(svc.frame_data.render_settings.color_map), 32, axis=0)
+        call("/colormap", "PUT", {"rgba": cm.tolist()})
+        frame("colormap")
+        if list(engine._store_cache) != keys:
+            raise AssertionError("a colormap edit touched the store cache")
+        call("/params", "PUT", {"renderer": "exact"})
+        frame("exact")
+        call("/params", "PUT", {"renderer": "bricked"})
+        if call("/layout", "PUT", {"name": "2x2"})["layout"] != "2x2":
+            raise AssertionError("PUT /layout 2x2 refused")
+        frame("2x2")
+        call("/layout", "PUT", {"name": "single"})
+        call("/params", "PUT", SERVE_ASYNC)
+        renders = []
+        real_bricked = engine.render_bricked
+
+        def render_bricked(*args, **kwargs):
+            out = real_bricked(*args, **kwargs)
+            renders.append((kwargs.get("synchronous"), out[1].rendering_done,
+                            out[1].n_render_available))
+            return out
+
+        engine.render_bricked = render_bricked
+        frame("async")
+        engine.render_bricked = real_bricked
+        stats = call("/statistics")
+        if call("/exit", "POST", {}) != {"ok": True}:
+            raise AssertionError("POST /exit")
+        k1, k3 = swb.post_sweep.launches, exact.march_exact.launches
+        # --------------------------------------------- end of the served path
+        for _ in range(100):
+            if not svc._running:
+                break
+            time.sleep(0.05)
+    finally:
+        svc.server.stop()
+        svc.render_frame, engine.accumulate_histogram, image.encode_jpeg = (
+            real_frame, real_hist, real_jpeg)
+        engine.select, engine.render_bricked = real_select, real_view
+    if svc._running:
+        raise AssertionError("POST /exit did not stop the service")
+    for name in ("data_cache", "texture_cache"):
+        got = {k: type(v).__name__ for k, v in stats[name].items()}
+        if got != {k: "int" for k in ("hits", "misses", "objects", "used_bytes", "max_bytes")}:
+            raise AssertionError(f"/statistics {name}: {got}")
+    if not isinstance(stats["frames_rendered"], int):
+        raise AssertionError("/statistics frames_rendered")
+    # K1 once per bricked view: 8 orbit frames, the colormap frame, the 2x2's
+    # four views and each asynchronous render that had bricks to draw.
+    want_k1 = 8 + 1 + 4 + sum(1 for _s, _d, n in renders if n > 0)
+    if len(served) != len(steps) or k1 != want_k1 or k3 != 1:
+        raise AssertionError(f"serve: {len(served)} frames for {len(steps)} requests, K1 {k1} "
+                             f"launches ({want_k1} expected), K3 {k3} (1 expected)")
+    if not renders or any(sync is not False for sync, _d, _n in renders) or not renders[-1][1]:
+        raise AssertionError(f"the async frame's renders {renders}: not asynchronous or not done")
+    print(f"serve: {len(steps)} frames over HTTP ({', '.join(steps)}), K1 {k1} launches, K3 {k3}; "
+          f"the async frame: {len(renders)} renders (done, bricks drawn): "
+          f"{[(d, n) for _s, d, n in renders]} {card}")
+
+    # Each served frame against the engine's own frame, its histogram
+    # against numpy over its bricks.
+    lo, hi = engine.data_source_range
+    overlap = engine.info.overlap
+    brick_voxels = int(np.prod(engine.info.block_size))
+    bins_of = {}
+    for step, rec, hist in zip(steps, served, hists):
+        svc.frame_data.camera_settings.set_modelview_matrix(rec["mv"])
+        svc.frame_data.render_settings.color_map = rec["color_map"]
+        svc.server.params.clear()
+        svc.server.params.update(rec["params"], synchronous=True)
+        svc.layout = rec["layout"]
+        engine.transfer_function = torch.as_tensor(rec["color_map"], device=dev)
+        kw = svc.frame_keywords()
+        for dx, dy, vw, vh, az in svc._layout_views():
+            camera, frustum = svc.view_camera(vw, vh, az)
+            if rec["params"].get("renderer", "bricked") == "exact":
+                img = engine.render(camera, frustum, **kw)[0]
+            else:
+                img = engine.render_bricked(camera, frustum, **kw)[0]
+            if not np.array_equal(img.cpu().numpy(), rec["canvas"][dy : dy + vh, dx : dx + vw]):
+                raise AssertionError(f"serve {step}: the served frame (view at {dx},{dy}) is not "
+                                     f"the engine's frame bit for bit")
+        if not rec["sets"] or hist != rec["hist"]:
+            raise AssertionError(f"serve {step}: /histogram is not the frame's histogram")
+        nodes = rec["sets"][-1] if step == "async" else rec["sets"][0]  # the converged / view 0
+        want = np.zeros(256, np.int64)
+        for n in nodes:
+            if n.id not in bins_of:
+                bins_of[n.id] = brick_bins(engine.data_cache.get(n.id).value, overlap, lo, hi)
+            want += bins_of[n.id][0]
+        voxels = sum(bins_of[n.id][1] for n in nodes)
+        if (hist["bins"] != want.tolist() or sum(hist["bins"]) != voxels
+                or voxels != len(nodes) * brick_voxels):
+            raise AssertionError(f"serve {step}: histogram bins are not numpy's over its "
+                                 f"{len(nodes)} bricks")
+        if (hist["min"], hist["max"]) != (lo, hi):
+            raise AssertionError(f"serve {step}: histogram range {hist['min'], hist['max']}")
+    sizes = sorted({len(r["sets"][-1 if step == "async" else 0]) for step, r in zip(steps, served)})
+    print(f"serve: every served frame bit-equal to the engine's direct frame (the async one to "
+          f"the synchronous frame), every histogram's bins equal to numpy's over its bricks, "
+          f"sum = bricks x {brick_voxels} (sets of {sizes} bricks)")
+    med = lambda xs: float(np.median(xs))  # noqa: E731
+    first_hist = hist_calls[0][0]
+    steady_hist = [ms for ms, _ in hist_calls[1:8]]
+    print(f"serve request latency (POST /image-jpeg, {size}x{size}): orbit request 1 {latency[0]:.3f} "
+          f"ms, requests 2-8 median {med(latency[1:8]):.3f} ms, min {min(latency[1:8]):.3f} ms; "
+          f"colormap {latency[8]:.3f} ms, exact {latency[9]:.3f} ms, 2x2 {latency[10]:.3f} ms, "
+          f"async {latency[11]:.3f} ms {card}")
+    orbit = {k: v[1:8] for k, v in split.items()}
+    hist_2_8 = [ms for ms, _ in hist_calls[1:8]]
+    parts = [np.asarray(latency[1:8]) - np.asarray(orbit["render_frame"]) - np.asarray(jpeg_ms[1:8]),
+             np.asarray(orbit["render_frame"]) - np.asarray(orbit["render_bricked"]),
+             np.asarray(orbit["render_bricked"]) - np.asarray(orbit["select"])
+             - np.asarray(hist_2_8)]
+    print(f"serve orbit requests 2-8, medians of the host split: select "
+          f"{med(orbit['select']):.3f} ms, histogram {med(hist_2_8):.3f} ms, the rest of the "
+          f"engine frame {med(parts[2]):.3f} ms, render_frame around it (camera, TF upload, "
+          f"canvas copy) {med(parts[1]):.3f} ms, JPEG {med(jpeg_ms[1:8]):.3f} ms, HTTP and the "
+          f"handler {med(parts[0]):.3f} ms {card}")
+    print(f"serve histogram (host): first frame {first_hist:.3f} ms ({len(hist_calls[0][1])} "
+          f"bricks), steady frames 2-8 median {med(steady_hist):.3f} ms, min "
+          f"{min(steady_hist):.3f} ms; JPEG encoding median {med(jpeg_ms):.3f} ms, min "
+          f"{min(jpeg_ms):.3f} ms {card}")
+    del svc, engine, served
+    torch.cuda.empty_cache()
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return k1, k3
 
 
 def main() -> int:
@@ -2192,6 +2469,8 @@ def main() -> int:
     ooc_sites, ooc_launches, ooc_err = phase_out_of_core(dev, card)
     # ----------------------- 19. the gather probes P1-P17 (their own timers)
     probe_entries = phase_probes(dev, card)
+    # ------------------------------------- 20. the render service (its own timers)
+    serve_k1, serve_k3 = phase_serve(dev, card)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
     if loaded:
@@ -2221,7 +2500,7 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/post_sweep.cu",
             "replaces": "libre_tpu/ops/shearwarp_bricked.py:78",
-            "launches": launches + train_fwd_launches + ooc_launches,
+            "launches": launches + train_fwd_launches + ooc_launches + serve_k1,
             "max_abs_err": max(max_err, ooc_err),
             "ms": ms,
             "plain_ms": plain_ms,
@@ -2247,7 +2526,7 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/exact_march.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:481",
-            "launches": exact_launches + ex_fwd_launches,
+            "launches": exact_launches + ex_fwd_launches + serve_k3,
             "max_abs_err": max(k3_err, k3_train_err),
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,

@@ -1,3 +1,3 @@
-"""Core octree data model, LOD selection, frustum math, caches and
-configuration: numpy copies of ``libre_tpu.core``'s host modules, so the
-port imports nothing of the JAX package."""
+"""Core octree data model, LOD selection, frustum math, caches,
+configuration, settings and events: numpy copies of ``libre_tpu.core``'s
+host modules, so the port imports nothing of the JAX package."""

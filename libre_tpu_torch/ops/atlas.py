@@ -14,12 +14,16 @@ their slots with one asynchronous copy and one indexed write
 the atlas was made.  Every upload, from any thread, lands on that stream,
 so a kernel enqueued there before an upload into a slot reads the slot
 before the upload writes it, and one enqueued after reads the upload.
+Readers run on that stream too, whatever stream their caller is on:
+:meth:`on_stream` moves their work there, ordered after the caller's
+stream on entry, with the caller's stream ordered after it on exit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +72,29 @@ class BrickAtlas:
             torch.cuda.current_stream(self.device)
             if self.device.type == "cuda" else None
         )
+
+    @contextlib.contextmanager
+    def on_stream(self) -> Iterator[Optional[torch.cuda.Stream]]:
+        """Run the enclosed device work on the atlas's stream, the one its
+        uploads use, so that it is ordered with them whatever stream is
+        current.  On entry the atlas's stream waits for the work already
+        enqueued on the current stream; on exit the current stream waits
+        for the atlas's (both through a CUDA event).  Yields the caller's
+        stream when it is another stream, else None (and on a CPU atlas,
+        where it does nothing)."""
+        if self.stream is None:
+            yield None
+            return
+        caller = torch.cuda.current_stream(self.device)
+        if caller == self.stream:
+            yield None
+            return
+        self.stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self.stream):
+                yield caller
+        finally:
+            caller.wait_stream(self.stream)
 
     @property
     def data(self) -> torch.Tensor:
@@ -141,10 +168,13 @@ class BrickAtlas:
 
     def gather(self, slots) -> torch.Tensor:
         """The given slots as a stacked (N, BZ, BY, BX) tensor."""
-        idx = torch.as_tensor(np.asarray(slots, np.int64)).to(self.device)
         bits = _BITS_AS.get(self.dtype, self.dtype)
-        with self._data_lock:
-            return self._data.view(bits).index_select(0, idx).view(self.dtype)
+        with self._data_lock, self.on_stream() as caller:
+            idx = torch.as_tensor(np.asarray(slots, np.int64)).to(self.device)
+            out = self._data.view(bits).index_select(0, idx).view(self.dtype)
+        if caller is not None:
+            out.record_stream(caller)
+        return out
 
 
 def atlas_capacity(max_bytes: int, brick_shape_zyx, dtype=torch.float32) -> int:

@@ -7,9 +7,11 @@ jax is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import dataclasses
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -522,6 +524,104 @@ def test_async_frames_converge_on_card(cuda):
         torch.cuda.synchronize()
         assert frames > 1 and threading.get_ident() not in threads[:1]
         assert torch.equal(img, sync), method
+
+
+def _converge(engine, camera, frustum, **kw):
+    """``render_bricked(synchronous=False)`` until the frame is done."""
+    for _ in range(20):
+        img, stats = engine.render_bricked(camera, frustum, synchronous=False, **kw)
+        if stats.rendering_done:
+            return img, stats
+        for f in stats.pending_uploads:
+            f.result(timeout=60)
+    raise AssertionError("async frame not done after 20 frames")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("made_under", ["default", "side"])
+@pytest.mark.parametrize("frame", ["out_of_core", "async"])
+def test_frame_under_side_stream_bit_equal(cuda, frame, made_under, monkeypatch):
+    """A frame rendered while another stream than the atlas's is current
+    is the frame rendered on the atlas's stream, bit for bit: the
+    out-of-core frame of the 20-slot atlas that refills slots within a
+    frame, and an asynchronous frame once converged.  Every kernel
+    launches on the atlas's stream, and the caller's stream may read the
+    image at once (the clone below runs on it).  ``made_under`` is the
+    stream current when the engine (and so its atlas) was made."""
+    load_plugins()
+    uri = "mem://#64,64,64,16?pattern=gradient"
+    camera, frustum = build_camera(64, 48, (0.3, 0.2, 1.5), (0.0, 0.0, 0.0))
+    kw = dict(screen_space_error=1.0, n_planes=64, min_lod=2)
+    budget = 20 * 24 ** 3 * 2 / 2**20 if frame == "out_of_core" else 64
+    side = torch.cuda.Stream(cuda)
+
+    def render(current):
+        made = side if made_under == "side" else torch.cuda.default_stream(cuda)
+        with torch.cuda.stream(made):
+            engine = RenderEngine(DataSource(uri), max_gpu_cache_mb=budget, device=cuda)
+        streams = []
+        real_launch = swb._kernels.launch
+        monkeypatch.setattr(swb._kernels, "launch", lambda *a: (
+            streams.append(torch.cuda.current_stream(cuda)), real_launch(*a)))
+        with torch.cuda.stream(current) if current is not None else contextlib.nullcontext():
+            if frame == "out_of_core":
+                img, stats = engine.render_bricked(camera, frustum, **kw)
+                assert stats.n_passes > 1 and engine.atlas.n_slots == 20
+                assert engine.texture_cache.statistics.evictions > 0
+            else:
+                img, stats = _converge(engine, camera, frustum, **kw)
+            out = img.clone()
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert streams and all(s == engine.atlas.stream for s in streams)
+        return out
+
+    on_atlas = render(None if made_under == "default" else side)
+    under_other = render(side if made_under == "default" else torch.cuda.default_stream(cuda))
+    assert float(on_atlas[..., 3].max()) > 0.1
+    assert torch.equal(under_other, on_atlas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "float32"])
+def test_brick_histogram_on_card_equals_cpu(cuda, dtype):
+    """``compute_brick_histogram`` counting on the card = on the CPU."""
+    from libre_tpu_torch.core.volume_info import DataType
+    from libre_tpu_torch.ops.histogram_ops import compute_brick_histogram
+
+    rng = np.random.default_rng(0)
+    if dtype == "float32":
+        data = (rng.integers(0, 257, (24, 20, 28)) / 256.0 * 3.0 + 0.25).astype(np.float32)
+    else:
+        data = rng.integers(0, np.iinfo(dtype).max + 1, (24, 20, 28)).astype(dtype)
+    for overlap in ((0, 0, 0), (2, 1, 3)):
+        for data_range in (None, DataType(dtype).default_range):
+            got = compute_brick_histogram(data, overlap, DataType(dtype), data_range,
+                                          device=cuda)
+            want = compute_brick_histogram(data, overlap, DataType(dtype), data_range,
+                                           device="cpu")
+            assert np.array_equal(got.bins, want.bins)
+            assert (got.min_value, got.max_value) == (want.min_value, want.max_value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renderer", ["bricked", "exact"])
+def test_render_service_on_card_matches_cpu(cuda, renderer):
+    """One ``RenderService`` frame on the card (K1 or K3) within 2e-3 max
+    and 1e-4 mean of the same service's frame on the CPU, with the same
+    histogram."""
+    from libre_tpu_torch.apps.serve import RenderService
+
+    frames = []
+    for dev in (cuda, "cpu"):
+        svc = RenderService("mem://#64,64,64,16?pattern=gradient", width=48, height=40,
+                            port=0, max_gpu_cache_mb=64, device=dev)
+        svc.server.params.update(synchronous=True, sse=1.0, renderer=renderer)
+        frames.append((svc.render_frame(), svc._histogram))
+    (got, hist), (want, hist_cpu) = frames
+    d = np.abs(got - want)
+    assert float(d.max()) <= 2e-3 and float(d.mean()) <= 1e-4
+    assert float(want[..., 3].max()) > 0.1 and hist == hist_cpu
 
 
 PROBES = [p for m in PROBE_MODULES

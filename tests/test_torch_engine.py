@@ -94,13 +94,24 @@ def test_render_bricked_matches_jax(tmp_path, name):
 
 
 def test_unported_branches_raise(tmp_path):
-    """Where the slice stops, the engine says so instead of falling back."""
+    """Where the port stops, it says so instead of falling back: a
+    reduced-precision resample is M4 and a mesh-sharded service M9.
+    Histograms (M6) are ported: ``collect_histogram`` merges the frame's
+    bricks (tests/test_torch_histogram.py holds the bins to the JAX
+    engine's)."""
+    from libre_tpu_torch.apps.serve import RenderService
+    from libre_tpu_torch.ops import shearwarp as sw_t
+
     _cam_j, cam_t, _frustum, frustum = view()
     eng = EngineT(DataSourceT("mem://#32,32,32,16?pattern=gradient"), max_gpu_cache_mb=64,
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="M6"):
-        eng.render_bricked(cam_t, frustum, screen_space_error=1.0, n_planes=16,
-                           collect_histogram=True)
+    _img, stats = eng.render_bricked(cam_t, frustum, screen_space_error=1.0, n_planes=16,
+                                     collect_histogram=True)
+    assert stats.histogram.sum == stats.n_available * 16 ** 3
+    with pytest.raises(NotImplementedError, match="M4"):
+        sw_t.ShearWarpParams(n_planes=16, compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="M9"):
+        RenderService("mem://#32,32,32,16", mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         create_renderer("no-such-renderer")
 

@@ -141,10 +141,18 @@ def test_marchers_agree_and_params_default():
 
 
 def test_render_unported_branches_raise():
+    """Histograms (M6) are ported: ``render(collect_histogram=True)``
+    returns the merged histogram of the frame's bricks (bins against the
+    JAX engine's in tests/test_torch_histogram.py); the exact renderer
+    behind a mesh-sharded service is M9 and raises."""
+    from libre_tpu_torch.apps.serve import RenderService
+
     _cam_j, cam_t, _fr_j, fr_t = view((0.3, 0.2, 1.4))
     eng = EngineT(DataSourceT(GRADIENT), max_gpu_cache_mb=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="M6"):
-        eng.render(cam_t, fr_t, collect_histogram=True)
+    _img, stats, hist = eng.render(cam_t, fr_t, collect_histogram=True)
+    assert hist.sum == stats.n_render_available * 16 ** 3 > 0
+    with pytest.raises(NotImplementedError, match="M9"):
+        RenderService(GRADIENT, renderer="exact", mesh=object(), device="cpu")
 
 
 def test_render_async_matches_jax():

@@ -1,9 +1,10 @@
 """The port imports neither jax nor anything of the JAX package: every
 libre_tpu_torch module imports, a tiny CPU frame renders through the
 bricked path, the exact path and the dense shear-warp path (both
-backends), the store trainer and the exact trainer each take a step, and
-a gather probe runs its plain version, in a process where importing jax,
-optax or libre_tpu fails."""
+backends), the store trainer and the exact trainer each take a step, a
+gather probe runs its plain version, and the render service answers a
+frame and its histogram over HTTP on 127.0.0.1, in a process where
+importing jax, optax or libre_tpu fails."""
 
 import os
 import subprocess
@@ -71,6 +72,23 @@ from libre_tpu_torch.ops import gather
 fn, args, work = probe_gather2.build_lane_gather_loop(device="cpu")
 out = gather.take_along(*args, axis=1, loop=probe_gather2.LOOP, mod=128)
 assert out.shape == (8, 128) and work == 512 * 1024 and torch.equal(out, fn(*args))
+import json, urllib.request
+from libre_tpu_torch.apps.serve import RenderService
+svc = RenderService("mem://#32,32,32,16?pattern=gradient", width=16, height=16,
+                    host="127.0.0.1", port=0, max_gpu_cache_mb=16, device="cpu")
+svc.server.start()
+try:
+    host, port = svc.server.address
+    assert host == "127.0.0.1"
+    base = f"http://{host}:{port}"
+    with urllib.request.urlopen(urllib.request.Request(
+            base + "/image-jpeg", data=b"{}", method="POST"), timeout=120) as resp:
+        assert resp.read()[:2] == b"\xff\xd8"
+    with urllib.request.urlopen(base + "/histogram", timeout=60) as resp:
+        hist = json.loads(resp.read())
+    assert sum(hist["bins"]) > 0 and hist["max"] == 255.0
+finally:
+    svc.server.stop()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "libre_tpu")
                 and sys.modules[m] is not None)

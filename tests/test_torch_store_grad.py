@@ -25,11 +25,12 @@ import jax.numpy as jnp
 from libre_tpu.ops import shearwarp as sw_j
 from libre_tpu.ops import shearwarp_grad as swg_j
 from libre_tpu_torch import interop
+from libre_tpu_torch.ops import shearwarp as sw_t
 from libre_tpu_torch.ops import shearwarp_bricked as swb_t
 from libre_tpu_torch.ops import shearwarp_grad as swg_t
 from libre_tpu_torch.testing import field_volume, store_grad_case
 from tests.test_shearwarp_grad import (
-    AXIS, GMAX, GMIN, K, N, PARAMS, U_SIZE, V_SIZE, oracle_fn, setup,
+    BOUNDS, AXIS, GMAX, GMIN, K, N, PARAMS, U_SIZE, V_SIZE, oracle_fn, setup,
 )
 
 torch.set_num_threads(1)
@@ -243,3 +244,45 @@ def test_rejects_what_the_kernel_does_not_take():
         swg_t.store_grid_backward(
             store_b, tf_b, tables, out, t_out[:1], g, diff_tf=True, **kw
         )
+
+
+def test_value_and_grad_through_screen_warp_matches_jax():
+    """Training against a screen-space target: torch.autograd through
+    ``render_store_grid_diff`` → ``warp_to_screen`` → mean(img²) equals
+    jax.value_and_grad of the same chain in the JAX package
+    (tests/test_shearwarp_grad.py::test_value_and_grad_through_screen_warp,
+    its Pallas forward and backward in interpret mode): the loss within
+    1e-6 relative, the store and TF gradients within 1e-4 normalised by
+    their max |·|.  The warp's gradient is autograd's own: the port's
+    ``warp_to_screen`` is plain PyTorch."""
+    (store_j, tf_j, vs_j, kw), (store_t, tf_t, vs_t, static) = scene(1.0)
+    u0, u1, v0, v1 = BOUNDS
+    ug = np.linspace(u0, u1, U_SIZE, dtype=np.float32)
+    vg = np.linspace(v0, v1, V_SIZE, dtype=np.float32)
+    uu, vv = np.meshgrid(
+        np.linspace(u0 + 0.05, u1 - 0.05, 8, dtype=np.float32),
+        np.linspace(v0 + 0.05, v1 - 0.05, 8, dtype=np.float32),
+        indexing="xy",
+    )
+    valid = np.ones_like(uu)
+    grid = (ug, vg, uu, vv, valid)
+    static_j = swg_j.static_view(kc=16, interpret=True, **kw)
+
+    def loss_j(store_, tf_):
+        inter = swg_j.render_store_grid_diff(store_, tf_, vs_j, static_j)
+        return jnp.mean(sw_j.warp_to_screen(inter, *map(jnp.asarray, grid)) ** 2)
+
+    val_j, (ds_j, dtf_j) = jax.value_and_grad(loss_j, argnums=(0, 1))(store_j, tf_j)
+    ds_j = interop.store_grad_from_jax(np.asarray(ds_j), tuple(store_t.shape))
+
+    store = store_t.clone().requires_grad_()
+    tf = tf_t.clone().requires_grad_()
+    inter = swg_t.render_store_grid_diff(store, tf, vs_t, static)
+    img = sw_t.warp_to_screen(inter, *map(torch.from_numpy, grid))
+    loss = (img ** 2).mean()
+    loss.backward()
+    assert np.isfinite(float(loss.detach())) and img.shape == (8, 8, 4)
+    np.testing.assert_allclose(float(loss.detach()), float(val_j), rtol=1e-6)
+    assert float(store.grad.abs().max()) > 0 and float(tf.grad.abs().max()) > 0
+    assert_close_normalised(store.grad.numpy(), ds_j, 1e-4)
+    assert_close_normalised(tf.grad.numpy(), np.asarray(dtf_j), 1e-4)

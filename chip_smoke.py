@@ -115,7 +115,32 @@ Phases, each of which raises on failure (any failure exits non-zero):
    K3's counts set to 0 before and read after; each served frame
    bit-equal to the engine's own frame, each histogram equal to numpy's
    bincount over the frame's bricks; request latency, histogram and JPEG
-   times.
+   times;
+21. the dense shear-warp trainer at full width (``phase_dense_trainer``):
+   ``train.shearwarp_trainer`` over a 256³ smooth truth with
+   ``ShearWarpParams``' defaults (K = 256, 256² slope grids), 4 views,
+   5 Adam steps ("post") and 2 ("pre"), the plain pipeline (batched
+   products, no kernel); step time, Mrays/s, peak memory, one step under
+   ``profiled`` (``utils.profiling.device_trace``, as every profiled
+   step and frame); the TF gather's ``bincount`` backward against
+   autograd's indexing in ``render_slope_grid_fused`` at full width,
+   timed; card vs CPU on a 32³ problem;
+22. ``models.VolumeScene`` at full width (``phase_scene``): a 512³
+   smooth volume, 512² rays, the early exit 0.999: the target's render
+   and 5 Adam steps on the estimate's MSE (the step time the median of
+   steps 2-5), with K3's and K4's counts set to 0 before and read after
+   and the plain marcher made to raise; K3 and
+   K4 (with the exit rule) vs plain on a 64×64 window, K4 on every field
+   of ``testing.FIELDS`` with the rays that exit counted; K4 with the exit
+   on and off, timed; the 16³ test scene on the card vs the CPU;
+23. the benchmark scripts (``phase_scripts``): ``bench_forward --quick``,
+   ``probe_bwd_breakdown``, ``demo_inverse_render`` (store and
+   ``--exact``) and ``demo_out_of_core`` cut to 512³, each ``python -m``
+   in its own process with its wall time, each holding one call of every
+   kernel it runs against the kernel's plain version; their launch counts
+   and largest errors go into the kernels line;
+24. ``entry()`` on the card (``phase_entry``) vs the plain march, and the
+   phases' seconds through ``utils.profiling.StageTimers``.
 
 Prints every kernel's launch sites on the main paths (launches, time
 per launch on the site's operands, bound, and launches × (time − bound),
@@ -139,6 +164,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from libre_tpu_torch.testing import compare, compare_grads
 
 SMALL_TOL_MAX = 2e-3
 URI = "mem://#512,512,512,32?pattern=gradient"
@@ -239,27 +266,31 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def profiled(what, fn, tags, card, unprofiled_ms):
-    """Run ``fn`` (which must end by synchronising) once under
-    torch.profiler and print its host-clock time, its device time in
-    kernels and in copies (memcpy, memset) with their counts, the device's
-    idle share of ``unprofiled_ms`` (the same work's host-clock time
-    without the profiler, whose own cost inflates its clock) and of the
-    profiled clock, and the kernels' time by the first of ``tags`` in each
-    kernel's name ("other" for none).  Annotated ranges, which span
-    kernels, are left out."""
+def profiled(what, fn, tags, card, unprofiled_ms, top=0):
+    """Run ``fn`` (which must end by synchronising) once inside
+    ``utils.profiling.device_trace`` (torch.profiler, a Chrome trace into
+    a temporary directory) and print its host-clock time, its device time
+    in kernels and in copies (memcpy, memset) with their counts, the
+    device's idle share of ``unprofiled_ms`` (the same work's host-clock
+    time without the profiler, whose own cost inflates its clock) and of
+    the profiled clock, the kernels' time by the first of ``tags`` in each
+    kernel's name ("other" for none), and with ``top`` the ``top`` device
+    ops by time.  Annotated ranges, which span kernels, are left out.
+    Raises if the trace holds no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from libre_tpu_torch.utils.profiling import device_trace
+
+    with tempfile.TemporaryDirectory() as log_dir, device_trace(log_dir) as prof:
         t = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t) * 1e3
-    groups, n_kernels, copy_ms, n_copies = {}, 0, 0.0, 0
+    groups, n_kernels, copy_ms, n_copies, ops = {}, 0, 0.0, 0, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
         ms = e.self_device_time_total / 1e3
+        ops.append((ms, e.count, e.key))
         if e.key.startswith(("Memcpy", "Memset")):
             copy_ms += ms
             n_copies += e.count
@@ -277,63 +308,10 @@ def profiled(what, fn, tags, card, unprofiled_ms):
         + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
         + f" {card}"
     )
-
-
-def compare(got, want, what, tol=None):
-    """(max, mean) |got − want|; raises past ``tol`` = (max, mean), by
-    default the sweep kernel's tolerances."""
-    import torch
-
-    from libre_tpu_torch.testing import KERNEL_TOL_MAX, KERNEL_TOL_MEAN
-
-    tol_max, tol_mean = tol or (KERNEL_TOL_MAX, KERNEL_TOL_MEAN)
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{what}: non-finite kernel output")
-    err = (got - want).abs()
-    mx, mean = float(err.max()), float(err.mean())
-    print(f"{what}: max|d| {mx:.3e} mean|d| {mean:.3e}")
-    if mx > tol_max or mean > tol_mean:
-        raise AssertionError(
-            f"{what}: kernel disagrees with plain (max {mx}, mean {mean})"
-        )
-    return mx
-
-
-def compare_grads(got, want, what, early_exit, tol_max=None, expect_zero=False):
-    """Normalised (max, mean) |got − want| / max |want|; raises past the
-    backward kernels' tolerances (``tol_max``: the max with the early
-    exit off, by default K2's).  With ``expect_zero`` (K4's density
-    gradient on the "top" field: every sample past the density gate) both
-    must be exactly zero; otherwise a zero plain gradient raises."""
-    import torch
-
-    from libre_tpu_torch.testing import (
-        GRAD_TOL_MAX,
-        GRAD_TOL_MAX_EARLY_EXIT,
-        GRAD_TOL_MEAN_EARLY_EXIT,
-    )
-
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{what}: non-finite kernel output")
-    scale = float(want.abs().max())
-    if expect_zero:
-        mx = float(got.abs().max())
-        print(f"{what}: expected zero, max|kernel| {mx:.3e}, max|plain| {scale:.3e}")
-        if mx != 0.0 or scale != 0.0:
-            raise AssertionError(f"{what}: gradient not zero (kernel {mx}, plain {scale})")
-        return 0.0
-    if scale == 0.0:
-        raise AssertionError(f"{what}: the plain gradient is zero")
-    err = (got - want).abs() / scale
-    mx, mean = float(err.max()), float(err.mean())
-    print(f"{what}: max|d|/max|plain| {mx:.3e} mean {mean:.3e} (max|plain| {scale:.3e})")
-    if early_exit < 1.0:
-        bad = mx > GRAD_TOL_MAX_EARLY_EXIT or mean > GRAD_TOL_MEAN_EARLY_EXIT
-    else:
-        bad = mx > (GRAD_TOL_MAX if tol_max is None else tol_max)
-    if bad:
-        raise AssertionError(f"{what}: kernel disagrees with plain ({mx}, {mean})")
-    return mx
+    for ms, n, key in sorted(ops, reverse=True)[:top]:
+        print(f"  {ms:.3f} ms in {n} x {key[:90]}")
+    if busy_ms <= 0.0:
+        raise AssertionError(f"{what}: the trace holds no device time")
 
 
 def rate(what, ms, samples, bound_ms, card):
@@ -1157,15 +1135,430 @@ def phase_serve(dev, card, uri=URI, size=512):
     return k1, k3
 
 
+# ------------------------------------------------------------- phases 21-24
+DENSE_TRAIN_N = 256  # phase 21: the truth's size, ShearWarpParams' defaults (K = 256, 256^2 grids)
+DENSE_TRAIN_STEPS = 5
+DENSE_PRE_STEPS = 2
+SCENE_N = 512  # phase 22: the scene's volume, SCENE_RAYS^2 rays, the scene's default params
+SCENE_RAYS = 512
+SCENE_EXIT = 0.999  # its early exit (RenderParams' default)
+SCENE_STEPS = 5  # Adam steps (lr SCENE_LR) on its MSE, timed as the trainers' steps
+SCENE_LR = 1e-2
+# Phase 23: the benchmark scripts, each in a process of its own, as
+# (module, arguments); demo_out_of_core cut from 1024^3 to 512^3 (its
+# full-size default runs by hand), its budgets 2048 MB in core (a 512^3
+# store fits) and 96 MB (its default) out of core.
+SCRIPT_RUNS = (
+    ("bench_forward", ["--quick"]),
+    ("probe_bwd_breakdown", []),
+    ("demo_inverse_render", []),
+    ("demo_inverse_render", ["--exact"]),
+    ("demo_out_of_core", ["--vox", "512", "--incore-mb", "2048", "--ooc-mb", "96"]),
+)
+GMIN_GMAX = (np.float32([-0.5] * 3), np.float32([0.5] * 3))
+
+
+def phase_dense_trainer(dev, card):
+    """21. The dense shear-warp trainer at full width: a 256^3 smooth truth,
+    ``ShearWarpParams``' defaults (K = 256 planes, 256^2 slope grids), 4
+    views ("post"), 5 Adam steps (lr 3e-2) from a flat 0.5 volume and a
+    grayscale TF; the loss must fall.  Step time (median of steps 2-5),
+    Mrays/s, peak memory above the phase's start, one step under
+    ``profiled`` with its top device ops; "pre" for 2 steps; the TF
+    gather's backward by bincount against autograd's indexing in
+    ``render_slope_grid_fused`` at full width, timed, gradients within
+    ``DENSE_GRAD_TOL``; card vs CPU on a 32^3 / 32^2 problem, loss and one
+    Adam step's leaves within 1e-4.  The trainer runs the plain pipeline
+    (batched products): no kernel of the port."""
+    import torch
+
+    from libre_tpu_torch.apps.render_cli import build_camera
+    from libre_tpu_torch.ops import shearwarp as sw
+    from libre_tpu_torch.ops import shearwarp_dense as swd
+    from libre_tpu_torch.ops import transfer_function as tfm
+    from libre_tpu_torch.ops.reference import RenderParams
+    from libre_tpu_torch.ops.transfer_function import default_color_map, grayscale_ramp
+    from libre_tpu_torch.testing import DENSE_GRAD_TOL, smooth_volume
+    from libre_tpu_torch.train import ShearWarpProblem, make_shearwarp_train_step
+
+    gmin, gmax = GMIN_GMAX
+    params = RenderParams(data_source_range=(0.0, 1.0), filter_mode="trilinear")
+    cams = [build_camera(512, 512, e, (0.0, 0.0, 0.0))[0] for e in EXACT_EYES]
+
+    def problem(classification):
+        return ShearWarpProblem.from_cameras(
+            cams, gmin, gmax, params,
+            sw.ShearWarpParams(classification=classification))
+
+    def start(shape, device):
+        leaves = {"volume": torch.full(shape, 0.5, device=device).requires_grad_(),
+                  "tf": torch.from_numpy(grayscale_ramp()).to(device).requires_grad_()}
+        return leaves, torch.optim.Adam([leaves["volume"], leaves["tf"]], lr=3e-2)
+
+    truth = smooth_volume(DENSE_TRAIN_N, seed=7, device=dev)
+    tf_true = torch.from_numpy(default_color_map()).to(dev)
+    runs = {}
+    for classification, n_steps in (("post", DENSE_TRAIN_STEPS), ("pre", DENSE_PRE_STEPS)):
+        prob = problem(classification)
+        with torch.no_grad():
+            targets = prob.render_views(None, truth, tf_true)
+        leaves, opt = start(truth.shape, dev)
+        step = make_shearwarp_train_step(prob, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        losses, at = [], []
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            losses.append(float(step(leaves, targets)))  # synchronises
+            at.append(time.perf_counter())
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        steps_ms = np.diff([t0] + at) * 1e3
+        step_ms = float(np.median(steps_ms[1:]))
+        n_rays = len(prob.plans) * prob.swp.inter_size[0] * prob.swp.inter_size[1]
+        print(
+            f"dense trainer ({classification}): {DENSE_TRAIN_N}^3, K = {prob.swp.n_planes}, "
+            f"{len(prob.plans)} views of {prob.swp.inter_size} slope rays, {n_steps} Adam steps;"
+            f" losses {losses}; step median of steps 2-{n_steps} {step_ms:.3f} ms (all steps "
+            f"{', '.join(f'{x:.3f}' for x in steps_ms)} ms); fwd+bwd "
+            f"{n_rays / (step_ms * 1e-3) / 1e6:.3f} Mrays/s; peak memory {peak} B above the "
+            f"start {card}"
+        )
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"dense trainer ({classification}): losses {losses}")
+        for k, v in leaves.items():
+            if float(v.detach().min()) < 0.0 or float(v.detach().max()) > 1.0:
+                raise AssertionError(f"dense trainer ({classification}): {k} left [0, 1]")
+        if classification == "post":
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"dense trainer did not lower its loss: {losses}")
+            profiled("one dense training step (post, 4 views)",
+                     lambda: float(step(leaves, targets)), ("gather", "Histogram", "gemm"),
+                     card, step_ms, top=6)
+        runs[classification] = dict(step_ms=step_ms, losses=losses, peak=peak)
+        del targets, leaves, opt, step
+
+    # The TF gather's backward (``transfer_function._TakeRows``, by
+    # bincount) against autograd's own backward of ``table[idx]``, which it
+    # replaced: ``render_slope_grid_fused`` (K5 forward, the recompute
+    # backward of the plain pipeline, as the trainer's) over the truth from
+    # view 0 at full width, timed and its gradients held against each other.
+    pre = problem("pre")
+    pa = swd.slope_grid_plan_args(pre.plans[0], gmin, gmax, pre.params, pre.swp)
+    g = torch.randn(pre.swp.inter_size + (4,), generator=torch.Generator().manual_seed(2))
+
+    def fused_grads():
+        leaves = [truth.clone().requires_grad_(), tf_true.clone().requires_grad_()]
+        return torch.autograd.grad(swd.render_slope_grid_fused(*leaves, pa), leaves, g.to(dev))
+
+    class Indexing:
+        apply = staticmethod(lambda table, idx: table[idx])
+
+    take_rows, got = tfm._TakeRows, {}
+    times = {"bincount": cuda_ms(fused_grads, reps=2, warmup=1)}
+    got["bincount"] = fused_grads()
+    tfm._TakeRows = Indexing
+    try:
+        times["indexing"] = cuda_ms(fused_grads, reps=2, warmup=1)
+        got["indexing"] = fused_grads()
+    finally:
+        tfm._TakeRows = take_rows
+    print(f"render_slope_grid_fused forward + backward ({DENSE_TRAIN_N}^3, K = {pre.swp.n_planes}, "
+          f"{pre.swp.inter_size} rays, view 0): the TF gather's backward by bincount "
+          f"(_TakeRows) {times['bincount']:.3f} ms, by autograd's indexing "
+          f"{times['indexing']:.3f} ms {card}")
+    for name, a, b in zip(("d_volume", "d_tf"), got["bincount"], got["indexing"]):
+        compare_grads(a, b, f"render_slope_grid_fused's {name}, bincount vs indexing",
+                      pre.params.early_exit, tol_max=DENSE_GRAD_TOL)
+    del got
+
+    # Card vs CPU: one Adam step of the same small problem on each.
+    small = ShearWarpProblem.from_cameras(
+        cams, gmin, gmax, params,
+        sw.ShearWarpParams(n_planes=32, inter_size=(32, 32), classification="post"))
+    truth_small = smooth_volume(32, seed=7, device="cpu")
+    with torch.no_grad():
+        targets = small.render_views(None, truth_small, torch.from_numpy(default_color_map()))
+    got = []
+    for d in (dev, "cpu"):
+        leaves, opt = start(truth_small.shape, d)
+        loss = float(make_shearwarp_train_step(small, opt)(leaves, [t.to(d) for t in targets]))
+        got.append((loss, {k: v.detach().cpu() for k, v in leaves.items()}))
+    (l_c, p_c), (l_p, p_p) = got
+    err = max([abs(l_c - l_p)] + [float((p_c[k] - p_p[k]).abs().max()) for k in p_p])
+    print(f"dense trainer, card vs CPU (32^3, K = 32, 4 views of 32^2, one Adam step): loss "
+          f"{l_c:.6f} / {l_p:.6f}, max|d| {err:.3e}")
+    if err > 1e-4:
+        raise AssertionError(f"dense trainer on the card disagrees with the CPU ({err})")
+    return runs
+
+
+def phase_scene(dev, card, exact_tol):
+    """22. ``VolumeScene`` at full width: a 512^3 smooth volume, 512^2
+    rays, the scene's default params (512 samples per ray, trilinear, the
+    early exit 0.999).  The main path: K3's and K4's counts set to 0, the
+    plain marcher's functions made to raise, then the target's render and
+    ``SCENE_STEPS`` Adam steps on the estimate, each its render,
+    ``torch.autograd`` of the MSE (K3 once, K4 once, with the exit rule),
+    the update and a clamp to [0, 1]; the step time is the median of steps
+    2 on; the loss must fall and the last gradients be finite and
+    non-zero.  Then, off
+    the main path: K3 vs plain on a 64x64 window of the view, K4 with the
+    exit rule vs plain on that window over every field of
+    ``testing.FIELDS`` (the backward kernels' early-exit bound, rays that
+    exit counted), K4 with the exit on against the same view with it off,
+    timed, and the 16^3 / 24^2 test scene on the card vs the CPU.
+    Returns the counts, errors and times for the ``kernels`` line."""
+    import torch
+
+    from libre_tpu_torch.apps.render_cli import build_camera
+    from libre_tpu_torch.models import VolumeScene
+    from libre_tpu_torch.ops import exact
+    from libre_tpu_torch.ops.reference import RenderParams
+    from libre_tpu_torch.testing import FIELDS, field_volume, smooth_volume
+
+    camera = build_camera(SCENE_RAYS, SCENE_RAYS, EXACT_EYES[0], (0.0, 0.0, 0.0))[0]
+    gt = smooth_volume(SCENE_N, seed=7, device=dev)
+    target_scene = VolumeScene.from_volume(gt, device=dev)
+    scene = VolumeScene.from_volume(0.5 * gt + 0.25, device=dev)
+    if scene.params.early_exit != SCENE_EXIT:
+        raise AssertionError(f"the scene's early exit is {scene.params.early_exit}")
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in scene.parameters.items()}
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("a plain marcher ran on the card's main path")
+
+    plain = (exact.march_exact_reference, exact.march_exact_backward_reference)
+    torch.cuda.synchronize()
+    exact.march_exact.launches = 0
+    exact.march_exact_backward.launches = 0
+    exact.march_exact_reference = exact.march_exact_backward_reference = no_plain
+    try:
+        with torch.no_grad():
+            target = target_scene.render(camera)
+        opt = torch.optim.Adam(list(leaves.values()), lr=SCENE_LR)
+        losses, at = [], []
+        t0 = time.perf_counter()
+        for _ in range(SCENE_STEPS):
+            opt.zero_grad()
+            img = scene.with_parameters(leaves).render(camera)
+            loss = torch.mean((img - target) ** 2)
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                for v in leaves.values():
+                    v.clamp_(0.0, 1.0)
+            losses.append(float(loss.detach()))  # synchronises
+            at.append(time.perf_counter())
+    finally:
+        exact.march_exact_reference, exact.march_exact_backward_reference = plain
+    k3_launches, k4_launches = exact.march_exact.launches, exact.march_exact_backward.launches
+    # ----------------------------------- end of the scene's main path
+    steps_ms = np.diff([t0] + at) * 1e3
+    step_ms = float(np.median(steps_ms[1:]))
+    exits = int((img.detach()[..., 3] > SCENE_EXIT).sum())
+    print(
+        f"VolumeScene: {SCENE_N}^3, {SCENE_RAYS}^2 rays, 512 samples per ray, trilinear, early exit "
+        f"{SCENE_EXIT}, {SCENE_STEPS} Adam steps (lr {SCENE_LR}): losses {losses}; step (render, "
+        f"backward, Adam, clamp) median of steps 2-{SCENE_STEPS} {step_ms:.3f} ms (all steps "
+        f"{', '.join(f'{x:.3f}' for x in steps_ms)} ms, host clock); K3 launches {k3_launches}, "
+        f"K4 launches {k4_launches}; {exits} of {img.shape[0] * img.shape[1]} rays exit {card}"
+    )
+    if (k3_launches, k4_launches) != (1 + SCENE_STEPS, SCENE_STEPS):
+        raise AssertionError(f"the scene launched K3 {k3_launches} and K4 {k4_launches} times")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the scene's loss did not fall: {losses}")
+    for k, v in leaves.items():
+        if not bool(torch.isfinite(v.grad).all()) or float(v.grad.abs().max()) == 0.0:
+            raise AssertionError(f"the scene's {k} gradient is not finite and non-zero")
+    del leaves, img, target, opt
+
+    # K3 and K4 (exit rule) vs plain on a 64x64 window of the view.
+    view = exact.exact_view(camera, scene.params, device=dev)
+    lo = (SCENE_RAYS - SUBSET) // 2
+    sub = view.ray_pack.reshape(8, SCENE_RAYS, SCENE_RAYS)[:, lo:lo + SUBSET, lo:lo + SUBSET]
+    win = dataclasses.replace(view, ray_pack=sub.reshape(8, -1).contiguous(), width=SUBSET)
+    slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    tf = scene.tf
+
+    def fwd(volume, v, counts=None):
+        kw = {} if counts is None else dict(samples=counts[0], used=counts[1])
+        args = (volume[None], slot, v.brick_boxes, tf, v.ray_pack,
+                torch.zeros((v.n_rays, 4), device=dev), v.eye, v.params)
+        return args, kw
+
+    counts = [(torch.zeros(win.n_rays, dtype=torch.int32, device=dev),
+               torch.zeros(1, dtype=torch.int32, device=dev)) for _ in range(2)]
+    args, kw = fwd(gt, win, counts[0])
+    out_w = exact.march_exact(*args, max_steps=win.max_steps, width=win.width, **kw)
+    args, kw = fwd(gt, win, counts[1])
+    want_w = exact.march_exact_reference(*args, max_steps=win.max_steps, **kw)
+    torch.cuda.synchronize()
+    what = f"K3 on a {SUBSET}x{SUBSET} window of the scene's view"
+    k3_err = compare(out_w, want_w, what, exact_tol)
+    check_k3_counts((out_w, *counts[0]), (want_w, *counts[1]), what, SCENE_EXIT)
+
+    k4_err, exit_rays = 0.0, {}
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    g_w = torch.randn((win.n_rays, 4), generator=gen).to(dev)
+    for field in FIELDS:
+        if field == "random":
+            volume = torch.rand((SCENE_N,) * 3, generator=torch.Generator(device=dev)
+                                .manual_seed(0), device=dev)
+        else:
+            volume = field_volume(field, (SCENE_N,) * 3, seed=0, device=dev)
+        args, _ = fwd(volume, win)
+        out_f = exact.march_exact(*args, max_steps=win.max_steps, width=win.width)
+        got = exact.march_exact_backward(volume, tf, win, out_f, g_w)
+        want = exact.march_exact_backward_reference(volume, tf, win, out_f, g_w)
+        torch.cuda.synchronize()
+        exit_rays[field] = int((out_f[:, 3] > SCENE_EXIT).sum())
+        for name, a, b in zip(("d_volume", "d_tf"), got, want):
+            compare_grads(a, b, f"K4, exit rule, {field} field, {SUBSET}x{SUBSET} window: {name}",
+                          SCENE_EXIT, expect_zero=field == "top" and name == "d_volume")
+            k4_err = max(k4_err, float((a - b).abs().max()))
+        del volume, got, want
+    print(f"  rays of the {win.n_rays} that exit, by field: {exit_rays}")
+    if sum(exit_rays.values()) == 0:
+        raise AssertionError("no ray of the window exits: the exit rule was not exercised")
+
+    # K4 with the exit on against the same view with it off, over the truth.
+    off = dataclasses.replace(view, params=dataclasses.replace(view.params, early_exit=1.1))
+    g = torch.randn((view.n_rays, 4), generator=torch.Generator().manual_seed(1)).to(dev)
+    times, samples = {}, {}
+    for name, v in (("on", view), ("off", off)):
+        n_samples = torch.zeros(v.n_rays, dtype=torch.int32, device=dev)
+        args, _ = fwd(gt, v)
+        out_v = exact.march_exact(*args, max_steps=v.max_steps, width=v.width, samples=n_samples)
+        samples[name] = int(n_samples.sum())
+        times[name] = cuda_ms(lambda: exact.march_exact_backward(gt, tf, v, out_v, g), reps=5,
+                              warmup=1)
+    # K4's bound as phase 13's: the volume read and d_volume written, the ray
+    # pack, out and g, the TF and d_tf; the samples K3 composited.
+    k4_on_bound = bound(bytes_=2 * gt.numel() * 4 + view.n_rays * 16 * 4 + 2 * TF_BYTES,
+                        ops=samples["on"] * K4_OPS_PER_SAMPLE["trilinear"])
+    print(f"K4 on the scene's view ({SCENE_RAYS}^2 rays over the {SCENE_N}^3 truth, TF gradient on): "
+          f"exit on {times['on']:.4f} ms over {samples['on']} samples (bound "
+          f"{k4_on_bound[0]:.4f} ms, {k4_on_bound[1]}), exit off {times['off']:.4f} ms over "
+          f"{samples['off']} samples {card}")
+
+    # The 16^3 / 24^2 test scene, card vs CPU.
+    small = smooth_volume(16, seed=7, device="cpu")
+    small_params = RenderParams(n_samples_per_ray=32, data_source_range=(0.0, 1.0),
+                                filter_mode="trilinear")
+    cam_small = build_camera(24, 24, (0.2, 0.1, 1.4), (0.0, 0.0, 0.0))[0]
+    results = []
+    for d in (dev, "cpu"):
+        s = VolumeScene.from_volume(small, params=small_params, device=d)
+        lv = {k: v.clone().requires_grad_() for k, v in s.parameters.items()}
+        out = s.with_parameters(lv).render(cam_small)
+        out.square().mean().backward()
+        results.append((out.detach().cpu(), lv["density"].grad.cpu(), lv["tf"].grad.cpu()))
+    (img_c, *grads_c), (img_p, *grads_p) = results
+    compare(img_c, img_p, "VolumeScene 16^3 / 24^2, card vs CPU: image", exact_tol)
+    for name, a, b in zip(("d_density", "d_tf"), grads_c, grads_p):
+        compare_grads(a, b, f"VolumeScene 16^3 / 24^2, card vs CPU: {name}", SCENE_EXIT)
+    return dict(k3_launches=k3_launches, k4_launches=k4_launches, k3_err=k3_err,
+                k4_err=k4_err, k4_on_ms=times["on"], k4_off_ms=times["off"],
+                k4_on_bound=k4_on_bound, step_ms=step_ms)
+
+
+def phase_scripts(card):
+    """23. The benchmark scripts (``libre_tpu_torch/benchmarks``), each
+    ``python -m`` in a process of its own (``SCRIPT_RUNS``), each with its
+    wall time.  Each script holds one call of every kernel it runs against
+    its plain version on the same inputs, and exits non-zero past the
+    kernel's bound; its output's last two lines give those checks' largest
+    errors and its render kernels' launch counts (the checks' launches not
+    counted), and a kernel it launched must have been checked.
+    ``demo_out_of_core`` writes into a temporary directory, and its record
+    must have the reference's keys.  Returns the summed launch counts and
+    the largest errors, by kernel."""
+    from libre_tpu_torch.benchmarks import demo_out_of_core
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    totals, errors = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for module, argv in SCRIPT_RUNS:
+            if module == "demo_out_of_core":
+                record = os.path.join(tmp, "ooc_run.json")
+                argv = argv + ["--store", os.path.join(tmp, "ooc.lod"), "--out", record]
+                print(f"demo_out_of_core cut from its default 1024^3 to: {' '.join(argv[:6])}")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", f"libre_tpu_torch.benchmarks.{module}",
+                                   *argv], cwd=root, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.perf_counter() - t0
+            print(f"{module} {' '.join(argv)}: exit {proc.returncode}, {wall:.1f} s wall {card}")
+            for line in (proc.stderr.strip().splitlines()[-8:]
+                         + proc.stdout.strip().splitlines()[-12:]):
+                print(f"  | {line}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"{module} exited {proc.returncode}")
+            err_line, last = proc.stdout.strip().splitlines()[-2:]
+            if not (err_line.startswith("max_abs_err ") and last.startswith("launches ")):
+                raise AssertionError(f"{module}: no checks' errors and launch counts at its end")
+            checked = json.loads(err_line[len("max_abs_err "):])
+            for kernel, n in json.loads(last[len("launches "):]).items():
+                if n and kernel not in checked:
+                    raise AssertionError(f"{module} launched {kernel} and never checked it")
+                totals[kernel] = totals.get(kernel, 0) + n
+            for kernel, err in checked.items():
+                errors[kernel] = max(errors.get(kernel, 0.0), err)
+            if module == "demo_out_of_core":
+                with open(record) as f:
+                    rec = json.load(f)
+                if set(rec) != set(demo_out_of_core.RECORD_KEYS) or any(
+                        set(rec[k]) != set(demo_out_of_core.RUN_KEYS)
+                        for k in ("incore", "out_of_core")):
+                    raise AssertionError(f"demo_out_of_core's record has keys {sorted(rec)}")
+    print(f"  the scripts' kernel launches: {totals}; their checks' max|kernel - plain|: "
+          f"{errors}")
+    for kernel in ("post_sweep", "store_grid_bwd", "exact_march", "exact_march_bwd"):
+        if totals.get(kernel, 0) == 0:
+            raise AssertionError(f"the scripts launched no {kernel}")
+    return totals, errors
+
+
+def phase_entry(dev, card, exact_tol):
+    """24. ``entry()`` on the card: its ``fn`` on its example inputs (K3
+    once; the count set to 0 before and read after), held against the
+    plain march on the same inputs on the CPU, and timed."""
+    import torch
+
+    from libre_tpu_torch.entry import entry
+    from libre_tpu_torch.ops import exact
+
+    fn, args = entry()
+    torch.cuda.synchronize()
+    exact.march_exact.launches = 0
+    img = fn(*args)
+    torch.cuda.synchronize()
+    launches = exact.march_exact.launches
+    if launches != 1 or tuple(img.shape) != (128, 128, 4):
+        raise AssertionError(f"entry(): {launches} K3 launches, image {tuple(img.shape)}")
+    fn_p, args_p = entry(device="cpu")
+    err = compare(img.cpu(), fn_p(*args_p), "entry() on the card vs the plain march", exact_tol)
+    ms = cuda_ms(lambda: fn(*args), reps=10)
+    print(f"entry(): 32^3, 128x128 rays, 128 samples per ray: {ms:.4f} ms per call {card}")
+    return launches, err
+
+
 def main() -> int:
     import torch
 
+    from libre_tpu_torch.utils.profiling import StageTimers
+
     # ---------------------------------------------------------- 1. the card
     t_last = [time.perf_counter()]
+    timers = StageTimers()  # each phase's seconds, reported at the end
 
-    def phase_done(n):
+    def phase_done(n, quiet=False):
         now = time.perf_counter()
-        print(f"phase {n}: {now - t_last[0]:.1f} s")
+        if not quiet:
+            print(f"phase {n}: {now - t_last[0]:.1f} s")
+        timers.totals[f"phase {n:02d}"] += now - t_last[0]
+        timers.counts[f"phase {n:02d}"] += 1
         t_last[0] = now
 
     if not torch.cuda.is_available():
@@ -2064,7 +2457,7 @@ def main() -> int:
     k3_train_bound = k3_bound_of(samples0, used0, p_vol.numel() * 4, 1, v0.n_rays,
                                  train_params.filter_mode, True)
     rate("K3 on exact training view 0", k3_view_ms, n_view, k3_train_bound[0], card)
-    sites.append(("K3", "RenderExactDiff forward (exact training)", ex_fwd_launches,
+    sites.append(("K3", "render_exact_diff forward (exact training)", ex_fwd_launches,
                   k3_view_ms, k3_train_bound))
     # The same view over the 512^3 smooth ground truth with the default TF
     # (the bins move every few samples along each ray), kernel vs plain;
@@ -2467,10 +2860,28 @@ def main() -> int:
     phase_done(17)
     # ---------------- 18. out of core and asynchronous, at 1024^3 (its own timers)
     ooc_sites, ooc_launches, ooc_err = phase_out_of_core(dev, card)
+    phase_done(18, quiet=True)
     # ----------------------- 19. the gather probes P1-P17 (their own timers)
     probe_entries = phase_probes(dev, card)
+    phase_done(19, quiet=True)
     # ------------------------------------- 20. the render service (its own timers)
     serve_k1, serve_k3 = phase_serve(dev, card)
+    phase_done(20, quiet=True)
+    # ------------------------------------- 21. the dense trainer at full width
+    phase_dense_trainer(dev, card)
+    phase_done(21)
+    # ------------------------------------------- 22. VolumeScene at full width
+    scene = phase_scene(dev, card, exact_tol)
+    phase_done(22)
+    # -------------------------------------------- 23. the benchmark scripts
+    scripts, script_errs = phase_scripts(card)
+    phase_done(23)
+    # --------------------------------------------------------- 24. entry()
+    entry_k3, entry_err = phase_entry(dev, card, exact_tol)
+    phase_done(24)
+    print("phase seconds (utils.profiling.StageTimers):")
+    for line in timers.report().splitlines():
+        print(f"  {line}")
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "libre_tpu")]
     if loaded:
@@ -2481,7 +2892,9 @@ def main() -> int:
     sites += [
         ("K2", "RenderStoreGridDiff backward (store training)", train_bwd_launches, bwd_ms,
          k2_bound),
-        ("K4", "RenderExactDiff backward (exact training)", ex_bwd_launches, k4_ms, k4_bound),
+        ("K4", "render_exact_diff backward (exact training)", ex_bwd_launches, k4_ms, k4_bound),
+        ("K4", "RenderMarcherDiff backward (VolumeScene, exit on)", scene["k4_launches"],
+         scene["k4_on_ms"], scene["k4_on_bound"]),
         ("K5", "render_frame, render_cli and orbit frames", dense_launches, k5_ms, k5_bound),
     ] + ooc_sites
     print(f"launch sites on the main paths: launches, ms per launch on the site's operands, "
@@ -2500,8 +2913,9 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/post_sweep.cu",
             "replaces": "libre_tpu/ops/shearwarp_bricked.py:78",
-            "launches": launches + train_fwd_launches + ooc_launches + serve_k1,
-            "max_abs_err": max(max_err, ooc_err),
+            "launches": launches + train_fwd_launches + ooc_launches + serve_k1
+            + scripts["post_sweep"],
+            "max_abs_err": max(max_err, ooc_err, script_errs["post_sweep"]),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": k1_bound[0],
@@ -2513,8 +2927,8 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/store_grid_bwd.cu",
             "replaces": "libre_tpu/ops/shearwarp_grad.py:440",
-            "launches": render_bwd_launches + train_bwd_launches,
-            "max_abs_err": bwd_err,
+            "launches": render_bwd_launches + train_bwd_launches + scripts["store_grid_bwd"],
+            "max_abs_err": max(bwd_err, script_errs["store_grid_bwd"]),
             "ms": bwd_ms,
             "plain_ms": bwd_plain_ms,
             "bound_ms": k2_bound[0],
@@ -2526,8 +2940,10 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/exact_march.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:481",
-            "launches": exact_launches + ex_fwd_launches + serve_k3,
-            "max_abs_err": max(k3_err, k3_train_err),
+            "launches": exact_launches + ex_fwd_launches + serve_k3 + scene["k3_launches"]
+            + entry_k3 + scripts["exact_march"],
+            "max_abs_err": max(k3_err, k3_train_err, scene["k3_err"], entry_err,
+                               script_errs["exact_march"]),
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,
             "bound_ms": k3_bound[0],
@@ -2539,8 +2955,8 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/exact_march_bwd.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:1405",
-            "launches": ex_bwd_launches,
-            "max_abs_err": k4_err,
+            "launches": ex_bwd_launches + scene["k4_launches"] + scripts["exact_march_bwd"],
+            "max_abs_err": max(k4_err, scene["k4_err"], script_errs["exact_march_bwd"]),
             "ms": k4_ms,
             "plain_ms": k4_plain_ms,
             "bound_ms": k4_bound[0],

@@ -20,6 +20,11 @@ Implemented slices:
   ``render_cli`` → ``RenderEngine.render`` (synchronous multipass) → the
   exact per-ray march kernel (``csrc/exact_march.cu``) → image.
 
+The rest (the dense renderer, out of core, the exact and dense trainers,
+``models.VolumeScene``, the service and apps, the benchmark scripts,
+``entry``) is listed in the README's port section; ROADMAP.md says what is
+left (M9).
+
 Kernels are compiled with ``nvcc`` at first use (``ops/_kernels.py``); on
 a CPU tensor each kernel's wrapper runs its plain PyTorch version.
 """

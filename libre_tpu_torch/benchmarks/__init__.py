@@ -1,5 +1,10 @@
-"""The port's gather probes: the JAX package's ``benchmarks/probe_*.py``,
-module for module, on the hand-written kernels of ``ops/gather.py``.
+"""The port's benchmark scripts: the JAX package's gather probes
+``benchmarks/probe_*.py``, module for module, on the hand-written kernels
+of ``ops/gather.py``; and its throughput and demo scripts
+(``bench_forward``, ``probe_bwd_breakdown``, ``demo_inverse_render``,
+``demo_out_of_core``) on the port's render and training paths, each a
+``main(argv)`` that times with CUDA events and ends its output with the
+render kernels' launch counts.
 
 Each module keeps its reference's ``build_*`` names (``mk(axis)`` and
 ``f1``-``f3`` for the last two); each returns ``(fn, args, work)`` at the
@@ -20,4 +25,11 @@ MODULES = (
     "probe_gather_axis0",
     "probe_kernel_gather",
     "probe_pallas_gather",
+)
+# The throughput and demo scripts.
+SCRIPTS = (
+    "bench_forward",
+    "probe_bwd_breakdown",
+    "demo_inverse_render",
+    "demo_out_of_core",
 )

@@ -1,6 +1,6 @@
-// Recompute backward of the exact march (K3) over one f32 brick, early exit
-// off, for Hopper (sm_90a): the density and transfer-function gradients of
-// exact_march.cu's output for a cotangent g.
+// Recompute backward of the exact march (K3) over one f32 brick, for Hopper
+// (sm_90a): the density and transfer-function gradients of exact_march.cu's
+// output for a cotangent g, with the early exit off or on.
 //
 // Replaces the TPU kernel libre_tpu/ops/exact_pallas.py::
 // _make_exact_bwd_kernel (launched by _compiled_group_bwd from the custom VJP
@@ -22,6 +22,16 @@
 // the TF lerp (into bins i0 and i1), the gates 0 < density < 1 and
 // 0 < s_tf < 255, the data-range scale and the fetch's taps.  The gates are
 // strict, as the JAX kernel's.
+//
+// The early exit (early_exit <= 1, the kExit instance): K3 stops after the
+// sample at which its carried ca = ca + alpha (1 - ca) first exceeds
+// early_exit.  This kernel carries ca with K3's own expression and order (not
+// 1 - T, which rounds differently at the boundary), so it walks exactly the
+// samples K3 composited and stops where K3 stopped.  The inversion holds over
+// that truncated set, because out is its composite; the samples past the exit
+// get no gradient, as jax.grad gives through the JAX marcher's mask.  With
+// early_exit > 1 ca never exceeds it, and the kExit = false instance (the
+// exact trainer's) carries no ca.
 //
 // The TPU kernel bucketed samples into volume slabs, bounded a c-window and
 // transposed the gathers as one-hot matmuls because Mosaic has neither gather
@@ -55,7 +65,7 @@ using exact::kTfSize;
 using exact::kTileX;
 using exact::kTileY;
 
-template <bool kTrilinear>
+template <bool kTrilinear, bool kExit>
 __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
     const float* __restrict__ brick,     // (BZ, BY, BX)
     const float4* __restrict__ boxes,    // (1, 4) float4, raycast.BOX_FLOATS
@@ -67,7 +77,7 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
     float* __restrict__ d_tf,            // (256, 4), zeroed by the wrapper
     int diff_tf, int n_rays, int width, int bx, int by, int bz, int max_steps,
     float ex, float ey, float ez, float step, float mult, float add,
-    float corr) {
+    float corr, float early_exit) {
   __shared__ float4 s_tf[kTfSize];
   __shared__ float s_dtf[tfgrad::kTableFloats];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -81,7 +91,8 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int r = y * width + x;
   exact::Span span;
-  if (x < width && r < n_rays) {
+  // K3 composites nothing from a zero carry when 0 > early_exit.
+  if (x < width && r < n_rays && !(kExit && 0.0f > early_exit)) {
     const exact::Ray ray = exact::load_ray(rays, n_rays, r);
     if (exact::brick_span(ray, __ldg(boxes), __ldg(boxes + 1), ex, ey, ez, step,
                           max_steps, &span)) {
@@ -90,6 +101,7 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
       const float tot = gv.x * ov.x + gv.y * ov.y + gv.z * ov.z;
       const float t_fin = 1.0f - ov.w;
       float trans = 1.0f, prefix = 0.0f;
+      float ca = 0.0f;  // K3's carried alpha (kExit only)
       exact::for_each_sample(span, ray.tng, step, [&](float t) {
         const exact::Taps k =
             exact::taps_at<kTrilinear>(ray, t, ex, ey, ez, s, o, bx, by, bz);
@@ -140,6 +152,10 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
           }
         }
         trans = trans * (1.0f - alpha);
+        if (kExit) {
+          ca = ca + alpha * (1.0f - ca);  // exact_march.cu's composite
+          return ca > early_exit;
+        }
         return false;
       });
     }
@@ -158,7 +174,7 @@ extern "C" int exact_march_bwd(
     const void* out, const void* g, void* d_volume, void* d_tf,
     int trilinear, int diff_tf, int n_rays, int width, int bx, int by, int bz,
     int max_steps, float ex, float ey, float ez, float step, float mult,
-    float add, float corr, void* stream) {
+    float add, float corr, float early_exit, void* stream) {
   const dim3 block(kTileX, kTileY);
   const int height = (n_rays + width - 1) / width;
   const dim3 grid((width + kTileX - 1) / kTileX, (height + kTileY - 1) / kTileY);
@@ -167,11 +183,16 @@ extern "C" int exact_march_bwd(
   (const float*)brick, (const float4*)boxes, (const float4*)tf,                \
       (const float*)rays, (const float4*)out, (const float4*)g,                \
       (float*)d_volume, (float*)d_tf, diff_tf, n_rays, width, bx, by, bz,      \
-      max_steps, ex, ey, ez, step, mult, add, corr
-  if (trilinear)
-    exact_march_bwd_kernel<true><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
+      max_steps, ex, ey, ez, step, mult, add, corr, early_exit
+  const bool exit = early_exit <= 1.0f;
+  if (trilinear && exit)
+    exact_march_bwd_kernel<true, true><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
+  else if (trilinear)
+    exact_march_bwd_kernel<true, false><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
+  else if (exit)
+    exact_march_bwd_kernel<false, true><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
   else
-    exact_march_bwd_kernel<false><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
+    exact_march_bwd_kernel<false, false><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
 #undef EXACT_MARCH_BWD_ARGS
   return (int)cudaGetLastError();
 }

@@ -7,17 +7,22 @@ classified plane stack pad their two in-plane axes to multiples of 128
 strip that padding
 so the port and the JAX package can be fed the same state; the (256, 4)
 transfer function and the exact trainer's (Z, Y, X) density need no
-conversion.  Results are writable copies, so
+conversion (the scene's one brick drops its leading axis).  Results
+are writable copies, so
 ``torch.from_numpy`` can take them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
 
+from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops import shearwarp_bricked as swb
+from libre_tpu_torch.ops.reference import RenderParams
+from libre_tpu_torch.train.shearwarp_trainer import ShearWarpProblem
 from libre_tpu_torch.train.store_trainer import StoreProblem
 
 
@@ -115,3 +120,53 @@ def store_problem_from_jax(problem) -> StoreProblem:
         axis=problem.axis,
         diff_tf=problem.diff_tf,
     )
+
+
+def render_params_from_jax(params) -> RenderParams:
+    """The JAX package's ``RenderParams`` → the port's (its ``remat``,
+    an XLA rematerialisation switch, dropped)."""
+    return RenderParams(**{
+        f.name: getattr(params, f.name) for f in dataclasses.fields(RenderParams)
+    })
+
+
+def shearwarp_problem_from_jax(problem) -> ShearWarpProblem:
+    """The JAX package's ``ShearWarpProblem`` → the port's: the per-view
+    plans (numpy copies), the world box and the params."""
+    swp = problem.swp
+    return ShearWarpProblem(
+        plans=tuple(
+            sw.ShearWarpPlan(
+                axis=int(p.axis),
+                sign=float(p.sign),
+                bounds=tuple(float(b) for b in p.bounds),
+                eye=np.array(np.asarray(p.eye), np.float32),
+                u=np.array(np.asarray(p.u), np.float32),
+                v=np.array(np.asarray(p.v), np.float32),
+                valid=np.array(np.asarray(p.valid)),
+            )
+            for p in problem.plans
+        ),
+        world_min=np.array(np.asarray(problem.world_min), np.float32),
+        world_max=np.array(np.asarray(problem.world_max), np.float32),
+        params=render_params_from_jax(problem.params),
+        swp=sw.ShearWarpParams(
+            n_planes=swp.n_planes,
+            inter_size=tuple(swp.inter_size),
+            slope_margin=swp.slope_margin,
+            classification=swp.classification,
+            compute_dtype=swp.compute_dtype,
+        ),
+    )
+
+
+def scene_params_from_jax(params: Dict) -> Dict[str, np.ndarray]:
+    """{"density": (1, Z, Y, X), "tf": (T, 4)} of the JAX package's
+    ``VolumeScene.parameters`` (its one brick's data) → the port's
+    {"density": (Z, Y, X), "tf": (T, 4)}, numpy copies."""
+    density = np.asarray(params["density"], np.float32)
+    if density.ndim != 4 or density.shape[0] != 1:
+        raise ValueError(
+            f"scene_params_from_jax: needs one brick (1, Z, Y, X), got {density.shape}"
+        )
+    return {"density": np.array(density[0]), "tf": np.array(np.asarray(params["tf"]), np.float32)}

@@ -14,6 +14,10 @@ the same operands and result.  The engine's ``render`` (the ``xla`` and
 one :class:`ExactView`: forward K3, backward :func:`march_exact_backward`
 (K4 on a CUDA tensor, ``march_exact_backward_reference`` on a CPU one),
 with the early exit off (the exact trainer's semantics).
+:func:`render_marcher_diff` is the same render with any early exit: the
+counterpart of ``jax.grad`` of the JAX marcher ``raycast.render`` over
+one brick (``models.VolumeScene``); K4 then walks only the samples K3
+composited.
 
 Of the JAX package's planning (``plan_exact``) only what fixes the sample
 grid and the per-brick box is kept: ``raycast.ray_pack`` and
@@ -48,10 +52,10 @@ from libre_tpu_torch.ops.reference import (
 from libre_tpu_torch.ops.transfer_function import TF_SIZE
 
 __all__ = [
-    "ATLAS_DTYPES", "ExactView", "RenderExactDiff", "exact_view", "march_exact",
-    "march_exact_backward", "march_exact_backward_reference",
+    "ATLAS_DTYPES", "ExactView", "RenderMarcherDiff", "exact_view",
+    "march_exact", "march_exact_backward", "march_exact_backward_reference",
     "march_exact_reference", "render_exact", "render_exact_diff",
-    "render_exact_rays",
+    "render_exact_rays", "render_marcher_diff",
 ]
 
 # Atlas dtypes the kernel reads in place, by its dtype code.
@@ -167,8 +171,10 @@ def march_exact_backward(
     *,
     diff_tf: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Recompute backward of :func:`render_exact_diff`'s forward, early
-    exit off → (d_volume (Z, Y, X), d_tf (256, 4)).
+    """Recompute backward of :func:`render_marcher_diff`'s forward (and
+    :func:`render_exact_diff`'s) → (d_volume (Z, Y, X), d_tf (256, 4)),
+    with the early exit of ``view.params``: on (≤ 1), only the samples the
+    forward composited take part.
 
     Operands and result as :func:`march_exact_backward_reference`: the
     (Z, Y, X) f32 volume filling ``view``'s box, the TF, the forward's
@@ -187,7 +193,6 @@ def march_exact_backward(
         raise ValueError(f"{who}: needs a (Z, Y, X) volume, got {tuple(volume_zyx.shape)}")
     boxes, rays, params = view.brick_boxes, view.ray_pack, view.params
     _check_operands(who, volume_zyx[None], None, boxes, tf, rays, params, {"out": out, "g": g})
-    _require_no_early_exit(who, params)
     if volume_zyx.device.type == "cpu":
         return march_exact_backward_reference(volume_zyx, tf, view, out, g, diff_tf=diff_tf)
     if volume_zyx.device.type != "cuda":
@@ -209,7 +214,7 @@ def march_exact_backward(
             volume_zyx, boxes, tf, rays, out, g, d_volume, d_tf,
             int(params.filter_mode == "trilinear"), int(diff_tf), n_rays, int(view.width),
             bx, by, bz, int(view.max_steps), ex, ey, ez, params.step_size,
-            1.0 / (hi - lo), -lo / (hi - lo), params.alpha_correction,
+            1.0 / (hi - lo), -lo / (hi - lo), params.alpha_correction, params.early_exit,
         )
     march_exact_backward.launches += 1
     return d_volume, d_tf
@@ -294,11 +299,11 @@ def _march_view(volume_zyx, tf, view: ExactView, carry) -> torch.Tensor:
     )
 
 
-class RenderExactDiff(torch.autograd.Function):
+class RenderMarcherDiff(torch.autograd.Function):
     """Forward: K3 from a zero carry; backward: K4 (or their plain
-    versions on the CPU), accumulating the TF gradient only when the TF
-    needs one.  Saves (volume, tf, out), as the JAX package's
-    ``_red_fwd``."""
+    versions on the CPU), with the view's early exit, accumulating the TF
+    gradient only when the TF needs one.  Saves (volume, tf, out), as the
+    JAX package's ``_red_fwd``."""
 
     @staticmethod
     def forward(ctx, volume_zyx, tf, view: ExactView):
@@ -320,19 +325,34 @@ class RenderExactDiff(torch.autograd.Function):
         return d_volume, (d_tf if diff_tf else None), None
 
 
-def render_exact_diff(volume_zyx: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:
-    """Differentiable exact render of one (Z, Y, X) f32 brick filling the
-    view's box → (R, 4) rgba, with gradients for the volume and the
-    (256, 4) TF.  Requires ``view.params.early_exit > 1`` (the trainer's
-    semantics: the composite inversion needs every sample composited).
-    Every ray direction is served: there is no fallback to refuse."""
-    _require_no_early_exit("render_exact_diff", view.params)
+def render_marcher_diff(volume_zyx: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:
+    """Differentiable render of one (Z, Y, X) f32 brick filling the view's
+    box → (R, 4) rgba, with any early exit (``view.params.early_exit``):
+    the counterpart of ``jax.grad`` of the JAX marcher ``raycast.render``
+    over a single brick.  Forward K3 from a zero carry, backward K4 with
+    the exit rule (their plain versions on the CPU); a sample past the
+    exit gets no gradient.  A (B, Z, Y, X) set of more than one brick
+    raises: multi-brick exact gradients are out of scope."""
+    if volume_zyx.dim() == 4 and volume_zyx.shape[0] > 1:
+        raise NotImplementedError(
+            f"render_marcher_diff: {volume_zyx.shape[0]} bricks; multi-brick exact "
+            f"gradients are out of scope (ROADMAP)"
+        )
     if volume_zyx.dtype != torch.float32 or volume_zyx.dim() != 3:
         raise TypeError(
-            f"render_exact_diff: needs a (Z, Y, X) float32 volume, got "
+            f"render_marcher_diff: needs a (Z, Y, X) float32 volume, got "
             f"{tuple(volume_zyx.shape)} {volume_zyx.dtype}"
         )
-    return RenderExactDiff.apply(volume_zyx, tf, view)
+    return RenderMarcherDiff.apply(volume_zyx, tf, view)
+
+
+def render_exact_diff(volume_zyx: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:
+    """:func:`render_marcher_diff` for the exact trainer: requires
+    ``view.params.early_exit > 1`` (the composite inversion of the JAX
+    package's ``render_exact_diff`` needs every sample composited).
+    Every ray direction is served: there is no fallback to refuse."""
+    _require_no_early_exit("render_exact_diff", view.params)
+    return render_marcher_diff(volume_zyx, tf, view)
 
 
 def render_exact_rays(

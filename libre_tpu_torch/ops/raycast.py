@@ -419,8 +419,8 @@ def march_exact_backward_reference(
     *,
     diff_tf: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch recompute backward of a one-brick exact march with
-    the early exit off: the specification of K4.
+    """Plain PyTorch recompute backward of a one-brick exact march: the
+    specification of K4.
 
     ``volume_zyx`` (Z, Y, X) f32 fills the box of ``view`` (an
     ``exact.ExactView``: its ray pack, one-row brick boxes, eye, params and
@@ -437,7 +437,15 @@ def march_exact_backward_reference(
     dα = T·D − (TOT − P)/(1 − α) + g_a·T_fin/(1 − α).  Then through the
     opacity correction and the alpha-clamp gate, the TF lerp (into bins
     i0 and i1), the gates 0 < density < 1 and 0 < s_tf < 255 (strict, as
-    the JAX kernel's), the data-range scale and the fetch's taps.  ``d_tf``
+    the JAX kernel's), the data-range scale and the fetch's taps.
+
+    With the early exit on (``view.params.early_exit`` ≤ 1) only the
+    samples the forward composited take part: the walk carries the
+    accumulated alpha as :func:`march_exact_reference` does
+    (``_composite_chunk``'s closed form over the same chunks) and drops
+    the samples its mask drops, so the inversion runs over the truncated
+    set ``out`` composited, and the samples past the exit get no gradient
+    (as ``jax.grad`` gives through the JAX marcher's mask).  ``d_tf``
     is summed in float64 and returned in ``tf``'s dtype: a training view
     puts tens of millions of samples into TF texel 0 alone: summed in f32,
     the plain version's own rounding would be the largest error a
@@ -454,6 +462,7 @@ def march_exact_backward_reference(
     box = view.brick_boxes.cpu()[0]
     d_flat = torch.zeros_like(brick_flat)
     d_tf = torch.zeros(tf.shape, dtype=torch.float64, device=tf.device)
+    early_exit = float(params.early_exit) <= 1.0
 
     for r0 in range(0, out.shape[0], RAY_BLOCK):
         sl = slice(r0, r0 + RAY_BLOCK)
@@ -463,6 +472,8 @@ def march_exact_backward_reference(
         t_fin = (1.0 - o[:, 3])[:, None]
         trans = torch.ones_like(tot)
         prefix = torch.zeros_like(tot)
+        # The forward's accumulated alpha, for the exit rule.
+        acc = torch.zeros_like(tot[:, 0])
         for valid, tex_x, tex_y, tex_z in _brick_samples(
             view.ray_pack[:, sl], view.eye, box, params.step_size, view.max_steps
         ):
@@ -472,6 +483,13 @@ def march_exact_backward_reference(
             c0, c1 = tf[i0], tf[i1]  # (R, C, 4)
             c = c0 * (1.0 - wt)[..., None] + c1 * wt[..., None]
             a_cl = torch.clamp(c[..., 3], max=ALPHA_CLAMP)
+            if early_exit:
+                a_fwd = 1.0 - torch.pow(1.0 - a_cl, corr)
+                zero = torch.zeros_like(acc)
+                (_r, _g, _b, acc), valid = _composite_chunk(
+                    (zero, zero, zero, acc), zero[:, None], zero[:, None], zero[:, None],
+                    a_fwd, valid, params.early_exit,
+                )
             alpha = (1.0 - torch.pow(1.0 - a_cl, corr)) * valid
             one_m = 1.0 - alpha
             t_at = trans * _exclusive_cumprod(one_m)

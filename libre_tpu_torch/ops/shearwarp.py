@@ -459,3 +459,105 @@ def warp_frame_device(
     top = g[..., 0:4] * (1 - wu) + g[..., 4:8] * wu
     bot = g[..., 8:12] * (1 - wu) + g[..., 12:16] * wu
     return (top * (1 - wv) + bot * wv) * valid[..., None]
+
+
+# ================================================================= oracle
+def plane_oracle(
+    volume_zyx: torch.Tensor,
+    tf: torch.Tensor,
+    eye: np.ndarray,
+    axis: int,
+    sign: float,
+    slopes_uv: Tuple[torch.Tensor, torch.Tensor],  # (R,), (R,) slope rays
+    world_min,
+    world_max,
+    params: RenderParams,
+    n_planes: int,
+    classification: str = "pre",
+    clip_planes_world=None,
+    sentinel_mask: bool = False,
+) -> torch.Tensor:
+    """Gather-based marcher over the sample set of
+    :func:`render_slope_grid` (each slope ray's points on the K axis
+    planes, trilinear, the same opacity correction and early exit) →
+    (R, 4), on ``volume_zyx``'s device.  Slow; the exactness oracle of
+    the matrix pipeline and of the sweeps, differentiable by autograd.
+    Nothing on a render path calls it.
+
+    ``clip_planes_world``: optional (N, 4) rows [nx, ny, nz, d]; samples
+    where n·x + d < 0 are dropped (the per-sample form of the
+    fragRaycast.glsl:162-174 ray-interval clamp, equal for convex sets).
+    ``sentinel_mask``: in "post" mode, drop samples whose interpolated
+    density is < −0.5 (the bricked path's uncovered-voxel SENTINEL)."""
+    from libre_tpu_torch.ops.reference import sample_density
+
+    dev = volume_zyx.device
+    f32 = torch.float32
+    wmin = np.asarray(world_min, np.float32)
+    wmax = np.asarray(world_max, np.float32)
+    eye = np.asarray(eye, np.float32)
+    b_axis, c_axis = _BC_AXES[axis]
+    u, v = (torch.as_tensor(s, dtype=f32, device=dev) for s in slopes_uv)
+    K = n_planes
+    wa0, wa1 = float(wmin[axis]), float(wmax[axis])
+    dz = (wa1 - wa0) / K
+    j = torch.arange(K, dtype=f32, device=dev)
+    z = wa0 + (j + 0.5) * dz if sign > 0 else wa1 - (j + 0.5) * dz  # (K,)
+
+    if classification == "pre":
+        rgba_vol = torch.stack(
+            precompute_classified_volume(volume_zyx, tf, params.data_source_range), dim=-1
+        )  # (Z, Y, X, 4)
+    else:
+        lo, hi = params.data_source_range
+        dens_vol = (volume_zyx.to(f32) - lo) / (hi - lo)
+
+    length = torch.sqrt(1.0 + u ** 2 + v ** 2)  # (R,)
+    corr = params.max_samples_per_ray * dz * length
+
+    delta = z[None, :] - float(eye[axis])  # (1, K)
+    pb = float(eye[b_axis]) + u[:, None] * delta  # (R, K)
+    pc = float(eye[c_axis]) + v[:, None] * delta
+
+    inside = (
+        (pb >= float(wmin[b_axis])) & (pb < float(wmax[b_axis]))
+        & (pc >= float(wmin[c_axis])) & (pc < float(wmax[c_axis]))
+    )
+    if clip_planes_world is not None and len(clip_planes_world):
+        pa = torch.broadcast_to(z[None, :], pb.shape)
+        world = {axis: pa, b_axis: pb, c_axis: pc}
+        for row in np.asarray(clip_planes_world, np.float32).reshape(-1, 4):
+            nx, ny, nz, d = (float(x) for x in row)
+            inside = inside & (nx * world[0] + ny * world[1] + nz * world[2] + d >= 0.0)
+
+    # world → tex (whole volume, no padding); world axes (0, 1, 2) = (x, y, z).
+    def tex(p, lo, hi):
+        return (p - lo) / (hi - lo)
+
+    coords = {
+        axis: torch.broadcast_to(tex(z, wa0, wa1)[None, :], pb.shape),
+        b_axis: tex(pb, float(wmin[b_axis]), float(wmax[b_axis])),
+        c_axis: tex(pc, float(wmin[c_axis]), float(wmax[c_axis])),
+    }
+    tex_pos = torch.stack([coords[0], coords[1], coords[2]], dim=-1)
+
+    if classification == "pre":
+        rgba = torch.stack(
+            [sample_density(rgba_vol[..., ch], tex_pos, "trilinear") for ch in range(4)],
+            dim=-1,
+        )  # (R, K, 4)
+    else:
+        dens = sample_density(dens_vol, tex_pos, "trilinear")  # (R, K)
+        rgba = lookup(tf, dens)  # outside masked through a_v below
+        if sentinel_mask:
+            inside = inside & (dens > -0.5)
+
+    a_corr = 1.0 - torch.pow(1.0 - torch.clamp(rgba[..., 3], max=ALPHA_CLAMP), corr[:, None])
+    a_v = a_corr * inside.to(f32)
+    t_excl_u = _exclusive_cumprod(1.0 - a_v, dim=1)
+    m = ((1.0 - t_excl_u) <= params.early_exit).to(f32)
+    a_eff = a_v * m
+    w = a_eff * _exclusive_cumprod(1.0 - a_eff, dim=1)
+    out_rgb = torch.einsum("rk,rkc->rc", w, rgba[..., :3])
+    out_a = 1.0 - torch.prod(1.0 - a_eff, dim=1)
+    return torch.cat([out_rgb, out_a[:, None]], dim=-1)

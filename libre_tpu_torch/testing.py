@@ -1,5 +1,6 @@
-"""Seeded operands and tolerances for holding the port's kernels against
-their plain PyTorch versions (``chip_smoke.py`` and the CUDA tests)."""
+"""Seeded operands, tolerances and the checks that apply them, for
+holding the port's kernels against their plain PyTorch versions
+(``chip_smoke.py``, the benchmark scripts and the CUDA tests)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,51 @@ KERNEL_TOL_MEAN = 1e-5  # powf vs torch.pow rounding
 GRAD_TOL_MAX = 1e-3
 GRAD_TOL_MAX_EARLY_EXIT = 1e-2
 GRAD_TOL_MEAN_EARLY_EXIT = 1e-5
+
+
+def compare(got, want, what, tol=None):
+    """(max, mean) |got − want|; raises past ``tol`` = (max, mean), by
+    default the sweep kernel's tolerances."""
+    tol_max, tol_mean = tol or (KERNEL_TOL_MAX, KERNEL_TOL_MEAN)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    err = (got - want).abs()
+    mx, mean = float(err.max()), float(err.mean())
+    print(f"{what}: max|d| {mx:.3e} mean|d| {mean:.3e}")
+    if mx > tol_max or mean > tol_mean:
+        raise AssertionError(
+            f"{what}: kernel disagrees with plain (max {mx}, mean {mean})"
+        )
+    return mx
+
+
+def compare_grads(got, want, what, early_exit, tol_max=None, expect_zero=False):
+    """Normalised (max, mean) |got − want| / max |want|; raises past the
+    backward kernels' tolerances (``tol_max``: the max with the early
+    exit off, by default K2's).  With ``expect_zero`` (K4's density
+    gradient on the "top" field: every sample past the density gate) both
+    must be exactly zero; otherwise a zero plain gradient raises."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    scale = float(want.abs().max())
+    if expect_zero:
+        mx = float(got.abs().max())
+        print(f"{what}: expected zero, max|kernel| {mx:.3e}, max|plain| {scale:.3e}")
+        if mx != 0.0 or scale != 0.0:
+            raise AssertionError(f"{what}: gradient not zero (kernel {mx}, plain {scale})")
+        return 0.0
+    if scale == 0.0:
+        raise AssertionError(f"{what}: the plain gradient is zero")
+    err = (got - want).abs() / scale
+    mx, mean = float(err.max()), float(err.mean())
+    print(f"{what}: max|d|/max|plain| {mx:.3e} mean {mean:.3e} (max|plain| {scale:.3e})")
+    if early_exit < 1.0:
+        bad = mx > GRAD_TOL_MAX_EARLY_EXIT or mean > GRAD_TOL_MEAN_EARLY_EXIT
+    else:
+        bad = mx > (GRAD_TOL_MAX if tol_max is None else tol_max)
+    if bad:
+        raise AssertionError(f"{what}: kernel disagrees with plain ({mx}, {mean})")
+    return mx
 
 
 # The seeded sweep views, by name: (eye_a, eb, ec, sign, slope bounds
@@ -302,7 +348,9 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
 
 
 # The exact backward K4 vs its plain version, each gradient normalised by
-# the plain one's max |·|, early exit off.  Both visit the same samples
+# the plain one's max |·|, early exit off (on: GRAD_TOL_MAX_EARLY_EXIT and
+# GRAD_TOL_MEAN_EARLY_EXIT, as K2's, since the plain K4 stops where the
+# plain K3's closed-form mask stops, a sample apart from K3 on a few rays).  Both visit the same samples
 # with the same values (exact_sample.cuh, --fmad=false); the kernel
 # composites serially and adds with float atomics in a run-dependent order,
 # the plain version takes closed-form cumulative products and sums, so
@@ -348,17 +396,19 @@ def _exact_scene_view(case, device, **params):
     )
 
 
-def exact_grad_case(case, seed, device, *, filter_mode="trilinear", field="random"):
+def exact_grad_case(case, seed, device, *, filter_mode="trilinear", field="random",
+                    early_exit=1.1):
     """Seeded K4 operands over scene ``case`` of ``EXACT_SCENES``: an f32
     volume (uniform random, or ``field_volume(field)`` for the other
-    ``FIELDS``), the default TF, the early exit off; ``g`` is a standard
-    normal cotangent and ``out`` the forward (``march_exact``, so K3 on a
-    CUDA device)."""
+    ``FIELDS``), the default TF, the early exit off (or ``early_exit``);
+    ``g`` is a standard normal cotangent and ``out`` the forward
+    (``march_exact``, so K3 on a CUDA device)."""
     if case not in EXACT_SCENES:
         raise ValueError(f"exact_grad_case: unknown case {case!r}")
     rng = np.random.default_rng(seed)
     view = _exact_scene_view(
-        case, device, data_source_range=(0.0, 1.0), filter_mode=filter_mode, early_exit=1.1
+        case, device, data_source_range=(0.0, 1.0), filter_mode=filter_mode,
+        early_exit=early_exit,
     )
     shape = EXACT_SCENES[case][0]
     # Drawn for every field, so that g is the same for all of them.
@@ -367,7 +417,7 @@ def exact_grad_case(case, seed, device, *, filter_mode="trilinear", field="rando
         volume = field_volume(field, shape, seed, device)
     tf = torch.from_numpy(default_color_map()).to(device)
     with torch.no_grad():
-        out = exact.render_exact_diff(volume, tf, view)
+        out = exact.render_marcher_diff(volume, tf, view)
     g = torch.from_numpy(rng.standard_normal((view.n_rays, 4)).astype(np.float32)).to(device)
     return ExactGradCase(volume, tf, view, out, g)
 

@@ -1,10 +1,17 @@
 """Inverse-rendering training (``libre_tpu.train``): optimize voxel
 densities and the transfer function from target images, through the
 differentiable store core (``store_trainer``: ``fit``) or the exact
-marcher (``trainer``: ``init_exact_state``, ``make_exact_train_step``).
-The sharded trainers are ROADMAP M9."""
+marcher (``trainer``: ``init_exact_state``, ``make_exact_train_step``),
+or a dense grid through the plain shear-warp pipeline
+(``shearwarp_trainer``: ``ShearWarpProblem``, ``fit_shearwarp``).  The
+sharded trainers are ROADMAP M9."""
 
 from libre_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from libre_tpu_torch.train.shearwarp_trainer import (
+    ShearWarpProblem,
+    fit as fit_shearwarp,
+    make_train_step as make_shearwarp_train_step,
+)
 from libre_tpu_torch.train.store_trainer import (
     StoreProblem,
     fit,
@@ -17,6 +24,9 @@ from libre_tpu_torch.train.trainer import (
 )
 
 __all__ = [
+    "ShearWarpProblem",
+    "make_shearwarp_train_step",
+    "fit_shearwarp",
     "StoreProblem",
     "make_store_train_step",
     "fit",

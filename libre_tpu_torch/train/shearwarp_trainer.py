@@ -1,0 +1,147 @@
+"""Inverse rendering through the plain shear-warp pipeline
+(``libre_tpu.train.shearwarp_trainer``), on one device.
+
+BASELINE config 5 at dense-level granularity: optimize a full (Z, Y, X)
+density grid and the transfer function against multi-view target slope
+images through ``shearwarp.render_slope_grid`` (the plain matrix
+pipeline: axis lerps and two-tap resampling as batched products, a
+closed-form composite), differentiated by autograd.  Per step: the mean
+over views of the mean squared error, ``backward``, a ``torch.optim``
+update, then both leaves clamped to [0, 1].
+
+The early exit is off under training (a step function of the parameters);
+classification is "pre" or "post" as configured, both differentiable.
+Per-view plans (major axis, slope bounds) are host-built constants, like
+camera matrices.  The (ray × brick) mesh-sharded forward
+(``render_slope_grid_sharded``) is ROADMAP M9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from libre_tpu_torch.ops import shearwarp as sw
+from libre_tpu_torch.ops.reference import Camera, RenderParams
+
+EARLY_EXIT_OFF = 1.1  # 1 − T never exceeds it: no early exit under grad
+
+
+def _require_no_mesh(who: str, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{who}: the (ray × brick) mesh-sharded shear-warp forward is ROADMAP M9"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShearWarpProblem:
+    """Static problem description: views + render configuration."""
+
+    plans: Tuple[sw.ShearWarpPlan, ...]
+    world_min: np.ndarray
+    world_max: np.ndarray
+    params: RenderParams
+    swp: sw.ShearWarpParams
+
+    @classmethod
+    def from_cameras(
+        cls,
+        cameras: Sequence[Camera],
+        world_min,
+        world_max,
+        params: RenderParams,
+        swp: sw.ShearWarpParams,
+    ) -> "ShearWarpProblem":
+        # The early exit is a step function of the parameters and would
+        # zero the gradients behind the cut: off under grad.
+        params = dataclasses.replace(params, early_exit=EARLY_EXIT_OFF)
+        return cls(
+            plans=tuple(sw.make_plan(c, swp.slope_margin) for c in cameras),
+            world_min=np.asarray(world_min, np.float32),
+            world_max=np.asarray(world_max, np.float32),
+            params=params,
+            swp=swp,
+        )
+
+    def render_views(self, mesh, volume, tf) -> List[torch.Tensor]:
+        """All views' slope-grid images (V, U, 4) on ``volume``'s device;
+        ``mesh`` must be None (the sharded forward is ROADMAP M9)."""
+        _require_no_mesh("ShearWarpProblem.render_views", mesh)
+        outs = []
+        for plan in self.plans:
+            img, _, _ = sw.render_slope_grid(
+                volume, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
+                self.world_min, self.world_max, self.params, self.swp,
+            )
+            outs.append(img)
+        return outs
+
+
+def make_train_step(problem: ShearWarpProblem, optimizer: torch.optim.Optimizer, mesh=None):
+    """step(params, targets) → loss, one optimization step in place.
+
+    ``params`` = {"volume": (Z, Y, X), "tf": (T, 4)}, the two tensors
+    ``optimizer`` was built over; ``targets`` one (V, U, 4) image per
+    view.  The loss is the mean over views of each view's mean squared
+    error; after the update both leaves are clamped to [0, 1] (their
+    physical ranges)."""
+    _require_no_mesh("make_train_step", mesh)
+
+    def loss_fn(volume, tf, targets):
+        imgs = problem.render_views(None, volume, tf)
+        losses = [torch.mean((img - tgt) ** 2) for img, tgt in zip(imgs, targets)]
+        return sum(losses) / len(losses)
+
+    def step(params, targets):
+        volume, tf = params["volume"], params["tf"]
+        optimizer.zero_grad(set_to_none=False)
+        loss = loss_fn(volume, tf, targets)
+        loss.backward()
+        with torch.no_grad():
+            optimizer.step()
+            volume.clamp_(0.0, 1.0)
+            tf.clamp_(0.0, 1.0)
+        return loss.detach()
+
+    return step
+
+
+def fit(
+    problem: ShearWarpProblem,
+    targets: Sequence,
+    init_volume,
+    init_tf,
+    *,
+    device="cuda",
+    mesh=None,
+    optimizer: Optional[Callable[[Sequence[torch.Tensor]], torch.optim.Optimizer]] = None,
+    steps: int = 100,
+    on_step: Optional[Callable[[int, float], None]] = None,
+) -> Tuple[dict, List[float]]:
+    """Run the optimization on ``device``; returns (params, losses).
+
+    ``optimizer`` builds a ``torch.optim.Optimizer`` from the parameter
+    list [volume, tf] (default ``torch.optim.Adam(lr=3e-2)``, the
+    reference's ``optax.adam(3e-2)``).  ``on_step(i, loss)``, if given, is
+    called after each step."""
+    _require_no_mesh("fit", mesh)
+    if optimizer is None:
+        def optimizer(p):
+            return torch.optim.Adam(p, lr=3e-2)
+
+    def param(x):
+        return torch.as_tensor(x, dtype=torch.float32).to(device).clone().requires_grad_()
+
+    params = {"volume": param(init_volume), "tf": param(init_tf)}
+    step = make_train_step(problem, optimizer([params["volume"], params["tf"]]))
+    targets = [torch.as_tensor(t, dtype=torch.float32).to(device) for t in targets]
+    losses = []
+    for i in range(steps):
+        losses.append(float(step(params, targets)))
+        if on_step is not None:
+            on_step(i, losses[-1])
+    return params, losses

@@ -709,3 +709,101 @@ def test_gather_kernels_out_of_range_index_gives_nan(cuda):
     idx = torch.tensor([[3, 8], [-1, 7]], device=cuda, dtype=torch.int32)
     got = gather.take_along(table.reshape(2, 8), idx, 1).cpu()
     assert got[0, 0] == 3.0 and got[1, 1] == 15.0 and bool(got[[0, 1], [1, 0]].isnan().all())
+
+
+# --------------------------- the exit rule in K4, and the paths over it
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("field", FIELDS)
+def test_exact_march_bwd_kernel_exit_rule(cuda, field, filter_mode):
+    """K4 with the early exit on (0.999) vs its plain version at the
+    bench_exact shape on every field, each gradient normalised by the
+    plain one's max |·|: within the backward kernels' early-exit bound
+    (a ray whose plain closed-form mask stops a sample apart from K3
+    moves its gradient); rays exit, and K4 is one launch."""
+    c = exact_grad_case("bench", seed=0, device=cuda, filter_mode=filter_mode, field=field,
+                        early_exit=0.999)
+    assert int((c.out[:, 3] > 0.999).sum()) > 0
+    args = (c.volume, c.tf, c.view, c.out, c.g)
+    launches = exact.march_exact_backward.launches
+    got = exact.march_exact_backward(*args)
+    want = exact.march_exact_backward_reference(*args)
+    torch.cuda.synchronize()
+    assert exact.march_exact_backward.launches == launches + 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert_grad_close(a, b, GRAD_TOL_MAX_EARLY_EXIT, GRAD_TOL_MEAN_EARLY_EXIT,
+                          expect_zero=field == "top" and i == 0)
+
+
+@pytest.mark.cuda
+def test_volume_scene_on_card_matches_cpu(cuda):
+    """``VolumeScene`` (K3 forward, K4 backward with the exit rule, early
+    exit 0.999) on the card vs the plain versions on the CPU: the image
+    (2e-3 / 1e-5, K3's bound) and the gradients of its mean square."""
+    from libre_tpu_torch.models import VolumeScene
+    from libre_tpu_torch.testing import smooth_volume
+
+    vol = smooth_volume(16, seed=7, device="cpu")
+    params = RenderParams(n_samples_per_ray=32, data_source_range=(0.0, 1.0),
+                          filter_mode="trilinear")
+    camera, _ = build_camera(24, 24, (0.2, 0.1, 1.4), (0.0, 0.0, 0.0))
+    results = []
+    for dev in (cuda, "cpu"):
+        scene = VolumeScene.from_volume(vol, params=params, device=dev)
+        leaves = {k: v.clone().requires_grad_() for k, v in scene.parameters.items()}
+        img = scene.with_parameters(leaves).render(camera)
+        img.square().mean().backward()
+        results.append((img.detach().cpu(), leaves["density"].grad.cpu(),
+                        leaves["tf"].grad.cpu()))
+    (img_c, dv_c, dt_c), (img_p, dv_p, dt_p) = results
+    err = (img_c - img_p).abs()
+    assert float(err.max()) <= EXACT_TOL_MAX and float(err.mean()) <= EXACT_TOL_MEAN
+    assert float(img_p[..., 3].max()) > 0.999
+    assert_grad_close(dv_c, dv_p, GRAD_TOL_MAX_EARLY_EXIT, GRAD_TOL_MEAN_EARLY_EXIT)
+    assert_grad_close(dt_c, dt_p, GRAD_TOL_MAX_EARLY_EXIT, GRAD_TOL_MEAN_EARLY_EXIT)
+
+
+@pytest.mark.cuda
+def test_shearwarp_trainer_on_card_matches_cpu(cuda):
+    """Two Adam steps of the dense shear-warp trainer (the plain pipeline,
+    no kernel) on the card vs on the CPU: losses and both leaves within
+    1e-4."""
+    from libre_tpu_torch.ops import shearwarp as sw
+    from libre_tpu_torch.ops.transfer_function import default_color_map, grayscale_ramp
+    from libre_tpu_torch.testing import smooth_volume
+    from libre_tpu_torch.train import ShearWarpProblem, fit_shearwarp
+
+    cams = [build_camera(32, 32, e, (0.0, 0.0, 0.0))[0]
+            for e in ((0.2, 0.1, 1.4), (1.4, 0.1, 0.2))]
+    problem = ShearWarpProblem.from_cameras(
+        cams, [-0.5] * 3, [0.5] * 3,
+        RenderParams(n_samples_per_ray=32, data_source_range=(0.0, 1.0)),
+        sw.ShearWarpParams(n_planes=32, inter_size=(32, 32), classification="post"))
+    truth = smooth_volume(32, seed=7, device="cpu")
+    with torch.no_grad():
+        targets = problem.render_views(None, truth, torch.from_numpy(default_color_map()))
+    runs = []
+    for dev in (cuda, "cpu"):
+        params, losses = fit_shearwarp(problem, targets, np.full((32,) * 3, 0.5, np.float32),
+                                       grayscale_ramp(), device=dev, steps=2)
+        runs.append((losses, {k: v.detach().cpu() for k, v in params.items()}))
+    (l_c, p_c), (l_p, p_p) = runs
+    assert np.allclose(l_c, l_p, rtol=0, atol=1e-4) and l_p[1] < l_p[0]
+    for k in p_p:
+        assert float((p_c[k] - p_p[k]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_entry_on_card_matches_cpu(cuda):
+    """``entry()`` on the card (K3) vs on the CPU (the plain march)."""
+    from libre_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert args[0].device.type == "cuda"
+    launches = exact.march_exact.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert exact.march_exact.launches == launches + 1
+    fn_p, args_p = entry(device="cpu")
+    err = (got.cpu() - fn_p(*args_p)).abs()
+    assert float(err.max()) <= EXACT_TOL_MAX and float(err.mean()) <= EXACT_TOL_MEAN

@@ -1,0 +1,25 @@
+"""The port's ``entry()`` on the CPU against ``__graft_entry__.entry()``:
+the same example volume, and the same image (1e-5) from the JAX ``fn``
+(the XLA marcher) on the port's example inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import __graft_entry__
+from libre_tpu_torch import entry as entry_t
+
+torch.set_num_threads(1)
+
+
+def test_entry_matches_graft_entry():
+    fn_j, args_j = __graft_entry__.entry()
+    fn_t, args_t = entry_t.entry(device="cpu")
+    vol_t, tf_t = args_t
+    assert vol_t.device.type == "cpu" and tf_t.shape == (256, 4)
+    np.testing.assert_array_equal(vol_t.numpy(), np.asarray(args_j[0]))
+    got = fn_t(vol_t, tf_t)
+    want = np.asarray(fn_j(jnp.asarray(vol_t.numpy()), jnp.asarray(tf_t.numpy())))
+    assert got.shape == want.shape == (entry_t.IMG, entry_t.IMG, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    assert want[..., 3].max() > 0.5

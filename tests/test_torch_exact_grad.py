@@ -301,3 +301,111 @@ def test_backward_rejects_bad_operands():
         exact.march_exact_backward(*meta)
     with pytest.raises(TypeError, match="float32"):
         exact.render_exact_diff(torch.from_numpy(vol).double(), torch.from_numpy(tf), view)
+
+
+# ------------------------------------------------------- the exit rule in K4
+def exit_split(out_port, out_jax, tol=2e-5):
+    """(R,) bool: the rays whose two forwards differ by more than ``tol``
+    in some channel, i.e. whose exit sample differs (the port folds
+    chunks in closed form, the JAX oracle composites serially, so alpha
+    crosses the threshold a sample apart on a few rays)."""
+    return (np.abs(out_port - out_jax) > tol).any(axis=1)
+
+
+def exit_grads(vol, tf, gw, cam_j, cam_t, p_j, p_t, g_mask):
+    """(port (d_volume, d_tf), JAX oracle's) of sum(out · gw · g_mask) with
+    the early exit on: the port through ``render_marcher_diff`` (plain K3
+    forward, plain K4 backward with the exit rule)."""
+    g = gw * g_mask[:, None]
+    v = torch.from_numpy(vol).requires_grad_()
+    t = torch.from_numpy(tf).requires_grad_()
+    view = exact.exact_view(cam_t, p_t, GMIN, GMAX, device="cpu")
+    out = exact.render_marcher_diff(v, t, view)
+    (out * torch.from_numpy(g)).sum().backward()
+    return (v.grad.numpy(), t.grad.numpy()), oracle_grads(vol, tf, g, cam_j, p_j)
+
+
+@pytest.mark.parametrize("case", ["default", "dense"])
+def test_exit_rule_matches_jax_oracle(case):
+    """The plain K4 with the early exit on, against ``jax.grad`` of the
+    JAX oracle (``reference.render_reference``): at the default 0.999 on
+    the random scene, and at 0.5 on a dense field where most rays exit.
+    On the rays whose exit sample agrees, both gradients within 1e-4 of
+    the largest entry; the rays whose exit moved by a sample are under 1%
+    of the rays and their gradients within 1 − early_exit of the largest
+    entry of the whole gradient."""
+    early_exit = {"default": 0.999, "dense": 0.5}[case]
+    vol, tf, gw, p_j, p_t = scene()
+    if case == "dense":
+        vol = (0.6 + 0.4 * vol).astype(np.float32)
+    p_j = dataclasses.replace(p_j, early_exit=early_exit)
+    p_t = dataclasses.replace(p_t, early_exit=early_exit)
+    cam_j, cam_t = cameras([0.25, 0.12, 1.4], img=16)
+    view = exact.exact_view(cam_t, p_t, GMIN, GMAX, device="cpu")
+    with torch.no_grad():
+        out_t = exact.render_marcher_diff(torch.from_numpy(vol), torch.from_numpy(tf), view)
+    out_j = np.asarray(ref_j.render_reference(
+        ref_j.single_brick_set(jnp.asarray(vol)), jnp.asarray(tf), cam_j, p_j, GMIN, GMAX
+    )).reshape(-1, 4)
+    np.testing.assert_allclose(out_t.numpy(), out_j, rtol=0, atol=1e-3)
+    exited = out_j[:, 3] > early_exit
+    assert exited.mean() > (0.5 if case == "dense" else 0.05), exited.mean()
+    moved = exit_split(out_t.numpy(), out_j)
+    assert moved.sum() < 0.01 * moved.size, moved.sum()
+    full = exit_grads(vol, tf, gw, cam_j, cam_t, p_j, p_t, np.ones(moved.size, np.float32))
+    agree = exit_grads(vol, tf, gw, cam_j, cam_t, p_j, p_t, (~moved).astype(np.float32))
+    off = exit_grads(vol, tf, gw, cam_j, cam_t, p_j, p_t, moved.astype(np.float32))
+    for i in (0, 1):
+        got, want = agree[0][i], agree[1][i]
+        scale = np.abs(want).max()
+        assert scale > 0.1
+        assert np.abs(got - want).max() / scale <= 1e-4
+        assert np.abs(off[0][i] - off[1][i]).max() <= (1.0 - early_exit) * np.abs(full[1][i]).max()
+    # The exit cut samples off: the gradient differs from the exit-off one.
+    p_off = dataclasses.replace(p_t, early_exit=1.1)
+    no_exit = exit_grads(vol, tf, gw, cam_j, cam_t, dataclasses.replace(p_j, early_exit=1.1),
+                         p_off, np.ones(moved.size, np.float32))
+    assert np.abs(no_exit[0][0] - full[0][0]).max() > 1e-3
+
+
+def test_exit_rule_matches_plain_march_samples():
+    """The plain K4 stops where the plain K3 stops: on a field where every
+    ray exits within a few samples, the voxels behind every exit get no
+    gradient and those in front do."""
+    vol, tf, gw, _p_j, p_t = scene()
+    vol[:] = 0.9
+    vol[:2] = 0.3  # the far z slices, seen only after the rays' exit
+    p_t = dataclasses.replace(p_t, early_exit=0.5)
+    _cam_j, cam_t = cameras([0.0, 0.0, 1.4], img=16)
+    view = exact.exact_view(cam_t, p_t, GMIN, GMAX, device="cpu")
+    with torch.no_grad():
+        out = exact.render_marcher_diff(torch.from_numpy(vol), torch.from_numpy(tf), view)
+    samples = torch.zeros(view.n_rays, dtype=torch.int32)
+    slot = torch.zeros(1, dtype=torch.int32)
+    exact.march_exact_reference(
+        torch.from_numpy(vol)[None], slot, view.brick_boxes, torch.from_numpy(tf),
+        view.ray_pack, torch.zeros((view.n_rays, 4)), view.eye, p_t,
+        max_steps=view.max_steps, samples=samples)
+    hit = samples > 0
+    assert bool((out[hit, 3] > 0.5).all()) and int(samples[hit].max()) < 16
+    d_vol, d_tf = exact.march_exact_backward(
+        torch.from_numpy(vol), torch.from_numpy(tf), view, out, torch.from_numpy(gw))
+    assert float(d_vol[8:].abs().max()) > 0
+    assert float(d_vol[:4].abs().max()) == 0.0  # behind every exit
+    assert float(d_tf.abs().max()) > 0
+
+
+def test_render_exact_diff_still_refuses_the_exit():
+    """``render_exact_diff`` keeps the exact trainer's contract; the
+    marcher's Function takes the exit and refuses a multi-brick set."""
+    vol, tf, _gw, _p_j, p_t = scene()
+    _cam_j, cam_t = cameras([0.2, 0.1, 1.4], img=16)
+    view = exact.exact_view(cam_t, dataclasses.replace(p_t, early_exit=0.999), GMIN, GMAX,
+                            device="cpu")
+    with pytest.raises(ValueError, match="early_exit"):
+        exact.render_exact_diff(torch.from_numpy(vol), torch.from_numpy(tf), view)
+    out = exact.render_marcher_diff(torch.from_numpy(vol), torch.from_numpy(tf), view)
+    assert out.shape == (view.n_rays, 4)
+    with pytest.raises(NotImplementedError, match="multi-brick"):
+        exact.render_marcher_diff(torch.from_numpy(np.stack([vol, vol])), torch.from_numpy(tf),
+                                  view)

@@ -1,7 +1,11 @@
 """The port imports neither jax nor anything of the JAX package: every
-libre_tpu_torch module imports, a tiny CPU frame renders through the
+libre_tpu_torch module imports (the later modules by name: the dense
+shear-warp trainer, the volume scene, profiling, the entry point, the
+four benchmark scripts and K4's A/B script), a tiny CPU frame renders through the
 bricked path, the exact path and the dense shear-warp path (both
-backends), the store trainer and the exact trainer each take a step, a
+backends), the store trainer, the exact trainer and the dense shear-warp
+trainer each take a step, the volume scene renders and differentiates
+with its early exit on, the plane oracle and ``entry()`` run, a
 gather probe runs its plain version, and the render service answers a
 frame and its histogram over HTTP on 127.0.0.1, in a process where
 importing jax, optax or libre_tpu fails."""
@@ -22,6 +26,14 @@ names = [m.name for m in pkgutil.walk_packages(
     libre_tpu_torch.__path__, "libre_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+later = {"libre_tpu_torch.train.shearwarp_trainer", "libre_tpu_torch.models.volume_scene",
+         "libre_tpu_torch.utils.profiling", "libre_tpu_torch.entry",
+         "libre_tpu_torch.benchmarks.bench_forward",
+         "libre_tpu_torch.benchmarks.probe_bwd_breakdown",
+         "libre_tpu_torch.benchmarks.demo_inverse_render",
+         "libre_tpu_torch.benchmarks.demo_out_of_core",
+         "libre_tpu_torch.benchmarks.exact_bwd_ab"}
+assert later <= set(names), later - set(names)
 from libre_tpu_torch.apps.render_cli import build_camera
 from libre_tpu_torch.data.datasource import DataSource, load_plugins
 from libre_tpu_torch.ops.reference import RenderParams
@@ -67,6 +79,36 @@ view = exact_view(camera, exact_params, device="cpu")
 loss = make_exact_train_step(view)(state, torch.zeros(view.n_rays, 4))
 assert np.isfinite(float(loss)) and state.step == 1
 assert float(state.params["density"].grad.abs().max()) > 0
+from libre_tpu_torch.ops import shearwarp as sw
+from libre_tpu_torch.train import ShearWarpProblem, fit_shearwarp
+swp = sw.ShearWarpParams(n_planes=8, inter_size=(6, 6), classification="post")
+problem = ShearWarpProblem.from_cameras([camera], [-0.5] * 3, [0.5] * 3,
+                                        exact_params, swp)
+params, losses = fit_shearwarp(problem, [np.zeros((6, 6, 4), np.float32)],
+                               np.full((8, 8, 8), 0.5, np.float32), tf, device="cpu",
+                               steps=1)
+assert np.isfinite(losses[0]) and float(params["volume"].grad.abs().max()) > 0
+plan = problem.plans[0]
+ray = sw.plane_oracle(params["volume"].detach(), torch.from_numpy(tf), plan.eye,
+                      plan.axis, plan.sign, (torch.zeros(1), torch.zeros(1)),
+                      [-0.5] * 3, [0.5] * 3, exact_params, 8, classification="post")
+assert ray.shape == (1, 4)
+from libre_tpu_torch.models import VolumeScene
+scene = VolumeScene.from_volume(np.full((8, 8, 8), 0.7, np.float32), device="cpu",
+                                params=RenderParams(n_samples_per_ray=16,
+                                                    data_source_range=(0.0, 1.0),
+                                                    filter_mode="trilinear"))
+leaves = {k: v.clone().requires_grad_() for k, v in scene.parameters.items()}
+scene.with_parameters(leaves).render(camera).square().mean().backward()
+assert float(leaves["density"].grad.abs().max()) > 0
+from libre_tpu_torch.entry import entry
+fn, example = entry(device="cpu")
+assert fn(*example).shape == (128, 128, 4)
+from libre_tpu_torch.utils.profiling import StageTimers
+timers = StageTimers()
+with timers.stage("x"):
+    pass
+assert timers.report().startswith("x: ")
 from libre_tpu_torch.benchmarks import probe_gather2
 from libre_tpu_torch.ops import gather
 fn, args, work = probe_gather2.build_lane_gather_loop(device="cpu")

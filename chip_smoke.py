@@ -140,7 +140,18 @@ Phases, each of which raises on failure (any failure exits non-zero):
    kernel it runs against the kernel's plain version; their launch counts
    and largest errors go into the kernels line;
 24. ``entry()`` on the card (``phase_entry``) vs the plain march, and the
-   phases' seconds through ``utils.profiling.StageTimers``.
+   phases' seconds through ``utils.profiling.StageTimers``;
+25-29. the multi-device layer (M9) on logical shards of the one card
+   (``[cuda:0] * 4``; the decomposition, the folds and each shard's
+   kernel launch, not multi-card scaling): the sharded bricked orbit
+   (``phase_sharded_orbit``: 2x2 and 4x1 meshes, the replicated store and
+   slabs, early exit off and 0.999, against the one-device frames), the
+   sharded store trainers (``phase_sharded_training``: views x rows on
+   2x2, slabs on 2 and 4 brick shards, against the one-device step, then
+   Adam steps), ``VolumeScene.render_sharded`` (``phase_sharded_exact``),
+   ``render_cli --mesh`` and ``RenderService`` over a mesh
+   (``phase_mesh_apps``), and two processes in one gloo group on the card
+   (``phase_two_process``).
 
 Prints every kernel's launch sites on the main paths (launches, time
 per launch on the site's operands, bound, and launches × (time − bound),
@@ -1544,6 +1555,462 @@ def phase_entry(dev, card, exact_tol):
     return launches, err
 
 
+# ============================================================ 25-29. M9
+MESH_SHAPES = ((2, 2), (4, 1))  # (n_brick, n_ray): four logical shards of the card
+SLAB_MB = 640  # a 320 MB derived budget under the 512 MiB store: slab mode, all 4096 bricks in the atlas
+MESH_EXITS = (1.1, 0.999)  # early exit off (the fold regroups floats), on (local to a segment)
+SHARD_TRAIN_STEPS = 5
+TWO_PROCESS_N = 256  # phase 29's store and slope grid (256^3, 256^2 rays, 512 planes)
+
+
+def logical_mesh(dev, n_brick, n_ray):
+    from libre_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n_brick=n_brick, n_ray=n_ray, devices=[dev] * (n_brick * n_ray))
+
+
+@contextlib.contextmanager
+def captured(module, name):
+    """Wrap ``module.name`` while entered; the list it yields gets the
+    (args, kwargs) of every call."""
+    real, calls = getattr(module, name), []
+
+    def call(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def k1_site(calls, what, card):
+    """The last recorded K1 launch of ``calls`` ((name, args) of a
+    ``Recorder``) at a sharded call site: launched again on its operands
+    as they are now (a training step's optimizer has updated the TF in
+    place since), bit-equal to the plain sweep on them, timed, with its
+    bound → (ms, bound)."""
+    import torch
+
+    from libre_tpu_torch.ops import _kernels
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+
+    args = [a for name, a in calls if name == "post_sweep"][-1]
+    ops, _recorded = k1_operands(args)
+    out, t_out = swb.post_sweep(*ops[:4], **ops[4])
+    work = k1_work(*ops)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, work["want"]) and torch.equal(t_out, work["t_want"])):
+        raise AssertionError(f"{what}: K1 is not bit-equal to the plain sweep")
+    ms = cuda_ms(lambda: _kernels.launch("post_sweep", *args), reps=20)
+    print(f"  K1 at {what}: {tuple(out.shape)} rays x {ops[2].a0.shape[0]} planes over "
+          f"{tuple(ops[0].shape)}: {ms:.4f} ms, bit-equal to plain; bound {work['bound'][0]:.4f} ms "
+          f"({work['bound'][1]}) {card}")
+    return ms, work["bound"]
+
+
+def k2_site(calls, what, card):
+    """The last recorded K2 launch of ``calls`` at a sharded training
+    step: within the backward kernels' bound of the plain backward on its
+    operands (early exit off), timed with its ``d_store`` zeroing, with
+    its bound → (ms, bound, max |d|)."""
+    import torch
+
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.ops import shearwarp_grad as swg
+
+    args = [a for name, a in calls if name == "store_grid_bwd"][-1]
+    (store, tf, a0, a1, wa, dl, act, view, corr, rgb_in, t_in, out, t_out, g, _ds, _dtf,
+     k, nc, nb, v, u, diff_tf, wb0, wb1, wc0, wc1, _sb, _sc, early_exit) = args
+    tables = swb.SweepTables(a0=a0, a1=a1, wa=wa, dl=dl, act=act, view=view, corr=corr,
+                             rgb_in=rgb_in, t_in=t_in)
+    kw = dict(wb=(wb0, wb1), wc=(wc0, wc1), early_exit=early_exit, diff_tf=bool(diff_tf))
+    store, tf = store.detach(), tf.detach()  # the recorded training leaves
+    got = swg.store_grid_backward(store, tf, tables, out, t_out, g, **kw)
+    want = swg.store_grid_backward_reference(store, tf, tables, out, t_out, g, **kw)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        compare_grads(a, b, f"{what}, K2 gradient {i} vs plain", early_exit)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    ug = view[0] + view[1] * torch.arange(u, device=store.device)
+    vg = view[5] + view[2] * torch.arange(v, device=store.device)
+    xb = view[3] + ug[None, :] * dl[:, None]
+    xc = view[4] + vg[None, :] * dl[:, None]
+    in_box = int((((xb >= wb0) & (xb < wb1)).sum(1) * ((xc >= wc0) & (xc < wc1)).sum(1)).sum())
+    b = bound(bytes_=2 * store.numel() * 4 + v * u * 15 * 4 + 2 * TF_BYTES + k * 5 * 4,
+              ops=in_box * K2_OPS_PER_SAMPLE)
+    ms = cuda_ms(lambda: swg.store_grid_backward(store, tf, tables, out, t_out, g, **kw), reps=10)
+    print(f"  K2 at {what}: {v}x{u} rays x {k} planes over {tuple(store.shape)}: {ms:.4f} ms; "
+          f"bound {b[0]:.4f} ms ({b[1]}) {card}")
+    return ms, b, err
+
+
+def k3_site(calls, slot_bytes, filter_mode, what, card):
+    """The first recorded K3 launch of ``calls`` (an f32 brick set) timed,
+    with its bound from its relaunched counts → (ms, bound)."""
+    from libre_tpu_torch.ops import _kernels
+
+    args = [a for name, a in calls if name == "exact_march"][0]
+    ms = cuda_ms(lambda: _kernels.launch("exact_march", *args), reps=10)
+    _out, samples, used = k3_counts(args)
+    b = k3_bound_of(samples, used, slot_bytes, int(args[11]), int(samples.shape[0]),
+                    filter_mode, True)
+    print(f"  K3 at {what}: {int(samples.shape[0])} rays, {int(samples.sum())} samples: "
+          f"{ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) {card}")
+    return ms, b
+
+
+def phase_sharded_orbit(dev, card, engine, poses):
+    """25. The sharded bricked orbit: the 8 poses at screen-space error 1
+    (all 4096 finest bricks, a 512^3 store, K = 512) through
+    ``RenderEngine.render_bricked`` with ``engine.mesh`` a mesh of logical
+    shards of the card, (n_brick, n_ray) = (2, 2) and (4, 1): on phase 4's
+    engine (the replicated store, the cached one) and on an engine of
+    ``SLAB_MB`` (a slab per brick-axis shard, assembled per view), each
+    with the early exit off and at 0.999.  K1's count and the engine's
+    ``sharded_frames`` are set to 0 just before each run and read just
+    after: one K1 launch per shard per frame, every frame sharded.  Each
+    frame is held to the same engine's one-device frame: 2e-5 (exit off),
+    below 2e-3 (0.999).  Then one sharded frame's split: the sharded sweep
+    (tables, 4 K1, fold) and the fold alone (CUDA events), and one shard's
+    K1 bit-equal to plain and timed.  Returns (K1 launches, sites, max
+    |K1 − plain|)."""
+    import torch
+
+    from libre_tpu_torch.data.datasource import DataSource
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.ops.reference import RenderParams
+    from libre_tpu_torch.parallel import bricked_sharded as bs
+    from libre_tpu_torch.render.engine import RenderEngine
+    from libre_tpu_torch.testing import SHARD_TOL_EXIT_OFF, SHARD_TOL_EXIT_ON
+
+    params = {e: RenderParams(n_samples_per_ray=512, data_source_range=engine.data_source_range,
+                              early_exit=e) for e in MESH_EXITS}
+    kw = dict(screen_space_error=1.0)
+    engine.mesh = None
+    refs = {e: [engine.render_bricked(cam, fr, params=params[e], **kw)[0] for cam, fr in poses]
+            for e in MESH_EXITS}
+    slab_engine = RenderEngine(DataSource(URI), max_gpu_cache_mb=SLAB_MB, device=dev)
+    launches, sites, split = 0, [], None
+    for mode, eng in (("replicated", engine), ("slabs", slab_engine)):
+        for n_brick, n_ray in MESH_SHAPES:
+            eng.mesh = logical_mesh(dev, n_brick, n_ray)
+            for e in MESH_EXITS:
+                tol = SHARD_TOL_EXIT_OFF if e > 1.0 else SHARD_TOL_EXIT_ON
+                torch.cuda.synchronize()
+                swb.post_sweep.launches = 0
+                eng.sharded_frames = 0
+                frame_ms, errs = [], []
+                for (cam, fr), ref in zip(poses, refs[e]):
+                    t0 = time.perf_counter()
+                    img, stats = eng.render_bricked(cam, fr, params=params[e], **kw)
+                    torch.cuda.synchronize()
+                    frame_ms.append((time.perf_counter() - t0) * 1e3)
+                    errs.append(float((img - ref).abs().max()))
+                n_k1, n_sharded = swb.post_sweep.launches, eng.sharded_frames
+                # ----------------------------------------- end of this run
+                launches += n_k1
+                if n_sharded != len(poses) or n_k1 != len(poses) * n_brick * n_ray:
+                    raise AssertionError(
+                        f"{mode} {n_brick}x{n_ray}: {n_sharded} sharded frames of {len(poses)}, "
+                        f"{n_k1} K1 launches")
+                if stats.n_passes != n_brick or (mode == "slabs") != (len(eng._store_cache) == 0):
+                    raise AssertionError(f"{mode} {n_brick}x{n_ray}: not in {mode} mode")
+                if max(errs) > tol:
+                    raise AssertionError(f"{mode} {n_brick}x{n_ray} exit {e}: max|d| {max(errs)} "
+                                         f"from the one-device frames, bound {tol}")
+                steady = sorted(frame_ms[1:])
+                print(f"sharded orbit, {mode} store, (brick, ray) = ({n_brick}, {n_ray}), exit {e}: "
+                      f"{n_sharded} sharded frames, {n_k1} K1 launches; max|d| vs one device "
+                      f"{max(errs):.3e} (bound {tol}); frame ms first {frame_ms[0]:.1f}, steady "
+                      f"median {steady[len(steady) // 2]:.3f}, min {steady[0]:.3f} {card}")
+            if mode == "replicated" and (n_brick, n_ray) == MESH_SHAPES[0]:
+                cam, fr = poses[-1]
+                with captured(bs, "render_store_grid_sharded") as sweeps, \
+                        captured(bs, "fold_rows") as folds, Recorder("post_sweep") as rec:
+                    eng.render_bricked(cam, fr, params=params[1.1], **kw)
+                torch.cuda.synchronize()
+                (s_args, s_kw), = sweeps
+                (f_args, f_kw), = folds
+                sweep_ms = cuda_ms(lambda: bs.render_store_grid_sharded(*s_args, **s_kw), reps=10)
+                fold_ms = cuda_ms(lambda: bs.fold_rows(*f_args, **f_kw), reps=10)
+                # The host's share: the per-shard Python loop enqueues 4
+                # wrappers' launches and the tables and moves around them.
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    bs.render_store_grid_sharded(*s_args, **s_kw)
+                host_ms = (time.perf_counter() - t0) * 1e3 / 10
+                torch.cuda.synchronize()
+                print(f"  one sharded frame's sweep (tables, {len(rec.calls)} K1, fold): "
+                      f"{sweep_ms:.4f} ms device; the fold {fold_ms:.4f} ms, {fold_ms / sweep_ms:.4f} "
+                      f"of it; the host enqueues the sweep in {host_ms:.4f} ms a call "
+                      f"({host_ms / eng.mesh.size:.4f} ms a shard) {card}")
+                split = k1_site(rec.calls, "a shard of the 2x2 orbit frame", card)
+    engine.mesh = None
+    del slab_engine
+    torch.cuda.empty_cache()
+    sites.append(("K1", "render_store_grid_sharded, sharded orbit (2x2, 4x1; replicated, slabs)",
+                  launches, *split))
+    return launches, sites
+
+
+def phase_sharded_training(dev, card, problem, store, tf, targets):
+    """26. Phase 7's store trainer over logical shards of the card: its 4
+    views (one major axis and one march sign: the orbit's), 512^2 slope
+    grids, K = 512, over the orbit's 512^3 store.  From the flat init, the
+    loss and its store and TF gradients of the views x rows loss on a 2x2
+    mesh and of the slab loss on n_brick = 2 and 4 against the one-device
+    loss (rtol 1e-6) and gradients (1e-5); then ``SHARD_TRAIN_STEPS`` Adam
+    steps of each (lr 5e-2), K1's and K2's counts set to 0 just before
+    and read just after: the loss falls, K1 and K2 launch once per view
+    per ray shard per brick shard of the view's.  Returns (K1, K2
+    launches, sites, K2 max |d|)."""
+    import torch
+
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.ops import shearwarp_grad as swg
+    from libre_tpu_torch.testing import GRAD_TOL_MAX, SHARD_GRAD_TOL, SHARD_LOSS_RTOL
+    from libre_tpu_torch.train import store_trainer as st
+
+    covered = store > -0.5
+    init = torch.where(covered, 0.5, swb.SENTINEL)
+    leaf, tf_one = init.clone().requires_grad_(), tf.clone().requires_grad_()
+    loss_one = st.make_loss_fn(problem)(leaf, tf_one, targets)
+    loss_one.backward()
+    n_views = len(problem.views)
+    print(f"sharded training views: phase 7's {n_views}, major axis {problem.axis}, march sign "
+          f"{sorted({float(v[9]) for v in problem.views})}")
+    configs = (("views x rows, replicated store", 2, 2, False),
+               ("slab-sharded store", 2, 1, True), ("slab-sharded store", 4, 1, True))
+    k1_total = k2_total = 0
+    k1_site_ms = k2_site_ms = None
+    k2_err = 0.0
+    for what, n_brick, n_ray, slabs in configs:
+        mesh = logical_mesh(dev, n_brick, n_ray)
+        name = f"{what} ({n_brick}, {n_ray})"
+        tf_p = tf.clone().requires_grad_()
+        if slabs:
+            leaves = [s.requires_grad_() for s in st.shard_store_slabs_uniform(init, n_brick)]
+            loss = st.make_slab_loss_fn(problem, mesh)(leaves, tf_p, targets)
+        else:
+            leaves = [init.clone().requires_grad_()]
+            loss = st.make_loss_fn(problem, mesh)(leaves[0], tf_p, targets)
+        loss.backward()
+        d_store = torch.cat([x.grad for x in leaves])
+        rel = abs(float(loss.detach()) - float(loss_one.detach())) / abs(float(loss_one.detach()))
+        g_err = float((d_store - leaf.grad).abs().max())
+        t_err = float((tf_p.grad - tf_one.grad).abs().max())
+        print(f"{name}: loss {float(loss.detach()):.9g} vs one device {float(loss_one.detach()):.9g} (rel "
+              f"{rel:.3e}); store gradient max|d| {g_err:.3e} of max {float(leaf.grad.abs().max()):.3e},"
+              f" TF gradient max|d| {t_err:.3e} of max {float(tf_one.grad.abs().max()):.3e}")
+        # The store gradient is ~4e-7 at most here, so 1e-5 holds it to
+        # nothing: it is also held, normalised, to the backward kernels'
+        # bound against their plain versions (GRAD_TOL_MAX).
+        g_rel = g_err / float(leaf.grad.abs().max())
+        if rel > SHARD_LOSS_RTOL or g_err > SHARD_GRAD_TOL or t_err > SHARD_GRAD_TOL \
+                or g_rel > GRAD_TOL_MAX:
+            raise AssertionError(f"{name}: off the one-device step ({rel}, {g_err}, {g_rel}, "
+                                 f"{t_err})")
+        del leaves, tf_p, loss, d_store
+        # --------------------------------------------- the training run
+        tf_p = tf.clone().requires_grad_()
+        if slabs:
+            leaves = [s.requires_grad_() for s in st.shard_store_slabs_uniform(init, n_brick)]
+            step = st.make_slab_train_step(problem, torch.optim.Adam(leaves + [tf_p], lr=5e-2), mesh)
+            params = {"slabs": leaves, "tf": tf_p}
+        else:
+            leaves = [init.clone().requires_grad_()]
+            step = st.make_train_step(problem, torch.optim.Adam(leaves + [tf_p], lr=5e-2), mesh)
+            params = {"store": leaves[0], "tf": tf_p}
+        torch.cuda.synchronize()
+        swb.post_sweep.launches = 0
+        swg.store_grid_backward.launches = 0
+        losses, ends = [], []
+        # The last step of the 4-slab run records its launches' operands
+        # (recording every step would hold each launch's slab and d_store).
+        rec = Recorder("post_sweep", "store_grid_bwd")
+        t0 = time.perf_counter()
+        for i in range(SHARD_TRAIN_STEPS):
+            last = slabs and n_brick == 4 and i == SHARD_TRAIN_STEPS - 1
+            with rec if last else contextlib.nullcontext():
+                losses.append(float(step(params, targets)))
+            ends.append(time.perf_counter())
+        n_k1, n_k2 = swb.post_sweep.launches, swg.store_grid_backward.launches
+        # ------------------------------------------ end of the training run
+        k1_total += n_k1
+        k2_total += n_k2
+        per_step = n_views * n_ray * (n_brick if slabs else 1)
+        if n_k1 != per_step * SHARD_TRAIN_STEPS or n_k2 != per_step * SHARD_TRAIN_STEPS:
+            raise AssertionError(f"{name}: K1 {n_k1}, K2 {n_k2} launches in "
+                                 f"{SHARD_TRAIN_STEPS} steps, want {per_step} a step each")
+        if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: the loss did not fall: {losses}")
+        steps_ms = np.diff([t0] + ends) * 1e3
+        print(f"{name}: {SHARD_TRAIN_STEPS} Adam steps, losses {losses}; K1 {n_k1 // SHARD_TRAIN_STEPS} "
+              f"and K2 {n_k2 // SHARD_TRAIN_STEPS} launches a step; step median of 2-"
+              f"{SHARD_TRAIN_STEPS} {float(np.median(steps_ms[1:])):.3f} ms (all "
+              f"{', '.join(f'{x:.3f}' for x in steps_ms)}) {card}")
+        if slabs and n_brick == 4:
+            k1_site_ms = k1_site(rec.calls, "a slab shard's forward (n_brick 4)", card)
+            ms, b, k2_err = k2_site(rec.calls, "a slab shard's backward (n_brick 4)", card)
+            k2_site_ms = (ms, b)
+        del leaves, tf_p, params, step, rec
+        torch.cuda.empty_cache()
+    sites = [("K1", "store trainer forward, sharded (2x2 replicated; slabs on 2, 4)", k1_total,
+              *k1_site_ms),
+             ("K2", "store trainer backward, sharded (2x2 replicated; slabs on 2, 4)", k2_total,
+              *k2_site_ms)]
+    return k1_total, k2_total, sites, k2_err
+
+
+def phase_sharded_exact(dev, card, exact_tol):
+    """27. ``VolumeScene.render_sharded`` at phase 22's width (a 512^3
+    smooth volume, 512^2 rays, its default params) on a 2x2 mesh of
+    logical shards against ``render``: K3's count set to 0 before and read
+    after, once per shard (one pass each); the image within K3's bound.
+    One shard's launch timed with its bound.  Returns (K3 launches,
+    sites)."""
+    import torch
+
+    from libre_tpu_torch.apps.render_cli import build_camera
+    from libre_tpu_torch.models import VolumeScene
+    from libre_tpu_torch.ops import exact
+    from libre_tpu_torch.testing import smooth_volume
+
+    camera = build_camera(SCENE_RAYS, SCENE_RAYS, EXACT_EYES[0], (0.0, 0.0, 0.0))[0]
+    scene = VolumeScene.from_volume(smooth_volume(SCENE_N, seed=7, device=dev), device=dev)
+    mesh = logical_mesh(dev, 2, 2)
+    with torch.no_grad():
+        one = scene.render(camera)
+        torch.cuda.synchronize()
+        exact.march_exact.launches = 0
+        with Recorder("exact_march") as rec:
+            got = scene.render_sharded(mesh, camera)
+        torch.cuda.synchronize()
+        launches = exact.march_exact.launches
+        # --------------------------------------------- end of the main path
+        if launches != 4:
+            raise AssertionError(f"render_sharded launched K3 {launches} times, want 4")
+        compare(got, one, "VolumeScene.render_sharded (2x2) vs render", exact_tol)
+        one_ms = cuda_ms(lambda: scene.render(camera), reps=5)
+        sharded_ms = cuda_ms(lambda: scene.render_sharded(mesh, camera), reps=5)
+        print(f"VolumeScene at {SCENE_N}^3, {SCENE_RAYS}^2 rays: render {one_ms:.4f} ms, "
+              f"render_sharded (2x2) {sharded_ms:.4f} ms {card}")
+        ms, b = k3_site(rec.calls, scene.bricks.data[0].numel() * 4, scene.params.filter_mode,
+                        "shard (0, 0) of the sharded scene", card)
+    return launches, [("K3", "render_rays_sharded, VolumeScene.render_sharded (2x2)", launches,
+                       ms, b)]
+
+
+def phase_mesh_apps(dev, card):
+    """28. The apps on a mesh of logical shards of the card:
+    ``render_cli --mesh 2x2 --mesh-devices`` (four times the card) at
+    512x512 (K1 once per shard; the frame against the one-device CLI
+    frame's PNG, at most one 8-bit step), then ``RenderService`` with a 2x2
+    ``Mesh`` over HTTP on 127.0.0.1: 3 orbit poses, each served frame
+    (before JPEG) bit-equal to the engine's sharded frame at the same
+    camera.  K1's count and ``sharded_frames`` are set to 0 before each
+    and read after.  Returns K1 launches."""
+    import urllib.request
+
+    import torch
+
+    from libre_tpu_torch.apps import render_cli
+    from libre_tpu_torch.apps.serve import RenderService
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.utils.image import read_image
+
+    pngs = {}
+    launches = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        for name, extra in (("one", []), ("mesh", ["--mesh", "2x2", "--mesh-devices",
+                                                   ",".join([str(dev)] * 4)])):
+            torch.cuda.synchronize()
+            swb.post_sweep.launches = 0
+            rc = render_cli.main(["--volume", URI, "--width", "512", "--height", "512",
+                                  "--device", str(dev), "--output-dir",
+                                  os.path.join(out_dir, name)] + extra)
+            torch.cuda.synchronize()
+            n = swb.post_sweep.launches
+            if rc != 0 or n != (4 if name == "mesh" else 1):
+                raise AssertionError(f"render_cli {name}: exit {rc}, {n} K1 launches")
+            if name == "mesh":
+                launches += n
+            pngs[name] = read_image(os.path.join(out_dir, name, "frame_000000.png")).astype(np.int32)
+    png_err = int(np.abs(pngs["mesh"] - pngs["one"]).max())
+    print(f"render_cli --mesh 2x2 at 512x512: 4 K1 launches; PNG max|d| vs one device {png_err}")
+    if png_err > 1 or pngs["mesh"].max() == 0:
+        raise AssertionError(f"render_cli --mesh frame off the one-device frame ({png_err})")
+
+    svc = RenderService(URI, width=512, height=512, host="127.0.0.1", port=0, device=dev,
+                        mesh=logical_mesh(dev, 2, 2))
+    served = []
+    real_frame = svc.render_frame
+
+    def render_frame(progressive=False):
+        canvas = real_frame(progressive)
+        served.append(canvas)
+        return canvas
+
+    svc.render_frame = render_frame
+    svc.server.start()
+    host, port = svc.server.address
+    try:
+        def call(path, method="GET", body=None):
+            data = json.dumps(body).encode() if body is not None else None
+            req = urllib.request.Request(f"http://{host}:{port}{path}", data=data, method=method)
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.read()
+
+        call("/params", "PUT", {"synchronous": True, "sse": SERVE_SSE})
+        poses = orbit_cameras()[::3]
+        torch.cuda.synchronize()
+        swb.post_sweep.launches = 0
+        svc.engine.sharded_frames = 0
+        latency = []
+        for i, (_cam, frustum) in enumerate(poses):
+            call("/camera", "PUT", {"modelview": frustum.mv.tolist()})
+            t0 = time.perf_counter()
+            if call("/image-jpeg", "POST", {})[:2] != b"\xff\xd8":
+                raise AssertionError(f"sharded service pose {i}: no JPEG")
+            latency.append((time.perf_counter() - t0) * 1e3)
+            cam, fr = svc.view_camera(512, 512, 0.0)
+            img, _ = svc.engine.render_bricked(cam, fr, **svc.frame_keywords())
+            if not np.array_equal(served[-1], img.cpu().numpy()):
+                raise AssertionError(f"sharded service pose {i}: the served frame is not the "
+                                     f"engine's sharded frame")
+        n_k1, n_sharded = swb.post_sweep.launches, svc.engine.sharded_frames
+        call("/exit", "POST", {})
+    finally:
+        svc.server.stop()
+    # Each pose: the served frame and the engine's own, 4 shards each.
+    if n_sharded != 2 * len(poses) or n_k1 != 8 * len(poses):
+        raise AssertionError(f"sharded service: {n_sharded} sharded frames, {n_k1} K1 launches")
+    launches += n_k1
+    print(f"RenderService over a 2x2 mesh: {len(poses)} orbit requests, served frames bit-equal "
+          f"to the engine's sharded frames; request ms {', '.join(f'{x:.1f}' for x in latency)} "
+          f"{card}")
+    return launches
+
+
+def phase_two_process(dev, card):
+    """29. Two processes on this machine, each on the card, in one gloo
+    group (``parallel/two_process.py`` at 256^3 / 256^2 rays / 512
+    planes): the frame-state broadcast, the rows gathered across the
+    processes against the one-device grid, the summed slab loss and TF
+    gradient (``all_reduce``) against the one-device ones."""
+    from libre_tpu_torch.parallel import two_process
+
+    t0 = time.perf_counter()
+    outs = two_process.run(str(dev), vox=TWO_PROCESS_N, img=TWO_PROCESS_N, timeout=300)
+    for rank, out in enumerate(outs):
+        line = next(ln for ln in out.splitlines() if ln.startswith(f"OK rank={rank} "))
+        print(f"two processes, rank {rank}: {line.split(' ', 2)[2]}")
+    print(f"two processes (gloo, one card): {time.perf_counter() - t0:.1f} s wall {card}")
+
+
 def main() -> int:
     import torch
 
@@ -2879,6 +3346,18 @@ def main() -> int:
     # --------------------------------------------------------- 24. entry()
     entry_k3, entry_err = phase_entry(dev, card, exact_tol)
     phase_done(24)
+    # ------------------- 25-29. M9: logical shards of the card (one H100)
+    mesh_k1, mesh_sites = phase_sharded_orbit(dev, card, engine, poses)
+    phase_done(25)
+    train_k1, train_k2, train_sites, mesh_k2_err = phase_sharded_training(
+        dev, card, problem, store, tf, targets)
+    phase_done(26)
+    mesh_k3, k3_sites = phase_sharded_exact(dev, card, exact_tol)
+    phase_done(27)
+    apps_k1 = phase_mesh_apps(dev, card)
+    phase_done(28)
+    phase_two_process(dev, card)
+    phase_done(29)
     print("phase seconds (utils.profiling.StageTimers):")
     for line in timers.report().splitlines():
         print(f"  {line}")
@@ -2896,7 +3375,10 @@ def main() -> int:
         ("K4", "RenderMarcherDiff backward (VolumeScene, exit on)", scene["k4_launches"],
          scene["k4_on_ms"], scene["k4_on_bound"]),
         ("K5", "render_frame, render_cli and orbit frames", dense_launches, k5_ms, k5_bound),
-    ] + ooc_sites
+    ] + ooc_sites + mesh_sites + train_sites + k3_sites + [
+        ("K1", "render_store_grid_sharded, render_cli --mesh and the sharded service", apps_k1,
+         *mesh_sites[0][3:]),
+    ]
     print(f"launch sites on the main paths: launches, ms per launch on the site's operands, "
           f"bound, launches x (ms - bound) {card}")
     above = {}
@@ -2914,7 +3396,7 @@ def main() -> int:
             "source": "libre_tpu_torch/csrc/post_sweep.cu",
             "replaces": "libre_tpu/ops/shearwarp_bricked.py:78",
             "launches": launches + train_fwd_launches + ooc_launches + serve_k1
-            + scripts["post_sweep"],
+            + scripts["post_sweep"] + mesh_k1 + train_k1 + apps_k1,
             "max_abs_err": max(max_err, ooc_err, script_errs["post_sweep"]),
             "ms": ms,
             "plain_ms": plain_ms,
@@ -2927,8 +3409,9 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/store_grid_bwd.cu",
             "replaces": "libre_tpu/ops/shearwarp_grad.py:440",
-            "launches": render_bwd_launches + train_bwd_launches + scripts["store_grid_bwd"],
-            "max_abs_err": max(bwd_err, script_errs["store_grid_bwd"]),
+            "launches": render_bwd_launches + train_bwd_launches + scripts["store_grid_bwd"]
+            + train_k2,
+            "max_abs_err": max(bwd_err, script_errs["store_grid_bwd"], mesh_k2_err),
             "ms": bwd_ms,
             "plain_ms": bwd_plain_ms,
             "bound_ms": k2_bound[0],
@@ -2941,7 +3424,7 @@ def main() -> int:
             "source": "libre_tpu_torch/csrc/exact_march.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:481",
             "launches": exact_launches + ex_fwd_launches + serve_k3 + scene["k3_launches"]
-            + entry_k3 + scripts["exact_march"],
+            + entry_k3 + scripts["exact_march"] + mesh_k3,
             "max_abs_err": max(k3_err, k3_train_err, scene["k3_err"], entry_err,
                                script_errs["exact_march"]),
             "ms": k3_ms,

@@ -22,8 +22,9 @@ Implemented slices:
 
 The rest (the dense renderer, out of core, the exact and dense trainers,
 ``models.VolumeScene``, the service and apps, the benchmark scripts,
-``entry``) is listed in the README's port section; ROADMAP.md says what is
-left (M9).
+``entry``, and the multi-device layer ``parallel/`` with the engine's
+sharded frame and the sharded trainers) is listed in the README's port
+section; ROADMAP.md says what is left.
 
 Kernels are compiled with ``nvcc`` at first use (``ops/_kernels.py``); on
 a CPU tensor each kernel's wrapper runs its plain PyTorch version.

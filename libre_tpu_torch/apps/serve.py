@@ -16,7 +16,9 @@ Then:  curl -X PUT -d '{"position": [0,0,2]}' localhost:8080/camera
 
 ``--device`` picks the torch device (default ``cuda``).  Every layout
 renders its views one after another through the engine; the views of a
-layout share the engine's cached stores and frame runners.
+layout share the engine's cached stores and frame runners.  With more
+than one CUDA device (``mesh="auto"``) or an explicit ``Mesh``, bricked
+frames shard over the mesh (``RenderEngine.render_bricked_sharded``).
 """
 
 from __future__ import annotations
@@ -46,16 +48,26 @@ class RenderService:
         device="cuda",
     ):
         from libre_tpu_torch.apps.steering import SteeringServer
+        import torch
+
         from libre_tpu_torch.core.frustum import perspective
         from libre_tpu_torch.core.settings import FrameData
         from libre_tpu_torch.data.datasource import DataSource, load_plugins
+        from libre_tpu_torch.parallel.mesh import local_devices, parse_mesh, require_mesh
         from libre_tpu_torch.render.engine import RenderEngine
 
-        # "auto" is one device: frames sharded over several are ROADMAP M9.
-        if mesh not in ("auto", None):
-            raise NotImplementedError(
-                "RenderService(mesh=...): mesh-sharded frames are ROADMAP M9"
-            )
+        # Auto-meshing: with more than one CUDA device, interactive frames
+        # shard over a (ray x brick) mesh, as the reference's eq deployment
+        # launches one channel per GPU (Client.cpp:146-258); with one
+        # device (or on the CPU) there is no mesh.  An explicit Mesh
+        # shards the bricked frames over its devices.
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"RenderService: mesh={mesh!r}, expected 'auto', None or a Mesh")
+            devices = local_devices() if torch.device(device).type == "cuda" else ()
+            mesh = parse_mesh("auto", devices) if len(devices) > 1 else None
+        elif mesh is not None:
+            require_mesh("RenderService", mesh)
         load_plugins()
         self.width, self.height = width, height
         # "bricked": the store sweep over the atlas (interactive default;
@@ -68,6 +80,7 @@ class RenderService:
             max_cpu_cache_mb=max_cpu_cache_mb,
             filter_mode="trilinear",
             device=device,
+            mesh=mesh,
         )
         self.frame_data = FrameData()
         self.frame_data.volume_settings.uri = volume_uri

@@ -192,6 +192,10 @@ class SteeringServer:
                 self._json({"ok": True})
 
             def do_POST(self):
+                # Read the request's body even where it is unused: a
+                # socket closed with unread input resets the connection,
+                # and the client can lose the response it is reading.
+                self.rfile.read(int(self.headers.get("Content-Length", 0)))
                 if self.path == "/image-jpeg":
                     if outer._render_jpeg is None:
                         self._json({"error": "no renderer attached"}, 503)

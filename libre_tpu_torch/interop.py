@@ -1,9 +1,9 @@
 """State carried across from the JAX package, as numpy arrays.
 
 The JAX package lays its device state out for the TPU: the brick atlas
-is flat slots padded to 128 lanes, and the assembled store and the
-classified plane stack pad their two in-plane axes to multiples of 128
-(the stack also stacks its four channels along c).  These functions
+is flat slots padded to 128 lanes, and the assembled store (whole or in
+slabs) and the classified plane stack pad their two in-plane axes to
+multiples of 128 (the stack also stacks its four channels along c).  These functions
 strip that padding
 so the port and the JAX package can be fed the same state; the (256, 4)
 transfer function and the exact trainer's (Z, Y, X) density need no
@@ -15,13 +15,14 @@ are writable copies, so
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops.reference import RenderParams
+from libre_tpu_torch.parallel.mesh import BRICK_AXIS, RAY_AXIS, Mesh, make_mesh
 from libre_tpu_torch.train.shearwarp_trainer import ShearWarpProblem
 from libre_tpu_torch.train.store_trainer import StoreProblem
 
@@ -170,3 +171,33 @@ def scene_params_from_jax(params: Dict) -> Dict[str, np.ndarray]:
             f"scene_params_from_jax: needs one brick (1, Z, Y, X), got {density.shape}"
         )
     return {"density": np.array(density[0]), "tf": np.array(np.asarray(params["tf"]), np.float32)}
+
+
+def store_slabs_from_jax(
+    slabs: np.ndarray, a_base, fine_dims: Tuple[int, int, int]
+) -> Tuple[List[np.ndarray], np.ndarray]:
+    """The JAX package's slab-sharded store, (d_k, Na_slab, Nc_pad, Nb_pad)
+    lane-padded slabs (``shard_store_slabs_uniform`` or
+    ``build_sharded_slabs``) with their first global slices ``a_base``
+    (d_k,) → (the port's per-shard list of unpadded (slices, Nc, Nb)
+    slabs, a_base as int32).  A slab keeps its slices up to the store's
+    last one; its lane padding is stripped."""
+    slabs = np.asarray(slabs)
+    a_base = np.asarray(a_base, np.int32).reshape(-1)
+    if slabs.ndim != 4 or slabs.shape[0] != a_base.shape[0]:
+        raise ValueError(
+            f"store_slabs_from_jax: {slabs.shape} slabs for {a_base.shape[0]} offsets"
+        )
+    na, nc, nb = fine_dims
+    out = [
+        np.array(slabs[d, : max(0, na - int(a_base[d])), :nc, :nb])
+        for d in range(slabs.shape[0])
+    ]
+    return out, a_base
+
+
+def mesh_from_jax(mesh, device="cpu") -> Mesh:
+    """A JAX ``Mesh`` with axes (ray, brick) → a port :class:`Mesh` of
+    the same shape whose every shard is ``device``."""
+    n_ray, n_brick = int(mesh.shape[RAY_AXIS]), int(mesh.shape[BRICK_AXIS])
+    return make_mesh(n_brick=n_brick, n_ray=n_ray, devices=[device] * (n_ray * n_brick))

@@ -9,8 +9,12 @@ backward K4, ``csrc/exact_march_bwd.cu``, which walks only the samples
 K3 composited; their plain versions on the CPU), one march per jittered
 subpixel sample, averaged, as ``exact.render_exact`` does.  The scene is
 one brick filling the global box (``reference.single_brick_set``); its
-``parameters`` are {"density": (Z, Y, X), "tf": (256, 4)}.  The (ray ×
-brick) sharded render is ROADMAP M9.
+``parameters`` are {"density": (Z, Y, X), "tf": (256, 4)}.
+
+:meth:`VolumeScene.render_sharded` renders over a (ray × brick) mesh
+(``parallel.render.render_rays_sharded``: K3 once per shard on its ray
+rows and its front-to-back brick chunk, the segments folded in rank
+order).
 """
 
 from __future__ import annotations
@@ -90,7 +94,7 @@ class VolumeScene:
         if self.bricks.num_bricks != 1:
             raise NotImplementedError(
                 f"VolumeScene.render: {self.bricks.num_bricks} bricks; multi-brick exact "
-                f"gradients are out of scope (ROADMAP)"
+                f"gradients need K4 over a brick set (ROADMAP M9)"
             )
         density = self.bricks.data[0]
         wmin = self.bricks.world_min[0].detach().cpu().numpy()
@@ -106,5 +110,31 @@ class VolumeScene:
         return (sum(images) / float(len(images))).reshape(vh, vw, 4)
 
     def render_sharded(self, mesh, camera: Camera) -> torch.Tensor:
-        """The (ray × brick) mesh-sharded render: ROADMAP M9."""
-        raise NotImplementedError("VolumeScene.render_sharded: the sharded render is ROADMAP M9")
+        """(H, W, 4) image over a (ray, brick) mesh, on the mesh's lead
+        device, from the first jittered subpixel sample as the JAX
+        package's: the bricks are reordered front to back and padded to
+        the brick-axis size (``shard_bricks_front_to_back``), the rays
+        split in row blocks over the ray axis."""
+        from libre_tpu_torch.ops import rays as ray_ops
+        from libre_tpu_torch.parallel.mesh import BRICK_AXIS, require_mesh
+        from libre_tpu_torch.parallel.render import (
+            render_rays_sharded,
+            shard_bricks_front_to_back,
+        )
+
+        require_mesh("VolumeScene.render_sharded", mesh)
+        dev = self.bricks.data.device
+        eye, dirs, cos_z, _ = ray_ops.make_rays(
+            camera.inv_proj, camera.inv_mv, camera.viewport, device=dev
+        )
+        dirs = dirs.reshape(-1, 3)
+        tnp = ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)
+        bricks, _ = shard_bricks_front_to_back(
+            self.bricks, eye.cpu().numpy(), mesh.shape[BRICK_AXIS]
+        )
+        vx, vy, vw, vh = camera.viewport
+        out = render_rays_sharded(
+            mesh, bricks, self.tf, eye, dirs, tnp, self.params, self.global_min,
+            self.global_max, self.max_steps(), width=vw,
+        )
+        return out.reshape(vh, vw, 4)

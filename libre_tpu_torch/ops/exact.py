@@ -332,11 +332,12 @@ def render_marcher_diff(volume_zyx: torch.Tensor, tf: torch.Tensor, view: ExactV
     over a single brick.  Forward K3 from a zero carry, backward K4 with
     the exit rule (their plain versions on the CPU); a sample past the
     exit gets no gradient.  A (B, Z, Y, X) set of more than one brick
-    raises: multi-brick exact gradients are out of scope."""
+    raises: multi-brick exact gradients need K4 over a brick set (ROADMAP
+    M9)."""
     if volume_zyx.dim() == 4 and volume_zyx.shape[0] > 1:
         raise NotImplementedError(
             f"render_marcher_diff: {volume_zyx.shape[0]} bricks; multi-brick exact "
-            f"gradients are out of scope (ROADMAP)"
+            f"gradients need K4 over a brick set (ROADMAP M9)"
         )
     if volume_zyx.dtype != torch.float32 or volume_zyx.dim() != 3:
         raise TypeError(

@@ -430,26 +430,42 @@ def sweep_tables(
     v_size: int,
     u_size: int,
     content: Optional[torch.Tensor] = None,
+    slab: Optional[Tuple[torch.Tensor, torch.Tensor, int, int]] = None,
 ) -> SweepTables:
     """Derive the sweep's per-frame tables on ``fv``'s device from the
     view vector ``fv[:11]`` = [wa0, wa1, eye_a, u0, du, dv, eb, ec, v0,
     sign, max_samples_per_ray], in f32 as the frame runs them: global
     front-to-back plane tables (as :func:`plane_tables`), plane activity
     from the store's slice coverage, the per-ray opacity-correction
-    exponent ``msr·dz·√(1+u²+v²)``, and the initial carry."""
+    exponent ``msr·dz·√(1+u²+v²)``, and the initial carry.
+
+    ``slab`` = (k0, a_base, k_total, na_store), the slab mode of the
+    sharded store trainer: the planes are [k0, k0 + k_planes) of a
+    global grid of ``k_total``, read from a store slab of ``na_store``
+    slices whose slice 0 is global slice ``a_base``.  Plane positions and
+    the edge clamp are computed on the global grid first (the same
+    floats as the global tables), then shifted into the slab, clamped."""
     dev = fv.device
     f32 = torch.float32
     wa0, wa1, eye_a = fv[0], fv[1], fv[2]
     u0, du, dv = fv[3], fv[4], fv[5]
     eb, ec, v0, sign, msr = fv[6], fv[7], fv[8], fv[9], fv[10]
     k = torch.arange(k_planes, dtype=f32, device=dev)
-    dz = (wa1 - wa0) / k_planes
+    k_total = k_planes
+    if slab is not None:
+        k0, a_base, k_total, na_store = slab
+        k = k0 + k
+    dz = (wa1 - wa0) / k_total
     z = torch.where(sign > 0, wa0 + (k + 0.5) * dz, wa1 - (k + 0.5) * dz)
     sa = torch.clamp((z - wa0) / (wa1 - wa0) * na - 0.5, -0.5, na - 0.5)
     i0 = torch.floor(torch.clamp(sa, 0.0, float(na - 1)))
     wa = torch.clamp(sa - i0, 0.0, 1.0)
+    i1 = torch.clamp(i0 + 1.0, max=float(na - 1))
+    if slab is not None:
+        i0 = torch.clamp(i0 - a_base, 0.0, float(na_store - 1))
+        i1 = torch.clamp(i1 - a_base, 0.0, float(na_store - 1))
     a0 = i0.to(torch.int32)
-    a1 = torch.clamp(i0 + 1.0, max=float(na - 1)).to(torch.int32)
+    a1 = i1.to(torch.int32)
     if content is not None:
         act = content[a0.long()] | content[a1.long()]
     else:

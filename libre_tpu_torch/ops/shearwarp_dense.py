@@ -434,8 +434,44 @@ def render_frame(
     return swb.warp_frame(inter, fv, axis=plan_args.axis, viewport=camera.viewport)
 
 
-def render_slope_grid_sharded(*args, **kwargs):
-    """The multi-device sweep (slope rows × plane ranges over a mesh)."""
-    raise NotImplementedError(
-        "render_slope_grid_sharded: multi-GPU rendering is ROADMAP M9"
-    )
+def render_slope_grid_sharded(
+    mesh,
+    chans: torch.Tensor,
+    nc_real: int,
+    nb_real: int,
+    plan_args: SlopeGridPlanArgs,
+    content: Optional[torch.Tensor] = None,
+    streams=None,
+) -> torch.Tensor:
+    """The multi-device sweep over a (ray × brick) mesh → (V, U, 4) on the
+    mesh's lead device: slope rows over the ray axis (shard vd's first row
+    at v0 + dv·vd·V_l), contiguous front-to-back plane ranges of the
+    global grid over the brick axis, K5 once per shard on tables cut from
+    the frame's global tables, the segments folded in rank order
+    (``libre_tpu.ops.shearwarp_pallas.render_slope_grid_sharded``).  V
+    must divide the ray-axis size and K the brick-axis size (else
+    ValueError)."""
+    from libre_tpu_torch.parallel import bricked_sharded as bs
+    from libre_tpu_torch.parallel.compositing import move, on_stream
+    from libre_tpu_torch.parallel.mesh import BRICK_AXIS, RAY_AXIS, require_mesh
+
+    require_mesh("render_slope_grid_sharded", mesh)
+    _check_extents(chans, nc_real, nb_real)
+    v_size, _u = plan_args.swp.inter_size
+    v_l, k_l = bs.check_divides(mesh, v_size, plan_args.swp.n_planes)
+    _fv, tables = sweep_operands(chans, plan_args)
+    dv = tables.view[2]
+    parts = [[None] * mesh.shape[BRICK_AXIS] for _ in range(mesh.shape[RAY_AXIS])]
+    for vd, kd, dev in mesh.shards():
+        with on_stream(streams, dev):
+            chans_l = move(chans, dev, streams)
+            tables_l = bs.shard_tables(
+                tables, rows=slice(vd * v_l, (vd + 1) * v_l),
+                planes=slice(kd * k_l, (kd + 1) * k_l),
+                v0=tables.view[5] + dv * float(vd * v_l), device=dev,
+                na_store=chans.shape[0],
+                content=None if content is None else move(content, dev, streams),
+                streams=streams,
+            )
+            parts[vd][kd] = pre_sweep(chans_l, tables_l, **plan_args.sweep_kwargs())
+    return bs.fold_rows(mesh, parts, direct=False, streams=streams)

@@ -8,6 +8,11 @@ slope grid of a normalized (Na, Nc, Nb) density store under a
   ``shearwarp_bricked.post_sweep`` (the K1 kernel on a GPU) with no clip
   planes, no content skipping and a fresh carry; it also yields the final
   transmittance the backward needs.
+* **Slab mode** (the slab-sharded store trainer): a 13-float view vector
+  appends [k0, a_base]; the render covers global planes [k0, k0 +
+  k_planes) of ``k_total`` out of a store slab whose slice 0 is global
+  slice ``a_base`` (``shearwarp_bricked.sweep_tables``' ``slab``), and
+  both kernels run on that slab.
 * **Backward**: :func:`store_grid_backward`, one recompute sweep that
   inverts the front-to-back composite with the total-minus-prefix
   identity and scatters the density and transfer-function gradients —
@@ -22,7 +27,7 @@ early exit off (``early_exit`` > 1).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +57,12 @@ class StaticView:
     wc: Tuple[float, float]
     early_exit: float
     diff_tf: bool = True
+    na_store: Optional[int] = None  # slab mode: the slab's slices (else na)
+    k_total: Optional[int] = None  # slab mode: the global plane count
+
+    @property
+    def store_slices(self) -> int:
+        return self.na if self.na_store is None else self.na_store
 
 
 def static_view(
@@ -68,15 +79,16 @@ def static_view(
     axis: int,
     early_exit: float,
     diff_tf: bool = True,
+    k_total: Optional[int] = None,
 ) -> StaticView:
     """:class:`StaticView` from the JAX package's ``static_view``
-    arguments.  The port's store is unpadded, so ``na_store`` must equal
-    ``na_real``: a store slab of a longer axis is the slab trainer's
-    (ROADMAP M9)."""
-    if na_store != na_real:
-        raise NotImplementedError(
+    arguments.  The port's store is unpadded, so ``na_store`` other than
+    ``na_real`` is a store slab: slab mode, which ``k_total`` (the global
+    plane count) announces and 13-float view vectors feed."""
+    if na_store != na_real and k_total is None:
+        raise ValueError(
             f"static_view: na_store={na_store} != na_real={na_real} is a "
-            "store slab (slab mode, ROADMAP M9)"
+            "store slab: give k_total (slab mode)"
         )
     wmin = np.asarray(world_min, np.float32)
     wmax = np.asarray(world_max, np.float32)
@@ -92,6 +104,8 @@ def static_view(
         wc=(float(wmin[c_axis]), float(wmax[c_axis])),
         early_exit=float(early_exit),
         diff_tf=bool(diff_tf),
+        na_store=None if k_total is None else int(na_store),
+        k_total=None if k_total is None else int(k_total),
     )
 
 
@@ -276,9 +290,12 @@ class RenderStoreGridDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, store, tf, vs, static: StaticView):
+        slab = None
+        if static.k_total is not None:
+            slab = (vs[11], vs[12], static.k_total, static.na_store)
         tables = swb.sweep_tables(
             vs, na=static.na, k_planes=static.k_planes,
-            v_size=static.v_size, u_size=static.u_size,
+            v_size=static.v_size, u_size=static.u_size, slab=slab,
         )
         clip = torch.zeros(
             (swb.MAX_CLIP_PLANES, 4), dtype=torch.float32, device=store.device
@@ -312,18 +329,18 @@ def render_store_grid_diff(
     normalized density store and a (256, 4) TF → (V, U, 4).
 
     ``vs`` is the 11-float view vector (:func:`view_vector`), as a tensor
-    or array; ``static`` the view's :class:`StaticView`."""
+    or array; ``static`` the view's :class:`StaticView`.  In slab mode
+    (``static.k_total`` set) ``vs`` has 13 floats, [k0, a_base] appended,
+    and ``store`` is the (na_store, Nc, Nb) slab."""
     vs = torch.as_tensor(vs, dtype=torch.float32, device=store.device)
-    if vs.shape == (VIEW_LEN + 2,):
-        raise NotImplementedError(
-            "render_store_grid_diff: a 13-float view vector is a store slab's "
-            "plane range (slab mode, ROADMAP M9)"
+    want = VIEW_LEN if static.k_total is None else VIEW_LEN + 2
+    if vs.shape != (want,):
+        raise ValueError(
+            f"render_store_grid_diff: view vector shape {tuple(vs.shape)}, needs ({want},)"
         )
-    if vs.shape != (VIEW_LEN,):
-        raise ValueError(f"render_store_grid_diff: view vector shape {tuple(vs.shape)}")
-    if tuple(store.shape) != (static.na, static.nc, static.nb):
+    if tuple(store.shape) != (static.store_slices, static.nc, static.nb):
         raise ValueError(
             f"render_store_grid_diff: store shape {tuple(store.shape)} != "
-            f"{(static.na, static.nc, static.nb)}"
+            f"{(static.store_slices, static.nc, static.nb)}"
         )
     return RenderStoreGridDiff.apply(store, tf, vs, static)

@@ -17,6 +17,12 @@ Per frame, as in renderers/glRaycaster/GLRaycastPipeline.cpp:78-350:
     (level, time step, axis, TF) into an RGBA plane stack, cached, and
     swept by the pre-classified kernel (``ops/shearwarp_dense.py``).
 
+With a ``mesh`` (``parallel/mesh.py``), :meth:`render_bricked` routes
+through :meth:`render_bricked_sharded`: slope rows over the mesh's ray
+axis, front-to-back plane ranges over its brick axis (K1 once per shard),
+the segments folded in rank order; where the rows or planes do not divide
+the mesh it warns once and renders on the one device.
+
 When the assembled store exceeds the derived-cache budget or the
 rendering set exceeds the atlas's slots, :meth:`render_bricked` renders
 in A-slab passes, paging each slab's bricks through the atlas.  With
@@ -65,6 +71,9 @@ from libre_tpu_torch.ops.reference import (
     nyquist_samples_per_ray,
 )
 from libre_tpu_torch.ops.transfer_function import default_color_map
+from libre_tpu_torch.parallel import bricked_sharded
+from libre_tpu_torch.parallel.compositing import move
+from libre_tpu_torch.parallel.mesh import BRICK_AXIS, require_mesh
 
 MARCHERS = ("auto", "pallas", "xla")
 SHEARWARP_BACKENDS = ("auto", "pallas", "jnp")
@@ -254,6 +263,7 @@ class RenderEngine:
         n_upload_threads: int = 4,
         filter_mode: str = "nearest",
         device="cuda",
+        mesh=None,
     ):
         self.datasource = datasource
         self.device = torch.device(device)
@@ -323,6 +333,13 @@ class RenderEngine:
         self._store_cache = _ByteLRU(self.device_budget)
         # Steady-state frame runners keyed by (set_key, view statics).
         self._frame_runners: Dict[tuple, swb.StoreFrameRunner] = {}
+
+        # The (ray × brick) mesh bricked frames shard over (render_cli
+        # --mesh, RenderService(mesh=...), or set directly), and the
+        # frames that ran sharded.
+        self.mesh = None if mesh is None else require_mesh("RenderEngine", mesh)
+        self.sharded_frames = 0
+        self._mesh_fallback_warned = False
 
     # ------------------------------------------------------------------ IO
     def _load_brick(self, cache_id: int) -> Tuple[np.ndarray, int]:
@@ -574,7 +591,31 @@ class RenderEngine:
         histograms of the rendering set the frame composites, in core,
         out of core and asynchronous alike, each brick counted by the
         channel whose share ``relative_viewport`` of the viewport holds
-        its centre (:meth:`accumulate_histogram`)."""
+        its centre (:meth:`accumulate_histogram`).
+
+        With ``self.mesh`` set, the frame routes through
+        :meth:`render_bricked_sharded`, falling back here (with one
+        warning) where that raises ValueError: the viewport height or the
+        plane count does not divide the mesh axes, or the set exceeds the
+        atlas."""
+        kw = dict(
+            params=params, screen_space_error=screen_space_error,
+            min_lod=min_lod, max_lod=max_lod, clip_planes=clip_planes,
+            time_step=time_step, synchronous=synchronous,
+            data_range=data_range, n_planes=n_planes,
+            collect_histogram=collect_histogram,
+            relative_viewport=relative_viewport,
+        )
+        if self.mesh is not None:
+            try:
+                return self.render_bricked_sharded(camera, frustum, self.mesh, **kw)
+            except ValueError as exc:
+                log = logging.getLogger(__name__)
+                if not self._mesh_fallback_warned:
+                    self._mesh_fallback_warned = True
+                    log.warning("mesh-sharded frame fell back to single-device: %s", exc)
+                else:
+                    log.debug("mesh fallback: %s", exc)
         vx, vy, vw, vh = camera.viewport
         visibles = self.select(
             frustum, vh, screen_space_error, min_lod, max_lod,
@@ -588,23 +629,10 @@ class RenderEngine:
                 render_nodes, frustum, relative_viewport
             )
 
-        info = self.info
-        half = np.asarray(info.world_size, np.float32) * 0.5
-        if params is None:
-            max_level = max((n.level for n in render_nodes), default=0)
-            spr = n_planes or nyquist_samples_per_ray(
-                info.voxels, info.root_node.depth, max_level
-            )
-            params = RenderParams(
-                n_samples_per_ray=spr,
-                data_source_range=self.data_source_range,
-            )
-        swp = sw.ShearWarpParams(
-            n_planes=n_planes or params.n_samples_per_ray,
-            inter_size=(vh, vw),
+        half = np.asarray(self.info.world_size, np.float32) * 0.5
+        params, swp, sw_plan, render_level, (na, nc, nb) = self._store_view(
+            camera, render_nodes, params, n_planes
         )
-        sw_plan = sw.make_view_plan(camera, swp.slope_margin)
-        axis = sw_plan.axis
         clip_arr = (
             clip_planes.as_array() if clip_planes is not None else None
         )
@@ -612,14 +640,6 @@ class RenderEngine:
         if not render_nodes:
             return torch.zeros((vh, vw, 4), device=self.device), stats
 
-        render_level = max(n.level for n in render_nodes)
-        depth = info.root_node.depth
-        shift = depth - 1 - render_level
-        fine_xyz = tuple(max(1, d >> shift) for d in info.voxels)
-        perm = sw._PERM[axis]
-        na, nc, nb = (
-            (fine_xyz[2], fine_xyz[1], fine_xyz[0])[p] for p in perm
-        )
         store_bytes = na * nc * nb * 4
         # The derived-cache share of the device budget — NOT the atlas
         # bytes, which are already spoken for.
@@ -632,35 +652,15 @@ class RenderEngine:
             return img, stats
 
         set_key = (
-            axis,
+            sw_plan.axis,
             tuple(sorted(n.id for n in render_nodes)),
             time_step,
             params.data_source_range,
             render_level,
         )
-        cached = self._store_cache.get(set_key)
-        if cached is None:
-            entries = self._upload_nodes(render_nodes)
-            try:
-                slot_of = {
-                    n.id: e.value for n, e in zip(render_nodes, entries)
-                }
-                plan = swb.build_assembly_plan(
-                    self.datasource, render_nodes, axis,
-                    lambda n: slot_of[n.id],
-                    params.data_source_range,
-                    render_level=render_level,
-                )
-                store = swb.assemble_store(self.atlas.data, plan)
-                content = swb.store_content(store)
-            finally:
-                for e in entries:
-                    e.unpin()
-            cached = (store, content, plan)
-            self._store_cache.put(
-                set_key, cached, _nbytes(store) + _nbytes(content)
-            )
-        store, content, plan = cached
+        store, content, plan = self._cached_store(
+            set_key, render_nodes, sw_plan.axis, params, render_level
+        )
         stats.n_passes = 1
         rkey = (
             set_key,
@@ -683,6 +683,180 @@ class RenderEngine:
             self._frame_runners[rkey] = runner
         img = runner(store, self.transfer_function, camera, sw_plan)
         return img, stats
+
+    @_on_atlas_stream
+    def render_bricked_sharded(
+        self,
+        camera: Camera,
+        frustum: Frustum,
+        mesh,
+        params: Optional[RenderParams] = None,
+        screen_space_error: float = 4.0,
+        min_lod: int = 0,
+        max_lod: int = (1 << 4) - 1,
+        clip_planes: Optional[ClipPlanes] = None,
+        time_step: int = 0,
+        synchronous: bool = True,
+        data_range: Tuple[float, float] = (0.0, 1.0),
+        n_planes: Optional[int] = None,
+        collect_histogram: bool = False,
+        relative_viewport: Tuple[float, float, float, float] = (0.0, 0.0, 1.0, 1.0),
+    ) -> Tuple[torch.Tensor, RenderStatistics]:
+        """Bricked frame over a (ray × brick) mesh → ((H, W, 4) on the
+        engine's device, statistics): BASELINE config 4, a large
+        multi-brick volume decomposed across devices.
+
+        Sort-last: the brick axis splits the GLOBAL plane grid into
+        front-to-back ranges; sort-first: the ray axis shards slope-grid
+        rows; K1 launches once per shard and the segments fold with the
+        over operator in rank order (the Channel DB compositing of
+        livre/eq/Channel.cpp:444-586).  When the whole store fits the
+        derived-cache budget, the frame reads the SAME cached store as
+        :meth:`render_bricked` (replicated to the shards), so an orbit
+        reassembles nothing; otherwise each brick-axis shard gets a slab
+        of the slices its planes bracket, assembled fresh per view
+        (``bricked_sharded.build_sharded_slabs``, 1/d_k of the store).
+        ``synchronous=False`` renders the rendering set and uploads the
+        rest, as :meth:`render_bricked` does.  The viewport height must
+        divide the ray axis and the plane count the brick axis, and the
+        visible set must fit the atlas (else ValueError, before any
+        assembly); ``stats.n_passes`` is the brick-axis size."""
+        mesh = require_mesh("render_bricked_sharded", mesh)
+        vx, vy, vw, vh = camera.viewport
+        visibles = self.select(
+            frustum, vh, screen_space_error, min_lod, max_lod,
+            data_range, clip_planes, time_step,
+        )
+        if len(visibles) > self.atlas.n_slots:
+            raise ValueError(
+                f"{len(visibles)} bricks exceed the atlas's {self.atlas.n_slots} slots"
+            )
+        stats = RenderStatistics()
+        render_nodes = self._rendering_nodes(visibles, synchronous, stats)
+        stats.n_render_available = len(render_nodes)
+        half = np.asarray(self.info.world_size, np.float32) * 0.5
+        params, swp, sw_plan, render_level, (na, nc, nb) = self._store_view(
+            camera, render_nodes, params, n_planes
+        )
+        bricked_sharded.check_divides(mesh, vh, swp.n_planes)
+        if collect_histogram:
+            stats.histogram = self.accumulate_histogram(
+                render_nodes, frustum, relative_viewport
+            )
+        if not render_nodes:
+            self.sharded_frames += 1
+            return torch.zeros((vh, vw, 4), device=self.device), stats
+
+        axis = sw_plan.axis
+        replicated = na * nc * nb * 4 <= self.device_budget.budget
+        d_k = mesh.shape[BRICK_AXIS]
+        clip_arr = clip_planes.as_array() if clip_planes is not None else None
+        sweep = swb.SlabSweep(
+            device=self.device, axis=axis, na=na, params=params, swp=swp,
+            world_min=-half, world_max=half, clip_planes_world=clip_arr,
+            viewport=camera.viewport,
+        )
+        fv_host = sweep.view_vector(camera, sw_plan)
+        set_key = (
+            axis,
+            tuple(sorted(n.id for n in render_nodes)),
+            time_step,
+            params.data_source_range,
+            render_level,
+        )
+        if replicated:
+            store, content, _plan = self._cached_store(
+                set_key, render_nodes, axis, params, render_level
+            )
+            a_base = None
+        else:
+            content = None
+            store, a_base = self._with_assembly_plan(
+                render_nodes, axis, params, render_level,
+                lambda plan: bricked_sharded.build_sharded_slabs(
+                    self.atlas.data, plan, fv_host, swp.n_planes, d_k
+                ),
+            )
+        stats.n_passes = d_k
+        streams = self._frame_streams(mesh)
+        fv = torch.from_numpy(fv_host).to(self.device)
+        inter = bricked_sharded.render_store_grid_sharded(
+            mesh, store, self.transfer_function, fv,
+            na_real=na, nc_real=nc, nb_real=nb, k_planes=swp.n_planes,
+            inter_size=swp.inter_size, wb0=sweep.wb[0], wb1=sweep.wb[1],
+            wc0=sweep.wc[0], wc1=sweep.wc[1], early_exit=sweep.early_exit,
+            clip=sweep.clip, n_clip=sweep.n_clip, a_base=a_base, content=content,
+            streams=streams,
+        )
+        img = sweep.warp(move(inter, self.device, streams), fv)
+        self.sharded_frames += 1
+        return img, stats
+
+    def _store_view(self, camera, render_nodes, params, n_planes):
+        """A bricked frame's (params, ``ShearWarpParams``, view plan,
+        render level, store dims (Na, Nc, Nb)): ``params`` by default the
+        Nyquist rate of the set's finest level over the data range."""
+        info = self.info
+        vx, vy, vw, vh = camera.viewport
+        render_level = max((n.level for n in render_nodes), default=0)
+        if params is None:
+            spr = n_planes or nyquist_samples_per_ray(
+                info.voxels, info.root_node.depth, render_level
+            )
+            params = RenderParams(
+                n_samples_per_ray=spr, data_source_range=self.data_source_range,
+            )
+        swp = sw.ShearWarpParams(
+            n_planes=n_planes or params.n_samples_per_ray, inter_size=(vh, vw),
+        )
+        sw_plan = sw.make_view_plan(camera, swp.slope_margin)
+        shift = info.root_node.depth - 1 - render_level
+        fine_xyz = tuple(max(1, d >> shift) for d in info.voxels)
+        dims = tuple((fine_xyz[2], fine_xyz[1], fine_xyz[0])[p] for p in sw._PERM[sw_plan.axis])
+        return params, swp, sw_plan, render_level, dims
+
+    def _with_assembly_plan(self, render_nodes, axis, params, render_level, assemble):
+        """``assemble(plan)`` of the set's assembly plan, with the set's
+        bricks uploaded and their atlas slots pinned meanwhile."""
+        entries = self._upload_nodes(render_nodes)
+        try:
+            slot_of = {n.id: e.value for n, e in zip(render_nodes, entries)}
+            plan = swb.build_assembly_plan(
+                self.datasource, render_nodes, axis, lambda n: slot_of[n.id],
+                params.data_source_range, render_level=render_level,
+            )
+            return assemble(plan)
+        finally:
+            for e in entries:
+                e.unpin()
+
+    def _cached_store(self, set_key, render_nodes, axis, params, render_level):
+        """The set's (store, content, plan) from the store cache, or
+        assembled, with its slice coverage, and cached."""
+        cached = self._store_cache.get(set_key)
+        if cached is None:
+            def assemble(plan):
+                store = swb.assemble_store(self.atlas.data, plan)
+                return store, swb.store_content(store), plan
+
+            cached = self._with_assembly_plan(render_nodes, axis, params, render_level, assemble)
+            self._store_cache.put(set_key, cached, _nbytes(cached[0]) + _nbytes(cached[1]))
+        return cached
+
+    def _frame_streams(self, mesh) -> Dict[torch.device, torch.cuda.Stream]:
+        """Each CUDA device of ``mesh``: the stream its share of a frame is
+        ordered on — the atlas's on the atlas's device, the current one on
+        the others."""
+        streams = {}
+        for dev in mesh.distinct_devices():
+            if dev.type != "cuda":
+                continue
+            atlas_stream = self.atlas.stream
+            if atlas_stream is not None and dev == atlas_stream.device:
+                streams[dev] = atlas_stream
+            else:
+                streams[dev] = torch.cuda.current_stream(dev)
+        return streams
 
     def _render_slabs(
         self, render_nodes, render_level, fine_dims, camera, sw_plan,

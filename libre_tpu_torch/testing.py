@@ -574,3 +574,47 @@ def dense_grad_case(device):
     tf = torch.from_numpy(default_color_map())
     return (vol.to(device).requires_grad_(), tf.to(device).requires_grad_(),
             g.to(device), pa)
+
+
+# ================================================================ sharding
+# A sharded result against the one-device result on the same inputs
+# (the JAX package's own bounds, tests/test_bricked_sharded.py and
+# tests/test_store_slab_sharded.py): early exit off, the fold regroups
+# floats; early exit on, termination is local to a shard's segment, so
+# samples past the threshold enter scaled by < 1 − threshold.
+SHARD_TOL_EXIT_OFF = 2e-5
+SHARD_TOL_EXIT_ON = 2e-3
+SHARD_LOSS_RTOL = 1e-6
+SHARD_GRAD_TOL = 1e-5
+
+
+def split_into_bricks(volume_zyx, n_split: int, overlap: int, device="cuda"):
+    """Split a (Z, Y, X) volume into n_split³ bricks of (b + 2·overlap)³
+    voxels, ghost voxels clamped at the border (``lod_store``'s
+    extraction; the JAX tests' ``_split_into_bricks``) → a
+    ``reference.BrickSet`` on ``device``."""
+    from libre_tpu_torch.ops.reference import BrickSet
+
+    volume = np.asarray(volume_zyx, np.float32)
+    _nz, _ny, nx = volume.shape
+    bs = nx // n_split
+    padded = np.pad(volume, overlap, mode="edge")
+    pdim = bs + 2 * overlap
+    data, wmin, wmax = [], [], []
+    for bx in range(n_split):
+        for by in range(n_split):
+            for bz in range(n_split):
+                z0, y0, x0 = bz * bs, by * bs, bx * bs
+                data.append(padded[z0:z0 + pdim, y0:y0 + pdim, x0:x0 + pdim])
+                wmin.append(np.float32([x0, y0, z0]) / nx - 0.5)
+                wmax.append(np.float32([x0 + bs, y0 + bs, z0 + bs]) / nx - 0.5)
+    n = len(data)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(a), np.float32)).to(device)
+
+    return BrickSet(
+        data=t(data), world_min=t(wmin), world_max=t(wmax),
+        tex_min=t([np.full(3, overlap / pdim, np.float32)] * n),
+        tex_max=t([np.full(3, (overlap + bs) / pdim, np.float32)] * n),
+    )

@@ -4,7 +4,10 @@ differentiable store core (``store_trainer``: ``fit``) or the exact
 marcher (``trainer``: ``init_exact_state``, ``make_exact_train_step``),
 or a dense grid through the plain shear-warp pipeline
 (``shearwarp_trainer``: ``ShearWarpProblem``, ``fit_shearwarp``).  The
-sharded trainers are ROADMAP M9."""
+store and dense trainers also run over a (ray × brick) mesh (``mesh=``),
+and the store trainer with its store sharded in slabs
+(``make_slab_train_step``); the mesh-sharded exact trainer needs K4 over
+a brick set (ROADMAP M9)."""
 
 from libre_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from libre_tpu_torch.train.shearwarp_trainer import (
@@ -15,6 +18,7 @@ from libre_tpu_torch.train.shearwarp_trainer import (
 from libre_tpu_torch.train.store_trainer import (
     StoreProblem,
     fit,
+    make_slab_train_step,
     make_train_step as make_store_train_step,
 )
 from libre_tpu_torch.train.trainer import (
@@ -29,6 +33,7 @@ __all__ = [
     "fit_shearwarp",
     "StoreProblem",
     "make_store_train_step",
+    "make_slab_train_step",
     "fit",
     "TrainState",
     "init_exact_state",

@@ -12,8 +12,11 @@ update, then both leaves clamped to [0, 1].
 The early exit is off under training (a step function of the parameters);
 classification is "pre" or "post" as configured, both differentiable.
 Per-view plans (major axis, slope bounds) are host-built constants, like
-camera matrices.  The (ray × brick) mesh-sharded forward
-(``render_slope_grid_sharded``) is ROADMAP M9.
+camera matrices.  With a (ray × brick) ``mesh`` each view renders through
+``parallel.shearwarp_sharded.render_slope_grid_sharded`` (rows over the
+ray axis, plane ranges over the brick axis); the volume and TF are
+replicated by autograd's copies, so their gradients sum onto their own
+device.
 """
 
 from __future__ import annotations
@@ -26,15 +29,10 @@ import torch
 
 from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops.reference import Camera, RenderParams
+from libre_tpu_torch.parallel.mesh import require_mesh
+from libre_tpu_torch.parallel.shearwarp_sharded import render_slope_grid_sharded
 
 EARLY_EXIT_OFF = 1.1  # 1 − T never exceeds it: no early exit under grad
-
-
-def _require_no_mesh(who: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{who}: the (ray × brick) mesh-sharded shear-warp forward is ROADMAP M9"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,15 +66,23 @@ class ShearWarpProblem:
         )
 
     def render_views(self, mesh, volume, tf) -> List[torch.Tensor]:
-        """All views' slope-grid images (V, U, 4) on ``volume``'s device;
-        ``mesh`` must be None (the sharded forward is ROADMAP M9)."""
-        _require_no_mesh("ShearWarpProblem.render_views", mesh)
+        """All views' slope-grid images (V, U, 4): on ``volume``'s device
+        with ``mesh`` None, else sharded over the mesh and on its lead
+        device."""
+        if mesh is not None:
+            require_mesh("ShearWarpProblem.render_views", mesh)
         outs = []
         for plan in self.plans:
-            img, _, _ = sw.render_slope_grid(
-                volume, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
-                self.world_min, self.world_max, self.params, self.swp,
-            )
+            if mesh is None:
+                img, _, _ = sw.render_slope_grid(
+                    volume, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
+                    self.world_min, self.world_max, self.params, self.swp,
+                )
+            else:
+                img = render_slope_grid_sharded(
+                    mesh, volume, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
+                    self.world_min, self.world_max, self.params, self.swp,
+                )
             outs.append(img)
         return outs
 
@@ -87,13 +93,14 @@ def make_train_step(problem: ShearWarpProblem, optimizer: torch.optim.Optimizer,
     ``params`` = {"volume": (Z, Y, X), "tf": (T, 4)}, the two tensors
     ``optimizer`` was built over; ``targets`` one (V, U, 4) image per
     view.  The loss is the mean over views of each view's mean squared
-    error; after the update both leaves are clamped to [0, 1] (their
-    physical ranges)."""
-    _require_no_mesh("make_train_step", mesh)
+    error, rendered over ``mesh`` if given; after the update both leaves
+    are clamped to [0, 1] (their physical ranges)."""
+    if mesh is not None:
+        require_mesh("make_train_step", mesh)
 
     def loss_fn(volume, tf, targets):
-        imgs = problem.render_views(None, volume, tf)
-        losses = [torch.mean((img - tgt) ** 2) for img, tgt in zip(imgs, targets)]
+        imgs = problem.render_views(mesh, volume, tf)
+        losses = [torch.mean((img - tgt.to(img.device)) ** 2) for img, tgt in zip(imgs, targets)]
         return sum(losses) / len(losses)
 
     def step(params, targets):
@@ -128,7 +135,6 @@ def fit(
     list [volume, tf] (default ``torch.optim.Adam(lr=3e-2)``, the
     reference's ``optax.adam(3e-2)``).  ``on_step(i, loss)``, if given, is
     called after each step."""
-    _require_no_mesh("fit", mesh)
     if optimizer is None:
         def optimizer(p):
             return torch.optim.Adam(p, lr=3e-2)
@@ -137,7 +143,7 @@ def fit(
         return torch.as_tensor(x, dtype=torch.float32).to(device).clone().requires_grad_()
 
     params = {"volume": param(init_volume), "tf": param(init_tf)}
-    step = make_train_step(problem, optimizer([params["volume"], params["tf"]]))
+    step = make_train_step(problem, optimizer([params["volume"], params["tf"]]), mesh)
     targets = [torch.as_tensor(t, dtype=torch.float32).to(device) for t in targets]
     losses = []
     for i in range(steps):

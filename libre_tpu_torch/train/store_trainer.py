@@ -1,5 +1,5 @@
 """Inverse rendering through the differentiable store core
-(``libre_tpu.train.store_trainer``), on one device.
+(``libre_tpu.train.store_trainer``), on one device or over a mesh.
 
 Optimizes a normalized density store (and the transfer function) so
 that the post-classification renders of a set of views match target
@@ -11,7 +11,24 @@ TF clamped to [0, 1].
 
 The early exit is off under grad (a step function of the parameters),
 and all views share one major axis because the store is assembled in one
-axis permutation.  The sharded and slab-sharded trainers are ROADMAP M9.
+axis permutation.
+
+Over a (ray × brick) mesh (``parallel/mesh.py``):
+
+* :func:`make_loss_fn` with ``mesh``: views shard over the brick axis,
+  slope-grid rows over the ray axis (a runtime ``v0`` per shard); the
+  store and TF are replicated (moved to each shard's device), and the
+  squared errors sum onto the lead device, so the gradients of the
+  replicated leaves sum there through autograd's copies — the gradient
+  all-reduce of a data-parallel step;
+* :func:`make_slab_loss_fn`: the store itself is sharded, 1/d_k of its
+  slices per brick-axis shard (:func:`shard_store_slabs_uniform`); each
+  shard takes one halo slice from each neighbour, renders its global
+  plane range from a fresh carry through the 13-float slab mode of
+  ``render_store_grid_diff`` (K1 forward, K2 backward on the extended
+  slab), and the segments fold in plane order on the lead device — the
+  model-parallel step whose losses and gradients equal the replicated
+  trainer's.
 """
 
 from __future__ import annotations
@@ -24,6 +41,8 @@ import torch
 
 from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.ops.shearwarp_bricked import SENTINEL
+from libre_tpu_torch.parallel.compositing import fold_segments, join_rgba, move, split_rgba
+from libre_tpu_torch.parallel.mesh import BRICK_AXIS, RAY_AXIS, require_mesh
 
 EARLY_EXIT_OFF = 1.1  # 1 − t never exceeds it: no early exit under grad
 
@@ -76,35 +95,167 @@ def render_views(problem: StoreProblem, store, tf) -> torch.Tensor:
     ])
 
 
+def _row_view(vs: torch.Tensor, vd: int, v_l: int) -> torch.Tensor:
+    """Sort-first row offset: rows [vd·V_l, (vd+1)·V_l) of the global grid
+    start at v0 + vd·V_l·dv (dv = vs[5]), as the JAX package adds it."""
+    out = vs.clone()
+    out[8] = vs[8] + float(vd) * (float(v_l) * vs[5])
+    return out
+
+
 def make_loss_fn(problem: StoreProblem, mesh=None):
     """(store, tf, targets (Nv, V, U, 4)) → mean-squared error over every
-    view, on the store's device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_loss_fn: the views × rows sharded loss is ROADMAP M9"
-        )
+    view, on the store's device.
+
+    With ``mesh``, shard (vd, kd) renders rows vd of views kd·Nv/d_k …
+    (kd+1)·Nv/d_k − 1 on its device (K1 and K2 once per view each), and
+    the loss lands on the mesh's lead device.  The views must divide the
+    brick axis and V the ray axis (else ValueError)."""
     v_size, u_size = problem.inter_size
     n_views = len(problem.views)
-    static = problem.static_for(v_size)
     views = torch.as_tensor(problem.views, dtype=torch.float32)
     denom = float(n_views * v_size * u_size * 4)
 
-    def loss_fn(store, tf, targets):
-        vs = views.to(store.device)
-        se = 0.0
-        for i in range(n_views):
-            img = swg.render_store_grid_diff(store, tf, vs[i], static)
-            se = se + torch.sum((img - targets[i]) ** 2)
-        return se / denom
+    if mesh is None:
+        static = problem.static_for(v_size)
 
-    return loss_fn
+        def loss_fn(store, tf, targets):
+            vs = views.to(store.device)
+            se = 0.0
+            for i in range(n_views):
+                img = swg.render_store_grid_diff(store, tf, vs[i], static)
+                se = se + torch.sum((img - targets[i]) ** 2)
+            return se / denom
+
+        return loss_fn
+
+    require_mesh("make_loss_fn", mesh)
+    d_k, d_v = mesh.shape[BRICK_AXIS], mesh.shape[RAY_AXIS]
+    if n_views % d_k or v_size % d_v:
+        raise ValueError(f"views={n_views} V={v_size} must divide mesh axes {d_k}x{d_v}")
+    nv_l, v_l = n_views // d_k, v_size // d_v
+    static_l = problem.static_for(v_l)
+
+    def sharded_loss_fn(store, tf, targets):
+        parts = []
+        for vd, kd, dev in mesh.shards():
+            store_l, tf_l = move(store, dev), move(tf, dev)
+            se = 0.0
+            for i in range(kd * nv_l, (kd + 1) * nv_l):
+                vs = move(_row_view(views[i], vd, v_l), dev)
+                img = swg.render_store_grid_diff(store_l, tf_l, vs, static_l)
+                tgt = move(targets[i, vd * v_l:(vd + 1) * v_l], dev)
+                se = se + torch.sum((img - tgt) ** 2)
+            parts.append(move(se, mesh.lead))
+        return sum(parts) / denom
+
+    return sharded_loss_fn
+
+
+def shard_store_slabs_uniform(store, d_k: int, devices=None) -> List[torch.Tensor]:
+    """(Na, Nc, Nb) store → d_k uniform slabs of Na/d_k slices (slab kd on
+    ``devices[kd]``, default the store's device), each a copy: the
+    per-shard leaves of the slab trainer, 1/d_k of the store each."""
+    store = torch.as_tensor(store)
+    na = store.shape[0]
+    if na % d_k:
+        raise ValueError(f"na={na} must divide the brick axis {d_k}")
+    na_l = na // d_k
+    devices = [store.device] * d_k if devices is None else list(devices)
+    return [
+        store[kd * na_l:(kd + 1) * na_l].to(devices[kd], copy=True) for kd in range(d_k)
+    ]
 
 
 def make_slab_loss_fn(problem: StoreProblem, mesh):
-    """The slab-sharded (model-parallel) loss: ROADMAP M9."""
-    raise NotImplementedError(
-        "make_slab_loss_fn: the slab-sharded store trainer is ROADMAP M9"
+    """Loss over a SLAB-SHARDED store: model parallelism for config 5.
+
+    ``slabs`` (from :func:`shard_store_slabs_uniform`) hold Na/d_k slices
+    each; shard (vd, kd) reads slab kd (the ray axis replicates it).  Per
+    view each shard:
+
+    1. takes ONE boundary slice from each neighbour slab (the halos: a
+       plane interpolates between adjacent slices, so a plane range needs
+       at most one slice beyond its own slab; the global edges get
+       SENTINEL slices, which no plane reads);
+    2. sweeps its GLOBAL plane range against the extended slab with a
+       fresh carry through ``render_store_grid_diff``'s slab mode (a
+       13-float view vector carrying [k0, a_base]);
+    3. the segments fold in plane order on the lead device.
+
+    With the early exit off, the fold equals the one-device sweep up to fp
+    regrouping, so losses and gradients match the replicated trainer.
+    All views must share one major axis AND one march sign; the store
+    must be unpadded; Na, K and V must divide the mesh axes; and K ≥ Na
+    (one halo slice each side suffices only when planes are at least as
+    dense as slices)."""
+    require_mesh("make_slab_loss_fn", mesh)
+    v_size, u_size = problem.inter_size
+    n_views = len(problem.views)
+    views = torch.as_tensor(problem.views, dtype=torch.float32)
+    d_k, d_v = mesh.shape[BRICK_AXIS], mesh.shape[RAY_AXIS]
+    na = problem.na_real
+    if problem.na_store != problem.na_real:
+        raise ValueError(
+            f"slab mode requires an unpadded store (na_store={problem.na_store} != na={na})"
+        )
+    if n_views and len({float(v[9]) for v in problem.views}) != 1:
+        raise ValueError("slab mode: all views must share one march sign")
+    sign = float(problem.views[0][9]) if n_views else 1.0
+    if na % d_k or problem.k_planes % d_k or v_size % d_v:
+        raise ValueError(
+            f"na={na} K={problem.k_planes} V={v_size} must divide mesh axes {d_k}x{d_v}"
+        )
+    if problem.k_planes < na:
+        raise ValueError(f"slab mode requires k_planes >= na ({problem.k_planes} < {na})")
+    na_l, k_l, v_l = na // d_k, problem.k_planes // d_k, v_size // d_v
+    static_l = swg.static_view(
+        na_store=na_l + 2, na_real=na, nc_real=problem.nc_real, nb_real=problem.nb_real,
+        k_planes=k_l, v_size=v_l, u_size=u_size, world_min=problem.world_min,
+        world_max=problem.world_max, axis=problem.axis, early_exit=EARLY_EXIT_OFF,
+        diff_tf=problem.diff_tf, k_total=problem.k_planes,
     )
+    denom = float(n_views * v_size * u_size * 4)
+
+    def extended_slab(slabs, kd, dev):
+        own = move(slabs[kd], dev)
+        edge = torch.full((1,) + tuple(own.shape[1:]), SENTINEL, dtype=own.dtype, device=dev)
+        prev = move(slabs[kd - 1][-1:], dev) if kd > 0 else edge
+        nxt = move(slabs[kd + 1][:1], dev) if kd + 1 < d_k else edge
+        return torch.cat([prev, own, nxt], dim=0)
+
+    def loss_fn(slabs, tf, targets):
+        if len(slabs) != d_k:
+            raise ValueError(f"slab loss: {len(slabs)} slabs for a brick axis of {d_k}")
+        ext = {(vd, kd): extended_slab(slabs, kd, dev) for vd, kd, dev in mesh.shards()}
+        tfs = {dev: move(tf, dev) for dev in mesh.distinct_devices()}
+        se = 0.0
+        for i in range(n_views):
+            rows = []
+            for vd in range(d_v):
+                segs = []
+                for kd in range(d_k):
+                    dev = mesh.device(vd, kd)
+                    # Shard kd's planes cover its slab's z range: the plane
+                    # grid runs front to back, so toward −A it starts at
+                    # the far end.
+                    k0 = kd * k_l if sign > 0 else (d_k - 1 - kd) * k_l
+                    vs = torch.cat([
+                        _row_view(views[i], vd, v_l),
+                        torch.tensor([float(k0), float(kd * na_l - 1)]),
+                    ])
+                    seg = swg.render_store_grid_diff(
+                        ext[vd, kd], tfs[dev], move(vs, dev), static_l
+                    )
+                    segs.append(split_rgba(move(seg, mesh.lead)))
+                if sign < 0:
+                    segs = segs[::-1]  # fold in front-to-back plane order
+                rows.append(join_rgba(fold_segments(segs)))
+            img = torch.cat(rows, dim=0)
+            se = se + torch.sum((img - move(targets[i], mesh.lead)) ** 2)
+        return se / denom
+
+    return loss_fn
 
 
 def make_train_step(
@@ -122,22 +273,46 @@ def make_train_step(
 
     def step(params, targets):
         store, tf = params["store"], params["tf"]
-        optimizer.zero_grad(set_to_none=False)
-        loss = loss_fn(store, tf, targets)
-        loss.backward()
-        with torch.no_grad():
-            if not problem.diff_tf:
-                tf.grad = torch.zeros_like(tf)
-            # Coverage is a property of the initial store: taken before
-            # the update, so a large step that pushes a covered voxel
-            # below the sentinel threshold cannot uncover it for good.
-            covered = store > -0.5
-            optimizer.step()
-            store.copy_(torch.where(covered, store.clamp(0.0, 1.0), SENTINEL))
-            tf.clamp_(0.0, 1.0)
-        return loss.detach()
+        return _update(problem, optimizer, lambda: loss_fn(store, tf, targets), [store], tf)
 
     return step
+
+
+def make_slab_train_step(problem: StoreProblem, optimizer: torch.optim.Optimizer, mesh):
+    """:func:`make_train_step` over a slab-sharded store
+    (:func:`make_slab_loss_fn`): ``params`` = {"slabs": the d_k slabs of
+    :func:`shard_store_slabs_uniform`, "tf": (256, 4)}, the tensors
+    ``optimizer`` was built over; each slab is clamped and pinned where it
+    lies, so the store and its optimizer state stay 1/d_k per shard."""
+    loss_fn = make_slab_loss_fn(problem, mesh)
+
+    def step(params, targets):
+        slabs, tf = params["slabs"], params["tf"]
+        return _update(problem, optimizer, lambda: loss_fn(slabs, tf, targets), slabs, tf)
+
+    return step
+
+
+def _update(problem, optimizer, compute_loss, stores: Sequence[torch.Tensor], tf):
+    """One step in place: ``compute_loss()``, backward, the optimizer's
+    update, then each store tensor clamped to [0, 1] where it was covered
+    before the update and set to SENTINEL elsewhere, and the TF clamped to
+    [0, 1]."""
+    optimizer.zero_grad(set_to_none=False)
+    loss = compute_loss()
+    loss.backward()
+    with torch.no_grad():
+        if not problem.diff_tf:
+            tf.grad = torch.zeros_like(tf)
+        # Coverage is a property of the initial store: taken before the
+        # update, so a large step that pushes a covered voxel below the
+        # sentinel threshold cannot uncover it for good.
+        covered = [s > -0.5 for s in stores]
+        optimizer.step()
+        for s, cov in zip(stores, covered):
+            s.copy_(torch.where(cov, s.clamp(0.0, 1.0), SENTINEL))
+        tf.clamp_(0.0, 1.0)
+    return loss.detach()
 
 
 def fit(

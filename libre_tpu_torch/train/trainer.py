@@ -10,8 +10,8 @@ then the TF clamped to [0, 1]; the density is not clamped, as in the JAX
 step.  The view's early exit must be off (> 1).
 
 The mesh-sharded ``InverseRenderProblem`` / ``init_state`` /
-``make_train_step`` are ROADMAP M9; multi-brick exact gradients are out of
-scope.
+``make_train_step`` differentiate a brick set sharded over the mesh's
+brick axis: they need K4 over a brick set (ROADMAP M9, deferred).
 """
 
 from __future__ import annotations

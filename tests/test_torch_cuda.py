@@ -807,3 +807,133 @@ def test_entry_on_card_matches_cpu(cuda):
     fn_p, args_p = entry(device="cpu")
     err = (got.cpu() - fn_p(*args_p)).abs()
     assert float(err.max()) <= EXACT_TOL_MAX and float(err.mean()) <= EXACT_TOL_MEAN
+
+
+# ------------------------------------------------- sharded (M9) on the card
+def _logical_mesh(cuda, n_brick, n_ray):
+    from libre_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n_brick=n_brick, n_ray=n_ray, devices=[cuda] * (n_brick * n_ray))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 4)])
+@pytest.mark.parametrize("slabs", [False, True])
+def test_sharded_k1_frame_on_logical_shards(cuda, shape, slabs):
+    """``render_store_grid_sharded`` on four logical shards of the card:
+    K1 launched once per shard, the fold within 2e-5 of the one-device
+    frame (early exit off) and below 2e-3 with 0.999, replicated and in
+    slab mode."""
+    from libre_tpu_torch.ops import shearwarp as sw
+    from libre_tpu_torch.ops.transfer_function import default_color_map
+    from libre_tpu_torch.parallel.bricked_sharded import render_store_grid_sharded, slab_ranges
+    from libre_tpu_torch.testing import SHARD_TOL_EXIT_OFF, SHARD_TOL_EXIT_ON, smooth_volume
+
+    store = smooth_volume(96, seed=3, device=cuda).permute(sw._PERM[2]).contiguous()
+    tf = torch.from_numpy(default_color_map()).to(cuda)
+    fv = swg.view_vector(world_min=[-0.5] * 3, world_max=[0.5] * 3, axis=2,
+                         eye=[0.1, 0.05, 1.4], sign=-1.0, slope_bounds=(-0.45, 0.45, -0.4, 0.4),
+                         inter_size=(128, 96), max_samples_per_ray=192)
+    kw = dict(na_real=96, nc_real=96, nb_real=96, k_planes=192, inter_size=(128, 96),
+              wb0=-0.5, wb1=0.5, wc0=-0.5, wc1=0.5)
+    for exit_, tol in ((1.1, SHARD_TOL_EXIT_OFF), (0.999, SHARD_TOL_EXIT_ON)):
+        one = render_store_grid_sharded(_logical_mesh(cuda, 1, 1), store, tf, fv,
+                                        early_exit=exit_, **kw)
+        extra = {}
+        operand = store
+        if slabs:
+            lo, hi, _ = slab_ranges(fv, 96, 192, shape[0])
+            operand = [store[lo[d]:hi[d] + 1].clone() for d in range(shape[0])]
+            extra = {"a_base": lo}
+        launches = swb.post_sweep.launches
+        got = render_store_grid_sharded(_logical_mesh(cuda, *shape), operand, tf, fv,
+                                        early_exit=exit_, **kw, **extra)
+        torch.cuda.synchronize()
+        assert swb.post_sweep.launches == launches + 4
+        assert float((got - one).abs().max()) <= tol
+        assert float(one[..., 3].max()) > 0.5
+
+
+@pytest.mark.cuda
+def test_slab_loss_on_logical_shards(cuda):
+    """The slab-sharded store loss on 4 × 1 logical shards of the card (K1
+    and K2 once per shard) against the replicated loss on the card: loss
+    rtol 1e-6, store and TF gradients 1e-5."""
+    from libre_tpu_torch.ops import shearwarp as sw
+    from libre_tpu_torch.ops.transfer_function import default_color_map
+    from libre_tpu_torch.testing import SHARD_GRAD_TOL, SHARD_LOSS_RTOL, smooth_volume
+    from libre_tpu_torch.train import store_trainer as st
+
+    store = smooth_volume(64, seed=5, device=cuda).permute(sw._PERM[2]).contiguous()
+    tf = torch.from_numpy(default_color_map()).to(cuda)
+    views = np.stack([swg.view_vector(
+        world_min=[-0.5] * 3, world_max=[0.5] * 3, axis=2, eye=e, sign=-1.0,
+        slope_bounds=(-0.45, 0.45, -0.4, 0.4), inter_size=(64, 48), max_samples_per_ray=128,
+    ) for e in ([0.1, 0.05, 1.4], [-0.15, 0.1, 1.3])])
+    problem = st.StoreProblem(
+        views=views, na_store=64, na_real=64, nc_real=64, nb_real=64, k_planes=128,
+        inter_size=(64, 48), world_min=np.float32([-0.5] * 3),
+        world_max=np.float32([0.5] * 3), axis=2,
+    )
+    targets = (st.render_views(problem, store, tf) * 0.8 + 0.05).detach()
+    leaf, tf_one = store.clone().requires_grad_(), tf.clone().requires_grad_()
+    one = st.make_loss_fn(problem)(leaf, tf_one, targets)
+    one.backward()
+    slabs = [s.requires_grad_() for s in st.shard_store_slabs_uniform(store, 4)]
+    tf_slab = tf.clone().requires_grad_()
+    k1, k2 = swb.post_sweep.launches, swg.store_grid_backward.launches
+    loss = st.make_slab_loss_fn(problem, _logical_mesh(cuda, 4, 1))(slabs, tf_slab, targets)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert swb.post_sweep.launches == k1 + 8 and swg.store_grid_backward.launches == k2 + 8
+    assert abs(loss.item() - one.item()) <= SHARD_LOSS_RTOL * abs(one.item())
+    assert float((torch.cat([s.grad for s in slabs]) - leaf.grad).abs().max()) <= SHARD_GRAD_TOL
+    assert float((tf_slab.grad - tf_one.grad).abs().max()) <= SHARD_GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_sharded_exact_march_on_logical_shards(cuda):
+    """``VolumeScene.render_sharded`` on 2 × 2 logical shards of the card:
+    K3 once per shard, within K3's bound of the one-device render."""
+    from libre_tpu_torch.models import VolumeScene
+    from libre_tpu_torch.testing import smooth_volume
+
+    cam, _fr = build_camera(64, 64, (0.3, 0.2, 1.4), (0.0, 0.0, 0.0))
+    scene = VolumeScene.from_volume(smooth_volume(64, seed=2, device=cuda), device=cuda)
+    with torch.no_grad():
+        one = scene.render(cam)
+        launches = exact.march_exact.launches
+        got = scene.render_sharded(_logical_mesh(cuda, 2, 2), cam)
+    torch.cuda.synchronize()
+    assert exact.march_exact.launches == launches + 4
+    err = (got - one).abs()
+    assert float(err.max()) <= EXACT_TOL_MAX and float(err.mean()) <= EXACT_TOL_MEAN
+
+
+@pytest.mark.cuda
+def test_sharded_k5_sweep_on_logical_shards(cuda):
+    """``shearwarp_dense.render_slope_grid_sharded`` on 2 × 2 logical
+    shards of the card: K5 once per shard, within 2e-5 of the one-device
+    sweep with the early exit off and below 2e-3 at 0.999."""
+    from libre_tpu_torch.ops import shearwarp as sw
+    from libre_tpu_torch.ops.transfer_function import default_color_map
+    from libre_tpu_torch.testing import SHARD_TOL_EXIT_OFF, SHARD_TOL_EXIT_ON, smooth_volume
+
+    cam, _fr = build_camera(96, 96, (0.3, 0.2, 1.4), (0.0, 0.0, 0.0))
+    plan = sw.make_plan(cam)
+    vol = smooth_volume(64, seed=4, device=cuda)
+    tf = torch.from_numpy(default_color_map()).to(cuda)
+    chans = swd.classify_planes(vol, tf, plan.axis, (0.0, 1.0))
+    nc, nb = chans.shape[1:3]
+    for exit_, tol in ((1.1, SHARD_TOL_EXIT_OFF), (0.999, SHARD_TOL_EXIT_ON)):
+        pa = swd.slope_grid_plan_args(
+            plan, [-0.5] * 3, [0.5] * 3,
+            RenderParams(n_samples_per_ray=128, data_source_range=(0.0, 1.0), early_exit=exit_),
+            sw.ShearWarpParams(n_planes=128, inter_size=(96, 96)),
+        )
+        one = swd.render_classified_slope_grid(chans, nc, nb, pa)
+        launches = swd.pre_sweep.launches
+        got = swd.render_slope_grid_sharded(_logical_mesh(cuda, 2, 2), chans, nc, nb, pa)
+        torch.cuda.synchronize()
+        assert swd.pre_sweep.launches == launches + 4
+        assert float((got - one).abs().max()) <= tol and float(one[..., 3].max()) > 0.5

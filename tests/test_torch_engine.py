@@ -95,7 +95,9 @@ def test_render_bricked_matches_jax(tmp_path, name):
 
 def test_unported_branches_raise(tmp_path):
     """Where the port stops, it says so instead of falling back: a
-    reduced-precision resample is M4 and a mesh-sharded service M9.
+    reduced-precision resample is M4; a service mesh must be a
+    ``parallel.mesh.Mesh`` (M9 is ported: tests/test_torch_apps.py serves
+    sharded frames).
     Histograms (M6) are ported: ``collect_histogram`` merges the frame's
     bricks (tests/test_torch_histogram.py holds the bins to the JAX
     engine's)."""
@@ -110,7 +112,7 @@ def test_unported_branches_raise(tmp_path):
     assert stats.histogram.sum == stats.n_available * 16 ** 3
     with pytest.raises(NotImplementedError, match="M4"):
         sw_t.ShearWarpParams(n_planes=16, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(TypeError, match="Mesh"):
         RenderService("mem://#32,32,32,16", mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         create_renderer("no-such-renderer")

@@ -143,15 +143,15 @@ def test_marchers_agree_and_params_default():
 def test_render_unported_branches_raise():
     """Histograms (M6) are ported: ``render(collect_histogram=True)``
     returns the merged histogram of the frame's bricks (bins against the
-    JAX engine's in tests/test_torch_histogram.py); the exact renderer
-    behind a mesh-sharded service is M9 and raises."""
+    JAX engine's in tests/test_torch_histogram.py); the exact renderer's
+    service takes a ``parallel.mesh.Mesh`` or nothing."""
     from libre_tpu_torch.apps.serve import RenderService
 
     _cam_j, cam_t, _fr_j, fr_t = view((0.3, 0.2, 1.4))
     eng = EngineT(DataSourceT(GRADIENT), max_gpu_cache_mb=16, device="cpu")
     _img, stats, hist = eng.render(cam_t, fr_t, collect_histogram=True)
     assert hist.sum == stats.n_render_available * 16 ** 3 > 0
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(TypeError, match="Mesh"):
         RenderService(GRADIENT, renderer="exact", mesh=object(), device="cpu")
 
 

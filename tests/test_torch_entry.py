@@ -23,3 +23,21 @@ def test_entry_matches_graft_entry():
     assert got.shape == want.shape == (entry_t.IMG, entry_t.IMG, 4)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     assert want[..., 3].max() > 0.5
+
+
+def test_dryrun_multichip_on_cpu_shards(capsys):
+    """``dryrun_multichip`` over 4 and 3 logical CPU shards: every
+    sharded path runs once (K3, K1 and K2 by their plain versions), and
+    the exact trainer's step, which needs K4 over a brick set, raises
+    naming its ROADMAP item."""
+    import pytest
+
+    out = entry_t.dryrun_multichip(4, ["cpu"] * 4)
+    assert out["mesh"] == {"ray": 2, "brick": 2}
+    assert out["exact_alpha_max"] > 0.5 and out["bricked_alpha_max"] > 0.5
+    assert np.isfinite(out["store_loss"]) and out["slab_grad_max"] > 0
+    assert "render_cli --mesh ok" in capsys.readouterr().out
+    out3 = entry_t.dryrun_multichip(3, ["cpu"] * 3)
+    assert out3["mesh"] == {"ray": 3, "brick": 1} and "slab_loss" not in out3
+    with pytest.raises(NotImplementedError, match="M9"):
+        entry_t.dryrun_multichip(2, ["cpu"] * 2, exact_trainer=True)

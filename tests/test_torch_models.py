@@ -13,7 +13,9 @@ default early exit 0.999).
   agrees; the rays whose exit moved by a sample (the two fold chunks in
   closed form, rounded differently) under 1% of the rays, their
   gradients within 1 − early_exit of the largest entry;
-* ``render_sharded`` raises, naming M9.
+* ``render_sharded`` takes a ``parallel.mesh.Mesh`` (its images are held
+  to the JAX scene's in tests/test_torch_parallel.py); a multi-brick
+  ``render`` raises.
 """
 
 import dataclasses
@@ -116,7 +118,7 @@ def test_gradients_match_jax_with_early_exit(case):
 
 def test_render_sharded_raises():
     _sj, st = scenes()
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(TypeError, match="Mesh"):
         st.render_sharded(object(), CAMERA_T)
     two = dataclasses.replace(st, bricks=st.bricks._replace(data=st.bricks.data.repeat(2, 1, 1, 1)))
     with pytest.raises(NotImplementedError, match="multi-brick"):

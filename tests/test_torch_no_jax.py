@@ -6,9 +6,12 @@ bricked path, the exact path and the dense shear-warp path (both
 backends), the store trainer, the exact trainer and the dense shear-warp
 trainer each take a step, the volume scene renders and differentiates
 with its early exit on, the plane oracle and ``entry()`` run, a
-gather probe runs its plain version, and the render service answers a
-frame and its histogram over HTTP on 127.0.0.1, in a process where
-importing jax, optax or libre_tpu fails."""
+gather probe runs its plain version, the render service answers a
+frame and its histogram over HTTP on 127.0.0.1, and the multi-device
+layer (``parallel``: mesh, compositing, bricked_sharded, render,
+shearwarp_sharded, distributed, two_process; the two new benchmark
+scripts) imports and ``dryrun_multichip`` runs on four CPU shards, in a
+process where importing jax, optax or libre_tpu fails."""
 
 import os
 import subprocess
@@ -32,7 +35,13 @@ later = {"libre_tpu_torch.train.shearwarp_trainer", "libre_tpu_torch.models.volu
          "libre_tpu_torch.benchmarks.probe_bwd_breakdown",
          "libre_tpu_torch.benchmarks.demo_inverse_render",
          "libre_tpu_torch.benchmarks.demo_out_of_core",
-         "libre_tpu_torch.benchmarks.exact_bwd_ab"}
+         "libre_tpu_torch.benchmarks.exact_bwd_ab",
+         "libre_tpu_torch.parallel.mesh", "libre_tpu_torch.parallel.compositing",
+         "libre_tpu_torch.parallel.bricked_sharded", "libre_tpu_torch.parallel.render",
+         "libre_tpu_torch.parallel.shearwarp_sharded", "libre_tpu_torch.parallel.distributed",
+         "libre_tpu_torch.parallel.two_process",
+         "libre_tpu_torch.benchmarks.demo_slab_train",
+         "libre_tpu_torch.benchmarks.bench_scaling"}
 assert later <= set(names), later - set(names)
 from libre_tpu_torch.apps.render_cli import build_camera
 from libre_tpu_torch.data.datasource import DataSource, load_plugins
@@ -131,6 +140,9 @@ try:
     assert sum(hist["bins"]) > 0 and hist["max"] == 255.0
 finally:
     svc.server.stop()
+from libre_tpu_torch.entry import dryrun_multichip
+out = dryrun_multichip(4, ["cpu"] * 4)
+assert out["mesh"] == {"ray": 2, "brick": 2} and out["slab_grad_max"] > 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "libre_tpu")
                 and sys.modules[m] is not None)

@@ -330,5 +330,5 @@ def test_classified_from_jax_and_params():
         sw_t.ShearWarpParams(compute_dtype="bfloat16")
     with pytest.raises(ValueError):
         sw_t.ShearWarpParams(classification="mid")
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(TypeError, match="Mesh"):
         swd.render_slope_grid_sharded(None, None, 24, 28, None)

@@ -14,7 +14,10 @@ grids, two views): the same seeded numpy inputs through both.
   update), each followed by the [0, 1] clamp, within 1e-5 elementwise;
 * ``fit`` cuts the loss by more than 10× in 60 steps (the JAX test's
   criterion) and leaves both leaves in [0, 1];
-* ``mesh=`` raises, naming M9;
+* ``mesh=`` takes a ``parallel.mesh.Mesh``: over a 2 × 2 mesh of CPU
+  shards ``render_views`` equals JAX's ``render_views(mesh, ...)`` ("pre",
+  the JAX sharded pipeline's classification) within 2e-5, and ``fit``
+  takes the one-device steps;
 * the TF lookup's gather (``transfer_function._TakeRows``, whose backward
   sums by ``torch.bincount``) gives autograd's own ``tf[idx]`` values bit
   for bit and its TF gradient within 1e-6 of the largest entry.
@@ -172,15 +175,26 @@ def test_fit_recovers_target_views():
 
 
 def test_mesh_raises():
-    _pj, pt = problems(n_views=1)
+    from libre_tpu.parallel import make_mesh as make_mesh_j
+    from libre_tpu_torch.parallel import make_mesh
+
+    pj, pt = problems(n_views=1)
     vol, tf = inputs()
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(TypeError, match="Mesh"):
         pt.render_views(object(), torch.from_numpy(vol), torch.from_numpy(tf))
     opt = torch.optim.SGD([torch.zeros(1, requires_grad=True)], lr=1.0)
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(TypeError, match="Mesh"):
         swt_t.make_train_step(pt, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(TypeError, match="Mesh"):
         swt_t.fit(pt, [], vol, tf, device="cpu", mesh=object(), steps=1)
+    mesh = make_mesh(n_brick=2, n_ray=2, devices=["cpu"] * 4)
+    want = pj.render_views(make_mesh_j(n_brick=2, n_ray=2), jnp.asarray(vol), jnp.asarray(tf))
+    got = pt.render_views(mesh, torch.from_numpy(vol), torch.from_numpy(tf))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=2e-5)
+    targets = [t * 0.5 for t in pt.render_views(None, torch.from_numpy(vol), torch.from_numpy(tf))]
+    runs = [swt_t.fit(pt, targets, np.full_like(vol, 0.5), tf, device="cpu", mesh=m, steps=2,
+                      optimizer=lambda p: torch.optim.SGD(p, lr=1.0)) for m in (None, mesh)]
+    np.testing.assert_allclose(runs[1][1], runs[0][1], rtol=1e-5)
 
 
 @pytest.mark.parametrize("n_tf", [32, 256])

@@ -151,7 +151,15 @@ Phases, each of which raises on failure (any failure exits non-zero):
    Adam steps), ``VolumeScene.render_sharded`` (``phase_sharded_exact``),
    ``render_cli --mesh`` and ``RenderService`` over a mesh
    (``phase_mesh_apps``), and two processes in one gloo group on the card
-   (``phase_two_process``).
+   (``phase_two_process``);
+30. the exact gradient over a brick set (``phase_exact_set``): the
+   mesh-sharded exact trainer over a 512³ smooth volume in 512 bricks of
+   68³, 512² rays, 5 Adam steps on a 1x1 mesh and on a 2x2 mesh of
+   logical shards (K3 and K4 once per shard and step; the 2x2 loss and
+   gradients against the 1x1 ones), and ``VolumeScene.render`` over the
+   same set with the early exit on; each K4 site (512 and 256 bricks)
+   timed with its bound and held against the plain version on a 64x64
+   window of its rays.
 
 Prints every kernel's launch sites on the main paths (launches, time
 per launch on the site's operands, bound, and launches × (time − bound),
@@ -176,7 +184,7 @@ import time
 
 import numpy as np
 
-from libre_tpu_torch.testing import compare, compare_grads
+from libre_tpu_torch.testing import EXACT_GRAD_TOL_MAX, compare, compare_grads
 
 SMALL_TOL_MAX = 2e-3
 URI = "mem://#512,512,512,32?pattern=gradient"
@@ -1572,17 +1580,21 @@ def logical_mesh(dev, n_brick, n_ray):
 @contextlib.contextmanager
 def captured(module, name):
     """Wrap ``module.name`` while entered; the list it yields gets the
-    (args, kwargs) of every call."""
+    (args, kwargs) of every call.  The wrapper carries the function's
+    attributes while entered (a kernel wrapper counts its launches on the
+    module's name) and hands them back on exit."""
     real, calls = getattr(module, name), []
 
     def call(*args, **kwargs):
         calls.append((args, kwargs))
         return real(*args, **kwargs)
 
+    call.__dict__.update(real.__dict__)
     setattr(module, name, call)
     try:
         yield calls
     finally:
+        real.__dict__.update(call.__dict__)
         setattr(module, name, real)
 
 
@@ -2009,6 +2021,258 @@ def phase_two_process(dev, card):
         line = next(ln for ln in out.splitlines() if ln.startswith(f"OK rank={rank} "))
         print(f"two processes, rank {rank}: {line.split(' ', 2)[2]}")
     print(f"two processes (gloo, one card): {time.perf_counter() - t0:.1f} s wall {card}")
+
+
+SET_SPLIT = 8  # phase 30: the 512^3 smooth truth in 8^3 bricks of 64^3, two ghost voxels
+SET_STEPS = 5
+SET_LR = 1e-2
+# K4's slab test per brick and ray (exact_sample.cuh's brick_span: per axis
+# 2 subtractions, 2 products and 4 min/max; the clip interval's 2 and the
+# test), which it runs for every brick of its set.
+K4_OPS_PER_BRICK = 27
+
+
+def k4_set_site(call, what, card):
+    """A recorded ``march_exact_backward`` call over a brick set
+    ((args, kwargs) of ``captured``): timed as the trainers' K4 (its
+    ``d_volume`` zeroing included), its samples counted by K3 over the
+    same set (a relaunch, not a main-path launch), with its bound: the
+    set's f32 density read and d_volume written once, the ray pack, out
+    and g, the TF and d_tf; every sample's operations and a slab test per
+    ray and brick → (ms, bound)."""
+    import torch
+
+    from libre_tpu_torch.ops import exact
+
+    (volume, tf, view, out, g), kw = call
+    volume, tf = volume.detach(), tf.detach()
+    n_bricks = volume.shape[0]
+    samples = torch.zeros(view.n_rays, dtype=torch.int32, device=volume.device)
+    exact.march_exact(
+        volume, torch.arange(n_bricks, dtype=torch.int32, device=volume.device),
+        view.brick_boxes, tf, view.ray_pack, torch.zeros_like(out), view.eye, view.params,
+        max_steps=view.max_steps, width=view.width, samples=samples)
+    n_samples = int(samples.sum())
+    ms = cuda_ms(lambda: exact.march_exact_backward(volume, tf, view, out, g, **kw), reps=5,
+                 warmup=1)
+    b = bound(bytes_=2 * volume.numel() * 4 + view.n_rays * 16 * 4 + n_bricks * 16 * 4
+              + 2 * TF_BYTES,
+              ops=n_samples * K4_OPS_PER_SAMPLE[view.params.filter_mode]
+              + view.n_rays * n_bricks * K4_OPS_PER_BRICK)
+    print(f"  K4 at {what}: {view.n_rays} rays over {n_bricks} bricks of "
+          f"{tuple(volume.shape[1:])}, {n_samples} samples: {ms:.4f} ms; bound {b[0]:.4f} ms "
+          f"({b[1]}) {card}")
+    return ms, b
+
+
+def k4_set_window(call, what, seed):
+    """K4 over the set of a recorded call vs its plain version on a
+    ``SUBSET`` x ``SUBSET`` window in the middle of the call's rays: K3
+    over the set marches the window from a zero carry, a seeded normal
+    cotangent, the backward tolerances of ``compare_grads`` for the
+    call's early exit → the largest absolute difference."""
+    import torch
+
+    from libre_tpu_torch.ops import exact
+
+    (volume, tf, view, _out, _g), _kw = call
+    volume, tf = volume.detach(), tf.detach()
+    height = view.n_rays // view.width
+    y0, x0 = (height - SUBSET) // 2, (view.width - SUBSET) // 2
+    pack = view.ray_pack.reshape(8, height, view.width)[:, y0:y0 + SUBSET, x0:x0 + SUBSET]
+    win = dataclasses.replace(view, ray_pack=pack.reshape(8, -1).contiguous(), width=SUBSET)
+    with torch.no_grad():
+        out = exact.render_marcher_diff(volume, tf, win)
+    g = torch.randn((win.n_rays, 4), generator=torch.Generator().manual_seed(seed)).to(
+        volume.device)
+    got = exact.march_exact_backward(volume, tf, win, out, g)
+    want = exact.march_exact_backward_reference(volume, tf, win, out, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_volume", "d_tf"), got, want):
+        compare_grads(a, b, f"K4 over the set, {what}, {SUBSET}x{SUBSET} window: {name}",
+                      win.params.early_exit, EXACT_GRAD_TOL_MAX)
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
+
+
+def phase_exact_set(dev, card, exact_tol):
+    """30. The exact gradient over a brick set at full width: the 512^3
+    ``smooth_volume`` (seed 7) in 8^3 bricks of 64^3 with two ghost voxels
+    (``testing.split_into_bricks``: 512 bricks of 68^3, 644 MB of f32
+    density), sorted front to back from eye 0 (``shard_bricks_front_to_back``),
+    512^2 rays, trilinear, 512 samples per unit, the 256-entry TF.  The
+    main path: the mesh-sharded exact trainer (``train.trainer``) from a
+    0.5 density and the grayscale TF against the truth's render under the
+    default colormap, ``SET_STEPS`` Adam steps (lr ``SET_LR``, early exit
+    off) on a 1x1 mesh and on a 2x2 mesh of logical shards of the card,
+    K3's and K4's counts set to 0 before each and read after (one of each
+    per shard and step); the loss must fall, the first 2x2 step's loss and
+    gradients agree with the 1x1 step's (loss rtol ``SHARD_LOSS_RTOL``,
+    gradients within the exit-off backward bound of the largest entry),
+    and each step time is the median of steps 2 on; then
+    ``VolumeScene.render`` over the same set with the early exit on
+    (0.999): the target's render, one forward and backward of the
+    estimate's MSE (K3 twice, K4 once).  Off the main path: each K4 site
+    (the 1x1 trainer over 512 bricks, one 2x2 shard over 256, the scene
+    over 512) timed with its bound and held against the plain version on
+    a 64x64 window of its rays; K3 on the 1x1 trainer's window.  Returns
+    the counts, errors and sites for the ``kernels`` line."""
+    import functools
+
+    import torch
+
+    from libre_tpu_torch.apps.render_cli import build_camera
+    from libre_tpu_torch.models import VolumeScene
+    from libre_tpu_torch.ops import exact
+    from libre_tpu_torch.ops import rays as ray_ops
+    from libre_tpu_torch.ops.reference import RenderParams, max_steps_for_bricks
+    from libre_tpu_torch.ops.transfer_function import default_color_map, grayscale_ramp
+    from libre_tpu_torch.parallel.render import shard_bricks_front_to_back
+    from libre_tpu_torch.testing import (
+        SHARD_LOSS_RTOL,
+        smooth_volume,
+        split_into_bricks,
+    )
+    from libre_tpu_torch.train import InverseRenderProblem, init_state, make_train_step
+
+    t0 = time.perf_counter()
+    gmin, gmax = GMIN_GMAX
+    camera = build_camera(SCENE_RAYS, SCENE_RAYS, EXACT_EYES[0], (0.0, 0.0, 0.0))[0]
+    eye, dirs, cos_z, _ = ray_ops.make_rays(camera.inv_proj, camera.inv_mv, camera.viewport,
+                                            device=dev)
+    dirs, tnp = dirs.reshape(-1, 3), ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)
+    truth = smooth_volume(SCENE_N, seed=7, device=dev).cpu().numpy()
+    bricks = split_into_bricks(truth, SET_SPLIT, 2, device=dev)
+    del truth
+    sharded, _ = shard_bricks_front_to_back(bricks, eye.cpu().numpy(), 2)
+    if sharded.num_bricks != SET_SPLIT ** 3:
+        raise AssertionError(f"the set was padded to {sharded.num_bricks} bricks")
+    del bricks
+    params = RenderParams(n_samples_per_ray=512, data_source_range=(0.0, 1.0),
+                          filter_mode="trilinear", early_exit=1.1)
+    problem = InverseRenderProblem(
+        bricks=sharded, global_min=gmin, global_max=gmax, params=params,
+        max_steps=max_steps_for_bricks(sharded.world_min.cpu().numpy(),
+                                       sharded.world_max.cpu().numpy(), params.step_size),
+        width=SCENE_RAYS,
+    )
+    tf_true = torch.from_numpy(default_color_map()).to(dev)
+    with torch.no_grad():
+        target = problem.render(logical_mesh(dev, 1, 1), sharded.data, tf_true, eye, dirs, tnp)
+    start = dataclasses.replace(
+        problem, bricks=sharded._replace(data=torch.full_like(sharded.data, 0.5)))
+    print(f"exact set: {SCENE_N}^3 smooth truth in {sharded.num_bricks} bricks of "
+          f"{tuple(sharded.data.shape[1:])} ({sharded.data.numel() * 4 / 1e6:.0f} MB f32), "
+          f"{SCENE_RAYS}^2 rays, max_steps {problem.max_steps}; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    adam = functools.partial(torch.optim.Adam, lr=SET_LR)
+    runs, k3_launches, k4_launches = {}, 0, 0
+    for n_brick, n_ray in ((1, 1), (2, 2)):
+        mesh = logical_mesh(dev, n_brick, n_ray)
+        state = init_state(start, grayscale_ramp(), adam, mesh=mesh)
+        step = make_train_step(start, adam, mesh)
+        losses, at, first = [], [], None
+        torch.cuda.synchronize()
+        exact.march_exact.launches = exact.march_exact_backward.launches = 0
+        with captured(exact, "march_exact_backward") as calls:
+            t_start = time.perf_counter()
+            for i in range(SET_STEPS):
+                losses.append(float(step(state, eye, dirs, tnp, target)))  # synchronises
+                at.append(time.perf_counter())
+                if i == 0:
+                    first = (torch.cat([d.grad for d in state.params["density"]]).clone(),
+                             state.params["tf"].grad.clone())
+        counts = (exact.march_exact.launches, exact.march_exact_backward.launches)
+        # ------------------------------------------ end of this mesh's main path
+        want = (SET_STEPS * n_brick * n_ray,) * 2
+        if counts != want:
+            raise AssertionError(f"the {n_ray}x{n_brick} exact trainer launched K3 and K4 "
+                                 f"{counts} times, want {want}")
+        k3_launches += counts[0]
+        k4_launches += counts[1]
+        steps_ms = np.diff([t_start] + at) * 1e3
+        step_ms = float(np.median(steps_ms[1:]))
+        print(f"exact set trainer on a {n_ray}x{n_brick} mesh: {SET_STEPS} Adam steps (lr "
+              f"{SET_LR}): losses {losses}; step median of steps 2-{SET_STEPS} {step_ms:.3f} ms "
+              f"(all {', '.join(f'{x:.3f}' for x in steps_ms)} ms, host clock); K3 "
+              f"{counts[0]}, K4 {counts[1]} launches {card}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"the exact set trainer's loss did not fall: {losses}")
+        runs[(n_brick, n_ray)] = dict(losses=losses, first=first, step_ms=step_ms,
+                                      call=calls[-1])
+        del state, step
+    one, four = runs[(1, 1)], runs[(2, 2)]
+    l1, l4 = one["losses"][0], four["losses"][0]
+    print(f"exact set trainer, 2x2 vs 1x1, first step: loss {l4!r} vs {l1!r} (relative "
+          f"{abs(l4 - l1) / abs(l1):.3e})")
+    if abs(l4 - l1) > SHARD_LOSS_RTOL * abs(l1):
+        raise AssertionError(f"the 2x2 exact set trainer's loss {l4} is off the 1x1's {l1}")
+    for name, a, b in zip(("d_density", "d_tf"), four["first"], one["first"]):
+        compare_grads(a, b, f"exact set trainer, 2x2 vs 1x1, first step: {name}", 1.1,
+                      EXACT_GRAD_TOL_MAX)
+
+    # VolumeScene over the same set with the exit on: target, forward, backward.
+    scene = VolumeScene(bricks=sharded, tf=tf_true, global_min=gmin, global_max=gmax,
+                        params=RenderParams(data_source_range=(0.0, 1.0),
+                                            filter_mode="trilinear"))
+    if scene.params.early_exit != SCENE_EXIT:
+        raise AssertionError(f"the scene's early exit is {scene.params.early_exit}")
+    leaves = {"density": (0.5 * sharded.data + 0.25).requires_grad_(),
+              "tf": tf_true.clone().requires_grad_()}
+    torch.cuda.synchronize()
+    exact.march_exact.launches = exact.march_exact_backward.launches = 0
+    with captured(exact, "march_exact_backward") as scene_calls:
+        t_scene = time.perf_counter()
+        with torch.no_grad():
+            scene_target = scene.render(camera)
+        img = scene.with_parameters(leaves).render(camera)
+        loss = torch.mean((img - scene_target) ** 2)
+        loss.backward()
+        scene_loss = float(loss.detach())  # synchronises
+        scene_ms = (time.perf_counter() - t_scene) * 1e3
+    scene_counts = (exact.march_exact.launches, exact.march_exact_backward.launches)
+    # --------------------------------------------- end of the scene's main path
+    exits = int((img.detach()[..., 3] > SCENE_EXIT).sum())
+    print(f"VolumeScene over {sharded.num_bricks} bricks, early exit {SCENE_EXIT}: target, "
+          f"forward and backward {scene_ms:.3f} ms (host clock, first call); loss "
+          f"{scene_loss:.6f}; {exits} of {img.shape[0] * img.shape[1]} rays exit; K3 "
+          f"{scene_counts[0]}, K4 {scene_counts[1]} launches {card}")
+    if scene_counts != (2, 1):
+        raise AssertionError(f"the set scene launched K3 and K4 {scene_counts} times")
+    if exits == 0 or not np.isfinite(scene_loss):
+        raise AssertionError("the set scene's exit did not fire or its loss is not finite")
+    for k, v in leaves.items():
+        if not bool(torch.isfinite(v.grad).all()) or float(v.grad.abs().max()) == 0.0:
+            raise AssertionError(f"the set scene's {k} gradient is not finite and non-zero")
+    k3_launches += scene_counts[0]
+    k4_launches += scene_counts[1]
+    del img, scene_target, leaves
+
+    # Off the main path: each K4 site timed and against plain on a window.
+    sites, k4_err = [], 0.0
+    for seed, (what, call, launches) in enumerate((
+            ("the 1x1 exact set trainer", one["call"], SET_STEPS),
+            ("one shard of the 2x2 exact set trainer", four["call"], 4 * SET_STEPS),
+            ("VolumeScene over the set, exit on", scene_calls[-1], 1))):
+        what = f"{what} ({call[0][0].shape[0]} bricks)"
+        ms, b = k4_set_site(call, what, card)
+        k4_err = max(k4_err, k4_set_window(call, what, seed))
+        sites.append(("K4", f"RenderMarcherDiff backward over a set, {what}", launches, ms, b))
+    (volume, tf, view, _o, _g), _kw = one["call"]
+    volume, tf = volume.detach(), tf.detach()
+    lo = (SCENE_RAYS - SUBSET) // 2
+    pack = view.ray_pack.reshape(8, SCENE_RAYS, SCENE_RAYS)[:, lo:lo + SUBSET, lo:lo + SUBSET]
+    win = dataclasses.replace(view, ray_pack=pack.reshape(8, -1).contiguous(), width=SUBSET)
+    slots = torch.arange(volume.shape[0], dtype=torch.int32, device=dev)
+    march = (volume, slots, win.brick_boxes, tf, win.ray_pack,
+             torch.zeros((win.n_rays, 4), device=dev), win.eye, win.params)
+    k3_err = compare(exact.march_exact(*march, max_steps=win.max_steps, width=SUBSET),
+                     exact.march_exact_reference(*march, max_steps=win.max_steps),
+                     f"K3 over the set, the 1x1 exact set trainer, {SUBSET}x{SUBSET} window",
+                     exact_tol)
+    print(f"phase 30: {time.perf_counter() - t0:.1f} s")
+    return dict(k3_launches=k3_launches, k4_launches=k4_launches, k3_err=k3_err,
+                k4_err=k4_err, sites=sites,
+                step_ms={"1x1": one["step_ms"], "2x2": four["step_ms"]})
 
 
 def main() -> int:
@@ -3358,6 +3622,9 @@ def main() -> int:
     phase_done(28)
     phase_two_process(dev, card)
     phase_done(29)
+    # ------------------- 30. the exact gradient over a brick set (rest of M9)
+    exact_set = phase_exact_set(dev, card, exact_tol)
+    phase_done(30, quiet=True)
     print("phase seconds (utils.profiling.StageTimers):")
     for line in timers.report().splitlines():
         print(f"  {line}")
@@ -3378,7 +3645,7 @@ def main() -> int:
     ] + ooc_sites + mesh_sites + train_sites + k3_sites + [
         ("K1", "render_store_grid_sharded, render_cli --mesh and the sharded service", apps_k1,
          *mesh_sites[0][3:]),
-    ]
+    ] + exact_set["sites"]
     print(f"launch sites on the main paths: launches, ms per launch on the site's operands, "
           f"bound, launches x (ms - bound) {card}")
     above = {}
@@ -3424,9 +3691,9 @@ def main() -> int:
             "source": "libre_tpu_torch/csrc/exact_march.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:481",
             "launches": exact_launches + ex_fwd_launches + serve_k3 + scene["k3_launches"]
-            + entry_k3 + scripts["exact_march"] + mesh_k3,
+            + entry_k3 + scripts["exact_march"] + mesh_k3 + exact_set["k3_launches"],
             "max_abs_err": max(k3_err, k3_train_err, scene["k3_err"], entry_err,
-                               script_errs["exact_march"]),
+                               script_errs["exact_march"], exact_set["k3_err"]),
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,
             "bound_ms": k3_bound[0],
@@ -3438,8 +3705,10 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/exact_march_bwd.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:1405",
-            "launches": ex_bwd_launches + scene["k4_launches"] + scripts["exact_march_bwd"],
-            "max_abs_err": max(k4_err, scene["k4_err"], script_errs["exact_march_bwd"]),
+            "launches": ex_bwd_launches + scene["k4_launches"] + scripts["exact_march_bwd"]
+            + exact_set["k4_launches"],
+            "max_abs_err": max(k4_err, scene["k4_err"], script_errs["exact_march_bwd"],
+                               exact_set["k4_err"]),
             "ms": k4_ms,
             "plain_ms": k4_plain_ms,
             "bound_ms": k4_bound[0],

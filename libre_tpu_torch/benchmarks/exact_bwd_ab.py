@@ -8,7 +8,8 @@ with ``git archive``.  Both sources are built at once with the port's
 flags and ``-Xptxas -v`` (registers and spills printed); each build is
 bound with the launcher signature its source declares (a launcher with no
 ``early_exit`` operand is the kernel from before the exit rule, which
-walks every sample).  The operands are the exact trainer's view 0 (512²
+walks every sample; one with an ``n_bricks`` operand walks a brick set,
+here the one brick).  The operands are the exact trainer's view 0 (512²
 rays, 512 samples per ray, trilinear, the early exit off) over the 512³
 smooth ground truth with the default TF, K3's forward and a seeded
 N(0, 1) cotangent.  Each build's gradients are held against the plain
@@ -53,13 +54,13 @@ def build(out_dir: Path, tag: str, src: Path):
     return lib, f"{','.join(regs)} registers, {','.join(spills) or '0'} bytes spilled"
 
 
-def launcher_floats(src: Path) -> int:
-    """The number of float parameters of the ``exact_march_bwd`` launcher
-    that ``src`` declares."""
+def launcher_params(src: Path):
+    """(the number of float parameters, whether it takes ``n_bricks``) of
+    the ``exact_march_bwd`` launcher that ``src`` declares."""
     decl = re.search(r'extern "C" int exact_march_bwd\((.*?)\)\s*\{', src.read_text(), re.S)
     if decl is None:
         raise ValueError(f"no exact_march_bwd launcher in {src}")
-    return len(re.findall(r"\bfloat\b", decl.group(1)))
+    return len(re.findall(r"\bfloat\b", decl.group(1))), "n_bricks" in decl.group(1)
 
 
 def main(argv=None) -> int:
@@ -105,8 +106,9 @@ def main(argv=None) -> int:
 
         def run_of(tag):
             fn = getattr(ctypes.CDLL(str(built[tag][0])), "exact_march_bwd")
-            floats = launcher_floats(jobs[tag])
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            floats, over_set = launcher_params(jobs[tag])
+            ints = [1, 1] + [1] * over_set + [view.n_rays, view.width, n, n, n, view.max_steps]
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * len(ints)
                            + [ctypes.c_float] * floats + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             scalars = [ex, ey, ez, params.step_size, 1.0 / (hi - lo), -lo / (hi - lo),
@@ -114,7 +116,6 @@ def main(argv=None) -> int:
             d_volume, d_tf = torch.zeros_like(volume), torch.zeros_like(tf)
             ptrs = [t.data_ptr() for t in (volume, view.brick_boxes, tf, view.ray_pack, out,
                                            g, d_volume, d_tf)]
-            ints = [1, 1, view.n_rays, view.width, n, n, n, view.max_steps]
 
             def run():
                 d_volume.zero_()

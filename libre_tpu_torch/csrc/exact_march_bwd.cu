@@ -1,6 +1,6 @@
-// Recompute backward of the exact march (K3) over one f32 brick, for Hopper
-// (sm_90a): the density and transfer-function gradients of exact_march.cu's
-// output for a cotangent g, with the early exit off or on.
+// Recompute backward of the exact march (K3) over a set of f32 bricks, for
+// Hopper (sm_90a): the density and transfer-function gradients of
+// exact_march.cu's output for a cotangent g, with the early exit off or on.
 //
 // Replaces the TPU kernel libre_tpu/ops/exact_pallas.py::
 // _make_exact_bwd_kernel (launched by _compiled_group_bwd from the custom VJP
@@ -8,26 +8,40 @@
 // libre_tpu_torch/ops/raycast.py::march_exact_backward_reference; the wrapper
 // is libre_tpu_torch/ops/exact.py::march_exact_backward.
 //
-// One thread per ray, in K3's 16x8 screen tiles.  Each thread re-marches its
-// ray's samples front to back (exact_sample.cuh: the forward's sample set,
-// taps and texel coordinates, rounded the same way) with its transmittance T
-// and the inclusive prefix P = sum of w_j <g_rgb, rgb_j> in registers, and
-// inverts the front-to-back composite with the total-minus-prefix identity
-// (exact_pallas.py:1686-1708), TOT = <g_rgb, out_rgb> and T_fin = 1 - out_a
-// from the forward's output (zero carry in):
+// One thread per ray, in K3's 16x8 screen tiles.  Each thread walks the
+// set's B bricks in their order, as K3 walks slots arange(B) of its pass
+// (exact_march.cu), and re-marches each brick's samples front to back
+// (exact_sample.cuh: the forward's sample set, taps and texel coordinates,
+// rounded the same way) with its transmittance T and the inclusive prefix
+// P = sum of w_j <g_rgb, rgb_j> in registers, carried across the bricks, and
+// inverts the composite over the whole set with the total-minus-prefix
+// identity (exact_pallas.py:1686-1708), TOT = <g_rgb, out_rgb> and
+// T_fin = 1 - out_a from the forward's output (zero carry in):
 //
 //   dL/dalpha = T D - (TOT - P) / (1 - alpha) + g_a T_fin / (1 - alpha),
 //
 // then chains it through the opacity correction and the alpha-clamp gate,
 // the TF lerp (into bins i0 and i1), the gates 0 < density < 1 and
 // 0 < s_tf < 255, the data-range scale and the fetch's taps.  The gates are
-// strict, as the JAX kernel's.
+// strict, as the JAX kernel's.  Each sample's gradient goes into its own
+// brick's slice of d_volume: the ghost voxels of adjacent bricks are
+// separate entries.
+//
+// K3 culls, per tile, the bricks no ray of the tile samples (its cone test);
+// this kernel runs every brick's slab test instead, which takes the same
+// samples in the same order, so the inversion's TOT - P holds.  A brick the
+// ray misses, as the far-away pads of shard_bricks_front_to_back, takes no
+// sample and gets no gradient.  A one-brick set runs its own instance
+// (kSet = false, the loop's trip count fixed at 1): with the brick loop the
+// one-brick kernel took 8-11 more registers and ran 7% slower on the exact
+// trainer's view.
 //
 // The early exit (early_exit <= 1, the kExit instance): K3 stops after the
 // sample at which its carried ca = ca + alpha (1 - ca) first exceeds
-// early_exit.  This kernel carries ca with K3's own expression and order (not
-// 1 - T, which rounds differently at the boundary), so it walks exactly the
-// samples K3 composited and stops where K3 stopped.  The inversion holds over
+// early_exit, and marches no further brick.  This kernel carries ca across
+// the bricks with K3's own expression and order (not 1 - T, which rounds
+// differently at the boundary), so it walks exactly the samples K3
+// composited and stops where K3 stopped.  The inversion holds over
 // that truncated set, because out is its composite; the samples past the exit
 // get no gradient, as jax.grad gives through the JAX marcher's mask.  With
 // early_exit > 1 ca never exceeds it, and the kExit = false instance (the
@@ -46,7 +60,7 @@
 // What bounds it: per sample, the forward's 8 (1) dependent loads and 8 (1)
 // global RED atomics into d_volume, and the serial per-ray loop (up to ~890
 // samples at 512 samples per unit); the TF gradient adds a few percent on
-// a training view.
+// a training view; per brick, one slab test.
 //
 // Numerics: f32, IEEE division, powf, no FMA contraction (--fmad=false): the
 // inversion subtracts the prefix from a total that the forward accumulated in
@@ -65,19 +79,19 @@ using exact::kTfSize;
 using exact::kTileX;
 using exact::kTileY;
 
-template <bool kTrilinear, bool kExit>
+template <bool kTrilinear, bool kExit, bool kSet>
 __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
-    const float* __restrict__ brick,     // (BZ, BY, BX)
-    const float4* __restrict__ boxes,    // (1, 4) float4, raycast.BOX_FLOATS
+    const float* __restrict__ bricks,    // (B, BZ, BY, BX)
+    const float4* __restrict__ boxes,    // (B, 4) float4, raycast.BOX_FLOATS
     const float4* __restrict__ tf,       // (256,) rgba
     const float* __restrict__ rays,      // (8, R), raycast.PACK_ROWS
     const float4* __restrict__ out,      // (R,) forward output, zero carry in
     const float4* __restrict__ g,        // (R,) cotangent of out
-    float* __restrict__ d_volume,        // (BZ, BY, BX), zeroed by the wrapper
+    float* __restrict__ d_volume,        // (B, BZ, BY, BX), zeroed by the wrapper
     float* __restrict__ d_tf,            // (256, 4), zeroed by the wrapper
-    int diff_tf, int n_rays, int width, int bx, int by, int bz, int max_steps,
-    float ex, float ey, float ez, float step, float mult, float add,
-    float corr, float early_exit) {
+    int diff_tf, int n_bricks, int n_rays, int width, int bx, int by, int bz,
+    int max_steps, float ex, float ey, float ez, float step, float mult,
+    float add, float corr, float early_exit) {
   __shared__ float4 s_tf[kTfSize];
   __shared__ float s_dtf[tfgrad::kTableFloats];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -90,18 +104,25 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int r = y * width + x;
-  exact::Span span;
   // K3 composites nothing from a zero carry when 0 > early_exit.
   if (x < width && r < n_rays && !(kExit && 0.0f > early_exit)) {
     const exact::Ray ray = exact::load_ray(rays, n_rays, r);
-    if (exact::brick_span(ray, __ldg(boxes), __ldg(boxes + 1), ex, ey, ez, step,
-                          max_steps, &span)) {
-      const float4 s = __ldg(boxes + 2), o = __ldg(boxes + 3);
-      const float4 gv = g[r], ov = out[r];
-      const float tot = gv.x * ov.x + gv.y * ov.y + gv.z * ov.z;
-      const float t_fin = 1.0f - ov.w;
-      float trans = 1.0f, prefix = 0.0f;
-      float ca = 0.0f;  // K3's carried alpha (kExit only)
+    const float4 gv = g[r], ov = out[r];
+    const float tot = gv.x * ov.x + gv.y * ov.y + gv.z * ov.z;
+    const float t_fin = 1.0f - ov.w;
+    float trans = 1.0f, prefix = 0.0f;
+    float ca = 0.0f;  // K3's carried alpha (kExit only)
+    bool done = false;
+    const size_t brick_voxels = (size_t)bx * by * bz;
+    const int n_walk = kSet ? n_bricks : 1;
+    for (int b = 0; b < n_walk && !done; ++b) {
+      exact::Span span;
+      if (!exact::brick_span(ray, __ldg(boxes + 4 * b), __ldg(boxes + 4 * b + 1), ex,
+                             ey, ez, step, max_steps, &span))
+        continue;
+      const float4 s = __ldg(boxes + 4 * b + 2), o = __ldg(boxes + 4 * b + 3);
+      const float* brick = bricks + (size_t)b * brick_voxels;
+      float* d_brick = d_volume + (size_t)b * brick_voxels;
       exact::for_each_sample(span, ray.tng, step, [&](float t) {
         const exact::Taps k =
             exact::taps_at<kTrilinear>(ray, t, ex, ey, ez, s, o, bx, by, bz);
@@ -136,7 +157,7 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
                             wb * (c1.z - c0.z) + dav * (c1.w - c0.w)) *
                            (float)kTfSize * mult;
           if (!kTrilinear) {
-            atomicAdd(d_volume + ((size_t)k.z.i0 * by + k.y.i0) * bx + k.x.i0, dd);
+            atomicAdd(d_brick + ((size_t)k.z.i0 * by + k.y.i0) * bx + k.x.i0, dd);
           } else {
 #pragma unroll
             for (int dxb = 0; dxb < 2; ++dxb) {
@@ -145,7 +166,7 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
 #pragma unroll
                 for (int dzb = 0; dzb < 2; ++dzb) {
                   const exact::Corner cn = exact::corner(k, dxb, dyb, dzb, bx, by);
-                  atomicAdd(d_volume + cn.voxel, dd * cn.weight);
+                  atomicAdd(d_brick + cn.voxel, dd * cn.weight);
                 }
               }
             }
@@ -154,9 +175,9 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
         trans = trans * (1.0f - alpha);
         if (kExit) {
           ca = ca + alpha * (1.0f - ca);  // exact_march.cu's composite
-          return ca > early_exit;
+          done = ca > early_exit;
         }
-        return false;
+        return done;
       });
     }
   }
@@ -170,29 +191,36 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
 }  // namespace
 
 extern "C" int exact_march_bwd(
-    const void* brick, const void* boxes, const void* tf, const void* rays,
+    const void* bricks, const void* boxes, const void* tf, const void* rays,
     const void* out, const void* g, void* d_volume, void* d_tf,
-    int trilinear, int diff_tf, int n_rays, int width, int bx, int by, int bz,
-    int max_steps, float ex, float ey, float ez, float step, float mult,
+    int trilinear, int diff_tf, int n_bricks, int n_rays, int width, int bx,
+    int by, int bz, int max_steps, float ex, float ey, float ez, float step, float mult,
     float add, float corr, float early_exit, void* stream) {
   const dim3 block(kTileX, kTileY);
   const int height = (n_rays + width - 1) / width;
   const dim3 grid((width + kTileX - 1) / kTileX, (height + kTileY - 1) / kTileY);
   const auto s = (cudaStream_t)stream;
 #define EXACT_MARCH_BWD_ARGS                                                   \
-  (const float*)brick, (const float4*)boxes, (const float4*)tf,                \
+  (const float*)bricks, (const float4*)boxes, (const float4*)tf,               \
       (const float*)rays, (const float4*)out, (const float4*)g,                \
-      (float*)d_volume, (float*)d_tf, diff_tf, n_rays, width, bx, by, bz,      \
-      max_steps, ex, ey, ez, step, mult, add, corr, early_exit
+      (float*)d_volume, (float*)d_tf, diff_tf, n_bricks, n_rays, width, bx,    \
+      by, bz, max_steps, ex, ey, ez, step, mult, add, corr, early_exit
   const bool exit = early_exit <= 1.0f;
-  if (trilinear && exit)
-    exact_march_bwd_kernel<true, true><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
-  else if (trilinear)
-    exact_march_bwd_kernel<true, false><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
-  else if (exit)
-    exact_march_bwd_kernel<false, true><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
-  else
-    exact_march_bwd_kernel<false, false><<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS);
+#define EXACT_MARCH_BWD(kTrilinear, kExit, kSet)                               \
+  exact_march_bwd_kernel<kTrilinear, kExit, kSet>                              \
+      <<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS)
+  if (n_bricks > 1) {
+    if (trilinear && exit) EXACT_MARCH_BWD(true, true, true);
+    else if (trilinear) EXACT_MARCH_BWD(true, false, true);
+    else if (exit) EXACT_MARCH_BWD(false, true, true);
+    else EXACT_MARCH_BWD(false, false, true);
+  } else {
+    if (trilinear && exit) EXACT_MARCH_BWD(true, true, false);
+    else if (trilinear) EXACT_MARCH_BWD(true, false, false);
+    else if (exit) EXACT_MARCH_BWD(false, true, false);
+    else EXACT_MARCH_BWD(false, false, false);
+  }
+#undef EXACT_MARCH_BWD
 #undef EXACT_MARCH_BWD_ARGS
   return (int)cudaGetLastError();
 }

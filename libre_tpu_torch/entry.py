@@ -12,6 +12,7 @@ brick) mesh.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -69,16 +70,17 @@ def entry(device="cuda"):
 def dryrun_multichip(n_devices: int, devices=None, exact_trainer: bool = False) -> dict:
     """Run each sharded path once over an ``n_devices`` (ray × brick) mesh
     on tiny shapes and return what each printed: the exact march (K3 per
-    shard) of a 16³ volume in 8 bricks, the bricked store sweep (K1 per
-    shard, sort-first rows × sort-last plane ranges), one step of the
-    replicated-store trainer and the slab-sharded loss and gradients (K1
-    and K2 per shard), and ``render_cli --mesh``.
+    shard) of a 16³ volume in 8 bricks, with ``exact_trainer`` one Adam
+    step of the mesh-sharded exact trainer on it (K3 and K4 per shard),
+    the bricked store sweep (K1 per shard, sort-first rows × sort-last
+    plane ranges), one step of the replicated-store trainer and the
+    slab-sharded loss and gradients (K1 and K2 per shard), and
+    ``render_cli --mesh``.
 
     ``devices`` (default: every CUDA device) may repeat one device.  The
-    brick axis has 2 shards when ``n_devices`` is even.  The JAX dry run
-    also steps the mesh-sharded exact trainer; that needs K4 over a brick
-    set (ROADMAP M9): with ``exact_trainer`` the step is taken and
-    raises NotImplementedError naming it."""
+    brick axis has 2 shards when ``n_devices`` is even.  The exact
+    trainer's TF is the 256-entry default colormap, the kernels' TF size;
+    the JAX dry run starts it from a 32-entry one."""
     import tempfile
 
     from libre_tpu_torch.apps import render_cli
@@ -94,6 +96,7 @@ def dryrun_multichip(n_devices: int, devices=None, exact_trainer: bool = False) 
     from libre_tpu_torch.parallel.render import render_rays_sharded, shard_bricks_front_to_back
     from libre_tpu_torch.testing import split_into_bricks
     from libre_tpu_torch.train import store_trainer as st
+    from libre_tpu_torch.train.trainer import InverseRenderProblem, init_state, make_train_step
 
     devices = list(local_devices() if devices is None else devices)[:n_devices]
     n_brick = 2 if n_devices % 2 == 0 else 1
@@ -128,11 +131,17 @@ def dryrun_multichip(n_devices: int, devices=None, exact_trainer: bool = False) 
     print(f"dryrun_multichip({n_devices}): sharded exact march alpha_max="
           f"{out['exact_alpha_max']:.4f}")
     if exact_trainer:
-        density = sharded.data.clone().requires_grad_()
-        render_rays_sharded(
-            mesh, sharded._replace(data=density), tf, eye, dirs, tnp, params, gmin, gmax,
-            max_steps, width=img,
+        problem = InverseRenderProblem(
+            bricks=sharded, global_min=gmin, global_max=gmax, params=params,
+            max_steps=max_steps, width=img,
         )
+        adam = functools.partial(torch.optim.Adam, lr=1e-2)
+        state = init_state(problem, default_color_map(), adam, mesh=mesh)
+        step = make_train_step(problem, adam, mesh)
+        loss = step(state, eye, dirs, tnp, torch.zeros((dirs.shape[0], 4), device=lead))
+        out["exact_train_loss"] = float(loss)
+        print(f"dryrun_multichip({n_devices}): marcher trainer loss="
+              f"{out['exact_train_loss']:.6f}")
 
     # ---- the bricked store sweep: sort-first rows x sort-last plane slabs ----
     axis, sign = 2, -1.0

@@ -5,11 +5,13 @@ is flat slots padded to 128 lanes, and the assembled store (whole or in
 slabs) and the classified plane stack pad their two in-plane axes to
 multiples of 128 (the stack also stacks its four channels along c).  These functions
 strip that padding
-so the port and the JAX package can be fed the same state; the (256, 4)
-transfer function and the exact trainer's (Z, Y, X) density need no
-conversion (the scene's one brick drops its leading axis).  Results
-are writable copies, so
-``torch.from_numpy`` can take them.
+so the port and the JAX package can be fed the same state; the
+transfer function, the exact trainer's (Z, Y, X) density and the scene's
+(N, BZ, BY, BX) brick stack need no conversion; the mesh-sharded exact
+trainer's brick-sharded density becomes one chunk per brick shard.
+Results are writable copies, so ``torch.from_numpy`` can take them
+(the mesh-sharded trainer's helpers return tensors on the mesh's
+devices).
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops import shearwarp_bricked as swb
-from libre_tpu_torch.ops.reference import RenderParams
+from libre_tpu_torch.ops.reference import BrickSet, RenderParams
 from libre_tpu_torch.parallel.mesh import BRICK_AXIS, RAY_AXIS, Mesh, make_mesh
 from libre_tpu_torch.train.shearwarp_trainer import ShearWarpProblem
 from libre_tpu_torch.train.store_trainer import StoreProblem
+from libre_tpu_torch.train.trainer import InverseRenderProblem
 
 
 def atlas_from_jax(flat: np.ndarray, brick_shape_zyx) -> np.ndarray:
@@ -162,15 +166,57 @@ def shearwarp_problem_from_jax(problem) -> ShearWarpProblem:
 
 
 def scene_params_from_jax(params: Dict) -> Dict[str, np.ndarray]:
-    """{"density": (1, Z, Y, X), "tf": (T, 4)} of the JAX package's
-    ``VolumeScene.parameters`` (its one brick's data) → the port's
-    {"density": (Z, Y, X), "tf": (T, 4)}, numpy copies."""
+    """{"density": (N, BZ, BY, BX), "tf": (T, 4)} of the JAX package's
+    ``VolumeScene.parameters`` → the port's, the same shapes, numpy
+    copies."""
     density = np.asarray(params["density"], np.float32)
-    if density.ndim != 4 or density.shape[0] != 1:
+    if density.ndim != 4:
         raise ValueError(
-            f"scene_params_from_jax: needs one brick (1, Z, Y, X), got {density.shape}"
+            f"scene_params_from_jax: needs an (N, BZ, BY, BX) brick stack, got {density.shape}"
         )
-    return {"density": np.array(density[0]), "tf": np.array(np.asarray(params["tf"]), np.float32)}
+    return {"density": np.array(density), "tf": np.array(np.asarray(params["tf"]), np.float32)}
+
+
+def brick_set_from_jax(bricks, device="cpu") -> BrickSet:
+    """The JAX package's ``BrickSet`` → the port's, f32 tensors on
+    ``device``."""
+    return BrickSet(*(
+        torch.from_numpy(np.array(np.asarray(x), np.float32)).to(device) for x in bricks
+    ))
+
+
+def inverse_render_problem_from_jax(problem, width=None, device="cpu") -> InverseRenderProblem:
+    """The JAX package's ``InverseRenderProblem`` → the port's, its brick
+    set on ``device``; its XLA ``chunk`` dropped, ``width`` the screen width
+    the port's kernels tile each shard's rays by."""
+    return InverseRenderProblem(
+        bricks=brick_set_from_jax(problem.bricks, device),
+        global_min=np.asarray(problem.global_min, np.float32),
+        global_max=np.asarray(problem.global_max, np.float32),
+        params=render_params_from_jax(problem.params),
+        max_steps=int(problem.max_steps),
+        width=width,
+    )
+
+
+def train_params_from_jax(params: Dict, mesh: Mesh) -> Dict:
+    """The JAX mesh-sharded trainer's ``TrainState.params``, a density
+    sharded on the brick axis, (N, BZ, BY, BX), and the (T, 4) TF → the
+    port's layout over ``mesh``: brick shard kd's chunk on
+    ``mesh.device(0, kd)`` and the TF on ``mesh.lead`` (f32 copies, as
+    ``train.trainer.init_state`` places its leaves)."""
+    density = np.asarray(params["density"], np.float32)
+    d_k = mesh.shape[BRICK_AXIS]
+    if density.ndim != 4 or density.shape[0] % d_k:
+        raise ValueError(
+            f"train_params_from_jax: {density.shape} density over {d_k} brick shards"
+        )
+    b_l = density.shape[0] // d_k
+    return {
+        "density": [torch.from_numpy(np.array(density[kd * b_l:(kd + 1) * b_l]))
+                    .to(mesh.device(0, kd)) for kd in range(d_k)],
+        "tf": torch.from_numpy(np.array(np.asarray(params["tf"]), np.float32)).to(mesh.lead),
+    }
 
 
 def store_slabs_from_jax(

@@ -1,20 +1,22 @@
-"""Differentiable volume scene (``libre_tpu.models.volume_scene``): one
-brick's density and the transfer function as trainable leaves, rendered
-by the exact marcher with its early exit on.
+"""Differentiable volume scene (``libre_tpu.models.volume_scene``): a
+brick set's densities and the transfer function as trainable leaves,
+rendered by the exact marcher with its early exit on.
 
 The reference renders through the XLA marcher ``raycast.render`` and is
 differentiated by ``jax.grad``; here :meth:`VolumeScene.render` runs
-``exact.render_marcher_diff`` (forward K3, ``csrc/exact_march.cu``;
-backward K4, ``csrc/exact_march_bwd.cu``, which walks only the samples
-K3 composited; their plain versions on the CPU), one march per jittered
-subpixel sample, averaged, as ``exact.render_exact`` does.  The scene is
-one brick filling the global box (``reference.single_brick_set``); its
-``parameters`` are {"density": (Z, Y, X), "tf": (256, 4)}.
+``exact.render_marcher_diff`` over the scene's bricks in their storage
+order, as the reference does (forward K3, ``csrc/exact_march.cu``;
+backward K4 over the same set, ``csrc/exact_march_bwd.cu``, which walks
+only the samples K3 composited; their plain versions on the CPU), one
+march per jittered subpixel sample, averaged, as ``exact.render_exact``
+does.  :meth:`VolumeScene.from_volume` makes one brick filling the global
+box (``reference.single_brick_set``); the ``parameters`` are
+{"density": (N, BZ, BY, BX), "tf": (T, 4)}, as the reference's.
 
 :meth:`VolumeScene.render_sharded` renders over a (ray × brick) mesh
 (``parallel.render.render_rays_sharded``: K3 once per shard on its ray
 rows and its front-to-back brick chunk, the segments folded in rank
-order).
+order), differentiable as ``render`` is.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from libre_tpu_torch.ops.transfer_function import default_color_map
 class VolumeScene:
     """Scene = brick geometry (static) + density/TF parameters (leaves)."""
 
-    bricks: BrickSet  # data field = current density estimate, (1, Z, Y, X)
-    tf: torch.Tensor  # (256, 4)
+    bricks: BrickSet  # data field = current density estimate, (N, BZ, BY, BX)
+    tf: torch.Tensor  # (T, 4)
     global_min: np.ndarray
     global_max: np.ndarray
     params: RenderParams
@@ -71,12 +73,12 @@ class VolumeScene:
     # ------------------------------------------------------------ params
     @property
     def parameters(self) -> dict:
-        return {"density": self.bricks.data[0], "tf": self.tf}
+        return {"density": self.bricks.data, "tf": self.tf}
 
     def with_parameters(self, params: dict) -> "VolumeScene":
         return dataclasses.replace(
             self,
-            bricks=self.bricks._replace(data=params["density"][None]),
+            bricks=self.bricks._replace(data=params["density"]),
             tf=params["tf"],
         )
 
@@ -89,22 +91,16 @@ class VolumeScene:
         )
 
     def render(self, camera: Camera) -> torch.Tensor:
-        """(H, W, 4) image, bottom-up rows, on the scene's device;
-        differentiable in ``density`` and ``tf``."""
-        if self.bricks.num_bricks != 1:
-            raise NotImplementedError(
-                f"VolumeScene.render: {self.bricks.num_bricks} bricks; multi-brick exact "
-                f"gradients need K4 over a brick set (ROADMAP M9)"
-            )
-        density = self.bricks.data[0]
-        wmin = self.bricks.world_min[0].detach().cpu().numpy()
-        wmax = self.bricks.world_max[0].detach().cpu().numpy()
+        """(H, W, 4) image, bottom-up rows, on the scene's device, the
+        bricks marched in their storage order; differentiable in
+        ``density`` and ``tf``."""
+        density = self.bricks.data
         vx, vy, vw, vh = camera.viewport
         images = []
         for s in range(self.params.samples_per_pixel):
             view = exact.exact_view(
-                camera, self.params, self.global_min, self.global_max,
-                world_min=wmin, world_max=wmax, sample_index=s, device=density.device,
+                camera, self.params, self.global_min, self.global_max, bricks=self.bricks,
+                sample_index=s, device=density.device,
             )
             images.append(exact.render_marcher_diff(density, self.tf, view))
         return (sum(images) / float(len(images))).reshape(vh, vw, 4)
@@ -114,7 +110,8 @@ class VolumeScene:
         device, from the first jittered subpixel sample as the JAX
         package's: the bricks are reordered front to back and padded to
         the brick-axis size (``shard_bricks_front_to_back``), the rays
-        split in row blocks over the ray axis."""
+        split in row blocks over the ray axis; differentiable in
+        ``density`` and ``tf``."""
         from libre_tpu_torch.ops import rays as ray_ops
         from libre_tpu_torch.parallel.mesh import BRICK_AXIS, require_mesh
         from libre_tpu_torch.parallel.render import (

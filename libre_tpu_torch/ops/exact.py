@@ -1,6 +1,6 @@
 """Exact marcher on the card (``libre_tpu.ops.exact_pallas``): the wrappers
-of K3 (``csrc/exact_march.cu``) and K4 (``csrc/exact_march_bwd.cu``) and
-the single-brick entry points.
+of K3 (``csrc/exact_march.cu``) and K4 (``csrc/exact_march_bwd.cu``), the
+single-brick entry points and the differentiable march of a brick set.
 
 :func:`march_exact` marches the rays of one pass through its bricks,
 front to back, onto the carried (rgb, a): on a CUDA tensor it launches
@@ -10,14 +10,20 @@ the same operands and result.  The engine's ``render`` (the ``xla`` and
 ``pallas-exact`` renderers) and :func:`render_exact_rays` /
 :func:`render_exact` (BASELINE configs 1-2) call it.
 
-:func:`render_exact_diff` is the differentiable single-brick render of
-one :class:`ExactView`: forward K3, backward :func:`march_exact_backward`
-(K4 on a CUDA tensor, ``march_exact_backward_reference`` on a CPU one),
-with the early exit off (the exact trainer's semantics).
-:func:`render_marcher_diff` is the same render with any early exit: the
-counterpart of ``jax.grad`` of the JAX marcher ``raycast.render`` over
-one brick (``models.VolumeScene``); K4 then walks only the samples K3
-composited.
+:func:`render_marcher_diff` is the differentiable render of a brick set
+(or of one brick) through one :class:`ExactView`: forward K3 over the
+set's bricks in their order from a zero carry, backward
+:func:`march_exact_backward` (K4 over the same set on a CUDA tensor,
+``march_exact_backward_reference`` on a CPU one), with any early exit:
+the counterpart of ``jax.grad`` of the JAX marcher ``raycast.render_rays``
+(``models.VolumeScene``, ``parallel.render``, ``train.trainer``); with the
+exit on K4 walks only the samples K3 composited.
+:func:`render_exact_diff` is the same render with the early exit off
+(the exact trainer's semantics).
+
+The kernels read a 256-entry TF (``TF_SIZE``, the size K1 and K5 share);
+the plain versions take any (T, 4) TF with 2 ≤ T ≤ 256, as the JAX
+marcher does.
 
 Of the JAX package's planning (``plan_exact``) only what fixes the sample
 grid and the per-brick box is kept: ``raycast.ray_pack`` and
@@ -45,6 +51,7 @@ from libre_tpu_torch.ops.raycast import (
     ray_pack,
 )
 from libre_tpu_torch.ops.reference import (
+    BrickSet,
     Camera,
     RenderParams,
     max_steps_for_bricks,
@@ -65,14 +72,19 @@ ATLAS_DTYPES = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
 def _check_operands(who, atlas, slots, boxes, tf, rays, params, per_ray, samples=None,
                     used=None):
     """Reject what the kernels do not take before a pointer reaches them.
-    ``slots`` None means one brick (the backward's).  ``per_ray`` names the
-    (R, 4) f32 operands (the carry, or the backward's forward output and
-    cotangent)."""
-    n_bricks = 1 if slots is None else slots.shape[0]
+    ``slots`` None means every brick of ``atlas`` in its order (the
+    backward's set).  ``per_ray`` names the (R, 4) f32 operands (the carry,
+    or the backward's forward output and cotangent).  The TF is (256, 4)
+    for a kernel and any (T, 4), 2 ≤ T ≤ 256, for a plain version."""
+    n_bricks = atlas.shape[0] if slots is None else slots.shape[0]
     n_rays = next(iter(per_ray.values())).shape[0]
+    n_tf = tf.shape[0] if tf.dim() == 2 else 0
+    if atlas.device.type != "cpu" and n_tf not in (0, TF_SIZE):
+        raise ValueError(f"{who}: the kernels read a {TF_SIZE}-entry TF, got T = {n_tf}")
+    plain_tf = atlas.device.type == "cpu" and 2 <= n_tf <= TF_SIZE
     expect = {
         "boxes": (boxes, torch.float32, (n_bricks, BOX_FLOATS)),
-        "tf": (tf, torch.float32, (TF_SIZE, 4)),
+        "tf": (tf, torch.float32, (n_tf if plain_tf else TF_SIZE, 4)),
         "rays": (rays, torch.float32, (len(PACK_ROWS), n_rays)),
     }
     if slots is not None:
@@ -163,7 +175,7 @@ march_exact.launches = 0
 
 
 def march_exact_backward(
-    volume_zyx: torch.Tensor,
+    volume: torch.Tensor,
     tf: torch.Tensor,
     view: "ExactView",
     out: torch.Tensor,
@@ -172,48 +184,53 @@ def march_exact_backward(
     diff_tf: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Recompute backward of :func:`render_marcher_diff`'s forward (and
-    :func:`render_exact_diff`'s) → (d_volume (Z, Y, X), d_tf (256, 4)),
-    with the early exit of ``view.params``: on (≤ 1), only the samples the
-    forward composited take part.
+    :func:`render_exact_diff`'s) → (d_volume shaped as ``volume``, d_tf
+    (T, 4)), with the early exit of ``view.params``: on (≤ 1), only the
+    samples the forward composited take part.
 
     Operands and result as :func:`march_exact_backward_reference`: the
-    (Z, Y, X) f32 volume filling ``view``'s box, the TF, the forward's
-    output ``out`` (marched from a zero carry) and its cotangent ``g``;
-    with ``diff_tf`` false the TF gradient is not accumulated and
-    ``d_tf`` comes back zero.
+    (B, BZ, BY, BX) f32 brick set placed by ``view``'s B box rows and
+    marched in their order (a (Z, Y, X) volume is the one-brick set), the
+    TF, the forward's output ``out`` (marched from a zero carry) and its
+    cotangent ``g``; with ``diff_tf`` false the TF gradient is not
+    accumulated and ``d_tf`` comes back zero.
     On a CUDA tensor this zeroes the gradients and launches
     ``csrc/exact_march_bwd.cu`` on the current stream, in tiles of
     ``view.width`` rays per row (``march_exact_backward.launches`` counts
     the launches); on a CPU tensor it runs the plain version; on any other
     device it raises."""
     who = "march_exact_backward"
-    if volume_zyx.dtype != torch.float32:
-        raise TypeError(f"{who}: the volume is {volume_zyx.dtype}, needs float32")
-    if volume_zyx.dim() != 3:
-        raise ValueError(f"{who}: needs a (Z, Y, X) volume, got {tuple(volume_zyx.shape)}")
+    if volume.dtype != torch.float32:
+        raise TypeError(f"{who}: the volume is {volume.dtype}, needs float32")
+    if volume.dim() not in (3, 4):
+        raise ValueError(
+            f"{who}: needs a (B, BZ, BY, BX) brick set or a (Z, Y, X) brick, got "
+            f"{tuple(volume.shape)}"
+        )
+    bricks = volume if volume.dim() == 4 else volume[None]
     boxes, rays, params = view.brick_boxes, view.ray_pack, view.params
-    _check_operands(who, volume_zyx[None], None, boxes, tf, rays, params, {"out": out, "g": g})
-    if volume_zyx.device.type == "cpu":
-        return march_exact_backward_reference(volume_zyx, tf, view, out, g, diff_tf=diff_tf)
-    if volume_zyx.device.type != "cuda":
-        raise ValueError(f"{who}: no kernel for device {volume_zyx.device}")
+    _check_operands(who, bricks, None, boxes, tf, rays, params, {"out": out, "g": g})
+    if volume.device.type == "cpu":
+        return march_exact_backward_reference(volume, tf, view, out, g, diff_tf=diff_tf)
+    if volume.device.type != "cuda":
+        raise ValueError(f"{who}: no kernel for device {volume.device}")
     for name, x in (("boxes", boxes), ("tf", tf), ("out", out), ("g", g)):
         if x.data_ptr() % 16:
             raise ValueError(f"{who}: {name} must be 16-byte aligned")
-    d_volume = torch.zeros_like(volume_zyx)
+    d_volume = torch.zeros_like(volume)
     d_tf = torch.zeros_like(tf)
     n_rays = out.shape[0]
     if n_rays == 0:
         return d_volume, d_tf
     lo, hi = params.data_source_range
-    bz, by, bx = volume_zyx.shape
+    n_bricks, bz, by, bx = bricks.shape
     ex, ey, ez = (float(v) for v in view.eye)
-    with torch.cuda.device(volume_zyx.device):
+    with torch.cuda.device(volume.device):
         _kernels.launch(
             "exact_march_bwd",
-            volume_zyx, boxes, tf, rays, out, g, d_volume, d_tf,
-            int(params.filter_mode == "trilinear"), int(diff_tf), n_rays, int(view.width),
-            bx, by, bz, int(view.max_steps), ex, ey, ez, params.step_size,
+            bricks, boxes, tf, rays, out, g, d_volume, d_tf,
+            int(params.filter_mode == "trilinear"), int(diff_tf), n_bricks, n_rays,
+            int(view.width), bx, by, bz, int(view.max_steps), ex, ey, ez, params.step_size,
             1.0 / (hi - lo), -lo / (hi - lo), params.alpha_correction, params.early_exit,
         )
     march_exact_backward.launches += 1
@@ -233,11 +250,12 @@ def _require_no_early_exit(who, params: RenderParams):
 
 @dataclasses.dataclass(frozen=True)
 class ExactView:
-    """What fixes one camera's sample grid over one brick, computed once
+    """What fixes one camera's sample grid over a brick set, computed once
     (the part of the JAX package's ``ExactPlan`` a per-ray kernel needs):
-    the (8, R) ``ray_pack``, the (1, 16) ``brick_boxes``, the ``eye``, the
-    march length ``max_steps``, the screen ``width`` the kernels tile the
-    rays by, and the marching ``params``."""
+    the (8, R) ``ray_pack``, the (B, 16) ``brick_boxes`` in march order,
+    the ``eye``, the march length ``max_steps`` (the longest brick's), the
+    screen ``width`` the kernels tile the rays by, and the marching
+    ``params``."""
 
     ray_pack: torch.Tensor
     brick_boxes: torch.Tensor
@@ -259,17 +277,33 @@ def exact_view(
     *,
     world_min=None,
     world_max=None,
+    bricks: Optional[BrickSet] = None,
     clip_planes: Optional[np.ndarray] = None,
     sample_index: int = 0,
     device="cuda",
 ) -> ExactView:
     """The :class:`ExactView` of ``camera``'s rays (jittered subpixel
-    sample ``sample_index``) over one brick, no ghost voxels, on
-    ``device``.  The brick fills ``world_min/max`` (default: the global
-    box, the single-brick form); the sample grid is the global box's
+    sample ``sample_index``) on ``device``, over one brick without ghost
+    voxels that fills ``world_min/max`` (default: the global box, the
+    single-brick form), or over the bricks of ``bricks`` (their world boxes
+    and texture insets, in their order; the far-away pads of
+    ``parallel.render.shard_bricks_front_to_back`` would make ``max_steps``
+    their own length, so build such a set's view with the real bricks'
+    ``max_steps``).  The sample grid is the global box's
     (fragRaycast.glsl:152-158)."""
-    wmin = global_min if world_min is None else world_min
-    wmax = global_max if world_max is None else world_max
+    if bricks is not None:
+        if world_min is not None or world_max is not None:
+            raise ValueError("exact_view: pass either bricks or world_min/max")
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        wmin, wmax = host(bricks.world_min), host(bricks.world_max)
+        tmin, tmax = host(bricks.tex_min), host(bricks.tex_max)
+    else:
+        wmin = global_min if world_min is None else world_min
+        wmax = global_max if world_max is None else world_max
+        tmin, tmax = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
     eye, dirs, cos_z, _ = ray_ops.make_rays(
         camera.inv_proj, camera.inv_mv, camera.viewport,
         sample_index=sample_index, device=device,
@@ -280,7 +314,7 @@ def exact_view(
             eye, dirs.reshape(-1, 3), tnp_, params.step_size, global_min, global_max,
             clip_planes,
         ),
-        brick_boxes=brick_boxes(wmin, wmax, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)).to(device),
+        brick_boxes=brick_boxes(wmin, wmax, tmin, tmax).to(device),
         eye=np.asarray(camera.inv_mv, np.float32)[:3, 3],
         max_steps=max_steps_for_bricks(
             np.asarray(wmin, np.float32), np.asarray(wmax, np.float32), params.step_size
@@ -300,60 +334,60 @@ def _march_view(volume_zyx, tf, view: ExactView, carry) -> torch.Tensor:
 
 
 class RenderMarcherDiff(torch.autograd.Function):
-    """Forward: K3 from a zero carry; backward: K4 (or their plain
-    versions on the CPU), with the view's early exit, accumulating the TF
-    gradient only when the TF needs one.  Saves (volume, tf, out), as the
-    JAX package's ``_red_fwd``."""
+    """Forward: K3 over the set's bricks (slots ``arange(B)``) from a zero
+    carry; backward: K4 over the same set (or their plain versions on the
+    CPU), with the view's early exit, accumulating the TF gradient only
+    when the TF needs one.  Saves (volume, tf, out), as the JAX package's
+    ``_red_fwd``."""
 
     @staticmethod
-    def forward(ctx, volume_zyx, tf, view: ExactView):
-        volume_zyx, tf = volume_zyx.contiguous(), tf.contiguous()
-        out = _march_view(
-            volume_zyx, tf, view, torch.zeros((view.n_rays, 4), device=volume_zyx.device)
+    def forward(ctx, volume, tf, view: ExactView):
+        volume, tf = volume.contiguous(), tf.contiguous()
+        bricks = volume if volume.dim() == 4 else volume[None]
+        dev = volume.device
+        out = march_exact(
+            bricks, torch.arange(bricks.shape[0], dtype=torch.int32, device=dev),
+            view.brick_boxes, tf, view.ray_pack, torch.zeros((view.n_rays, 4), device=dev),
+            view.eye, view.params, max_steps=view.max_steps, width=view.width,
         )
         ctx.view = view
-        ctx.save_for_backward(volume_zyx, tf, out)
+        ctx.save_for_backward(volume, tf, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        volume_zyx, tf, out = ctx.saved_tensors
+        volume, tf, out = ctx.saved_tensors
         diff_tf = ctx.needs_input_grad[1]
         d_volume, d_tf = march_exact_backward(
-            volume_zyx, tf, ctx.view, out, g.contiguous(), diff_tf=diff_tf
+            volume, tf, ctx.view, out, g.contiguous(), diff_tf=diff_tf
         )
         return d_volume, (d_tf if diff_tf else None), None
 
 
-def render_marcher_diff(volume_zyx: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:
-    """Differentiable render of one (Z, Y, X) f32 brick filling the view's
-    box → (R, 4) rgba, with any early exit (``view.params.early_exit``):
-    the counterpart of ``jax.grad`` of the JAX marcher ``raycast.render``
-    over a single brick.  Forward K3 from a zero carry, backward K4 with
-    the exit rule (their plain versions on the CPU); a sample past the
-    exit gets no gradient.  A (B, Z, Y, X) set of more than one brick
-    raises: multi-brick exact gradients need K4 over a brick set (ROADMAP
-    M9)."""
-    if volume_zyx.dim() == 4 and volume_zyx.shape[0] > 1:
-        raise NotImplementedError(
-            f"render_marcher_diff: {volume_zyx.shape[0]} bricks; multi-brick exact "
-            f"gradients need K4 over a brick set (ROADMAP M9)"
-        )
-    if volume_zyx.dtype != torch.float32 or volume_zyx.dim() != 3:
+def render_marcher_diff(volume: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:
+    """Differentiable render of a (B, Z, Y, X) f32 brick set, placed by
+    the view's B box rows and marched in their order, or of one (Z, Y, X)
+    brick → (R, 4) rgba, with any early exit (``view.params.early_exit``):
+    the counterpart of ``jax.grad`` of the JAX marcher
+    ``raycast.render_rays`` over the same bricks in the same order.
+    Forward K3 from a zero carry, backward K4 over the set with the exit
+    rule (their plain versions on the CPU); a sample past the exit gets no
+    gradient."""
+    if volume.dtype != torch.float32 or volume.dim() not in (3, 4):
         raise TypeError(
-            f"render_marcher_diff: needs a (Z, Y, X) float32 volume, got "
-            f"{tuple(volume_zyx.shape)} {volume_zyx.dtype}"
+            f"render_marcher_diff: needs a (B, Z, Y, X) or (Z, Y, X) float32 volume, got "
+            f"{tuple(volume.shape)} {volume.dtype}"
         )
-    return RenderMarcherDiff.apply(volume_zyx, tf, view)
+    return RenderMarcherDiff.apply(volume, tf, view)
 
 
-def render_exact_diff(volume_zyx: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:
+def render_exact_diff(volume: torch.Tensor, tf: torch.Tensor, view: ExactView) -> torch.Tensor:
     """:func:`render_marcher_diff` for the exact trainer: requires
     ``view.params.early_exit > 1`` (the composite inversion of the JAX
     package's ``render_exact_diff`` needs every sample composited).
     Every ray direction is served: there is no fallback to refuse."""
     _require_no_early_exit("render_exact_diff", view.params)
-    return render_marcher_diff(volume_zyx, tf, view)
+    return render_marcher_diff(volume, tf, view)
 
 
 def render_exact_rays(

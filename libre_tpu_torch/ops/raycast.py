@@ -340,7 +340,7 @@ def march_exact_reference(
 
     ``atlas`` (n_slots, BZ, BY, BX), any dtype; ``slots`` (B,) int32, the
     pass's bricks in front-to-back order; ``boxes`` (B, 16) f32 from
-    :func:`brick_boxes`; ``tf`` (256, 4) f32; ``rays`` (8, R) f32 from
+    :func:`brick_boxes`; ``tf`` (T, 4) f32; ``rays`` (8, R) f32 from
     :func:`ray_pack`; ``carry`` (R, 4) f32 rgba from earlier passes;
     ``eye`` 3 floats.  Returns the (R, 4) carry after this pass.
 
@@ -411,7 +411,7 @@ def march_exact_reference(
 
 
 def march_exact_backward_reference(
-    volume_zyx: torch.Tensor,
+    volume: torch.Tensor,
     tf: torch.Tensor,
     view,
     out: torch.Tensor,
@@ -419,37 +419,41 @@ def march_exact_backward_reference(
     *,
     diff_tf: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch recompute backward of a one-brick exact march: the
-    specification of K4.
+    """Plain PyTorch recompute backward of an exact march over a brick
+    set from a zero carry: the specification of K4.
 
-    ``volume_zyx`` (Z, Y, X) f32 fills the box of ``view`` (an
-    ``exact.ExactView``: its ray pack, one-row brick boxes, eye, params and
-    march length); ``tf`` (256, 4) f32; ``out`` the forward's (R, 4)
-    output (marched from a zero carry) and ``g`` its cotangent.  Returns
-    (d_volume (Z, Y, X), d_tf (256, 4)); ``d_tf`` is zero when
-    ``diff_tf`` is false.
+    ``volume`` is the (B, BZ, BY, BX) f32 set (a (Z, Y, X) volume is the
+    one-brick set), placed by the B rows of the ``view``'s brick boxes (an
+    ``exact.ExactView``: its ray pack, (B, 16) brick boxes, eye, params and
+    march length) and marched in their order, as
+    :func:`march_exact_reference` marches slots ``arange(B)``; ``tf`` any
+    (T, 4) f32; ``out`` the forward's (R, 4) output (marched from a zero
+    carry) and ``g`` its cotangent.  Returns (d_volume shaped as
+    ``volume``, d_tf (T, 4)); ``d_tf`` is zero when ``diff_tf`` is false.
 
-    Re-marches each ray's samples front to back in blocks of rays ×
-    ``CHUNK`` samples, carrying the transmittance T and the inclusive
-    prefix P = Σ w_j⟨g_rgb, rgb_j⟩, and inverts the composite with
-    TOT = ⟨g_rgb, out_rgb⟩ and T_fin = 1 − out_a
-    (exact_pallas.py:1686-1708):
+    Re-marches each ray's samples front to back, brick after brick in
+    blocks of rays × ``CHUNK`` samples, carrying the transmittance T and
+    the inclusive prefix P = Σ w_j⟨g_rgb, rgb_j⟩ across the bricks, and
+    inverts the composite over the whole set with TOT = ⟨g_rgb, out_rgb⟩
+    and T_fin = 1 − out_a (exact_pallas.py:1686-1708):
     dα = T·D − (TOT − P)/(1 − α) + g_a·T_fin/(1 − α).  Then through the
     opacity correction and the alpha-clamp gate, the TF lerp (into bins
-    i0 and i1), the gates 0 < density < 1 and 0 < s_tf < 255 (strict, as
-    the JAX kernel's), the data-range scale and the fetch's taps.
+    i0 and i1), the gates 0 < density < 1 and 0 < s_tf < T − 1 (strict,
+    as the JAX kernel's), the data-range scale and the fetch's taps, into
+    the sample's own brick (the ghost voxels of adjacent bricks are
+    separate entries).
 
     With the early exit on (``view.params.early_exit`` ≤ 1) only the
     samples the forward composited take part: the walk carries the
-    accumulated alpha as :func:`march_exact_reference` does
-    (``_composite_chunk``'s closed form over the same chunks) and drops
-    the samples its mask drops, so the inversion runs over the truncated
-    set ``out`` composited, and the samples past the exit get no gradient
-    (as ``jax.grad`` gives through the JAX marcher's mask).  ``d_tf``
-    is summed in float64 and returned in ``tf``'s dtype: a training view
-    puts tens of millions of samples into TF texel 0 alone: summed in f32,
-    the plain version's own rounding would be the largest error a
-    comparison with the kernel sees.
+    accumulated alpha across the bricks as :func:`march_exact_reference`
+    does (``_composite_chunk``'s closed form over the same chunks) and
+    drops the samples its mask drops, so the inversion runs over the
+    truncated set ``out`` composited, and the samples past the exit get no
+    gradient (as ``jax.grad`` gives through the JAX marcher's mask).
+    ``d_tf`` is summed in float64 and returned in ``tf``'s dtype: a
+    training view puts tens of millions of samples into TF texel 0 alone:
+    summed in f32, the plain version's own rounding would be the largest
+    error a comparison with the kernel sees.
     """
     params = view.params
     lo_, hi_ = params.data_source_range
@@ -457,10 +461,11 @@ def march_exact_backward_reference(
     add = -lo_ / (hi_ - lo_)
     corr = params.alpha_correction
     n_tf = tf.shape[0]
-    dims = tuple(reversed(volume_zyx.shape))
-    brick_flat = volume_zyx.reshape(-1)
-    box = view.brick_boxes.cpu()[0]
-    d_flat = torch.zeros_like(brick_flat)
+    bricks = volume if volume.dim() == 4 else volume[None]
+    dims = tuple(reversed(bricks.shape[1:]))
+    flat = bricks.reshape(bricks.shape[0], -1)
+    box_rows = view.brick_boxes.cpu()
+    d_flat = torch.zeros_like(flat)
     d_tf = torch.zeros(tf.shape, dtype=torch.float64, device=tf.device)
     early_exit = float(params.early_exit) <= 1.0
 
@@ -474,43 +479,49 @@ def march_exact_backward_reference(
         prefix = torch.zeros_like(tot)
         # The forward's accumulated alpha, for the exit rule.
         acc = torch.zeros_like(tot[:, 0])
-        for valid, tex_x, tex_y, tex_z in _brick_samples(
-            view.ray_pack[:, sl], view.eye, box, params.step_size, view.max_steps
-        ):
-            taps = _taps(tex_x, tex_y, tex_z, dims, params.filter_mode)
-            density = torch.clamp(_fetch(brick_flat, taps) * mult + add, 0.0, 1.0)
-            s, i0, i1, wt = _tf_taps(density, n_tf)
-            c0, c1 = tf[i0], tf[i1]  # (R, C, 4)
-            c = c0 * (1.0 - wt)[..., None] + c1 * wt[..., None]
-            a_cl = torch.clamp(c[..., 3], max=ALPHA_CLAMP)
-            if early_exit:
-                a_fwd = 1.0 - torch.pow(1.0 - a_cl, corr)
-                zero = torch.zeros_like(acc)
-                (_r, _g, _b, acc), valid = _composite_chunk(
-                    (zero, zero, zero, acc), zero[:, None], zero[:, None], zero[:, None],
-                    a_fwd, valid, params.early_exit,
-                )
-            alpha = (1.0 - torch.pow(1.0 - a_cl, corr)) * valid
-            one_m = 1.0 - alpha
-            t_at = trans * _exclusive_cumprod(one_m)
-            w = alpha * t_at
-            d = c[..., 0] * g_r + c[..., 1] * g_g + c[..., 2] * g_b
-            p_incl = prefix + torch.cumsum(w * d, dim=1)
-            denom = torch.clamp(one_m, min=1e-12)
-            dalpha = (t_at * d - (tot - p_incl) / denom + g_a * t_fin / denom) * valid
-            pw = torch.pow(torch.clamp(1.0 - a_cl, min=1e-12), corr - 1.0)
-            dav = dalpha * corr * pw * (c[..., 3] < ALPHA_CLAMP)
-            dch = torch.stack([w * g_r, w * g_g, w * g_b, dav], dim=-1)
-            if diff_tf:
-                for i, wi in ((i0, 1.0 - wt), (i1, wt)):
-                    d_tf.index_add_(0, i.reshape(-1), (dch * wi[..., None]).reshape(-1, 4).double())
-            gate = (density > 0.0) & (density < 1.0) & (s > 0.0) & (s < n_tf - 1)
-            dd = ((dch * (c1 - c0)).sum(dim=-1) * n_tf * mult) * gate
-            for idx, wgt in taps:
-                d_flat.index_add_(0, idx.reshape(-1), (dd if wgt is None else dd * wgt).reshape(-1))
-            trans = trans * torch.prod(one_m, dim=1, keepdim=True)
-            prefix = p_incl[:, -1:]
-    return d_flat.reshape(volume_zyx.shape), d_tf.to(tf.dtype)
+        for b in range(bricks.shape[0]):
+            brick_flat, d_brick = flat[b], d_flat[b]
+            for valid, tex_x, tex_y, tex_z in _brick_samples(
+                view.ray_pack[:, sl], view.eye, box_rows[b], params.step_size, view.max_steps
+            ):
+                taps = _taps(tex_x, tex_y, tex_z, dims, params.filter_mode)
+                density = torch.clamp(_fetch(brick_flat, taps) * mult + add, 0.0, 1.0)
+                s, i0, i1, wt = _tf_taps(density, n_tf)
+                c0, c1 = tf[i0], tf[i1]  # (R, C, 4)
+                c = c0 * (1.0 - wt)[..., None] + c1 * wt[..., None]
+                a_cl = torch.clamp(c[..., 3], max=ALPHA_CLAMP)
+                if early_exit:
+                    a_fwd = 1.0 - torch.pow(1.0 - a_cl, corr)
+                    zero = torch.zeros_like(acc)
+                    (_r, _g, _b, acc), valid = _composite_chunk(
+                        (zero, zero, zero, acc), zero[:, None], zero[:, None], zero[:, None],
+                        a_fwd, valid, params.early_exit,
+                    )
+                alpha = (1.0 - torch.pow(1.0 - a_cl, corr)) * valid
+                one_m = 1.0 - alpha
+                t_at = trans * _exclusive_cumprod(one_m)
+                w = alpha * t_at
+                d = c[..., 0] * g_r + c[..., 1] * g_g + c[..., 2] * g_b
+                p_incl = prefix + torch.cumsum(w * d, dim=1)
+                denom = torch.clamp(one_m, min=1e-12)
+                dalpha = (t_at * d - (tot - p_incl) / denom + g_a * t_fin / denom) * valid
+                pw = torch.pow(torch.clamp(1.0 - a_cl, min=1e-12), corr - 1.0)
+                dav = dalpha * corr * pw * (c[..., 3] < ALPHA_CLAMP)
+                dch = torch.stack([w * g_r, w * g_g, w * g_b, dav], dim=-1)
+                if diff_tf:
+                    for i, wi in ((i0, 1.0 - wt), (i1, wt)):
+                        d_tf.index_add_(
+                            0, i.reshape(-1), (dch * wi[..., None]).reshape(-1, 4).double()
+                        )
+                gate = (density > 0.0) & (density < 1.0) & (s > 0.0) & (s < n_tf - 1)
+                dd = ((dch * (c1 - c0)).sum(dim=-1) * n_tf * mult) * gate
+                for idx, wgt in taps:
+                    d_brick.index_add_(
+                        0, idx.reshape(-1), (dd if wgt is None else dd * wgt).reshape(-1)
+                    )
+                trans = trans * torch.prod(one_m, dim=1, keepdim=True)
+                prefix = p_incl[:, -1:]
+    return d_flat.reshape(volume.shape), d_tf.to(tf.dtype)
 
 
 def render_rays(

@@ -21,16 +21,17 @@ composited, but they enter the image scaled by the upstream
 transmittance (< 0.001) — early termination is local to a channel, as in
 the reference's per-channel DB rendering.
 
-Gradients: with one brick per shard the march is
-``exact.render_marcher_diff`` (K3 forward, K4 backward), and the fold's
-and the moves' autograd carry each segment's cotangent; more than one
-brick per shard needs K4 over a brick set (ROADMAP M9, the sharded exact
-gradient) and raises.
+Gradients: a shard's march is ``exact.render_marcher_diff`` over its
+brick chunk (K3 forward, K4 over the same set backward), and the fold's
+and the moves' autograd carry each segment's cotangent, so the density
+gradient of a brick chunk lands on that chunk's device and the TF's is
+summed over the shards: the JAX package's ``jax.grad`` through
+``shard_map``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,29 +104,32 @@ def render_rays_sharded(
     clip_planes: Optional[np.ndarray] = None,
     width: Optional[int] = None,
     streams: Streams = None,
+    brick_data: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """March rays over a (ray, brick) mesh → (R, 4) on the mesh's lead
-    device.
+    device, differentiable in the f32 brick data and ``tf``.
 
     ``bricks`` must already be front-to-back ordered
     (:func:`shard_bricks_front_to_back`); brick-axis shard d takes the
     d-th contiguous chunk, and chunk order is the compositing order.
+    ``brick_data``, if given, holds per brick shard its chunk's data (a
+    trainer's per-shard leaves) in place of ``bricks.data``'s chunks.
     Ray-axis shard vd takes rays [vd·R/d_v, (vd+1)·R/d_v).  ``width`` is
-    the screen width K3 tiles each shard's rays by.  K3 launches once per
-    shard."""
+    the screen width K3 and K4 tile each shard's rays by; ``max_steps``
+    the longest real brick's march (the pads' boxes are far larger).  K3
+    launches once per shard, and K4 once per shard in the backward."""
     require_mesh("render_rays_sharded", mesh)
     d_v, d_k = mesh.shape[RAY_AXIS], mesh.shape[BRICK_AXIS]
     n_rays, n_bricks = dirs.shape[0], bricks.num_bricks
     if n_rays % d_v or n_bricks % d_k:
         raise ValueError(f"R={n_rays} bricks={n_bricks} must divide mesh axes {d_v}x{d_k}")
     r_l, b_l = n_rays // d_v, n_bricks // d_k
-    differentiable = torch.is_grad_enabled() and (
-        tf.requires_grad or bricks.data.requires_grad
-    )
-    if differentiable and b_l > 1:
-        raise NotImplementedError(
-            f"render_rays_sharded: {b_l} bricks per shard under autograd: the gradient "
-            "of a shard's march needs K4 over a brick set (ROADMAP M9)"
+    if brick_data is None:
+        brick_data = [bricks.data[kd * b_l:(kd + 1) * b_l] for kd in range(d_k)]
+    elif [tuple(x.shape) for x in brick_data] != [(b_l, *bricks.data.shape[1:])] * d_k:
+        raise ValueError(
+            f"render_rays_sharded: brick_data shapes {[tuple(x.shape) for x in brick_data]}, "
+            f"want {d_k} chunks of {(b_l, *bricks.data.shape[1:])}"
         )
     lead = mesh.lead
     eye_t = torch.as_tensor(eye, dtype=torch.float32).to(dirs.device)
@@ -143,23 +147,15 @@ def render_rays_sharded(
         for kd in range(d_k):
             dev = mesh.device(vd, kd)
             with on_stream(streams, dev):
-                rays_l = move(pack[:, vd * r_l:(vd + 1) * r_l].contiguous(), dev, streams)
-                boxes_l = move(boxes[kd * b_l:(kd + 1) * b_l].contiguous(), dev, streams)
-                data_l = move(bricks.data[kd * b_l:(kd + 1) * b_l], dev, streams)
-                tf_l = move(tf, dev, streams)
-                if differentiable:
-                    view = exact.ExactView(
-                        ray_pack=rays_l, brick_boxes=boxes_l, eye=eye_host,
-                        max_steps=int(max_steps), width=int(width or r_l), params=params,
-                    )
-                    seg = exact.render_marcher_diff(data_l[0], tf_l, view)
-                else:
-                    seg = exact.march_exact(
-                        data_l.contiguous(), torch.arange(b_l, dtype=torch.int32, device=dev),
-                        boxes_l, tf_l.contiguous(), rays_l,
-                        torch.zeros((r_l, 4), dtype=torch.float32, device=dev),
-                        eye_host, params, max_steps=int(max_steps), width=width,
-                    )
+                view = exact.ExactView(
+                    ray_pack=move(pack[:, vd * r_l:(vd + 1) * r_l].contiguous(), dev, streams),
+                    brick_boxes=move(boxes[kd * b_l:(kd + 1) * b_l].contiguous(), dev, streams),
+                    eye=eye_host, max_steps=int(max_steps), width=int(width or r_l),
+                    params=params,
+                )
+                seg = exact.render_marcher_diff(
+                    move(brick_data[kd], dev, streams), move(tf, dev, streams), view
+                )
             segs.append(split_rgba(seg))
         rows.append(join_rgba(composite_along_axis_gather(segs, lead, streams)))
     return torch.cat(rows, dim=0) if d_v > 1 else rows[0]

@@ -360,9 +360,9 @@ EXACT_GRAD_TOL_MAX = 1e-3
 
 class ExactGradCase(NamedTuple):
     """Operands of ``exact.march_exact_backward``: one f32 volume
-    filling the view's box."""
+    filling the view's box, or a brick set placed by its box rows."""
 
-    volume: torch.Tensor  # (Z, Y, X)
+    volume: torch.Tensor  # (Z, Y, X) or (B, BZ, BY, BX)
     tf: torch.Tensor
     view: exact.ExactView
     out: torch.Tensor  # (R, 4), the forward from a zero carry
@@ -420,6 +420,36 @@ def exact_grad_case(case, seed, device, *, filter_mode="trilinear", field="rando
         out = exact.render_marcher_diff(volume, tf, view)
     g = torch.from_numpy(rng.standard_normal((view.n_rays, 4)).astype(np.float32)).to(device)
     return ExactGradCase(volume, tf, view, out, g)
+
+
+def exact_set_grad_case(seed, device, *, filter_mode="trilinear", early_exit=1.1):
+    """Seeded K4 operands over a brick set: a uniform random 64³ f32
+    volume in 4³ bricks with two ghost voxels (``split_into_bricks``, 20³
+    each), sorted front to back from the "bench" scene's eye and padded
+    to 66 by ``parallel.render.shard_bricks_front_to_back`` (its two
+    far-away pads at the end), 128² rays at 256 samples per ray, the
+    default TF, the early exit off (or ``early_exit``); the view's
+    ``max_steps`` is the real bricks'.  ``volume`` is the (66, 20, 20,
+    20) set, ``out`` the forward over it (K3 over slots ``arange(66)`` on
+    a CUDA device) and ``g`` a standard normal cotangent."""
+    from libre_tpu_torch.apps.render_cli import build_camera
+    from libre_tpu_torch.parallel.render import shard_bricks_front_to_back
+
+    rng = np.random.default_rng(seed)
+    eye = EXACT_SCENES["bench"][2]
+    bricks = split_into_bricks(rng.random((64,) * 3, dtype=np.float32), 4, 2, device=device)
+    sharded, _ = shard_bricks_front_to_back(bricks, np.float32(eye), 3)
+    camera, _frustum = build_camera(128, 128, eye, (0.0, 0.0, 0.0))
+    params = RenderParams(n_samples_per_ray=256, data_source_range=(0.0, 1.0),
+                          filter_mode=filter_mode, early_exit=early_exit)
+    view = exact.exact_view(camera, params, bricks=sharded, device=device)
+    real = exact.exact_view(camera, params, bricks=bricks, device=device)
+    view = dataclasses.replace(view, max_steps=real.max_steps)
+    tf = torch.from_numpy(default_color_map()).to(device)
+    with torch.no_grad():
+        out = exact.render_marcher_diff(sharded.data, tf, view)
+    g = torch.from_numpy(rng.standard_normal((view.n_rays, 4)).astype(np.float32)).to(device)
+    return ExactGradCase(sharded.data, tf, view, out, g)
 
 
 def smooth_volume(n, seed=7, device="cuda"):

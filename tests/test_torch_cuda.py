@@ -45,6 +45,7 @@ from libre_tpu_torch.testing import (
     dense_plain,
     exact_case,
     exact_grad_case,
+    exact_set_grad_case,
     store_grad_case,
     sweep_case,
 )
@@ -937,3 +938,120 @@ def test_sharded_k5_sweep_on_logical_shards(cuda):
         torch.cuda.synchronize()
         assert swd.pre_sweep.launches == launches + 4
         assert float((got - one).abs().max()) <= tol and float(one[..., 3].max()) > 0.5
+
+
+# ------------------------------------------------- K4 over a brick set
+@pytest.mark.cuda
+@pytest.mark.parametrize("filter_mode", ["nearest", "trilinear"])
+@pytest.mark.parametrize("early_exit", [1.1, 0.999])
+def test_exact_march_bwd_kernel_over_a_set(cuda, early_exit, filter_mode):
+    """K4 over a brick set (``exact_set_grad_case``: 64 bricks of 20³
+    with ghost voxels, front to back, two far-away pads) vs the plain set
+    spec, one launch, each gradient normalised by the plain one's max
+    |·|: within 1e-3 with the exit off, the early-exit bound with it on
+    (rays exit); the pads take no gradient in either."""
+    c = exact_set_grad_case(0, cuda, filter_mode=filter_mode, early_exit=early_exit)
+    if early_exit <= 1.0:
+        assert int((c.out[:, 3] > early_exit).sum()) > 0
+    args = (c.volume, c.tf, c.view, c.out, c.g)
+    launches = exact.march_exact_backward.launches
+    got = exact.march_exact_backward(*args)
+    want = exact.march_exact_backward_reference(*args)
+    torch.cuda.synchronize()
+    assert exact.march_exact_backward.launches == launches + 1
+    assert got[0].shape == c.volume.shape
+    for a, b in zip(got, want):
+        if early_exit > 1.0:
+            assert_grad_close(a, b, EXACT_GRAD_TOL_MAX)
+        else:
+            assert_grad_close(a, b, GRAD_TOL_MAX_EARLY_EXIT, GRAD_TOL_MEAN_EARLY_EXIT)
+    for d in (got[0], want[0]):
+        assert float(d[-2:].abs().max()) == 0.0
+        assert int((d[:-2].flatten(1).abs().amax(1) > 0).sum()) > 8
+
+
+@pytest.mark.cuda
+def test_exact_march_bwd_one_brick_set_is_the_brick_form(cuda):
+    """K4 on the "bench" case as a (1, Z, Y, X) set equals its (Z, Y, X)
+    launch within the kernel's bound (float atomics add in a run-dependent
+    order), with the exit off and on."""
+    for early_exit in (1.1, 0.999):
+        c = exact_grad_case("bench", seed=0, device=cuda, early_exit=early_exit)
+        one = exact.march_exact_backward(c.volume, c.tf, c.view, c.out, c.g)
+        as_set = exact.march_exact_backward(c.volume[None], c.tf, c.view, c.out, c.g)
+        torch.cuda.synchronize()
+        assert as_set[0].shape == (1, *c.volume.shape)
+        assert_grad_close(as_set[0][0], one[0], EXACT_GRAD_TOL_MAX)
+        assert_grad_close(as_set[1], one[1], EXACT_GRAD_TOL_MAX)
+
+
+@pytest.mark.cuda
+def test_exact_kernels_refuse_a_32_entry_tf(cuda):
+    """K3 and K4 read a 256-entry TF: a (32, 4) TF on the card raises a
+    ValueError naming T, with no fallback to the plain version (which
+    takes it on the CPU)."""
+    c = exact_grad_case("wide", seed=0, device=cuda)
+    tf32 = c.tf[::8].contiguous()
+    launches = (exact.march_exact.launches, exact.march_exact_backward.launches)
+    with pytest.raises(ValueError, match="T = 32"):
+        exact.render_marcher_diff(c.volume, tf32, c.view)
+    with pytest.raises(ValueError, match="T = 32"):
+        exact.march_exact_backward(c.volume, tf32, c.view, c.out, c.g)
+    assert (exact.march_exact.launches, exact.march_exact_backward.launches) == launches
+    cpu_view = dataclasses.replace(c.view, ray_pack=c.view.ray_pack.cpu(),
+                                   brick_boxes=c.view.brick_boxes.cpu())
+    out = exact.render_marcher_diff(c.volume.cpu(), tf32.cpu(), cpu_view)
+    assert out.shape == c.out.shape
+
+
+@pytest.mark.cuda
+def test_sharded_exact_trainer_on_logical_shards(cuda):
+    """One SGD step of the mesh-sharded exact trainer on 2 × 2 logical
+    shards of the card against the same step on 1 × 1: K3 and K4 four
+    times each, the loss within 1e-6 relative and the gradients within
+    1e-5 (the one-device bounds of the sharded trainers)."""
+    from libre_tpu_torch.ops import rays as ray_ops
+    from libre_tpu_torch.ops.transfer_function import grayscale_ramp
+    from libre_tpu_torch.parallel.render import shard_bricks_front_to_back
+    from libre_tpu_torch.testing import (
+        SHARD_GRAD_TOL,
+        SHARD_LOSS_RTOL,
+        smooth_volume,
+        split_into_bricks,
+    )
+    from libre_tpu_torch.train import InverseRenderProblem, init_state, make_train_step
+
+    cam, _fr = build_camera(64, 64, (0.3, 0.2, 1.4), (0.0, 0.0, 0.0))
+    eye, dirs, cos_z, _ = ray_ops.make_rays(cam.inv_proj, cam.inv_mv, cam.viewport, device=cuda)
+    dirs, tnp = dirs.reshape(-1, 3), ray_ops.near_plane_t(cos_z.reshape(-1), cam.near)
+    bricks = split_into_bricks(smooth_volume(64, seed=3, device="cpu").numpy(), 4, 2,
+                               device=cuda)
+    sharded, _ = shard_bricks_front_to_back(bricks, eye.cpu().numpy(), 2)
+    params = RenderParams(n_samples_per_ray=256, data_source_range=(0.0, 1.0),
+                          filter_mode="trilinear", early_exit=1.1)
+    view = exact.exact_view(cam, params, bricks=bricks, device=cuda)
+    problem = InverseRenderProblem(bricks=sharded, global_min=[-0.5] * 3,
+                                   global_max=[0.5] * 3, params=params,
+                                   max_steps=view.max_steps, width=64)
+    with torch.no_grad():
+        target = problem.render(_logical_mesh(cuda, 1, 1), sharded.data,
+                                torch.from_numpy(grayscale_ramp()).to(cuda), eye, dirs, tnp)
+    start = dataclasses.replace(
+        problem, bricks=sharded._replace(data=torch.full_like(sharded.data, 0.5)))
+    results = []
+    for n_brick, n_ray in ((1, 1), (2, 2)):
+        mesh = _logical_mesh(cuda, n_brick, n_ray)
+        sgd = lambda ps: torch.optim.SGD(ps, lr=1.0)  # noqa: E731
+        state = init_state(start, torch.from_numpy(grayscale_ramp()) * 0.8, sgd, mesh=mesh)
+        launches = (exact.march_exact.launches, exact.march_exact_backward.launches)
+        loss = make_train_step(start, sgd, mesh)(state, eye, dirs, tnp, target)
+        torch.cuda.synchronize()
+        counts = (exact.march_exact.launches - launches[0],
+                  exact.march_exact_backward.launches - launches[1])
+        assert counts == (n_brick * n_ray,) * 2, counts
+        results.append((float(loss), torch.cat([d.grad for d in state.params["density"]]),
+                        state.params["tf"].grad.clone()))
+    (l1, d1, t1), (l4, d4, t4) = results
+    assert abs(l4 - l1) <= SHARD_LOSS_RTOL * abs(l1) and l1 > 0
+    assert float((d4 - d1).abs().max()) <= SHARD_GRAD_TOL and float(d1.abs().max()) > 0
+    assert float((t4 - t1).abs().max()) <= SHARD_GRAD_TOL

@@ -28,10 +28,9 @@ def test_entry_matches_graft_entry():
 def test_dryrun_multichip_on_cpu_shards(capsys):
     """``dryrun_multichip`` over 4 and 3 logical CPU shards: every
     sharded path runs once (K3, K1 and K2 by their plain versions), and
-    the exact trainer's step, which needs K4 over a brick set, raises
-    naming its ROADMAP item."""
-    import pytest
-
+    over 2 shards the mesh-sharded exact trainer's step (K3 and K4 over
+    each shard's brick chunk by their plain versions) gives a finite
+    loss."""
     out = entry_t.dryrun_multichip(4, ["cpu"] * 4)
     assert out["mesh"] == {"ray": 2, "brick": 2}
     assert out["exact_alpha_max"] > 0.5 and out["bricked_alpha_max"] > 0.5
@@ -39,5 +38,7 @@ def test_dryrun_multichip_on_cpu_shards(capsys):
     assert "render_cli --mesh ok" in capsys.readouterr().out
     out3 = entry_t.dryrun_multichip(3, ["cpu"] * 3)
     assert out3["mesh"] == {"ray": 3, "brick": 1} and "slab_loss" not in out3
-    with pytest.raises(NotImplementedError, match="M9"):
-        entry_t.dryrun_multichip(2, ["cpu"] * 2, exact_trainer=True)
+    out2 = entry_t.dryrun_multichip(2, ["cpu"] * 2, exact_trainer=True)
+    assert out2["mesh"] == {"ray": 1, "brick": 2}
+    assert np.isfinite(out2["exact_train_loss"]) and out2["exact_train_loss"] > 0
+    assert "marcher trainer loss=" in capsys.readouterr().out

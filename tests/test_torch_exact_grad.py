@@ -283,7 +283,9 @@ def test_backward_rejects_bad_operands():
     args = [torch.from_numpy(vol), torch.from_numpy(tf), view, out, g]
     bad = [
         (0, torch.from_numpy(vol).to(torch.uint8), TypeError),  # f32 only
-        (0, torch.from_numpy(vol)[None], ValueError),  # one (Z, Y, X) volume
+        (0, torch.from_numpy(vol)[None, None], ValueError),  # a set is (B, Z, Y, X)
+        (0, torch.from_numpy(np.stack([vol, vol])), ValueError),  # two bricks, one box row
+        (1, torch.from_numpy(np.concatenate([tf, tf])), ValueError),  # T > 256
         (4, g[:-1].contiguous(), ValueError),  # g is (R, 4)
         (4, g.double(), TypeError),
         (2, dataclasses.replace(view, brick_boxes=view.brick_boxes.repeat(2, 1)), ValueError),
@@ -397,15 +399,36 @@ def test_exit_rule_matches_plain_march_samples():
 
 def test_render_exact_diff_still_refuses_the_exit():
     """``render_exact_diff`` keeps the exact trainer's contract; the
-    marcher's Function takes the exit and refuses a multi-brick set."""
-    vol, tf, _gw, _p_j, p_t = scene()
+    marcher's Function takes the exit, and on a multi-brick set (the 16³
+    volume in 2³ bricks with two ghost voxels, through the set's view) its
+    forward and gradients are the plain set spec's: the plain K3 over
+    slots ``arange(8)`` and ``march_exact_backward_reference`` over the
+    set, bit for bit."""
+    from libre_tpu_torch.testing import split_into_bricks
+
+    vol, tf, gw, _p_j, p_t = scene()
     _cam_j, cam_t = cameras([0.2, 0.1, 1.4], img=16)
-    view = exact.exact_view(cam_t, dataclasses.replace(p_t, early_exit=0.999), GMIN, GMAX,
-                            device="cpu")
+    params = dataclasses.replace(p_t, early_exit=0.999)
+    view = exact.exact_view(cam_t, params, GMIN, GMAX, device="cpu")
     with pytest.raises(ValueError, match="early_exit"):
         exact.render_exact_diff(torch.from_numpy(vol), torch.from_numpy(tf), view)
     out = exact.render_marcher_diff(torch.from_numpy(vol), torch.from_numpy(tf), view)
     assert out.shape == (view.n_rays, 4)
-    with pytest.raises(NotImplementedError, match="multi-brick"):
-        exact.render_marcher_diff(torch.from_numpy(np.stack([vol, vol])), torch.from_numpy(tf),
-                                  view)
+    bricks = split_into_bricks(vol, 2, overlap=2, device="cpu")
+    set_view = exact.exact_view(cam_t, params, GMIN, GMAX, bricks=bricks, device="cpu")
+    assert set_view.brick_boxes.shape == (8, 16)
+    data = bricks.data.clone().requires_grad_()
+    tf_t = torch.from_numpy(tf).requires_grad_()
+    out = exact.render_marcher_diff(data, tf_t, set_view)
+    g = torch.from_numpy(gw)
+    (out * g).sum().backward()
+    want = exact.march_exact_reference(
+        bricks.data, torch.arange(8, dtype=torch.int32), set_view.brick_boxes, tf_t.detach(),
+        set_view.ray_pack, torch.zeros((set_view.n_rays, 4)), set_view.eye, params,
+        max_steps=set_view.max_steps)
+    assert torch.equal(out.detach(), want)
+    assert float(want[:, 3].max()) > 0.999
+    d_vol, d_tf = exact.march_exact_backward_reference(bricks.data, tf_t.detach(), set_view,
+                                                       want, g)
+    assert torch.equal(data.grad, d_vol) and torch.equal(tf_t.grad, d_tf)
+    assert all(float(d_vol[b].abs().max()) > 0 for b in range(8))

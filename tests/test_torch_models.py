@@ -14,8 +14,9 @@ default early exit 0.999).
   closed form, rounded differently) under 1% of the rays, their
   gradients within 1 − early_exit of the largest entry;
 * ``render_sharded`` takes a ``parallel.mesh.Mesh`` (its images are held
-  to the JAX scene's in tests/test_torch_parallel.py); a multi-brick
-  ``render`` raises.
+  to the JAX scene's in tests/test_torch_parallel.py); a two-brick
+  scene's gradients against ``jax.grad`` of the JAX scene's, by the same
+  rule.
 """
 
 import dataclasses
@@ -55,16 +56,17 @@ def test_parameters_roundtrip():
     sj, st = scenes()
     p = st.parameters
     assert set(p) == {"density", "tf"}
-    assert p["density"].shape == (16, 16, 16) and p["tf"].shape == (256, 4)
+    assert p["density"].shape == (1, 16, 16, 16) and p["tf"].shape == (256, 4)
+    assert p["density"].shape == tuple(sj.parameters["density"].shape)
     st2 = st.with_parameters({"density": p["density"] * 2.0, "tf": p["tf"] * 0.5})
-    assert torch.equal(st2.bricks.data[0], p["density"] * 2.0)
+    assert torch.equal(st2.bricks.data, p["density"] * 2.0)
     assert torch.equal(st2.parameters["tf"], p["tf"] * 0.5)
     copied = interop.scene_params_from_jax(sj.parameters)
     np.testing.assert_array_equal(copied["density"], p["density"].numpy())
     np.testing.assert_array_equal(copied["tf"], p["tf"].numpy())
     assert st.max_steps() == sj.max_steps()
-    with pytest.raises(ValueError, match="one brick"):
-        interop.scene_params_from_jax({"density": np.zeros((2, 4, 4, 4)), "tf": p["tf"]})
+    with pytest.raises(ValueError, match="brick stack"):
+        interop.scene_params_from_jax({"density": np.zeros((4, 4, 4)), "tf": p["tf"]})
 
 
 def test_render_matches_jax():
@@ -77,7 +79,7 @@ def test_render_matches_jax():
 
 
 def _grads(sj, st, g):
-    """(port's, JAX's) (d_density (Z, Y, X), d_tf) of sum(image · g)."""
+    """(port's, JAX's) (d_density (N, BZ, BY, BX), d_tf) of sum(image · g)."""
     g_img = g.reshape(24, 24, 4)
 
     def loss(params):
@@ -117,9 +119,34 @@ def test_gradients_match_jax_with_early_exit(case):
 
 
 def test_render_sharded_raises():
+    """``render_sharded`` takes only a ``Mesh``; a two-brick scene (the
+    first two bricks of the 16³ volume in 2³ bricks with two ghost voxels,
+    marched in storage order) renders as the JAX scene does, and its
+    gradients match ``jax.grad`` of it on the rays whose exit sample
+    agrees (the others under 1%)."""
+    from libre_tpu_torch.testing import split_into_bricks
+    from tests.test_reference_marcher import _split_into_bricks
+
     _sj, st = scenes()
     with pytest.raises(TypeError, match="Mesh"):
         st.render_sharded(object(), CAMERA_T)
-    two = dataclasses.replace(st, bricks=st.bricks._replace(data=st.bricks.data.repeat(2, 1, 1, 1)))
-    with pytest.raises(NotImplementedError, match="multi-brick"):
-        two.render(CAMERA_T)
+    sj, st = scenes(seed=4)
+    vol = make_volume(16, seed=4)
+    two_j = jax.tree.map(lambda x: x[:2], _split_into_bricks(vol, 2, overlap=2))
+    two_t = split_into_bricks(vol, 2, overlap=2, device="cpu")
+    two_t = two_t._replace(**{k: getattr(two_t, k)[:2] for k in two_t._fields})
+    sj, st = dataclasses.replace(sj, bricks=two_j), dataclasses.replace(st, bricks=two_t)
+    assert st.parameters["density"].shape == (2, 12, 12, 12)
+    out_j = np.asarray(sj.render(CAMERA)).reshape(-1, 4)
+    with torch.no_grad():
+        out_t = st.render(CAMERA_T).reshape(-1, 4).numpy()
+    moved = (np.abs(out_t - out_j) > 2e-5).any(axis=1)
+    assert moved.sum() < 0.01 * moved.size, moved.sum()
+    assert out_j[:, 3].max() > 0.5
+    g = np.random.default_rng(1).random((out_j.shape[0], 4), dtype=np.float32)
+    (got_d, got_tf), (want_d, want_tf) = _grads(sj, st, g * (~moved)[:, None])
+    for got, want in ((got_d, want_d), (got_tf, want_tf)):
+        scale = np.abs(want).max()
+        assert scale > 0.1
+        assert np.abs(got - want).max() / scale <= TOL_GRAD
+    assert np.abs(got_d[1]).max() > 0  # the second brick takes gradient

@@ -10,8 +10,11 @@ gather probe runs its plain version, the render service answers a
 frame and its histogram over HTTP on 127.0.0.1, and the multi-device
 layer (``parallel``: mesh, compositing, bricked_sharded, render,
 shearwarp_sharded, distributed, two_process; the two new benchmark
-scripts) imports and ``dryrun_multichip`` runs on four CPU shards, in a
-process where importing jax, optax or libre_tpu fails."""
+scripts) imports and ``dryrun_multichip`` runs on four CPU shards with
+the mesh-sharded exact trainer's step (``train.trainer``'s
+``InverseRenderProblem``, ``init_state``, ``make_train_step``, K4 over a
+brick set by its plain version), and a scene of 8 bricks differentiates,
+in a process where importing jax, optax or libre_tpu fails."""
 
 import os
 import subprocess
@@ -110,6 +113,13 @@ scene = VolumeScene.from_volume(np.full((8, 8, 8), 0.7, np.float32), device="cpu
 leaves = {k: v.clone().requires_grad_() for k, v in scene.parameters.items()}
 scene.with_parameters(leaves).render(camera).square().mean().backward()
 assert float(leaves["density"].grad.abs().max()) > 0
+import dataclasses
+from libre_tpu_torch.testing import split_into_bricks
+eight = dataclasses.replace(scene, bricks=split_into_bricks(
+    np.full((8, 8, 8), 0.7, np.float32), 2, 1, device="cpu"))
+leaves = {k: v.clone().requires_grad_() for k, v in eight.parameters.items()}
+eight.with_parameters(leaves).render(camera).square().mean().backward()
+assert leaves["density"].shape == (8, 6, 6, 6) and float(leaves["density"].grad.abs().max()) > 0
 from libre_tpu_torch.entry import entry
 fn, example = entry(device="cpu")
 assert fn(*example).shape == (128, 128, 4)
@@ -141,8 +151,9 @@ try:
 finally:
     svc.server.stop()
 from libre_tpu_torch.entry import dryrun_multichip
-out = dryrun_multichip(4, ["cpu"] * 4)
+out = dryrun_multichip(4, ["cpu"] * 4, exact_trainer=True)
 assert out["mesh"] == {"ray": 2, "brick": 2} and out["slab_grad_max"] > 0
+assert np.isfinite(out["exact_train_loss"])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "optax", "libre_tpu")
                 and sys.modules[m] is not None)

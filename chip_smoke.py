@@ -111,7 +111,8 @@ Phases, each of which raises on failure (any failure exits non-zero):
    kernels' launch counts set to 0 before and read after;
 20. the interactive service (``phase_serve``): ``RenderService`` on the
    512³ volume at 512×512 driven over HTTP on 127.0.0.1 (orbit, colormap,
-   the exact renderer, the 2×2 layout, an asynchronous frame), K1's and
+   the exact renderer, the 2×2 layout through the wall, an asynchronous
+   frame), K1's and
    K3's counts set to 0 before and read after; each served frame
    bit-equal to the engine's own frame, each histogram equal to numpy's
    bincount over the frame's bricks; request latency, histogram and JPEG
@@ -159,7 +160,18 @@ Phases, each of which raises on failure (any failure exits non-zero):
    gradients against the 1x1 ones), and ``VolumeScene.render`` over the
    same set with the early exit on; each K4 site (512 and 256 bricks)
    timed with its bound and held against the plain version on a 64x64
-   window of its rays.
+   window of its rays;
+31. what finished the one-card port (``phase_finish``): K3 and K4 through
+   their runtime-T instances at T = 1, 32 and 1024 against their plain
+   versions on a 64x64 window of phase 13's view 0, the whole view timed
+   at those T beside T = 256; then, with the counts set to 0 before and
+   read after, 5 Adam steps of the exact trainer from a 32-entry TF, the
+   1x2 and 2x2 walls of ``RenderService`` at 512x512 through
+   ``render_wall`` against the sequential loop, 2x2 requests over HTTP
+   through the wall and through the loop, and the bf16 store frame (K1)
+   and dense frame (K5); every wall tile and served canvas bit-equal to
+   the loop's, the bf16 launches bit-equal to plain and timed beside the
+   f32 instances'; ``benchmarks/demo_wall`` at its defaults.
 
 Prints every kernel's launch sites on the main paths (launches, time
 per launch on the site's operands, bound, and launches × (time − bound),
@@ -375,10 +387,11 @@ def k1_operands(args):
     from libre_tpu_torch.ops import shearwarp_bricked as swb
 
     (store, tf, a0, a1, wa, dl, act, view, corr, clip, rgb_in, t_in, out, t_out,
-     _k, _nc, _nb, _v, _u, n_clip, wb0, wb1, wc0, wc1, _sb, _sc, early_exit) = args
+     _k, _nc, _nb, _v, _u, n_clip, wb0, wb1, wc0, wc1, _sb, _sc, early_exit, bf16) = args
     tables = swb.SweepTables(a0=a0, a1=a1, wa=wa, dl=dl, act=act, view=view, corr=corr,
                              rgb_in=rgb_in, t_in=t_in)
-    kw = dict(n_clip=n_clip, wb=(wb0, wb1), wc=(wc0, wc1), early_exit=early_exit)
+    kw = dict(n_clip=n_clip, wb=(wb0, wb1), wc=(wc0, wc1), early_exit=early_exit,
+              compute_dtype="bfloat16" if bf16 else "float32")
     return (store, tf, tables, clip, kw), (out, t_out)
 
 
@@ -937,7 +950,7 @@ def phase_serve(dev, card, uri=URI, size=512):
     held bit-equal to the engine's own frame at the same camera and state,
     the async frame to the synchronous one, and each histogram's bins to
     numpy's over the frame's bricks, their sum to bricks x 32^3.  Returns
-    (K1 launches, K3 launches)."""
+    (K1 launches, K3 launches, the 2x2 request's latency in ms)."""
     import urllib.request
 
     import torch
@@ -1151,7 +1164,7 @@ def phase_serve(dev, card, uri=URI, size=512):
     del svc, engine, served
     torch.cuda.empty_cache()
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
-    return k1, k3
+    return k1, k3, latency[10]
 
 
 # ------------------------------------------------------------- phases 21-24
@@ -1503,24 +1516,8 @@ def phase_scripts(card):
                 record = os.path.join(tmp, "ooc_run.json")
                 argv = argv + ["--store", os.path.join(tmp, "ooc.lod"), "--out", record]
                 print(f"demo_out_of_core cut from its default 1024^3 to: {' '.join(argv[:6])}")
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-m", f"libre_tpu_torch.benchmarks.{module}",
-                                   *argv], cwd=root, capture_output=True, text=True,
-                                  timeout=600)
-            wall = time.perf_counter() - t0
-            print(f"{module} {' '.join(argv)}: exit {proc.returncode}, {wall:.1f} s wall {card}")
-            for line in (proc.stderr.strip().splitlines()[-8:]
-                         + proc.stdout.strip().splitlines()[-12:]):
-                print(f"  | {line}")
-            if proc.returncode != 0:
-                raise RuntimeError(f"{module} exited {proc.returncode}")
-            err_line, last = proc.stdout.strip().splitlines()[-2:]
-            if not (err_line.startswith("max_abs_err ") and last.startswith("launches ")):
-                raise AssertionError(f"{module}: no checks' errors and launch counts at its end")
-            checked = json.loads(err_line[len("max_abs_err "):])
-            for kernel, n in json.loads(last[len("launches "):]).items():
-                if n and kernel not in checked:
-                    raise AssertionError(f"{module} launched {kernel} and never checked it")
+            launched, checked, _lines = run_script(module, argv, card, root)
+            for kernel, n in launched.items():
                 totals[kernel] = totals.get(kernel, 0) + n
             for kernel, err in checked.items():
                 errors[kernel] = max(errors.get(kernel, 0.0), err)
@@ -2273,6 +2270,338 @@ def phase_exact_set(dev, card, exact_tol):
     return dict(k3_launches=k3_launches, k4_launches=k4_launches, k3_err=k3_err,
                 k4_err=k4_err, sites=sites,
                 step_ms={"1x1": one["step_ms"], "2x2": four["step_ms"]})
+
+
+# ------------------------------------------------------------------ phase 31
+FINISH_TF_SIZES = (1, 32, 1024)  # phase 31: K3 and K4 through their runtime-T instances
+FINISH_TRAIN_TF = 32  # the exact trainer's TF in phase 31, as the JAX trainer's tests and dry run
+FINISH_STEPS = 5
+WALL_FRAMES = 2  # timed frames of each wall layout and its sequential loop, after one warm-up
+WALL_REQUESTS = 3  # 2x2 service requests through the wall and through the loop (the first cold)
+
+
+def run_script(module, argv, card, root):
+    """``python -m libre_tpu_torch.benchmarks.<module> argv`` in a process
+    of its own, with its wall time → (its render kernels' launch counts,
+    its checks' largest errors, its standard output's lines); raises if it
+    exits non-zero, ends without those two lines or launched a kernel it
+    did not check."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"libre_tpu_torch.benchmarks.{module}", *argv],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    print(f"{module} {' '.join(argv)}: exit {proc.returncode}, {wall:.1f} s wall {card}")
+    lines = proc.stdout.strip().splitlines()
+    for line in proc.stderr.strip().splitlines()[-8:] + lines[-12:]:
+        print(f"  | {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} exited {proc.returncode}")
+    err_line, last = lines[-2:]
+    if not (err_line.startswith("max_abs_err ") and last.startswith("launches ")):
+        raise AssertionError(f"{module}: no checks' errors and launch counts at its end")
+    checked = json.loads(err_line[len("max_abs_err "):])
+    launches = json.loads(last[len("launches "):])
+    for kernel, n in launches.items():
+        if n and kernel not in checked:
+            raise AssertionError(f"{module} launched {kernel} and never checked it")
+    return launches, checked, lines
+
+
+def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, size=512):
+    """31. What finished the one-card port: K3 and K4 at any TF size, the
+    multi-view wall, the bf16 resample of K1 and K5.
+
+    Checks first: K3 and K4 through their runtime-T instances at T in
+    ``FINISH_TF_SIZES`` against their plain versions on a ``SUBSET`` x
+    ``SUBSET`` window of phase 13's training view 0 over its 512^3 smooth
+    truth (the tolerances of phases 10 and 13; at T = 1 the density
+    gradient is zero in both), and the whole view's K3 and K4 timed at
+    those T beside the T = 256 fixed instances.  Then the main path, with
+    the five render kernels' counts set to 0 just before and read just
+    after: 5 Adam steps of the exact trainer from a 32-entry TF on view 0;
+    the 1x2 and 2x2 walls of ``RenderService`` at 512x512 on phase 20's
+    volume and screen-space error, ``render_wall`` against the sequential
+    ``render_bricked`` loop (frame ms, host clock, ending in a
+    synchronise); ``WALL_REQUESTS`` 2x2 requests over HTTP through the
+    wall and as many through the loop; the bf16 store frame
+    (``render_store_frame``) on phase 4's last pose and the bf16 dense
+    frame (``render_frame``) on phase 16's.  Then: every wall tile and
+    every wall-served canvas bit-equal to the loop's frames, the bf16
+    launches bit-equal to their plain versions (``compute_dtype=
+    "bfloat16"``), their ms beside the f32 instances' and each bf16 frame's
+    distance from its f32 frame; ``benchmarks/demo_wall`` at its defaults
+    in a process of its own.  Returns the phase's launches and largest
+    errors by kernel."""
+    import urllib.request
+
+    import torch
+
+    from libre_tpu_torch.apps.serve import RenderService
+    from libre_tpu_torch.ops import _kernels, exact
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.ops import shearwarp_dense as swd
+    from libre_tpu_torch.ops import shearwarp_grad as swg
+    from libre_tpu_torch.testing import smooth_volume, tf_of_size
+    from libre_tpu_torch.train import init_exact_state, make_exact_train_step
+
+    t_phase = time.perf_counter()
+    errs = dict.fromkeys(("post_sweep", "exact_march", "exact_march_bwd", "pre_sweep"), 0.0)
+    gt = smooth_volume(EXACT_TRAIN_N, seed=7, device=dev)
+    side = view.width  # the view's rays are side x side
+    lo = (side - SUBSET) // 2
+    sub = view.ray_pack.reshape(8, side, side)[:, lo:lo + SUBSET, lo:lo + SUBSET]
+    win = dataclasses.replace(view, ray_pack=sub.reshape(8, -1).contiguous(), width=SUBSET)
+    slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    g = torch.randn((view.n_rays, 4), generator=torch.Generator().manual_seed(0)).to(dev)
+    g_win = g.reshape(side, side, 4)[lo:lo + SUBSET, lo:lo + SUBSET].reshape(-1, 4).contiguous()
+
+    def k3_args(tf, v):
+        return (gt[None], slot, v.brick_boxes, tf, v.ray_pack,
+                torch.zeros((v.n_rays, 4), device=dev), v.eye, v.params)
+
+    times = {}
+    for n_tf in (256,) + FINISH_TF_SIZES:
+        tf = torch.from_numpy(tf_of_size(n_tf)).to(dev)
+        if n_tf != 256:
+            what = f"T = {n_tf}, {SUBSET}x{SUBSET} window of training view 0"
+            out_w = exact.march_exact(*k3_args(tf, win), max_steps=win.max_steps, width=SUBSET)
+            want_w = exact.march_exact_reference(*k3_args(tf, win), max_steps=win.max_steps)
+            torch.cuda.synchronize()
+            errs["exact_march"] = max(errs["exact_march"],
+                                      compare(out_w, want_w, f"K3, {what}", exact_tol))
+            got = exact.march_exact_backward(gt, tf, win, out_w, g_win)
+            want = exact.march_exact_backward_reference(gt, tf, win, out_w, g_win)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("d_volume", "d_tf"), got, want):
+                compare_grads(a, b, f"K4, {what}: {name}", 1.1, EXACT_GRAD_TOL_MAX,
+                              expect_zero=n_tf == 1 and name == "d_volume")
+                errs["exact_march_bwd"] = max(errs["exact_march_bwd"],
+                                              float((a - b).abs().max()))
+        fwd = k3_args(tf, view)
+        out = exact.march_exact(*fwd, max_steps=view.max_steps, width=view.width)
+        times[n_tf] = (
+            cuda_ms(lambda: exact.march_exact(*fwd, max_steps=view.max_steps, width=view.width),
+                    reps=10),
+            cuda_ms(lambda: exact.march_exact_backward(gt, tf, view, out, g), reps=5, warmup=1),
+        )
+        print(f"  training view 0 over the {EXACT_TRAIN_N}^3 truth, T = {n_tf} "
+              f"({'fixed' if n_tf == 256 else 'runtime-T'} instances): K3 {times[n_tf][0]:.4f} ms, "
+              f"K4 {times[n_tf][1]:.4f} ms (TF gradient on, d_volume zeroing included) {card}")
+        del fwd, out
+
+    # The main path's set-up: the trainer's target and state, the service.
+    tf32 = torch.from_numpy(tf_of_size(FINISH_TRAIN_TF)).to(dev)
+    with torch.no_grad():
+        target = exact.render_exact_diff(gt, tf32, view)
+    state = init_exact_state(torch.full(gt.shape, 0.5, device=dev), tf32,
+                             lambda p: torch.optim.Adam(p, lr=5e-2), device=dev)
+    train_step = make_exact_train_step(view)
+    svc = RenderService(URI, width=size, height=size, host="127.0.0.1", port=0, device=dev)
+    seng = svc.engine
+    canvases, real_frame, real_plan = [], svc.render_frame, seng.plan_wall
+
+    def render_frame(progressive=False):
+        canvases.append(real_frame(progressive))
+        return canvases[-1]
+
+    def loop_only(*args, **kwargs):  # the wall's test made to fail: the sequential loop
+        return [], "timed as the sequential loop"
+
+    svc.render_frame = render_frame
+    svc.server.start()
+    host, port = svc.server.address
+    base = f"http://{host}:{port}"
+
+    def call(path, method="GET", body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(base + path, data=data, method=method)
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.read()
+
+    def frame_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    half = np.asarray(engine.info.world_size, np.float32) * 0.5
+    camera, frustum = pose
+
+    def store_frame(compute_dtype):
+        """Phase 4's last pose through ``render_store_frame`` on the
+        engine's cached store, in ``compute_dtype``."""
+        nodes = engine.select(frustum, camera.viewport[3], SERVE_SSE)
+        params, swp, sw_plan, level, _dims = engine._store_view(camera, nodes, None, None)
+        key = (sw_plan.axis, tuple(sorted(n.id for n in nodes)), 0, params.data_source_range,
+               level)
+        store, content, plan = engine._cached_store(key, nodes, sw_plan.axis, params, level)
+        return swb.render_store_frame(
+            store, plan, engine.transfer_function, camera, params=params,
+            swp=dataclasses.replace(swp, compute_dtype=compute_dtype), world_min=-half,
+            world_max=half, content=content)
+
+    def dense_frame(compute_dtype):
+        pa = dataclasses.replace(dense["pa"], swp=dataclasses.replace(
+            dense["pa"].swp, compute_dtype=compute_dtype))
+        chans = dense["chans"]
+        return swd.render_frame(chans, chans.shape[1], chans.shape[2], dense["camera"], pa,
+                                dense["content"])
+
+    walls = {}
+    try:
+        call("/params", "PUT", {"synchronous": True, "sse": SERVE_SSE})
+        torch.cuda.synchronize()
+        counts = (swb.post_sweep, swg.store_grid_backward, exact.march_exact,
+                  exact.march_exact_backward, swd.pre_sweep)
+        for wrapper in counts:
+            wrapper.launches = 0
+        losses = [float(train_step(state, target)) for _ in range(FINISH_STEPS)]
+        for layout in ("1x2", "2x2"):
+            svc.layout = layout
+            kw = {k: v for k, v in svc.frame_keywords().items() if k != "synchronous"}
+            views = [(*svc.view_camera(vw, vh, az), (dx, dy))
+                     for dx, dy, vw, vh, az in svc._layout_views()]
+
+            def wall():
+                return seng.render_wall(views, (size, size), **kw)[0]
+
+            def loop():
+                return [seng.render_bricked(c, f, **kw)[0] for c, f, _off in views]
+
+            runs = {"wall": [], "loop": []}
+            for _ in range(1 + WALL_FRAMES):
+                for name, fn in (("wall", wall), ("loop", loop)):
+                    runs[name].append(frame_ms(fn))
+            walls[layout] = dict(views=views, runs=runs)
+        call("/layout", "PUT", {"name": "2x2"})
+        latency = {"wall": [], "loop": []}
+        for name in ("wall", "loop"):
+            seng.plan_wall = real_plan if name == "wall" else loop_only
+            for _ in range(WALL_REQUESTS):
+                t0 = time.perf_counter()
+                jpeg = call("/image-jpeg", "POST", {})
+                latency[name].append((time.perf_counter() - t0) * 1e3)
+                if jpeg[:2] != b"\xff\xd8":
+                    raise AssertionError("phase 31: /image-jpeg gave no JPEG")
+        seng.plan_wall = real_plan
+        with Recorder("post_sweep") as k1_rec:
+            store_f32 = store_frame("float32")
+            store_bf16 = store_frame("bfloat16")
+        with Recorder("pre_sweep") as k5_rec:
+            dense_f32 = dense_frame("float32")
+            dense_bf16 = dense_frame("bfloat16")
+        torch.cuda.synchronize()
+        launches = dict(zip(("post_sweep", "store_grid_bwd", "exact_march", "exact_march_bwd",
+                             "pre_sweep"), (w.launches for w in counts)))
+        # ----------------------------------------------- end of phase 31's main path
+    finally:
+        seng.plan_wall = real_plan
+        svc.render_frame = real_frame
+        svc.server.stop()
+
+    base, _ = engine.render_bricked(camera, frustum, screen_space_error=SERVE_SSE)
+    if not torch.equal(base, store_f32):
+        raise AssertionError("render_store_frame's f32 frame is not the engine's frame")
+    print(f"phase 31 main path launches: {launches}")
+    n_wall_views = sum(2 * len(w["views"]) * (1 + WALL_FRAMES) for w in walls.values())
+    want = {"exact_march": FINISH_STEPS, "exact_march_bwd": FINISH_STEPS, "store_grid_bwd": 0,
+            "post_sweep": n_wall_views + 2 * 4 * WALL_REQUESTS + 2, "pre_sweep": 2}
+    if launches != want:
+        raise AssertionError(f"phase 31 launched {launches}, expected {want}")
+    print(f"exact trainer from a {FINISH_TRAIN_TF}-entry TF (runtime-T K3 and K4), view 0, "
+          f"{FINISH_STEPS} Adam steps: losses {losses}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the T = {FINISH_TRAIN_TF} trainer did not lower its loss: {losses}")
+    if state.params["tf"].shape != (FINISH_TRAIN_TF, 4):
+        raise AssertionError(f"the trainer's TF is {tuple(state.params['tf'].shape)}")
+    k256, k32, k1024 = times[256], times[32], times[1024]
+    print(f"K3 / K4 on the whole of view 0: T = 256 {k256[0]:.4f} / {k256[1]:.4f} ms, T = 32 "
+          f"{k32[0]:.4f} / {k32[1]:.4f} ms, T = 1024 {k1024[0]:.4f} / {k1024[1]:.4f} ms, T = 1 "
+          f"{times[1][0]:.4f} / {times[1][1]:.4f} ms {card}")
+
+    for layout, w in walls.items():
+        wall_canvas = w["runs"]["wall"][-1][1]
+        seq = w["runs"]["loop"][-1][1]
+        parity = 0.0
+        for (cam, _fr, (dx, dy)), img in zip(w["views"], seq):
+            vw, vh = cam.viewport[2:]
+            parity = max(parity, float((wall_canvas[dy:dy + vh, dx:dx + vw] - img).abs().max()))
+        if parity != 0.0:
+            raise AssertionError(f"the {layout} wall's tiles are {parity} from the loop's frames")
+        wall_ms = [ms for ms, _ in w["runs"]["wall"][1:]]
+        loop_ms = [ms for ms, _ in w["runs"]["loop"][1:]]
+        print(f"wall {layout} at {size}x{size} (sse {SERVE_SSE}): render_wall {wall_ms} ms a frame, "
+              f"the sequential loop {loop_ms} ms (first frames {w['runs']['wall'][0][0]:.3f} / "
+              f"{w['runs']['loop'][0][0]:.3f} ms); tiles vs the loop's frames max|d| {parity} "
+              f"{card}")
+    served_wall = canvases[:WALL_REQUESTS]
+    served_loop = canvases[WALL_REQUESTS:]
+    if len(canvases) != 2 * WALL_REQUESTS or any(
+            not np.array_equal(a, b) for a, b in zip(served_wall, served_loop)):
+        raise AssertionError("the service's wall canvas differs from its sequential canvas")
+    print(f"service 2x2 request latency (POST /image-jpeg, {size}x{size}): through the wall "
+          f"{[round(x, 3) for x in latency['wall']]} ms, through the loop "
+          f"{[round(x, 3) for x in latency['loop']]} ms (phase 20's 2x2 request, through the "
+          f"wall: {serve_2x2_ms:.3f} ms); served canvases bit-equal {card}")
+
+    bf16_sites(k1_rec.calls, k5_rec.calls, card)
+    store_gap = float((store_bf16 - store_f32).abs().max())
+    dense_gap = float((dense_bf16 - dense_f32).abs().max())
+    print(f"bf16 frame vs f32 frame, max|d|: store frame (K1) {store_gap:.3e}, dense frame (K5) "
+          f"{dense_gap:.3e}")
+    if not (0.0 < store_gap < 0.1 and 0.0 < dense_gap < 0.1):
+        raise AssertionError(f"bf16 frames {store_gap}, {dense_gap} from the f32 frames")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        demo_launches, demo_errs, lines = run_script(
+            "demo_wall", ["--out", os.path.join(tmp, "wall_run.json")], card, root)
+    record = json.loads(lines[-3])
+    for layout in ("1x2", "2x2"):
+        if record[layout]["tile_parity_max_abs"] != 0.0:
+            raise AssertionError(f"demo_wall {layout}: tiles off the sequential frames")
+    for kernel, n in demo_launches.items():
+        launches[kernel] = launches.get(kernel, 0) + n
+    for kernel, err in demo_errs.items():
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+    del gt, state, target, svc, seng
+    torch.cuda.empty_cache()
+    print(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
+def bf16_sites(k1_calls, k5_calls, card):
+    """Phase 31's recorded K1 and K5 launches, (f32, bf16) each: the bf16
+    launches bit-equal to their plain versions (``compute_dtype=
+    "bfloat16"``), then every launch timed on its operands."""
+    import torch
+
+    from libre_tpu_torch.ops import _kernels
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.ops import shearwarp_dense as swd
+
+    (_, k1_f32), (_, k1_bf16) = k1_calls
+    (_, k5_f32), (_, k5_bf16) = k5_calls
+    ops, (out, t_out) = k1_operands(k1_bf16)
+    work = k1_work(*ops)
+    if not (torch.equal(out, work["want"]) and torch.equal(t_out, work["t_want"])):
+        raise AssertionError("K1's bf16 instance is not bit-equal to the plain bf16 sweep")
+    (chans, a0, a1, wa, dl, act, vvec, corr, out5, _k, _nc, _nb, _v, _u,
+     wb0, wb1, wc0, wc1, _sb, _sc, early_exit, bf16) = k5_bf16
+    tables = swb.SweepTables(a0=a0, a1=a1, wa=wa, dl=dl, act=act, view=vvec, corr=corr,
+                             rgb_in=None, t_in=None)
+    want5 = swd.pre_sweep_reference(chans, tables, wb=(wb0, wb1), wc=(wc0, wc1),
+                                    early_exit=early_exit, compute_dtype="bfloat16")
+    if not (bf16 == 1 and torch.equal(out5, want5)):
+        raise AssertionError("K5's bf16 instance is not bit-equal to the plain bf16 sweep")
+    ms = {}
+    for tag, name, args in (("K1 f32", "post_sweep", k1_f32), ("K1 bf16", "post_sweep", k1_bf16),
+                            ("K5 f32", "pre_sweep", k5_f32), ("K5 bf16", "pre_sweep", k5_bf16)):
+        ms[tag] = cuda_ms(lambda: _kernels.launch(name, *args), reps=20)
+    print(f"bf16 resample on the main-path views: K1 {ms['K1 bf16']:.4f} ms against the f32 "
+          f"instance's {ms['K1 f32']:.4f} ms (bound {work['bound'][0]:.4f} ms, "
+          f"{work['bound'][1]}); K5 {ms['K5 bf16']:.4f} ms against {ms['K5 f32']:.4f} ms; both "
+          f"bit-equal to their plain versions {card}")
 
 
 def main() -> int:
@@ -3466,6 +3795,7 @@ def main() -> int:
                                   -half, half, dense_params, dense_swp)
     plan_ms = (time.perf_counter() - t0) * 1e3
     frame = swd.render_frame(chans, chans.shape[1], chans.shape[2], camera, pa, content)
+    dense_last = dict(chans=chans, content=content, pa=pa, camera=camera)  # phase 31's bf16 K5
     torch.cuda.synchronize()
     if not torch.equal(frame, dense_frames[-1]):
         raise AssertionError("the rebuilt operands do not give the dense orbit's last frame")
@@ -3596,7 +3926,7 @@ def main() -> int:
     probe_entries = phase_probes(dev, card)
     phase_done(19, quiet=True)
     # ------------------------------------- 20. the render service (its own timers)
-    serve_k1, serve_k3 = phase_serve(dev, card)
+    serve_k1, serve_k3, serve_2x2_ms = phase_serve(dev, card)
     phase_done(20, quiet=True)
     # ------------------------------------- 21. the dense trainer at full width
     phase_dense_trainer(dev, card)
@@ -3625,6 +3955,10 @@ def main() -> int:
     # ------------------- 30. the exact gradient over a brick set (rest of M9)
     exact_set = phase_exact_set(dev, card, exact_tol)
     phase_done(30, quiet=True)
+    # ----- 31. K3 and K4 at any TF size, the multi-view wall, the bf16 resample
+    p31_launches, p31_errs = phase_finish(dev, card, exact_tol, ex_views[0], engine, poses[-1],
+                                          dense_last, serve_2x2_ms)
+    phase_done(31, quiet=True)
     print("phase seconds (utils.profiling.StageTimers):")
     for line in timers.report().splitlines():
         print(f"  {line}")
@@ -3663,8 +3997,9 @@ def main() -> int:
             "source": "libre_tpu_torch/csrc/post_sweep.cu",
             "replaces": "libre_tpu/ops/shearwarp_bricked.py:78",
             "launches": launches + train_fwd_launches + ooc_launches + serve_k1
-            + scripts["post_sweep"] + mesh_k1 + train_k1 + apps_k1,
-            "max_abs_err": max(max_err, ooc_err, script_errs["post_sweep"]),
+            + scripts["post_sweep"] + mesh_k1 + train_k1 + apps_k1 + p31_launches["post_sweep"],
+            "max_abs_err": max(max_err, ooc_err, script_errs["post_sweep"],
+                               p31_errs["post_sweep"]),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": k1_bound[0],
@@ -3691,9 +4026,11 @@ def main() -> int:
             "source": "libre_tpu_torch/csrc/exact_march.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:481",
             "launches": exact_launches + ex_fwd_launches + serve_k3 + scene["k3_launches"]
-            + entry_k3 + scripts["exact_march"] + mesh_k3 + exact_set["k3_launches"],
+            + entry_k3 + scripts["exact_march"] + mesh_k3 + exact_set["k3_launches"]
+            + p31_launches["exact_march"],
             "max_abs_err": max(k3_err, k3_train_err, scene["k3_err"], entry_err,
-                               script_errs["exact_march"], exact_set["k3_err"]),
+                               script_errs["exact_march"], exact_set["k3_err"],
+                               p31_errs["exact_march"]),
             "ms": k3_ms,
             "plain_ms": k3_plain_ms,
             "bound_ms": k3_bound[0],
@@ -3706,9 +4043,9 @@ def main() -> int:
             "source": "libre_tpu_torch/csrc/exact_march_bwd.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:1405",
             "launches": ex_bwd_launches + scene["k4_launches"] + scripts["exact_march_bwd"]
-            + exact_set["k4_launches"],
+            + exact_set["k4_launches"] + p31_launches["exact_march_bwd"],
             "max_abs_err": max(k4_err, scene["k4_err"], script_errs["exact_march_bwd"],
-                               exact_set["k4_err"]),
+                               exact_set["k4_err"], p31_errs["exact_march_bwd"]),
             "ms": k4_ms,
             "plain_ms": k4_plain_ms,
             "bound_ms": k4_bound[0],
@@ -3720,8 +4057,8 @@ def main() -> int:
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/pre_sweep.cu",
             "replaces": "libre_tpu/ops/shearwarp_pallas.py:206",
-            "launches": dense_launches,
-            "max_abs_err": k5_err,
+            "launches": dense_launches + p31_launches["pre_sweep"],
+            "max_abs_err": max(k5_err, p31_errs["pre_sweep"]),
             "ms": k5_ms,
             "plain_ms": k5_plain_ms,
             "bound_ms": k5_bound[0],

@@ -9,7 +9,8 @@ flags and ``-Xptxas -v`` (registers and spills printed); each build is
 bound with the launcher signature its source declares (a launcher with no
 ``early_exit`` operand is the kernel from before the exit rule, which
 walks every sample; one with an ``n_bricks`` operand walks a brick set,
-here the one brick).  The operands are the exact trainer's view 0 (512²
+here the one brick; one with an ``n_tf`` operand is given T = 256, its
+fixed instance).  The operands are the exact trainer's view 0 (512²
 rays, 512 samples per ray, trilinear, the early exit off) over the 512³
 smooth ground truth with the default TF, K3's forward and a seeded
 N(0, 1) cotangent.  Each build's gradients are held against the plain
@@ -55,12 +56,14 @@ def build(out_dir: Path, tag: str, src: Path):
 
 
 def launcher_params(src: Path):
-    """(the number of float parameters, whether it takes ``n_bricks``) of
-    the ``exact_march_bwd`` launcher that ``src`` declares."""
+    """(the number of float parameters, whether it takes ``n_bricks``,
+    whether it takes the TF size ``n_tf``) of the ``exact_march_bwd``
+    launcher that ``src`` declares."""
     decl = re.search(r'extern "C" int exact_march_bwd\((.*?)\)\s*\{', src.read_text(), re.S)
     if decl is None:
         raise ValueError(f"no exact_march_bwd launcher in {src}")
-    return len(re.findall(r"\bfloat\b", decl.group(1))), "n_bricks" in decl.group(1)
+    params = decl.group(1)
+    return len(re.findall(r"\bfloat\b", params)), "n_bricks" in params, "n_tf" in params
 
 
 def main(argv=None) -> int:
@@ -106,10 +109,12 @@ def main(argv=None) -> int:
 
         def run_of(tag):
             fn = getattr(ctypes.CDLL(str(built[tag][0])), "exact_march_bwd")
-            floats, over_set = launcher_params(jobs[tag])
+            floats, over_set, takes_n_tf = launcher_params(jobs[tag])
             ints = [1, 1] + [1] * over_set + [view.n_rays, view.width, n, n, n, view.max_steps]
+            tail = [tf.shape[0]] * takes_n_tf
             fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * len(ints)
-                           + [ctypes.c_float] * floats + [ctypes.c_void_p])
+                           + [ctypes.c_float] * floats + [ctypes.c_int] * len(tail)
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             scalars = [ex, ey, ez, params.step_size, 1.0 / (hi - lo), -lo / (hi - lo),
                        params.alpha_correction, params.early_exit][:floats]
@@ -120,7 +125,8 @@ def main(argv=None) -> int:
             def run():
                 d_volume.zero_()
                 d_tf.zero_()
-                err = fn(*ptrs, *ints, *scalars, torch.cuda.current_stream().cuda_stream)
+                err = fn(*ptrs, *ints, *scalars, *tail,
+                         torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"{tag} launch failed: cudaError_t {err}")
                 return d_volume, d_tf

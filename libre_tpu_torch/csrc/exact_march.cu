@@ -36,7 +36,7 @@
 // t_n > hi since t is monotone in n.  Each member sample fetches the brick in
 // place from its atlas slot (native dtype: f32, uint8 or uint16; the cast to
 // f32 is exact) at tex = (eye + dir*t)*s + o, nearest or trilinear,
-// normalises by the data range, looks the 256x4 transfer function up in
+// normalises by the data range, looks the (T, 4) transfer function up in
 // shared memory, applies the opacity correction 1 - (1 - min(a, 1-1/256))^corr
 // with powf and composites front to back.  A sample is skipped iff the
 // accumulated alpha before it exceeds early_exit; from then on nothing
@@ -62,6 +62,15 @@
 // plain version's, so nearest-filter fetches on voxel boundaries agree.  The
 // sample set, taps and texel coordinates come from exact_sample.cuh, shared
 // with the recompute backward (exact_march_bwd.cu).
+//
+// The TF's size T.  A 256-entry TF (every caller of the engine, the
+// trainers' default) runs the fixed instances (kDynTf = false): a static
+// 256-entry table and T folded to the constant, so that this path keeps its
+// registers and time (PERF.md section 6).  Any other T from 1 to kMaxTf runs the runtime-T instances
+// (kDynTf = true): T is the launch operand n_tf, the table lies in dynamic
+// shared memory sized to it, and the TF coordinate is clip(d, 0, 1) T - 0.5
+// clamped to [0, T - 1], i1 = min(i0 + 1, T - 1), as the JAX marcher's
+// (raycast.py:107-112).
 
 #include <cuda_runtime.h>
 
@@ -121,12 +130,12 @@ __device__ __forceinline__ bool in_cone(float4 p, float4 q, float ex, float ey,
   return !(angle_to(ax, ay, az, wx, wy, wz) > theta + asinf(rad / d));
 }
 
-template <typename T, bool kTrilinear>
+template <typename T, bool kTrilinear, bool kDynTf>
 __global__ void __launch_bounds__(kThreads) exact_march_kernel(
     const T* __restrict__ atlas,        // (n_slots, BZ, BY, BX)
     const int* __restrict__ slots,      // (B,)
     const float4* __restrict__ boxes,   // (B, 4) float4, raycast.BOX_FLOATS
-    const float4* __restrict__ tf,      // (256,) rgba
+    const float4* __restrict__ tf,      // (T,) rgba
     const float* __restrict__ rays,     // (8, R), raycast.PACK_ROWS
     const float4* __restrict__ carry,   // (R,) rgba in
     float4* __restrict__ out,           // (R,) rgba out
@@ -134,14 +143,17 @@ __global__ void __launch_bounds__(kThreads) exact_march_kernel(
     int* __restrict__ used,             // (B,) or null: 1 if the brick composited any
     int n_bricks, int n_rays, int width, int bx, int by, int bz, int max_steps,
     float ex, float ey, float ez, float step, float mult, float add, float corr,
-    float early_exit) {
-  __shared__ float4 s_tf[kTfSize];
+    float early_exit, int n_tf) {
+  __shared__ float4 s_tf_fixed[kDynTf ? 1 : kTfSize];
+  extern __shared__ float4 s_tf_dyn[];  // (n_tf,) in the runtime-T instances
+  float4* s_tf = kDynTf ? s_tf_dyn : s_tf_fixed;
+  const int n = exact::tf_size<kDynTf>(n_tf);
   __shared__ int s_list[kBrickChunk];
   __shared__ float s_red[kWarps][4];
   __shared__ int s_count[kWarps];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < kTfSize; i += kThreads) s_tf[i] = tf[i];
+  for (int i = tid; i < n; i += kThreads) s_tf[i] = tf[i];
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -224,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) exact_march_kernel(
         const exact::Taps k =
             exact::taps_at<kTrilinear>(ray, t, ex, ey, ez, s, o, bx, by, bz);
         const float raw = exact::fetch<T, kTrilinear>(brick, k, bx, by);
-        const exact::TfTaps q = exact::tf_taps(exact::normalise(raw, mult, add));
+        const exact::TfTaps q = exact::tf_taps(exact::normalise(raw, mult, add), n);
         const float4 src = sweep::lerp4(s_tf[q.i0], s_tf[q.i1], q.w);
         const float alpha = 1.0f - powf(1.0f - fminf(src.w, kAlphaClamp), corr);
         const float w = alpha * (1.0f - ca);
@@ -245,6 +257,29 @@ __global__ void __launch_bounds__(kThreads) exact_march_kernel(
   if (samples != nullptr) samples[r] += count;
 }
 
+template <typename T, bool kTrilinear, bool kDynTf>
+cudaError_t launch_instance(const void* atlas, dim3 grid, dim3 block,
+                            cudaStream_t stream, const int* slots,
+                            const float4* boxes, const float4* tf,
+                            const float* rays, const float4* carry, float4* out,
+                            int* samples, int* used, int n_bricks, int n_rays,
+                            int width, int bx, int by, int bz, int max_steps,
+                            float ex, float ey, float ez, float step, float mult,
+                            float add, float corr, float early_exit, int n_tf) {
+  const auto kernel = exact_march_kernel<T, kTrilinear, kDynTf>;
+  const int smem = kDynTf ? n_tf * (int)sizeof(float4) : 0;
+  if (kDynTf) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, block, smem, stream>>>(
+      (const T*)atlas, slots, boxes, tf, rays, carry, out, samples, used,
+      n_bricks, n_rays, width, bx, by, bz, max_steps, ex, ey, ez, step, mult,
+      add, corr, early_exit, n_tf);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_typed(const void* atlas, int trilinear, dim3 grid, dim3 block,
                          cudaStream_t stream, const int* slots,
@@ -253,29 +288,29 @@ cudaError_t launch_typed(const void* atlas, int trilinear, dim3 grid, dim3 block
                          int* samples, int* used, int n_bricks, int n_rays,
                          int width, int bx, int by, int bz, int max_steps,
                          float ex, float ey, float ez, float step, float mult,
-                         float add, float corr, float early_exit) {
-  if (trilinear)
-    exact_march_kernel<T, true><<<grid, block, 0, stream>>>(
-        (const T*)atlas, slots, boxes, tf, rays, carry, out, samples, used,
-        n_bricks, n_rays, width, bx, by, bz, max_steps, ex, ey, ez, step, mult,
-        add, corr, early_exit);
-  else
-    exact_march_kernel<T, false><<<grid, block, 0, stream>>>(
-        (const T*)atlas, slots, boxes, tf, rays, carry, out, samples, used,
-        n_bricks, n_rays, width, bx, by, bz, max_steps, ex, ey, ez, step, mult,
-        add, corr, early_exit);
-  return cudaGetLastError();
+                         float add, float corr, float early_exit, int n_tf) {
+#define EXACT_MARCH_INSTANCE(kTrilinear, kDynTf)                                     \
+  launch_instance<T, kTrilinear, kDynTf>(atlas, grid, block, stream, slots, boxes, tf, \
+                                         rays, carry, out, samples, used, n_bricks,    \
+                                         n_rays, width, bx, by, bz, max_steps, ex, ey, \
+                                         ez, step, mult, add, corr, early_exit, n_tf)
+  const bool dyn = n_tf != kTfSize;
+  if (trilinear) return dyn ? EXACT_MARCH_INSTANCE(true, true) : EXACT_MARCH_INSTANCE(true, false);
+  return dyn ? EXACT_MARCH_INSTANCE(false, true) : EXACT_MARCH_INSTANCE(false, false);
+#undef EXACT_MARCH_INSTANCE
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 uint8, 2 uint16 (ops/exact.py::ATLAS_DTYPES).
+// dtype: 0 float32, 1 uint8, 2 uint16 (ops/exact.py::ATLAS_DTYPES); n_tf:
+// the TF's entries, 1 to exact::kMaxTf.
 extern "C" int exact_march(
     const void* atlas, const void* slots, const void* boxes, const void* tf,
     const void* rays, const void* carry, void* out, void* samples, void* used,
     int dtype, int trilinear, int n_bricks, int n_rays, int width, int bx,
     int by, int bz, int max_steps, float ex, float ey, float ez, float step,
-    float mult, float add, float corr, float early_exit, void* stream) {
+    float mult, float add, float corr, float early_exit, int n_tf, void* stream) {
+  if (n_tf < 1 || n_tf > exact::kMaxTf) return (int)cudaErrorInvalidValue;
   const dim3 block(kTileX, kTileY);
   const int height = (n_rays + width - 1) / width;
   const dim3 grid((width + kTileX - 1) / kTileX, (height + kTileY - 1) / kTileY);
@@ -284,7 +319,7 @@ extern "C" int exact_march(
   atlas, trilinear, grid, block, s, (const int*)slots, (const float4*)boxes, \
       (const float4*)tf, (const float*)rays, (const float4*)carry,           \
       (float4*)out, (int*)samples, (int*)used, n_bricks, n_rays, width, bx,  \
-      by, bz, max_steps, ex, ey, ez, step, mult, add, corr, early_exit
+      by, bz, max_steps, ex, ey, ez, step, mult, add, corr, early_exit, n_tf
   cudaError_t err;
   switch (dtype) {
     case 0: err = launch_typed<float>(EXACT_MARCH_ARGS); break;

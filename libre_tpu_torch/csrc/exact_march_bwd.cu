@@ -53,7 +53,7 @@
 // Density gradients go straight to global memory with float atomics (8 taps
 // trilinear, 1 nearest) into a d_volume the wrapper zeroes.  TF gradients go
 // through tf_grad.cuh, as store_grid_bwd.cu's: a run per thread in
-// registers, warp-aggregated flushes into the CTA's shared 256x4 table,
+// registers, warp-aggregated flushes into the CTA's shared (T, 4) table,
 // added to the global d_tf once per CTA, so no second TF pass.  With
 // diff_tf = 0 (the TF needs no gradient) the accumulator is skipped.
 //
@@ -66,6 +66,13 @@
 // inversion subtracts the prefix from a total that the forward accumulated in
 // another order, so both must see the same samples with the same values.
 // The float atomics add in an order that changes from run to run.
+//
+// The TF's size T, as in exact_march.cu: a 256-entry TF runs the fixed
+// instances (kDynTf = false: static tables, T folded to 256, so that they
+// keep their registers and time); any other T from 1 to kMaxTf the runtime-T instances,
+// with T the launch operand n_tf and the float4 TF and (with diff_tf) its
+// gradient table in dynamic shared memory sized to it.  The gates and the
+// TF slope read T: 0 < s < T - 1, and dd scales by T.
 
 #include <cuda_runtime.h>
 
@@ -79,25 +86,30 @@ using exact::kTfSize;
 using exact::kTileX;
 using exact::kTileY;
 
-template <bool kTrilinear, bool kExit, bool kSet>
+template <bool kTrilinear, bool kExit, bool kSet, bool kDynTf>
 __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
     const float* __restrict__ bricks,    // (B, BZ, BY, BX)
     const float4* __restrict__ boxes,    // (B, 4) float4, raycast.BOX_FLOATS
-    const float4* __restrict__ tf,       // (256,) rgba
+    const float4* __restrict__ tf,       // (T,) rgba
     const float* __restrict__ rays,      // (8, R), raycast.PACK_ROWS
     const float4* __restrict__ out,      // (R,) forward output, zero carry in
     const float4* __restrict__ g,        // (R,) cotangent of out
     float* __restrict__ d_volume,        // (B, BZ, BY, BX), zeroed by the wrapper
-    float* __restrict__ d_tf,            // (256, 4), zeroed by the wrapper
+    float* __restrict__ d_tf,            // (T, 4), zeroed by the wrapper
     int diff_tf, int n_bricks, int n_rays, int width, int bx, int by, int bz,
     int max_steps, float ex, float ey, float ez, float step, float mult,
-    float add, float corr, float early_exit) {
-  __shared__ float4 s_tf[kTfSize];
-  __shared__ float s_dtf[tfgrad::kTableFloats];
+    float add, float corr, float early_exit, int n_tf) {
+  __shared__ float4 s_tf_fixed[kDynTf ? 1 : kTfSize];
+  __shared__ float s_dtf_fixed[kDynTf ? 1 : tfgrad::kTableFloats];
+  // Runtime T: the (n_tf,) float4 TF, then (with diff_tf) the n_tf x 4 table.
+  extern __shared__ float4 s_dyn[];
+  const int n = exact::tf_size<kDynTf>(n_tf);
+  float4* s_tf = kDynTf ? s_dyn : s_tf_fixed;
+  float* s_dtf = kDynTf ? reinterpret_cast<float*>(s_dyn + n_tf) : s_dtf_fixed;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
-  for (int i = tid; i < kTfSize; i += n_threads) s_tf[i] = tf[i];
-  if (diff_tf) tfgrad::zero_table(s_dtf, tid, n_threads);
+  for (int i = tid; i < n; i += n_threads) s_tf[i] = tf[i];
+  if (diff_tf) tfgrad::zero_table(s_dtf, tid, n_threads, n);
   __syncthreads();
   tfgrad::Run run;
 
@@ -129,7 +141,7 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
         const float dens =
             exact::normalise(exact::fetch<float, kTrilinear>(brick, k, bx, by),
                              mult, add);
-        const exact::TfTaps q = exact::tf_taps(dens);
+        const exact::TfTaps q = exact::tf_taps(dens, n);
         const float4 c0 = s_tf[q.i0], c1 = s_tf[q.i1];
         const float4 c = sweep::lerp4(c0, c1, q.w);
 
@@ -149,13 +161,13 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
         const float wr = w * gv.x, wg = w * gv.y, wb = w * gv.z;
 
         // TF lerp -> bins i0 (1 - w) and i1 (w).
-        if (diff_tf) run.add(s_dtf, q.i0, q.w, wr, wg, wb, dav);
+        if (diff_tf) run.add(s_dtf, q.i0, q.w, wr, wg, wb, dav, n);
 
         // TF slope -> density gates -> data range -> the fetch's taps.
-        if (dens > 0.0f && dens < 1.0f && q.s > 0.0f && q.s < (float)(kTfSize - 1)) {
+        if (dens > 0.0f && dens < 1.0f && q.s > 0.0f && q.s < (float)(n - 1)) {
           const float dd = (wr * (c1.x - c0.x) + wg * (c1.y - c0.y) +
                             wb * (c1.z - c0.z) + dav * (c1.w - c0.w)) *
-                           (float)kTfSize * mult;
+                           (float)n * mult;
           if (!kTrilinear) {
             atomicAdd(d_brick + ((size_t)k.z.i0 * by + k.y.i0) * bx + k.x.i0, dd);
           } else {
@@ -182,45 +194,71 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
     }
   }
   if (diff_tf) {  // uniform over the block
-    run.flush(s_dtf);  // the ray's last run, if any
+    run.flush(s_dtf, n);  // the ray's last run, if any
     __syncthreads();
-    tfgrad::add_table(s_dtf, d_tf, tid, n_threads);
+    tfgrad::add_table(s_dtf, d_tf, tid, n_threads, n);
   }
+}
+
+template <bool kTrilinear, bool kExit, bool kSet, bool kDynTf>
+cudaError_t launch_instance(dim3 grid, dim3 block, cudaStream_t stream,
+                            const float* bricks, const float4* boxes, const float4* tf,
+                            const float* rays, const float4* out, const float4* g,
+                            float* d_volume, float* d_tf, int diff_tf, int n_bricks,
+                            int n_rays, int width, int bx, int by, int bz, int max_steps,
+                            float ex, float ey, float ez, float step, float mult,
+                            float add, float corr, float early_exit, int n_tf) {
+  const auto kernel = exact_march_bwd_kernel<kTrilinear, kExit, kSet, kDynTf>;
+  const int smem = kDynTf ? n_tf * (int)sizeof(float4) * (diff_tf ? 2 : 1) : 0;
+  if (kDynTf) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, block, smem, stream>>>(bricks, boxes, tf, rays, out, g, d_volume, d_tf,
+                                        diff_tf, n_bricks, n_rays, width, bx, by, bz,
+                                        max_steps, ex, ey, ez, step, mult, add, corr,
+                                        early_exit, n_tf);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// n_tf: the TF's entries, 1 to exact::kMaxTf.
 extern "C" int exact_march_bwd(
     const void* bricks, const void* boxes, const void* tf, const void* rays,
     const void* out, const void* g, void* d_volume, void* d_tf,
     int trilinear, int diff_tf, int n_bricks, int n_rays, int width, int bx,
     int by, int bz, int max_steps, float ex, float ey, float ez, float step, float mult,
-    float add, float corr, float early_exit, void* stream) {
+    float add, float corr, float early_exit, int n_tf, void* stream) {
+  if (n_tf < 1 || n_tf > exact::kMaxTf) return (int)cudaErrorInvalidValue;
   const dim3 block(kTileX, kTileY);
   const int height = (n_rays + width - 1) / width;
   const dim3 grid((width + kTileX - 1) / kTileX, (height + kTileY - 1) / kTileY);
   const auto s = (cudaStream_t)stream;
 #define EXACT_MARCH_BWD_ARGS                                                   \
-  (const float*)bricks, (const float4*)boxes, (const float4*)tf,               \
+  grid, block, s, (const float*)bricks, (const float4*)boxes, (const float4*)tf, \
       (const float*)rays, (const float4*)out, (const float4*)g,                \
       (float*)d_volume, (float*)d_tf, diff_tf, n_bricks, n_rays, width, bx,    \
-      by, bz, max_steps, ex, ey, ez, step, mult, add, corr, early_exit
+      by, bz, max_steps, ex, ey, ez, step, mult, add, corr, early_exit, n_tf
   const bool exit = early_exit <= 1.0f;
-#define EXACT_MARCH_BWD(kTrilinear, kExit, kSet)                               \
-  exact_march_bwd_kernel<kTrilinear, kExit, kSet>                              \
-      <<<grid, block, 0, s>>>(EXACT_MARCH_BWD_ARGS)
+  const bool dyn = n_tf != kTfSize;
+#define EXACT_MARCH_BWD(kTrilinear, kExit, kSet)                                 \
+  (dyn ? launch_instance<kTrilinear, kExit, kSet, true>(EXACT_MARCH_BWD_ARGS)    \
+       : launch_instance<kTrilinear, kExit, kSet, false>(EXACT_MARCH_BWD_ARGS))
+  cudaError_t err;
   if (n_bricks > 1) {
-    if (trilinear && exit) EXACT_MARCH_BWD(true, true, true);
-    else if (trilinear) EXACT_MARCH_BWD(true, false, true);
-    else if (exit) EXACT_MARCH_BWD(false, true, true);
-    else EXACT_MARCH_BWD(false, false, true);
+    if (trilinear && exit) err = EXACT_MARCH_BWD(true, true, true);
+    else if (trilinear) err = EXACT_MARCH_BWD(true, false, true);
+    else if (exit) err = EXACT_MARCH_BWD(false, true, true);
+    else err = EXACT_MARCH_BWD(false, false, true);
   } else {
-    if (trilinear && exit) EXACT_MARCH_BWD(true, true, false);
-    else if (trilinear) EXACT_MARCH_BWD(true, false, false);
-    else if (exit) EXACT_MARCH_BWD(false, true, false);
-    else EXACT_MARCH_BWD(false, false, false);
+    if (trilinear && exit) err = EXACT_MARCH_BWD(true, true, false);
+    else if (trilinear) err = EXACT_MARCH_BWD(true, false, false);
+    else if (exit) err = EXACT_MARCH_BWD(false, true, false);
+    else err = EXACT_MARCH_BWD(false, false, false);
   }
 #undef EXACT_MARCH_BWD
 #undef EXACT_MARCH_BWD_ARGS
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -188,21 +188,36 @@ __device__ __forceinline__ float normalise(float raw, float mult, float add) {
   return fminf(fmaxf(raw * mult + add, 0.0f), 1.0f);
 }
 
-// The transfer function's two texels and lerp weight at a density
-// (raycast._tf_taps): s in [0, 255], i0 = floor(s), i1 = min(i0 + 1, 255).
+// An n-entry transfer function's two texels and lerp weight at a density
+// (raycast._tf_taps): s in [0, n - 1], i0 = floor(s), i1 = min(i0 + 1,
+// n - 1).  The kernels' fixed instances read n = 256, their runtime-T
+// instances the TF's own n.
 struct TfTaps {
   float s, w;
   int i0, i1;
 };
 
-__device__ __forceinline__ TfTaps tf_taps(float dens) {
+__device__ __forceinline__ TfTaps tf_taps(float dens, int n = kTfSize) {
   TfTaps k;
-  k.s = sweep::tf_coord(dens);
+  k.s = sweep::tf_coord(dens, n);
   const float i0f = floorf(k.s);
   k.w = k.s - i0f;
   k.i0 = (int)i0f;
-  k.i1 = min(k.i0 + 1, kTfSize - 1);
+  k.i1 = min(k.i0 + 1, n - 1);
   return k;
+}
+
+// The largest TF the runtime-T instances take (ops/exact.py::EXACT_TF_MAX):
+// K4 holds the float4 table and its gradient table in dynamic shared memory,
+// 32 bytes an entry, 128 KB at this size (of the 227 KB a block may use).
+constexpr int kMaxTf = 4096;
+
+// The TF's size: 256 in the fixed instances (kDynTf = false), where it
+// folds to the constant; the launch operand n_tf in the runtime-T
+// instances.
+template <bool kDynTf>
+__device__ __forceinline__ int tf_size(int n_tf) {
+  return kDynTf ? n_tf : kTfSize;
 }
 
 }  // namespace exact

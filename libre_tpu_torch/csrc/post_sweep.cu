@@ -48,6 +48,14 @@
 // contraction (ops/_kernels.py builds with --fmad=false), so each sample
 // rounds as the reference's does and the early-exit test follows it: the
 // output is bit for bit the reference's.
+//
+// The bf16 resample (kBf16, ShearWarpParams.compute_dtype = "bfloat16", the
+// JAX kernel's compute_dtype): the sample's density is sweep::density_bf16,
+// each resample stage's operands rounded to bf16 and summed in f32, as the
+// JAX kernel's two products; the rest of the sample is the f32 instance's.
+// Its plain version is post_sweep_reference(compute_dtype="bfloat16").  A
+// template instance of its own, so that the f32 instance (kBf16 = false)
+// keeps its code, registers and time.
 
 #include <cuda_runtime.h>
 
@@ -67,6 +75,7 @@ using sweep::Plane;
 using sweep::Taps;
 constexpr int kMaxClip = 8;
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads) post_sweep_kernel(
     const float* __restrict__ store,   // (Na, Nc, Nb)
     const float4* __restrict__ tf,     // (256,) rgba
@@ -136,8 +145,10 @@ __global__ void __launch_bounds__(kThreads) post_sweep_kernel(
 
       const Taps tb = sweep::taps((xb - wb0) * sb_scale - 0.5f, nb);
       const Taps tc = sweep::taps((xc - wc0) * sc_scale - 0.5f, nc);
-      const float dens = sweep::density(store + (size_t)q.a0 * plane,
-                                        store + (size_t)q.a1 * plane, q.wa, tb, tc, nb);
+      const float* lo = store + (size_t)q.a0 * plane;
+      const float* hi = store + (size_t)q.a1 * plane;
+      const float dens = kBf16 ? sweep::density_bf16(lo, hi, q.wa, tb, tc, nb)
+                               : sweep::density(lo, hi, q.wa, tb, tc, nb);
       if (!(dens > -0.5f)) continue;  // a SENTINEL (uncovered) voxel contributed
 
       const float s = sweep::tf_coord(dens);
@@ -172,10 +183,11 @@ extern "C" int post_sweep(
     const void* corr, const void* clip, const void* rgb_in, const void* t_in,
     void* out, void* t_out, int k_planes, int nc, int nb, int v_size,
     int u_size, int n_clip, float wb0, float wb1, float wc0, float wc1,
-    float sb_scale, float sc_scale, float early_exit, void* stream) {
+    float sb_scale, float sc_scale, float early_exit, int bf16, void* stream) {
   const dim3 block(kTileU, kTileV);
   const dim3 grid((u_size + kTileU - 1) / kTileU, (v_size + kTileV - 1) / kTileV);
-  post_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  const auto kernel = bf16 ? post_sweep_kernel<true> : post_sweep_kernel<false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)store, (const float4*)tf, (const int*)a0, (const int*)a1,
       (const float*)wa, (const float*)dl, (const int*)act, (const float*)view,
       (const float*)corr, (const float*)clip, (const float*)rgb_in,

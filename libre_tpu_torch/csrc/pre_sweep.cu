@@ -43,6 +43,15 @@
 // contraction (ops/_kernels.py builds with --fmad=false), so each sample
 // rounds as the reference's does and the early-exit test follows it: the
 // output is bit for bit the reference's.
+//
+// The bf16 resample (kBf16, ShearWarpParams.compute_dtype = "bfloat16", the
+// JAX kernel's compute_dtype): the sample is sweep::rgba_bf16, per channel
+// each resample stage's operands rounded to bf16 and summed in f32, as the
+// JAX kernel's two products (its stage-1 result rounded per channel,
+// shearwarp_pallas.py:303-312); the composite is the f32 instance's.  Its
+// plain version is pre_sweep_reference(compute_dtype="bfloat16").  A
+// template instance of its own, so that the f32 instance (kBf16 = false)
+// keeps its code, registers and time.
 
 #include <cuda_runtime.h>
 
@@ -60,6 +69,7 @@ using sweep::kWarps;
 using sweep::Plane;
 using sweep::Taps;
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads) pre_sweep_kernel(
     const float4* __restrict__ chans,  // (Na, Nc, Nb) rgba
     const int* __restrict__ a0,        // (K,)
@@ -106,7 +116,8 @@ __global__ void __launch_bounds__(kThreads) pre_sweep_kernel(
       const Taps tc = sweep::taps((xc - wc0) * sc_scale - 0.5f, nc);
       const sweep::Quad lo = sweep::quad(chans + (size_t)q.a0 * plane, tb, tc, nb);
       const sweep::Quad hi = sweep::quad(chans + (size_t)q.a1 * plane, tb, tc, nb);
-      const float4 c = sweep::rgba(lo, hi, q.wa, tb, tc);
+      const float4 c = kBf16 ? sweep::rgba_bf16(lo, hi, q.wa, tb, tc)
+                             : sweep::rgba(lo, hi, q.wa, tb, tc);
 
       const float a_corr = 1.0f - powf(1.0f - fminf(c.w, kAlphaClamp), cexp);
       const float w = a_corr * t;
@@ -133,10 +144,11 @@ extern "C" int pre_sweep(const void* chans, const void* a0, const void* a1,
                          int k_planes, int nc, int nb, int v_size, int u_size,
                          float wb0, float wb1, float wc0, float wc1,
                          float sb_scale, float sc_scale, float early_exit,
-                         void* stream) {
+                         int bf16, void* stream) {
   const dim3 block(kTileU, kTileV);
   const dim3 grid((u_size + kTileU - 1) / kTileU, (v_size + kTileV - 1) / kTileV);
-  pre_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  const auto kernel = bf16 ? pre_sweep_kernel<true> : pre_sweep_kernel<false>;
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float4*)chans, (const int*)a0, (const int*)a1, (const float*)wa,
       (const float*)dl, (const int*)act, (const float*)view,
       (const float*)corr, (float*)out, k_planes, nc, nb, v_size, u_size, wb0,

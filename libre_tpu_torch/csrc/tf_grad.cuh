@@ -1,7 +1,11 @@
 // The transfer-function gradient of the two recompute-backward kernels,
 // store_grid_bwd.cu (K2) and exact_march_bwd.cu (K4): one accumulator that
-// both share.  A sample at TF coordinate s (bins i0 = floor(s) and
-// i1 = min(i0 + 1, 255), lerp weight wt) adds its (w g_r, w g_g, w g_b,
+// both share, over an n-entry TF: n = 256 (kTfSize) in K2 and in K4's fixed
+// instances, where every n below folds to that constant (K2's code stays
+// what it is); any n up to exact_sample.cuh's kMaxTf in K4's
+// runtime-T instances, whose table lies in dynamic shared memory.  A sample
+// at TF coordinate s (bins i0 = floor(s) and i1 = min(i0 + 1, n - 1), lerp
+// weight wt) adds its (w g_r, w g_g, w g_b,
 // dL/da) x (1 - wt) to bin i0 and x wt to bin i1, as the plain versions'
 // two index_add_ do (shearwarp_grad.store_grid_backward_reference,
 // raycast.march_exact_backward_reference).
@@ -16,7 +20,7 @@
 // 2. A warp-aggregated flush.  The lanes that flush the same bin at the
 //    same time (__match_any_sync over the active lanes: flushes happen in
 //    divergent code) sum their runs with shuffles, and one lane adds the
-//    sum to the block's 256x4 table in shared memory with shared atomics.
+//    sum to the block's n x 4 table in shared memory with shared atomics.
 //    At the end of the block the table is added to the global d_tf, one
 //    float atomic per non-zero entry.
 //
@@ -37,7 +41,7 @@
 namespace tfgrad {
 
 using sweep::kTfSize;
-constexpr int kTableFloats = kTfSize * 4;  // the block's 256x4 table
+constexpr int kTableFloats = kTfSize * 4;  // the block's 256x4 table at n = 256
 
 __device__ __forceinline__ unsigned lane_id() {
   unsigned lane;
@@ -45,16 +49,18 @@ __device__ __forceinline__ unsigned lane_id() {
   return lane;
 }
 
-// Thread `tid` of `threads` (linear in the block) zeroes its share.
-__device__ __forceinline__ void zero_table(float* table, int tid, int threads) {
-  for (int i = tid; i < kTableFloats; i += threads) table[i] = 0.0f;
+// Thread `tid` of `threads` (linear in the block) zeroes its share of the
+// n x 4 table.
+__device__ __forceinline__ void zero_table(float* table, int tid, int threads,
+                                           int n = kTfSize) {
+  for (int i = tid; i < 4 * n; i += threads) table[i] = 0.0f;
 }
 
 // After a __syncthreads: the table added to the global d_tf with one
 // atomic per non-zero entry.
 __device__ __forceinline__ void add_table(const float* table, float* d_tf, int tid,
-                                          int threads) {
-  for (int i = tid; i < kTableFloats; i += threads) {
+                                          int threads, int n = kTfSize) {
+  for (int i = tid; i < 4 * n; i += threads) {
     const float x = table[i];
     if (x != 0.0f) atomicAdd(d_tf + i, x);
   }
@@ -89,14 +95,15 @@ struct Run {
   int bin = -1;  // i0 of the run; -1: no sample yet
   float lo[4], hi[4];
 
-  // Adds the run to `table` and empties it; nothing for an empty run.
-  __device__ __forceinline__ void flush(float* table) {
+  // Adds the run to the n x 4 `table` and empties it; nothing for an
+  // empty run.
+  __device__ __forceinline__ void flush(float* table, int n = kTfSize) {
     if (bin < 0) return;
     float v[8] = {lo[0], lo[1], lo[2], lo[3], hi[0], hi[1], hi[2], hi[3]};
     const unsigned active = __activemask();
     if (sum_to_leader(active, __match_any_sync(active, bin), v)) {
       float* b0 = table + 4 * bin;
-      float* b1 = table + 4 * min(bin + 1, kTfSize - 1);  // bin 255: both halves there
+      float* b1 = table + 4 * min(bin + 1, n - 1);  // bin n - 1: both halves there
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         atomicAdd(b0 + c, v[c]);
@@ -108,9 +115,9 @@ struct Run {
 
   // One sample: (r, g, b, a) split (1 - wt) to bin i0 and wt to bin i1.
   __device__ __forceinline__ void add(float* table, int i0, float wt, float r, float g,
-                                      float b, float a) {
+                                      float b, float a, int n = kTfSize) {
     if (i0 != bin) {
-      flush(table);
+      flush(table, n);
       bin = i0;
 #pragma unroll
       for (int c = 0; c < 4; ++c) lo[c] = hi[c] = 0.0f;

@@ -36,14 +36,11 @@ def _camera(img, near=0.1, far=15.0):
 
 
 def entry(device="cuda"):
-    """(fn, example_args): ``fn(volume (Z, Y, X) f32, tf (256, 4) f32)`` →
+    """(fn, example_args): ``fn(volume (Z, Y, X) f32, tf (T, 4) f32)`` →
     the (H, W, 4) image, bottom-up rows, through ``exact.render_exact``
-    (K3 on a CUDA tensor, its plain version on a CPU one); the example
-    volume and TF lie on ``device``.
-
-    The reference's example TF has 64 entries; the port's kernels read
-    256-entry TFs (``transfer_function.TF_SIZE``), so the example is the
-    256-entry default colormap, and ``fn`` takes no other size."""
+    (K3 on a CUDA tensor, its runtime-T instance for T ≠ 256; its plain
+    version on a CPU one); the example volume and TF lie on ``device``.
+    The example TF is the reference's: the 64-entry default colormap."""
     from libre_tpu_torch.ops import exact
     from libre_tpu_torch.ops.reference import RenderParams
     from libre_tpu_torch.ops.transfer_function import default_color_map
@@ -62,7 +59,7 @@ def entry(device="cuda"):
     rng = np.random.default_rng(0)
     example_args = (
         torch.from_numpy(rng.random((N_VOX,) * 3, dtype=np.float32)).to(device),
-        torch.from_numpy(default_color_map()).to(device),
+        torch.from_numpy(default_color_map(64)).to(device),
     )
     return fn, example_args
 
@@ -79,8 +76,8 @@ def dryrun_multichip(n_devices: int, devices=None, exact_trainer: bool = False) 
 
     ``devices`` (default: every CUDA device) may repeat one device.  The
     brick axis has 2 shards when ``n_devices`` is even.  The exact
-    trainer's TF is the 256-entry default colormap, the kernels' TF size;
-    the JAX dry run starts it from a 32-entry one."""
+    trainer starts from the 32-entry default colormap, as the JAX dry run
+    (K3 and K4 through their runtime-T instances on the card)."""
     import tempfile
 
     from libre_tpu_torch.apps import render_cli
@@ -136,7 +133,7 @@ def dryrun_multichip(n_devices: int, devices=None, exact_trainer: bool = False) 
             max_steps=max_steps, width=img,
         )
         adam = functools.partial(torch.optim.Adam, lr=1e-2)
-        state = init_state(problem, default_color_map(), adam, mesh=mesh)
+        state = init_state(problem, default_color_map(32), adam, mesh=mesh)
         step = make_train_step(problem, adam, mesh)
         loss = step(state, eye, dirs, tnp, torch.zeros((dirs.shape[0], 4), device=lead))
         out["exact_train_loss"] = float(loss)

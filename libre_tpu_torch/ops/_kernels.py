@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,11 +45,11 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Launcher argument types, in order; every launcher ends with the stream.
 SIGNATURES: Dict[str, List] = {
-    "post_sweep": [_P] * 14 + [_I] * 6 + [_F] * 7 + [_P],
+    "post_sweep": [_P] * 14 + [_I] * 6 + [_F] * 7 + [_I, _P],
     "store_grid_bwd": [_P] * 16 + [_I] * 6 + [_F] * 7 + [_P],
-    "exact_march": [_P] * 9 + [_I] * 9 + [_F] * 8 + [_P],
-    "exact_march_bwd": [_P] * 8 + [_I] * 9 + [_F] * 8 + [_P],
-    "pre_sweep": [_P] * 9 + [_I] * 5 + [_F] * 7 + [_P],
+    "exact_march": [_P] * 9 + [_I] * 9 + [_F] * 8 + [_I, _P],
+    "exact_march_bwd": [_P] * 8 + [_I] * 9 + [_F] * 8 + [_I, _P],
+    "pre_sweep": [_P] * 9 + [_I] * 5 + [_F] * 7 + [_I, _P],
     "probe_take": [_P] * 4 + [_I] * 4 + [_P],
     "probe_take_along": [_P] * 3 + [_I] * 7 + [_P],
     "probe_tf_nearest": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
@@ -57,6 +58,24 @@ SIGNATURES: Dict[str, List] = {
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+
+_C_TYPES = {"void*": _P, "int": _I, "float": _F}
+
+
+def declared_signature(src: Path, name: str) -> List:
+    """The argument types of the ``extern "C"`` launcher ``name`` as the
+    source ``src`` declares it: how another checkout's build of a kernel
+    is bound (``sweep_ab.py``, ``benchmarks/exact_bwd_ab``)."""
+    decl = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src.read_text(), re.S)
+    if decl is None:
+        raise ValueError(f"{src}: no extern \"C\" launcher {name}")
+    types = []
+    for param in decl.group(1).split(","):
+        words = param.replace("const ", "").split()
+        ctype = "void*" if "*" in param else words[0]
+        types.append(_C_TYPES[ctype])
+    return types
 
 
 def _nvcc() -> str:

@@ -21,9 +21,11 @@ exit on K4 walks only the samples K3 composited.
 :func:`render_exact_diff` is the same render with the early exit off
 (the exact trainer's semantics).
 
-The kernels read a 256-entry TF (``TF_SIZE``, the size K1 and K5 share);
-the plain versions take any (T, 4) TF with 2 ≤ T ≤ 256, as the JAX
-marcher does.
+The TF is any (T, 4), as the JAX marcher's: the plain versions take any
+T ≥ 1; the kernels take 1 ≤ T ≤ ``EXACT_TF_MAX`` (4096, their tables in
+shared memory), a 256-entry TF through their fixed
+instances and any other T through their runtime-T instances, and raise a
+``ValueError`` that states the limit above it.
 
 Of the JAX package's planning (``plan_exact``) only what fixes the sample
 grid and the per-brick box is kept: ``raycast.ray_pack`` and
@@ -56,10 +58,9 @@ from libre_tpu_torch.ops.reference import (
     RenderParams,
     max_steps_for_bricks,
 )
-from libre_tpu_torch.ops.transfer_function import TF_SIZE
 
 __all__ = [
-    "ATLAS_DTYPES", "ExactView", "RenderMarcherDiff", "exact_view",
+    "ATLAS_DTYPES", "EXACT_TF_MAX", "ExactView", "RenderMarcherDiff", "exact_view",
     "march_exact", "march_exact_backward", "march_exact_backward_reference",
     "march_exact_reference", "render_exact", "render_exact_diff",
     "render_exact_rays", "render_marcher_diff",
@@ -67,6 +68,9 @@ __all__ = [
 
 # Atlas dtypes the kernel reads in place, by its dtype code.
 ATLAS_DTYPES = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
+# The largest TF the kernels take (csrc/exact_sample.cuh::kMaxTf): K4's
+# runtime-T instances hold the TF and its gradient table in shared memory.
+EXACT_TF_MAX = 4096
 
 
 def _check_operands(who, atlas, slots, boxes, tf, rays, params, per_ray, samples=None,
@@ -74,17 +78,19 @@ def _check_operands(who, atlas, slots, boxes, tf, rays, params, per_ray, samples
     """Reject what the kernels do not take before a pointer reaches them.
     ``slots`` None means every brick of ``atlas`` in its order (the
     backward's set).  ``per_ray`` names the (R, 4) f32 operands (the carry,
-    or the backward's forward output and cotangent).  The TF is (256, 4)
-    for a kernel and any (T, 4), 2 ≤ T ≤ 256, for a plain version."""
+    or the backward's forward output and cotangent).  The TF is any (T, 4)
+    with T ≥ 1, and T ≤ ``EXACT_TF_MAX`` off the CPU."""
     n_bricks = atlas.shape[0] if slots is None else slots.shape[0]
     n_rays = next(iter(per_ray.values())).shape[0]
     n_tf = tf.shape[0] if tf.dim() == 2 else 0
-    if atlas.device.type != "cpu" and n_tf not in (0, TF_SIZE):
-        raise ValueError(f"{who}: the kernels read a {TF_SIZE}-entry TF, got T = {n_tf}")
-    plain_tf = atlas.device.type == "cpu" and 2 <= n_tf <= TF_SIZE
+    if atlas.device.type != "cpu" and n_tf > EXACT_TF_MAX:
+        raise ValueError(
+            f"{who}: the kernels take a TF of 1 to {EXACT_TF_MAX} entries (their tables "
+            f"lie in shared memory), got T = {n_tf}"
+        )
     expect = {
         "boxes": (boxes, torch.float32, (n_bricks, BOX_FLOATS)),
-        "tf": (tf, torch.float32, (n_tf if plain_tf else TF_SIZE, 4)),
+        "tf": (tf, torch.float32, (max(n_tf, 1), 4)),
         "rays": (rays, torch.float32, (len(PACK_ROWS), n_rays)),
     }
     if slots is not None:
@@ -165,7 +171,7 @@ def march_exact(
             ATLAS_DTYPES[atlas.dtype], int(params.filter_mode == "trilinear"),
             slots.shape[0], n_rays, int(width or n_rays), bx, by, bz,
             int(max_steps), ex, ey, ez, params.step_size, 1.0 / (hi - lo),
-            -lo / (hi - lo), params.alpha_correction, params.early_exit,
+            -lo / (hi - lo), params.alpha_correction, params.early_exit, tf.shape[0],
         )
     march_exact.launches += 1
     return out
@@ -232,6 +238,7 @@ def march_exact_backward(
             int(params.filter_mode == "trilinear"), int(diff_tf), n_bricks, n_rays,
             int(view.width), bx, by, bz, int(view.max_steps), ex, ey, ez, params.step_size,
             1.0 / (hi - lo), -lo / (hi - lo), params.alpha_correction, params.early_exit,
+            tf.shape[0],
         )
     march_exact_backward.launches += 1
     return d_volume, d_tf

@@ -35,6 +35,33 @@ from libre_tpu_torch.ops.reference import ALPHA_CLAMP, Camera, RenderParams
 from libre_tpu_torch.ops.transfer_function import lookup
 
 CLASSIFICATIONS = ("pre", "post")
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def resample_rounding(compute_dtype: str):
+    """The rounding of a resample operand under ``compute_dtype``: to
+    bf16 and back (round to nearest even) for "bfloat16", none for
+    "float32"."""
+    if compute_dtype == "float32":
+        return lambda x: x
+    if compute_dtype == "bfloat16":
+        return lambda x: x.to(torch.bfloat16).to(torch.float32)
+    raise ValueError(f"compute_dtype {compute_dtype!r} is not one of {COMPUTE_DTYPES}")
+
+
+def tap_weights(i0: torch.Tensor, i1: torch.Tensor, w: torch.Tensor, compute_dtype: str):
+    """The two taps' weights of a resample stage as the JAX kernels'
+    interpolation matrix holds them (``_interp_matrix``): (1 − w, w) in
+    float32; under "bfloat16" each rounded on its own, and where the edge
+    clamp makes i0 = i1 the one entry (1 − w) + w on tap i0."""
+    if compute_dtype == "float32":
+        return 1.0 - w, w
+    rnd = resample_rounding(compute_dtype)
+    edge = i0 == i1
+    return (
+        rnd(torch.where(edge, (1.0 - w) + w, 1.0 - w)),
+        rnd(torch.where(edge, torch.zeros_like(w), w)),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +72,12 @@ class ShearWarpParams:
     inter_size: Tuple[int, int] = (256, 256)  # (V, U) slope-grid size
     slope_margin: float = 0.02  # widen the slope bounds by this fraction
     classification: str = "pre"  # "pre" | "post"
-    # Resample operand type.  The port computes in float32 only, for
-    # parity with the JAX package; reduced precision is an open cell.
+    # Resample operand type of the sweep kernels K1 and K5 (and their
+    # plain versions): "bfloat16" rounds both operands of each of the two
+    # resample stages to bf16 and sums in f32, as the JAX kernels' products
+    # do; compositing stays f32.  The plain pipeline of this module and the
+    # store trainer's gradient path compute in float32 whatever it says, as
+    # the JAX package's do.
     compute_dtype: str = "float32"
 
     def __post_init__(self):
@@ -55,11 +86,10 @@ class ShearWarpParams:
                 f"ShearWarpParams: classification {self.classification!r} "
                 f"is not one of {CLASSIFICATIONS}"
             )
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"ShearWarpParams: compute_dtype {self.compute_dtype!r}: only "
-                "float32 is ported; a reduced-precision resample is the open "
-                "cell of ROADMAP M4"
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"ShearWarpParams: compute_dtype {self.compute_dtype!r} is not one "
+                f"of {COMPUTE_DTYPES}"
             )
 
 

@@ -584,6 +584,7 @@ def post_sweep_reference(
     touched: Optional[torch.Tensor] = None,
     only: Optional[torch.Tensor] = None,
     fetches: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch sweep: the specification of ``csrc/post_sweep.cu``.
 
@@ -593,7 +594,12 @@ def post_sweep_reference(
 
     * sample point xb = eb + ug·dl[k], xc = ec + vg·dl[k];
     * density: lerp slices a0[k], a1[k] by wa[k] at each of the 2×2
-      in-plane taps, then lerp along b, then along c;
+      in-plane taps, then lerp along b, then along c; with
+      ``compute_dtype="bfloat16"`` (K1's kBf16 instance) each of the two
+      resample stages rounds its operands to bf16 (the axis-lerped taps and
+      the b weights; the b-lerped rows and the c weights,
+      ``shearwarp.tap_weights``) and sums in f32, as the JAX kernel's two
+      products;
     * mask: inside the b/c box × covered (density > −0.5, i.e. no
       SENTINEL voxel pulled it down) × the n_clip half-spaces
       ``n_a·z + n_b·xb + n_c·xc + d ≥ 0`` × act[k];
@@ -617,6 +623,7 @@ def post_sweep_reference(
     """
     f32 = torch.float32
     dev = store.device
+    rnd = sw.resample_rounding(compute_dtype)
     _na, nc, nb = store.shape
     v_size, u_size = tables.corr.shape
     wb0, wb1 = wb
@@ -643,11 +650,14 @@ def post_sweep_reference(
 
         def tap(ic, ib):
             o = ic[:, None] * nb + ib[None, :]
-            return flat[lo + o] * (1.0 - wa) + flat[hi + o] * wa
+            return rnd(flat[lo + o] * (1.0 - wa) + flat[hi + o] * wa)
 
-        s_c0 = tap(ic0, ib0) * (1.0 - w_b) + tap(ic0, ib1) * w_b
-        s_c1 = tap(ic1, ib0) * (1.0 - w_b) + tap(ic1, ib1) * w_b
-        dens = s_c0 * (1.0 - w_c)[:, None] + s_c1 * w_c[:, None]
+        # The b and c weights as the JAX kernel's interpolation matrices hold them.
+        mb0, mb1 = sw.tap_weights(ib0, ib1, w_b, compute_dtype)
+        mc0, mc1 = sw.tap_weights(ic0, ic1, w_c, compute_dtype)
+        s_c0 = rnd(tap(ic0, ib0) * mb0 + tap(ic0, ib1) * mb1)
+        s_c1 = rnd(tap(ic1, ib0) * mb0 + tap(ic1, ib1) * mb1)
+        dens = s_c0 * mc0[:, None] + s_c1 * mc1[:, None]
 
         inside_u = (xb >= wb0) & (xb < wb1)
         inside_v = (xc >= wc0) & (xc < wc1)
@@ -739,19 +749,23 @@ def post_sweep(
     wb: Tuple[float, float],
     wc: Tuple[float, float],
     early_exit: float,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The sweep: launches ``csrc/post_sweep.cu`` for CUDA tensors and
-    runs :func:`post_sweep_reference` for CPU tensors (same signature and
+    """The sweep: launches ``csrc/post_sweep.cu`` for CUDA tensors (its
+    bf16-resample instance for ``compute_dtype="bfloat16"``) and runs
+    :func:`post_sweep_reference` for CPU tensors (same signature and
     result).  ``post_sweep.launches`` counts kernel launches."""
     _check_sweep_operands(
         store, tf, tables, clip=(clip, torch.float32, (MAX_CLIP_PLANES, 4))
     )
     if not 0 <= n_clip <= MAX_CLIP_PLANES:
         raise ValueError(f"post_sweep: n_clip={n_clip} outside [0, 8]")
+    if compute_dtype not in sw.COMPUTE_DTYPES:
+        raise ValueError(f"post_sweep: compute_dtype {compute_dtype!r}")
     if store.device.type == "cpu":
         return post_sweep_reference(
             store, tf, tables, clip, n_clip=n_clip, wb=wb, wc=wc,
-            early_exit=early_exit,
+            early_exit=early_exit, compute_dtype=compute_dtype,
         )
     if store.device.type != "cuda":
         raise ValueError(f"post_sweep: no kernel for device {store.device}")
@@ -767,7 +781,7 @@ def post_sweep(
             out, t_out,
             tables.a0.shape[0], nc, nb, v_size, u_size, n_clip,
             wb[0], wb[1], wc[0], wc[1], nb / (wb[1] - wb[0]),
-            nc / (wc[1] - wc[0]), early_exit,
+            nc / (wc[1] - wc[0]), early_exit, int(compute_dtype == "bfloat16"),
         )
     post_sweep.launches += 1
     return out, t_out
@@ -809,6 +823,7 @@ class SlabSweep:
         self.early_exit = float(params.early_exit)
         self.max_spr = float(params.max_samples_per_ray)
         self.slope_margin = swp.slope_margin
+        self.compute_dtype = swp.compute_dtype
         self.viewport = (
             tuple(int(x) for x in viewport) if viewport is not None else None
         )
@@ -834,10 +849,11 @@ class SlabSweep:
         )
 
     def sweep(self, store, tf, tables: SweepTables) -> Tuple[torch.Tensor, torch.Tensor]:
-        """K1 (:func:`post_sweep`) over ``store`` with these tables."""
+        """K1 (:func:`post_sweep`) over ``store`` with these tables, in the
+        resample type of the view's ``ShearWarpParams``."""
         return post_sweep(
             store, tf, tables, self.clip, n_clip=self.n_clip, wb=self.wb,
-            wc=self.wc, early_exit=self.early_exit,
+            wc=self.wc, early_exit=self.early_exit, compute_dtype=self.compute_dtype,
         )
 
     def run_pass(self, slab, tf, tables: SweepTables, sp: SlabPlan, carry):

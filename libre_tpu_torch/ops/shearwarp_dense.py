@@ -79,6 +79,7 @@ def pre_sweep_reference(
     touched: Optional[torch.Tensor] = None,
     only: Optional[torch.Tensor] = None,
     fetches: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """Plain torch sweep: the specification of ``csrc/pre_sweep.cu``.
 
@@ -88,7 +89,10 @@ def pre_sweep_reference(
 
     * sample point xb = eb + ug·dl[k], xc = ec + vg·dl[k];
     * RGBA, per channel: lerp slices a0[k], a1[k] by wa[k] at each of the
-      2×2 in-plane taps, then lerp along b, then along c;
+      2×2 in-plane taps, then lerp along b, then along c; with
+      ``compute_dtype="bfloat16"`` (K5's kBf16 instance) each resample
+      stage rounds its operands to bf16, per channel, and sums in f32, as
+      the JAX kernel's products (``shearwarp_pallas.py:281-312``);
     * mask: inside the half-open b/c box × act[k];
     * opacity correction ``1 − (1 − min(a, 1 − 1/256))^corr``;
     * composite front to back from (rgb, t) = (0, 1) while
@@ -110,6 +114,7 @@ def pre_sweep_reference(
     """
     f32 = torch.float32
     dev = chans.device
+    rnd = sw.resample_rounding(compute_dtype)
     _na, nc, nb, _ = chans.shape
     v_size, u_size = tables.corr.shape
     wb0, wb1 = wb
@@ -133,16 +138,16 @@ def pre_sweep_reference(
         ic0, ic1, w_c = swb._taps((xc - wc0) * sc_scale - 0.5, nc)
         lo = tables.a0[k].long() * plane
         hi = tables.a1[k].long() * plane
-        w_b = w_b[None, :, None]
-        w_c = w_c[:, None, None]
+        mb0, mb1 = (w[None, :, None] for w in sw.tap_weights(ib0, ib1, w_b, compute_dtype))
+        mc0, mc1 = (w[:, None, None] for w in sw.tap_weights(ic0, ic1, w_c, compute_dtype))
 
         def tap(ic, ib):
             o = ic[:, None] * nb + ib[None, :]
-            return flat[lo + o] * (1.0 - wa) + flat[hi + o] * wa  # (V, U, 4)
+            return rnd(flat[lo + o] * (1.0 - wa) + flat[hi + o] * wa)  # (V, U, 4)
 
-        s_c0 = tap(ic0, ib0) * (1.0 - w_b) + tap(ic0, ib1) * w_b
-        s_c1 = tap(ic1, ib0) * (1.0 - w_b) + tap(ic1, ib1) * w_b
-        rgba = s_c0 * (1.0 - w_c) + s_c1 * w_c
+        s_c0 = rnd(tap(ic0, ib0) * mb0 + tap(ic0, ib1) * mb1)
+        s_c1 = rnd(tap(ic1, ib0) * mb0 + tap(ic1, ib1) * mb1)
+        rgba = s_c0 * mc0 + s_c1 * mc1
 
         inside_u = (xb >= wb0) & (xb < wb1)
         inside_v = (xc >= wc0) & (xc < wc1)
@@ -197,14 +202,20 @@ def pre_sweep(
     wb: Tuple[float, float],
     wc: Tuple[float, float],
     early_exit: float,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
     """The dense sweep → (V, U, 4): launches ``csrc/pre_sweep.cu`` for
-    CUDA tensors and runs :func:`pre_sweep_reference` for CPU tensors
-    (same signature and result).  ``pre_sweep.launches`` counts kernel
-    launches."""
+    CUDA tensors (its bf16-resample instance for
+    ``compute_dtype="bfloat16"``) and runs :func:`pre_sweep_reference` for
+    CPU tensors (same signature and result).  ``pre_sweep.launches``
+    counts kernel launches."""
     _check_pre_sweep_operands(chans, tables)
+    if compute_dtype not in sw.COMPUTE_DTYPES:
+        raise ValueError(f"pre_sweep: compute_dtype {compute_dtype!r}")
     if chans.device.type == "cpu":
-        return pre_sweep_reference(chans, tables, wb=wb, wc=wc, early_exit=early_exit)
+        return pre_sweep_reference(
+            chans, tables, wb=wb, wc=wc, early_exit=early_exit, compute_dtype=compute_dtype
+        )
     if chans.device.type != "cuda":
         raise ValueError(f"pre_sweep: no kernel for device {chans.device}")
     _na, nc, nb, _ = chans.shape
@@ -217,7 +228,7 @@ def pre_sweep(
             tables.view, tables.corr, out,
             tables.a0.shape[0], nc, nb, v_size, u_size,
             wb[0], wb[1], wc[0], wc[1], nb / (wb[1] - wb[0]), nc / (wc[1] - wc[0]),
-            early_exit,
+            early_exit, int(compute_dtype == "bfloat16"),
         )
     pre_sweep.launches += 1
     return out
@@ -253,12 +264,14 @@ class SlopeGridPlanArgs:
         return vs if camera is None else swb.frame_vector(vs, camera)
 
     def sweep_kwargs(self) -> Dict:
-        """The keyword arguments of :func:`pre_sweep` for this plan."""
+        """The keyword arguments of :func:`pre_sweep` for this plan (the
+        resample type its ``swp`` names)."""
         b_axis, c_axis = sw._BC_AXES[self.axis]
         return dict(
             wb=(float(self.world_min[b_axis]), float(self.world_max[b_axis])),
             wc=(float(self.world_min[c_axis]), float(self.world_max[c_axis])),
             early_exit=float(self.params.early_exit),
+            compute_dtype=self.swp.compute_dtype,
         )
 
 

@@ -331,7 +331,10 @@ def render_store_grid_diff(
     ``vs`` is the 11-float view vector (:func:`view_vector`), as a tensor
     or array; ``static`` the view's :class:`StaticView`.  In slab mode
     (``static.k_total`` set) ``vs`` has 13 floats, [k0, a_base] appended,
-    and ``store`` is the (na_store, Nc, Nb) slab."""
+    and ``store`` is the (na_store, Nc, Nb) slab.  The resample is
+    float32 in both directions whatever a view's ``ShearWarpParams.
+    compute_dtype``, as the JAX store backward forces it
+    (``libre_tpu/ops/shearwarp_grad.py:868``)."""
     vs = torch.as_tensor(vs, dtype=torch.float32, device=store.device)
     want = VIEW_LEN if static.k_total is None else VIEW_LEN + 2
     if vs.shape != (want,):

@@ -9,6 +9,9 @@ Per frame, as in renderers/glRaycaster/GLRaycastPipeline.cpp:78-350:
   * :meth:`render_bricked`: the rendering set is assembled into one
     density store on the device, cached across frames, and swept by the
     post-classification kernel (``ops/shearwarp_bricked.py``);
+  * :meth:`render_wall`: N such views of the volume written into one
+    device canvas, each through its cached store and runner, with no host
+    synchronisation between views (the service's multi-view layouts);
   * :meth:`render`: the exact marcher (``ops/exact.py``) walks the set
     front to back in memory-bounded passes of atlas-resident bricks,
     with the per-ray (rgb, a) carried across passes
@@ -94,6 +97,23 @@ class RenderStatistics:
     rendering_done: bool = True
     histogram: Optional[Histogram] = None
     pending_uploads: List = dataclasses.field(default_factory=list, repr=False)
+
+
+@dataclasses.dataclass
+class WallView:
+    """One view of a wall as :meth:`RenderEngine.plan_wall` plans it: its
+    camera, rendering set, the store view (params, ``ShearWarpParams``,
+    view plan, render level), statistics and canvas offset (row, col)."""
+
+    camera: Camera
+    nodes: List[NodeId]
+    params: RenderParams
+    swp: sw.ShearWarpParams
+    sw_plan: sw.ViewPlan
+    render_level: int
+    stats: RenderStatistics
+    row: int
+    col: int
 
 
 def compute_rendering_set(
@@ -629,7 +649,6 @@ class RenderEngine:
                 render_nodes, frustum, relative_viewport
             )
 
-        half = np.asarray(self.info.world_size, np.float32) * 0.5
         params, swp, sw_plan, render_level, (na, nc, nb) = self._store_view(
             camera, render_nodes, params, n_planes
         )
@@ -651,6 +670,21 @@ class RenderEngine:
             )
             return img, stats
 
+        stats.n_passes = 1
+        runner, store = self._store_frame_runner(
+            camera, render_nodes, params, swp, sw_plan, render_level, clip_arr, time_step
+        )
+        img = runner(store, self.transfer_function, camera, sw_plan)
+        return img, stats
+
+    def _store_frame_runner(
+        self, camera, render_nodes, params, swp, sw_plan, render_level, clip_arr, time_step
+    ) -> Tuple[swb.StoreFrameRunner, torch.Tensor]:
+        """The in-core frame's cached (runner, store): the set's store
+        keyed by (axis, set, time step, data range, level), its runner by
+        that key and the viewport, planes, early exit, sample rate and
+        clip planes."""
+        half = np.asarray(self.info.world_size, np.float32) * 0.5
         set_key = (
             sw_plan.axis,
             tuple(sorted(n.id for n in render_nodes)),
@@ -661,7 +695,6 @@ class RenderEngine:
         store, content, plan = self._cached_store(
             set_key, render_nodes, sw_plan.axis, params, render_level
         )
-        stats.n_passes = 1
         rkey = (
             set_key,
             camera.viewport,
@@ -681,8 +714,113 @@ class RenderEngine:
             if len(self._frame_runners) > 64:
                 self._frame_runners.clear()
             self._frame_runners[rkey] = runner
-        img = runner(store, self.transfer_function, camera, sw_plan)
-        return img, stats
+        return runner, store
+
+    def render_wall(
+        self,
+        views: Sequence[tuple],
+        canvas_size: Tuple[int, int],
+        params: Optional[RenderParams] = None,
+        screen_space_error: float = 4.0,
+        min_lod: int = 0,
+        max_lod: int = (1 << 4) - 1,
+        clip_planes: Optional[ClipPlanes] = None,
+        time_step: int = 0,
+        data_range: Tuple[float, float] = (0.0, 1.0),
+        n_planes: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, List[RenderStatistics]]:
+        """Multi-view wall (``libre_tpu.render.engine.render_wall``; the
+        reference renders wall channels in parallel, Config.cpp:394-491)
+        → ((H, W, 4) f32 canvas on the engine's device, statistics per
+        view): :meth:`plan_wall`, then :meth:`draw_wall`.
+
+        ``views``: a sequence of (camera, frustum, (dx, dy)).  Raises
+        ``ValueError``, before any view renders, where a view's rendering
+        set is empty or its store does not take the single-store path (the
+        store over the derived budget or the set over the atlas's slots),
+        as the JAX method does."""
+        plan, why = self.plan_wall(
+            views, canvas_size, params=params, screen_space_error=screen_space_error,
+            min_lod=min_lod, max_lod=max_lod, clip_planes=clip_planes,
+            time_step=time_step, data_range=data_range, n_planes=n_planes,
+        )
+        if why is not None:
+            raise ValueError(why)
+        return self.draw_wall(plan, canvas_size, clip_planes, time_step)
+
+    def plan_wall(
+        self,
+        views: Sequence[tuple],
+        canvas_size: Tuple[int, int],
+        params: Optional[RenderParams] = None,
+        screen_space_error: float = 4.0,
+        min_lod: int = 0,
+        max_lod: int = (1 << 4) - 1,
+        clip_planes: Optional[ClipPlanes] = None,
+        time_step: int = 0,
+        data_range: Tuple[float, float] = (0.0, 1.0),
+        n_planes: Optional[int] = None,
+    ) -> Tuple[List[WallView], Optional[str]]:
+        """The host half of :meth:`render_wall`, view by view: select,
+        prefetch to the host (as a synchronous frame), the store view, and
+        the two tests of the wall path → (the views' plans, None), or at
+        the first view that fails a test (the plans so far, why).  The
+        canvas offset is clamped so that the view fits, as the JAX wall's
+        ``dynamic_update_slice``."""
+        ch, cw = canvas_size
+        plan: List[WallView] = []
+        for camera, frustum, (dx, dy) in views:
+            vx, vy, vw, vh = camera.viewport
+            if vh > ch or vw > cw:
+                return plan, f"wall view {vw}x{vh} larger than the {cw}x{ch} canvas"
+            visibles = self.select(
+                frustum, vh, screen_space_error, min_lod, max_lod,
+                data_range, clip_planes, time_step,
+            )
+            self.prefetch_batch(visibles)
+            nodes = list(visibles)
+            stats = RenderStatistics(
+                n_available=len(nodes), n_render_available=len(nodes), n_passes=1
+            )
+            if not nodes:
+                return plan, "wall view with empty rendering set"
+            params_v, swp, sw_plan, render_level, (na, nc, nb) = self._store_view(
+                camera, nodes, params, n_planes
+            )
+            if na * nc * nb * 4 > self.device_budget.budget or len(nodes) > self.atlas.n_slots:
+                return plan, "wall view too large for the single-store path"
+            plan.append(WallView(
+                camera, nodes, params_v, swp, sw_plan, render_level, stats,
+                min(max(int(dy), 0), ch - vh), min(max(int(dx), 0), cw - vw),
+            ))
+        return plan, None
+
+    @_on_atlas_stream
+    def draw_wall(
+        self,
+        plan: Sequence[WallView],
+        canvas_size: Tuple[int, int],
+        clip_planes: Optional[ClipPlanes] = None,
+        time_step: int = 0,
+    ) -> Tuple[torch.Tensor, List[RenderStatistics]]:
+        """The device half of :meth:`render_wall`: each planned view
+        through its cached store and ``StoreFrameRunner`` (K1 and the
+        warp), as :meth:`render_bricked` renders it in core, written into
+        one (H, W, 4) canvas at its offset, on the atlas's stream, with no
+        host synchronisation or device → host copy between views; the
+        caller makes the one copy of the canvas."""
+        clip_arr = clip_planes.as_array() if clip_planes is not None else None
+        canvas = torch.zeros((*canvas_size, 4), dtype=torch.float32, device=self.device)
+        for v in plan:
+            runner, store = self._store_frame_runner(
+                v.camera, v.nodes, v.params, v.swp, v.sw_plan, v.render_level, clip_arr,
+                time_step,
+            )
+            vw, vh = v.camera.viewport[2:]
+            canvas[v.row : v.row + vh, v.col : v.col + vw] = runner(
+                store, self.transfer_function, v.camera, v.sw_plan
+            )
+        return canvas, [v.stats for v in plan]
 
     @_on_atlas_stream
     def render_bricked_sharded(

@@ -242,7 +242,17 @@ EXACT_BRICK_VIEWS = {
 }
 
 
-def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float32):
+def tf_of_size(n_tf: int) -> np.ndarray:
+    """The (n_tf, 4) f32 TF of the runtime-T cases: the default colormap
+    at ``n_tf`` entries (its single-entry form is transparent, so one
+    entry is an opaque-enough constant colour)."""
+    if n_tf == 1:
+        return np.float32([[0.9, 0.6, 0.3, 0.35]])
+    return default_color_map(n_tf)
+
+
+def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float32,
+               n_tf=256):
     """Seeded operands of the exact march.
 
     ``case`` = "single": scene "bench" of ``EXACT_SCENES`` (bench.py's
@@ -258,7 +268,8 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
     early-exit threshold.
 
     ``dtype`` is the atlas's: float32 (data range [0, 1]) or uint8 (data
-    range [0, 255]).  Returns an :class:`ExactCase`."""
+    range [0, 255]); ``n_tf`` the TF's entries (``tf_of_size``).  Returns
+    an :class:`ExactCase`."""
     from libre_tpu_torch.apps.render_cli import build_camera
     from libre_tpu_torch.ops import rays as ray_ops
     from libre_tpu_torch.ops.raycast import (
@@ -269,7 +280,7 @@ def exact_case(case, seed, device, *, filter_mode="trilinear", dtype=torch.float
     from libre_tpu_torch.ops.reference import max_steps_for_bricks
 
     rng = np.random.default_rng(seed)
-    tf = default_color_map()
+    tf = tf_of_size(n_tf)
     if case == "single":
         shape = (1, *EXACT_SCENES["bench"][0])
     elif case in EXACT_BRICK_VIEWS:
@@ -397,10 +408,11 @@ def _exact_scene_view(case, device, **params):
 
 
 def exact_grad_case(case, seed, device, *, filter_mode="trilinear", field="random",
-                    early_exit=1.1):
+                    early_exit=1.1, n_tf=256):
     """Seeded K4 operands over scene ``case`` of ``EXACT_SCENES``: an f32
     volume (uniform random, or ``field_volume(field)`` for the other
-    ``FIELDS``), the default TF, the early exit off (or ``early_exit``);
+    ``FIELDS``), the default TF (at ``n_tf`` entries, ``tf_of_size``), the
+    early exit off (or ``early_exit``);
     ``g`` is a standard normal cotangent and ``out`` the forward
     (``march_exact``, so K3 on a CUDA device)."""
     if case not in EXACT_SCENES:
@@ -415,21 +427,21 @@ def exact_grad_case(case, seed, device, *, filter_mode="trilinear", field="rando
     volume = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(device)
     if field != "random":
         volume = field_volume(field, shape, seed, device)
-    tf = torch.from_numpy(default_color_map()).to(device)
+    tf = torch.from_numpy(tf_of_size(n_tf)).to(device)
     with torch.no_grad():
         out = exact.render_marcher_diff(volume, tf, view)
     g = torch.from_numpy(rng.standard_normal((view.n_rays, 4)).astype(np.float32)).to(device)
     return ExactGradCase(volume, tf, view, out, g)
 
 
-def exact_set_grad_case(seed, device, *, filter_mode="trilinear", early_exit=1.1):
+def exact_set_grad_case(seed, device, *, filter_mode="trilinear", early_exit=1.1, n_tf=256):
     """Seeded K4 operands over a brick set: a uniform random 64³ f32
     volume in 4³ bricks with two ghost voxels (``split_into_bricks``, 20³
     each), sorted front to back from the "bench" scene's eye and padded
     to 66 by ``parallel.render.shard_bricks_front_to_back`` (its two
     far-away pads at the end), 128² rays at 256 samples per ray, the
-    default TF, the early exit off (or ``early_exit``); the view's
-    ``max_steps`` is the real bricks'.  ``volume`` is the (66, 20, 20,
+    default TF (at ``n_tf`` entries), the early exit off (or
+    ``early_exit``); the view's ``max_steps`` is the real bricks'.  ``volume`` is the (66, 20, 20,
     20) set, ``out`` the forward over it (K3 over slots ``arange(66)`` on
     a CUDA device) and ``g`` a standard normal cotangent."""
     from libre_tpu_torch.apps.render_cli import build_camera
@@ -445,7 +457,7 @@ def exact_set_grad_case(seed, device, *, filter_mode="trilinear", early_exit=1.1
     view = exact.exact_view(camera, params, bricks=sharded, device=device)
     real = exact.exact_view(camera, params, bricks=bricks, device=device)
     view = dataclasses.replace(view, max_steps=real.max_steps)
-    tf = torch.from_numpy(default_color_map()).to(device)
+    tf = torch.from_numpy(tf_of_size(n_tf)).to(device)
     with torch.no_grad():
         out = exact.render_marcher_diff(sharded.data, tf, view)
     g = torch.from_numpy(rng.standard_normal((view.n_rays, 4)).astype(np.float32)).to(device)

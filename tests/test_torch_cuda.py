@@ -986,22 +986,101 @@ def test_exact_march_bwd_one_brick_set_is_the_brick_form(cuda):
 
 
 @pytest.mark.cuda
-def test_exact_kernels_refuse_a_32_entry_tf(cuda):
-    """K3 and K4 read a 256-entry TF: a (32, 4) TF on the card raises a
-    ValueError naming T, with no fallback to the plain version (which
-    takes it on the CPU)."""
+@pytest.mark.parametrize("n_tf", [1, 32, 255, 1024])
+def test_exact_kernels_take_any_tf_size(cuda, n_tf):
+    """K3 and K4 through their runtime-T instances: K3 on the scattered
+    brick atlas (saturating TF, carry in, clip planes) within its bounds of
+    the plain march; K4 on one brick and over a brick set within 1e-3
+    (normalised) of the plain backward, the TF gradient (T, 4)."""
+    c = exact_case("bricks", seed=0, device=cuda, n_tf=n_tf)
+    args = (c.atlas, c.slots, c.boxes, c.tf, c.rays, c.carry, c.eye, c.params)
+    launches = exact.march_exact.launches
+    got = exact.march_exact(*args, max_steps=c.max_steps, width=c.width)
+    want = exact.march_exact_reference(*args, max_steps=c.max_steps)
+    torch.cuda.synchronize()
+    assert exact.march_exact.launches == launches + 1
+    err = (got - want).abs()
+    assert float(err.max()) <= EXACT_TOL_MAX and float(err.mean()) <= EXACT_TOL_MEAN
+    assert float(got[:, 3].max()) > 0.3
+    for g in (exact_grad_case("wide", seed=0, device=cuda, n_tf=n_tf),
+              exact_set_grad_case(seed=0, device=cuda, n_tf=n_tf)):
+        launches = exact.march_exact_backward.launches
+        got = exact.march_exact_backward(g.volume, g.tf, g.view, g.out, g.g)
+        want = exact.march_exact_backward_reference(g.volume, g.tf, g.view, g.out, g.g)
+        torch.cuda.synchronize()
+        assert exact.march_exact_backward.launches == launches + 1
+        assert got[1].shape == (n_tf, 4)
+        if n_tf == 1:  # a flat lookup: no density gradient
+            assert float(got[0].abs().max()) == 0.0 and float(want[0].abs().max()) == 0.0
+        else:
+            assert_grad_close(got[0], want[0], EXACT_GRAD_TOL_MAX)
+        assert_grad_close(got[1], want[1], EXACT_GRAD_TOL_MAX)
+
+
+@pytest.mark.cuda
+def test_exact_kernels_refuse_a_tf_past_the_limit(cuda):
+    """Past ``EXACT_TF_MAX`` entries a CUDA tensor raises a ValueError that
+    states the limit, with no launch and no fallback to the plain version
+    (which takes it on the CPU)."""
     c = exact_grad_case("wide", seed=0, device=cuda)
-    tf32 = c.tf[::8].contiguous()
+    big = torch.rand((exact.EXACT_TF_MAX + 1, 4), device=cuda)
     launches = (exact.march_exact.launches, exact.march_exact_backward.launches)
-    with pytest.raises(ValueError, match="T = 32"):
-        exact.render_marcher_diff(c.volume, tf32, c.view)
-    with pytest.raises(ValueError, match="T = 32"):
-        exact.march_exact_backward(c.volume, tf32, c.view, c.out, c.g)
+    with pytest.raises(ValueError, match="1 to 4096 entries"):
+        exact.render_marcher_diff(c.volume, big, c.view)
+    with pytest.raises(ValueError, match="1 to 4096 entries"):
+        exact.march_exact_backward(c.volume, big, c.view, c.out, c.g)
     assert (exact.march_exact.launches, exact.march_exact_backward.launches) == launches
     cpu_view = dataclasses.replace(c.view, ray_pack=c.view.ray_pack.cpu(),
                                    brick_boxes=c.view.brick_boxes.cpu())
-    out = exact.render_marcher_diff(c.volume.cpu(), tf32.cpu(), cpu_view)
+    out = exact.render_marcher_diff(c.volume.cpu(), big.cpu(), cpu_view)
     assert out.shape == c.out.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", sorted(SWEEP_VIEWS))
+def test_bf16_sweeps_bit_equal(cuda, view):
+    """K1's and K5's bf16-resample instances bit-equal to their plain
+    versions (``compute_dtype="bfloat16"``) on every seeded view, and
+    apart from the f32 instances' frames."""
+    store, tf, tables, clip, kw = sweep_case((96, 80, 128, 64, 48, 56), seed=0, device=cuda,
+                                             view=view)
+    got, t_got = swb.post_sweep(store, tf, tables, clip, **kw, compute_dtype="bfloat16")
+    want, t_want = swb.post_sweep_reference(store, tf, tables, clip, **kw,
+                                            compute_dtype="bfloat16")
+    f32, _ = swb.post_sweep(store, tf, tables, clip, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(t_got, t_want)
+    assert not torch.equal(got, f32)
+    c = dense_case("sweep", seed=0, device=cuda, view=view)
+    kw5 = dict(c.kw, compute_dtype="bfloat16")
+    got = swd.pre_sweep(c.chans, c.tables, **kw5)
+    want = swd.pre_sweep_reference(c.chans, c.tables, **kw5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not torch.equal(got, swd.pre_sweep(c.chans, c.tables, **c.kw))
+
+
+@pytest.mark.cuda
+def test_render_wall_tiles_bit_equal_on_card(cuda):
+    """``render_wall`` on the card: each 2x2 tile bit-equal to the view's
+    ``render_bricked`` frame, K1 launched once per view, the canvas on the
+    card."""
+    from libre_tpu_torch.benchmarks.demo_wall import layouts, make_view
+
+    load_plugins()
+    engine = RenderEngine(DataSource("mem://#64,64,64,32?pattern=gradient"),
+                          max_gpu_cache_mb=256, device=cuda)
+    tiles = layouts(128, 128)["2x2"]
+    views = [(*make_view(vw, vh, az), (dx, dy)) for dx, dy, vw, vh, az in tiles]
+    engine.render_wall(views, (128, 128), n_planes=64)
+    launches = swb.post_sweep.launches
+    canvas, stats = engine.render_wall(views, (128, 128), n_planes=64)
+    torch.cuda.synchronize()
+    assert swb.post_sweep.launches == launches + 4 and len(stats) == 4
+    assert canvas.device.type == "cuda" and float(canvas[..., 3].max()) > 0.05
+    for (dx, dy, vw, vh, _az), (cam, fr, _off) in zip(tiles, views):
+        img, _ = engine.render_bricked(cam, fr, n_planes=64)
+        assert torch.equal(canvas[dy : dy + vh, dx : dx + vw], img)
 
 
 @pytest.mark.cuda

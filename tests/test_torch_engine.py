@@ -95,7 +95,8 @@ def test_render_bricked_matches_jax(tmp_path, name):
 
 def test_unported_branches_raise(tmp_path):
     """Where the port stops, it says so instead of falling back: a
-    reduced-precision resample is M4; a service mesh must be a
+    resample type other than float32 and bfloat16 (ported: the bf16
+    resample of K1 and K5) raises; a service mesh must be a
     ``parallel.mesh.Mesh`` (M9 is ported: tests/test_torch_apps.py serves
     sharded frames).
     Histograms (M6) are ported: ``collect_histogram`` merges the frame's
@@ -110,8 +111,9 @@ def test_unported_branches_raise(tmp_path):
     _img, stats = eng.render_bricked(cam_t, frustum, screen_space_error=1.0, n_planes=16,
                                      collect_histogram=True)
     assert stats.histogram.sum == stats.n_available * 16 ** 3
-    with pytest.raises(NotImplementedError, match="M4"):
-        sw_t.ShearWarpParams(n_planes=16, compute_dtype="bfloat16")
+    assert sw_t.ShearWarpParams(n_planes=16, compute_dtype="bfloat16").n_planes == 16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        sw_t.ShearWarpParams(n_planes=16, compute_dtype="float16")
     with pytest.raises(TypeError, match="Mesh"):
         RenderService("mem://#32,32,32,16", mesh=object(), device="cpu")
     with pytest.raises(ValueError):

@@ -16,8 +16,9 @@ def test_entry_matches_graft_entry():
     fn_j, args_j = __graft_entry__.entry()
     fn_t, args_t = entry_t.entry(device="cpu")
     vol_t, tf_t = args_t
-    assert vol_t.device.type == "cpu" and tf_t.shape == (256, 4)
+    assert vol_t.device.type == "cpu" and tf_t.shape == (64, 4)
     np.testing.assert_array_equal(vol_t.numpy(), np.asarray(args_j[0]))
+    np.testing.assert_array_equal(tf_t.numpy(), np.asarray(args_j[1]))
     got = fn_t(vol_t, tf_t)
     want = np.asarray(fn_j(jnp.asarray(vol_t.numpy()), jnp.asarray(tf_t.numpy())))
     assert got.shape == want.shape == (entry_t.IMG, entry_t.IMG, 4)

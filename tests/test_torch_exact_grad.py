@@ -285,7 +285,8 @@ def test_backward_rejects_bad_operands():
         (0, torch.from_numpy(vol).to(torch.uint8), TypeError),  # f32 only
         (0, torch.from_numpy(vol)[None, None], ValueError),  # a set is (B, Z, Y, X)
         (0, torch.from_numpy(np.stack([vol, vol])), ValueError),  # two bricks, one box row
-        (1, torch.from_numpy(np.concatenate([tf, tf])), ValueError),  # T > 256
+        (1, torch.from_numpy(tf[:, :3].copy()), ValueError),  # the TF is (T, 4)
+        (1, torch.zeros((0, 4)), ValueError),  # T >= 1
         (4, g[:-1].contiguous(), ValueError),  # g is (R, 4)
         (4, g.double(), TypeError),
         (2, dataclasses.replace(view, brick_boxes=view.brick_boxes.repeat(2, 1)), ValueError),
@@ -300,6 +301,9 @@ def test_backward_rejects_bad_operands():
     )
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else meta_view for a in args]
     with pytest.raises(ValueError, match="no kernel"):
+        exact.march_exact_backward(*meta)
+    meta[1] = torch.empty((exact.EXACT_TF_MAX + 1, 4), device="meta")  # past the kernels' T
+    with pytest.raises(ValueError, match="1 to 4096 entries"):
         exact.march_exact_backward(*meta)
     with pytest.raises(TypeError, match="float32"):
         exact.render_exact_diff(torch.from_numpy(vol).double(), torch.from_numpy(tf), view)

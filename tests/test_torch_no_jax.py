@@ -1,4 +1,6 @@
-"""The port imports neither jax nor anything of the JAX package: every
+"""The port imports neither jax nor anything of the JAX package (the
+wall, the bf16 resample's plan arguments, ``demo_wall`` and
+``data.memory_unit`` among the rest): every
 libre_tpu_torch module imports (the later modules by name: the dense
 shear-warp trainer, the volume scene, profiling, the entry point, the
 four benchmark scripts and K4's A/B script), a tiny CPU frame renders through the
@@ -44,7 +46,8 @@ later = {"libre_tpu_torch.train.shearwarp_trainer", "libre_tpu_torch.models.volu
          "libre_tpu_torch.parallel.shearwarp_sharded", "libre_tpu_torch.parallel.distributed",
          "libre_tpu_torch.parallel.two_process",
          "libre_tpu_torch.benchmarks.demo_slab_train",
-         "libre_tpu_torch.benchmarks.bench_scaling"}
+         "libre_tpu_torch.benchmarks.bench_scaling",
+         "libre_tpu_torch.benchmarks.demo_wall", "libre_tpu_torch.data.memory_unit"}
 assert later <= set(names), later - set(names)
 from libre_tpu_torch.apps.render_cli import build_camera
 from libre_tpu_torch.data.datasource import DataSource, load_plugins
@@ -65,6 +68,15 @@ assert stats.n_passes == 1 and stats.n_available > 1
 for backend in ("jnp", "pallas"):
     img = engine.render_shearwarp(camera, n_planes=16, backend=backend)
     assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0
+wall, wall_stats = engine.render_wall([(camera, frustum, (0, 0)), (camera, frustum, (16, 0))],
+                                      (16, 32), n_planes=16)
+assert wall.shape == (16, 32, 4) and torch.equal(wall[:, :16], wall[:, 16:])
+from libre_tpu_torch.ops.shearwarp import ShearWarpParams, make_plan
+from libre_tpu_torch.ops import shearwarp_dense as swd
+swp = ShearWarpParams(n_planes=16, inter_size=(8, 8), compute_dtype="bfloat16")
+pa = swd.slope_grid_plan_args(make_plan(camera), [-0.5] * 3, [0.5] * 3,
+                              RenderParams(n_samples_per_ray=16), swp)
+assert pa.sweep_kwargs()["compute_dtype"] == "bfloat16"
 import numpy as np
 from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.train import StoreProblem, fit

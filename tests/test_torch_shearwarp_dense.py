@@ -326,8 +326,9 @@ def test_classified_from_jax_and_params():
     chans_j[0, 3 * 128 + 30, 0] = 0.5  # the alpha channel's c padding
     with pytest.raises(ValueError, match="padding"):
         interop.classified_from_jax(chans_j, 24, 28)
-    with pytest.raises(NotImplementedError, match="M4"):
-        sw_t.ShearWarpParams(compute_dtype="bfloat16")
+    assert sw_t.ShearWarpParams(compute_dtype="bfloat16").compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        sw_t.ShearWarpParams(compute_dtype="float16")
     with pytest.raises(ValueError):
         sw_t.ShearWarpParams(classification="mid")
     with pytest.raises(TypeError, match="Mesh"):

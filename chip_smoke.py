@@ -273,6 +273,12 @@ PROBE_WORK = {
 }
 
 
+# The probes of the kernels redesigned after their port (probe_take.cu; the
+# loop sums of probe_take_along.cu) and P2, the unchanged single gather:
+# phase 19 times them against the parent checkout's build when there is one.
+PROBE_AB = ("P1", "P2", "P5", "P6", "P8", "P9", "P14", "P15")
+
+
 def bound(bytes_, ops):
     """(ms, "bytes" or "operations"): the larger of the two times."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
@@ -445,16 +451,26 @@ def k3_counts(args):
     return out, samples, used
 
 
-def k3_bound_of(samples, used, slot_bytes, n_bricks, n_rays, filter_mode, f32_atlas):
+def k3_bound_of(samples, used, slot_bytes, n_bricks, n_rays, filter_mode, f32_atlas,
+                n_tf=256):
     """K3's bound: the bricks some ray samples (their atlas slots) read
-    once, the boxes, slots, ray pack, carry in and out and the TF; the
-    composited samples' operations (an f32 atlas casts nothing)."""
+    once, the boxes, slots, ray pack, carry in and out and the n_tf-entry
+    TF; the composited samples' operations (an f32 atlas casts nothing)."""
     ops = K3_OPS_PER_SAMPLE[filter_mode] - (K3_CAST_OPS[filter_mode] if f32_atlas else 0)
     return bound(
         bytes_=int(used.sum()) * slot_bytes + n_bricks * (16 + 1) * 4
-        + n_rays * (8 + 4 + 4) * 4 + TF_BYTES,
+        + n_rays * (8 + 4 + 4) * 4 + n_tf * 16,
         ops=int(samples.sum()) * ops,
     )
+
+
+def k4_bound_of(n_voxels, n_rays, samples, filter_mode, diff_tf, n_tf=256):
+    """K4's bound: the f32 volume read and d_volume written once, the ray
+    pack, out and g read, the n_tf-entry TF and (with the TF gradient)
+    d_tf; every sample's operations."""
+    ops = K4_OPS_PER_SAMPLE[filter_mode] - (0 if diff_tf else K4_TF_OPS_PER_SAMPLE)
+    return bound(bytes_=2 * n_voxels * 4 + n_rays * 16 * 4 + (1 + diff_tf) * n_tf * 16,
+                 ops=samples * ops)
 
 
 def check_k3_counts(got, want, what, early_exit):
@@ -864,10 +880,18 @@ def phase_probes(dev, card):
     CUDA graph and from Python, with the plain version and the library
     call.  The four gather kernels' counts are set to 0 just before and
     read just after; each must have launched, as often as its probes say.
+    Then an empty kernel timed in a CUDA graph as the probes are, the
+    launch floor printed beside each probe, and the probes of the two
+    redesigned kernels (``probe_take.cu``; ``probe_take_along.cu``'s loop
+    sums, with P2 as the unchanged single gather) timed against the parent
+    checkout's build where one is unpacked under ``_archive/base``
+    (``_probe.against_parent``, bound as ``sweep_ab.py`` binds it).
     Returns the probes' entries of the ``kernels`` line."""
     import importlib
+    from pathlib import Path
 
     from libre_tpu_torch.benchmarks import MODULES
+    from libre_tpu_torch.benchmarks import _probe
     from libre_tpu_torch.ops import gather
 
     t_phase = time.perf_counter()
@@ -883,8 +907,9 @@ def phase_probes(dev, card):
             raise AssertionError(f"{kernel}: {n} launches, its probes counted {per_probe}")
     if [r["probe"] for r in results] != list(PROBE_WORK):
         raise AssertionError(f"probes {[r['probe'] for r in results]} vs {list(PROBE_WORK)}")
-    print(f"gather probes: us per call in a CUDA graph (from Python), bound, kernel / library "
-          f"{card}")
+    floor = _probe.launch_floor_ms()
+    print(f"gather probes: us per call in a CUDA graph (from Python), bound, kernel / library; "
+          f"launch floor (an empty kernel in a CUDA graph) {floor * 1e3:.3f} us {card}")
     entries, slower = [], []
     for r in results:
         b_ms, b_by = bound(*PROBE_WORK[r["probe"]])
@@ -895,7 +920,8 @@ def phase_probes(dev, card):
               + (f" {lib * 1e3:.3f} ({r['library_call_ms'] * 1e3:.3f}) us" if lib is not None
                  else "")
               + f"; bound {b_ms * 1e3:.5f} us ({b_by}), kernel at {b_ms / r['ms']:.4f} of it; "
-              f"kernel / library {vs_lib}; {r['launches']} launches")
+              f"{r['ms'] / floor:.2f}x the launch floor; kernel / library {vs_lib}; "
+              f"{r['launches']} launches")
         if lib is not None and r["ms"] > lib:
             slower.append((r["ms"] / lib, r["probe"], r["kernel"]))
         entries.append({
@@ -916,6 +942,20 @@ def phase_probes(dev, card):
     print("  kernels slower than their library call (rule 2's order), kernel / library: "
           + ("; ".join(f"{p} {k} {x:.3f}" for x, p, k in sorted(slower, reverse=True))
              or "none"))
+    parent = Path(__file__).resolve().parent / "_archive" / "base"
+    if (parent / "libre_tpu_torch" / "csrc" / "probe_take.cu").exists():
+        probes = [p for name in MODULES
+                  for p in importlib.import_module(f"libre_tpu_torch.benchmarks.{name}").PROBES
+                  if p.id in PROBE_AB]
+        ab = _probe.against_parent(probes, parent, ("probe_take", "probe_take_along"), dev)
+        print(f"  against the parent's build ({parent}), us in a CUDA graph, bit-equal "
+              f"{card}:")
+        for pid, (ms, parent_ms) in ab.items():
+            print(f"    {pid}: {ms * 1e3:.3f} against the parent's {parent_ms * 1e3:.3f} "
+                  f"({ms / parent_ms - 1:+.1%}); launch floor {floor * 1e3:.3f}")
+    else:
+        print("  no parent checkout under _archive/base: the redesigned probes are not timed "
+              "against the parent")
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     return entries
 
@@ -2273,9 +2313,14 @@ def phase_exact_set(dev, card, exact_tol):
 
 
 # ------------------------------------------------------------------ phase 31
-FINISH_TF_SIZES = (1, 32, 1024)  # phase 31: K3 and K4 through their runtime-T instances
+# Phase 31: K3 and K4 through their runtime-T instances, shared (T <= 4096)
+# and global (past it: a 65 536-entry TF is what a .1dt file of a uint16
+# volume's value range holds).
+FINISH_TF_SIZES = (1, 32, 1024, 4096, 8192, 65536)
 FINISH_TRAIN_TF = 32  # the exact trainer's TF in phase 31, as the JAX trainer's tests and dry run
 FINISH_STEPS = 5
+FINISH_WIDE_TF = 8192  # a TF past the shared instances: trainer steps and one xla frame
+FINISH_WIDE_STEPS = 2
 WALL_FRAMES = 2  # timed frames of each wall layout and its sequential loop, after one warm-up
 WALL_REQUESTS = 3  # 2x2 service requests through the wall and through the loop (the first cold)
 
@@ -2339,6 +2384,7 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
     from libre_tpu_torch.apps.serve import RenderService
     from libre_tpu_torch.ops import _kernels, exact
     from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.render.registry import create_renderer
     from libre_tpu_torch.ops import shearwarp_dense as swd
     from libre_tpu_torch.ops import shearwarp_grad as swg
     from libre_tpu_torch.testing import smooth_volume, tf_of_size
@@ -2359,24 +2405,39 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
         return (gt[None], slot, v.brick_boxes, tf, v.ray_pack,
                 torch.zeros((v.n_rays, 4), device=dev), v.eye, v.params)
 
-    times = {}
+    samples = torch.zeros(view.n_rays, dtype=torch.int32, device=dev)
+    exact.march_exact(*k3_args(torch.from_numpy(tf_of_size(256)).to(dev), view),
+                      max_steps=view.max_steps, width=view.width, samples=samples)
+    n_samples = int(samples.sum())  # the same at every T: the exit is off
+    one = torch.ones(1, dtype=torch.int32)
+    times, bounds, plain_ms, inst_errs = {}, {}, {}, {}
     for n_tf in (256,) + FINISH_TF_SIZES:
+        kind = exact.tf_instance(n_tf)
         tf = torch.from_numpy(tf_of_size(n_tf)).to(dev)
         if n_tf != 256:
             what = f"T = {n_tf}, {SUBSET}x{SUBSET} window of training view 0"
             out_w = exact.march_exact(*k3_args(tf, win), max_steps=win.max_steps, width=SUBSET)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             want_w = exact.march_exact_reference(*k3_args(tf, win), max_steps=win.max_steps)
             torch.cuda.synchronize()
-            errs["exact_march"] = max(errs["exact_march"],
-                                      compare(out_w, want_w, f"K3, {what}", exact_tol))
+            t1 = time.perf_counter()
+            k3_err = compare(out_w, want_w, f"K3, {what}", exact_tol)
             got = exact.march_exact_backward(gt, tf, win, out_w, g_win)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
             want = exact.march_exact_backward_reference(gt, tf, win, out_w, g_win)
             torch.cuda.synchronize()
+            plain_ms[n_tf] = ((t1 - t0) * 1e3, (time.perf_counter() - t2) * 1e3)
+            k4_err = 0.0
             for name, a, b in zip(("d_volume", "d_tf"), got, want):
                 compare_grads(a, b, f"K4, {what}: {name}", 1.1, EXACT_GRAD_TOL_MAX,
                               expect_zero=n_tf == 1 and name == "d_volume")
-                errs["exact_march_bwd"] = max(errs["exact_march_bwd"],
-                                              float((a - b).abs().max()))
+                k4_err = max(k4_err, float((a - b).abs().max()))
+            errs["exact_march"] = max(errs["exact_march"], k3_err)
+            errs["exact_march_bwd"] = max(errs["exact_march_bwd"], k4_err)
+            old = inst_errs.get(kind, (0.0, 0.0))
+            inst_errs[kind] = (max(old[0], k3_err), max(old[1], k4_err))
         fwd = k3_args(tf, view)
         out = exact.march_exact(*fwd, max_steps=view.max_steps, width=view.width)
         times[n_tf] = (
@@ -2384,17 +2445,27 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
                     reps=10),
             cuda_ms(lambda: exact.march_exact_backward(gt, tf, view, out, g), reps=5, warmup=1),
         )
-        print(f"  training view 0 over the {EXACT_TRAIN_N}^3 truth, T = {n_tf} "
-              f"({'fixed' if n_tf == 256 else 'runtime-T'} instances): K3 {times[n_tf][0]:.4f} ms, "
-              f"K4 {times[n_tf][1]:.4f} ms (TF gradient on, d_volume zeroing included) {card}")
+        bounds[n_tf] = (
+            k3_bound_of(samples, one, gt.numel() * 4, 1, view.n_rays, "trilinear", True, n_tf),
+            k4_bound_of(gt.numel(), view.n_rays, n_samples, "trilinear", True, n_tf),
+        )
+        print(f"  training view 0 over the {EXACT_TRAIN_N}^3 truth, T = {n_tf} ({kind} "
+              f"instances): K3 {times[n_tf][0]:.4f} ms (bound {bounds[n_tf][0][0]:.4f} ms, "
+              f"{bounds[n_tf][0][1]}), K4 {times[n_tf][1]:.4f} ms (TF gradient on, d_volume "
+              f"zeroing included; bound {bounds[n_tf][1][0]:.4f} ms, {bounds[n_tf][1][1]}) "
+              f"{card}")
         del fwd, out
 
     # The main path's set-up: the trainer's target and state, the service.
     tf32 = torch.from_numpy(tf_of_size(FINISH_TRAIN_TF)).to(dev)
+    tf_wide = torch.from_numpy(tf_of_size(FINISH_WIDE_TF)).to(dev)
     with torch.no_grad():
         target = exact.render_exact_diff(gt, tf32, view)
+        target_wide = exact.render_exact_diff(gt, tf_wide, view)
     state = init_exact_state(torch.full(gt.shape, 0.5, device=dev), tf32,
                              lambda p: torch.optim.Adam(p, lr=5e-2), device=dev)
+    state_wide = init_exact_state(torch.full(gt.shape, 0.5, device=dev), tf_wide,
+                                  lambda p: torch.optim.Adam(p, lr=5e-2), device=dev)
     train_step = make_exact_train_step(view)
     svc = RenderService(URI, width=size, height=size, host="127.0.0.1", port=0, device=dev)
     seng = svc.engine
@@ -2426,6 +2497,7 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
 
     half = np.asarray(engine.info.world_size, np.float32) * 0.5
     camera, frustum = pose
+    tf_engine = engine.transfer_function
 
     def store_frame(compute_dtype):
         """Phase 4's last pose through ``render_store_frame`` on the
@@ -2455,7 +2527,18 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
                   exact.march_exact_backward, swd.pre_sweep)
         for wrapper in counts:
             wrapper.launches = 0
+        for wrapper in counts[2:4]:
+            wrapper.instance_launches = dict.fromkeys(exact.TF_INSTANCES, 0)
         losses = [float(train_step(state, target)) for _ in range(FINISH_STEPS)]
+        losses_wide = [float(train_step(state_wide, target_wide))
+                       for _ in range(FINISH_WIDE_STEPS)]
+        engine.transfer_function = tf_wide
+        try:
+            with captured(exact, "march_exact") as xla_calls:
+                xla_frame = create_renderer("xla").render(engine, camera, frustum,
+                                                          screen_space_error=SERVE_SSE)
+        finally:
+            engine.transfer_function = tf_engine
         for layout in ("1x2", "2x2"):
             svc.layout = layout
             kw = {k: v for k, v in svc.frame_keywords().items() if k != "synchronous"}
@@ -2493,6 +2576,8 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
         torch.cuda.synchronize()
         launches = dict(zip(("post_sweep", "store_grid_bwd", "exact_march", "exact_march_bwd",
                              "pre_sweep"), (w.launches for w in counts)))
+        instances = {name: dict(w.instance_launches)
+                     for name, w in (("exact_march", counts[2]), ("exact_march_bwd", counts[3]))}
         # ----------------------------------------------- end of phase 31's main path
     finally:
         seng.plan_wall = real_plan
@@ -2504,20 +2589,54 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
         raise AssertionError("render_store_frame's f32 frame is not the engine's frame")
     print(f"phase 31 main path launches: {launches}")
     n_wall_views = sum(2 * len(w["views"]) * (1 + WALL_FRAMES) for w in walls.values())
-    want = {"exact_march": FINISH_STEPS, "exact_march_bwd": FINISH_STEPS, "store_grid_bwd": 0,
-            "post_sweep": n_wall_views + 2 * 4 * WALL_REQUESTS + 2, "pre_sweep": 2}
-    if launches != want:
+    n_steps = FINISH_STEPS + FINISH_WIDE_STEPS
+    want = {"exact_march": n_steps + len(xla_calls), "exact_march_bwd": n_steps,
+            "store_grid_bwd": 0, "post_sweep": n_wall_views + 2 * 4 * WALL_REQUESTS + 2,
+            "pre_sweep": 2}
+    if launches != want or not xla_calls:
         raise AssertionError(f"phase 31 launched {launches}, expected {want}")
-    print(f"exact trainer from a {FINISH_TRAIN_TF}-entry TF (runtime-T K3 and K4), view 0, "
-          f"{FINISH_STEPS} Adam steps: losses {losses}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"the T = {FINISH_TRAIN_TF} trainer did not lower its loss: {losses}")
-    if state.params["tf"].shape != (FINISH_TRAIN_TF, 4):
-        raise AssertionError(f"the trainer's TF is {tuple(state.params['tf'].shape)}")
-    k256, k32, k1024 = times[256], times[32], times[1024]
-    print(f"K3 / K4 on the whole of view 0: T = 256 {k256[0]:.4f} / {k256[1]:.4f} ms, T = 32 "
-          f"{k32[0]:.4f} / {k32[1]:.4f} ms, T = 1024 {k1024[0]:.4f} / {k1024[1]:.4f} ms, T = 1 "
-          f"{times[1][0]:.4f} / {times[1][1]:.4f} ms {card}")
+    want_inst = {
+        "exact_march": {"fixed": 0, "shared": FINISH_STEPS,
+                        "global": FINISH_WIDE_STEPS + len(xla_calls)},
+        "exact_march_bwd": {"fixed": 0, "shared": FINISH_STEPS, "global": FINISH_WIDE_STEPS},
+    }
+    print(f"phase 31 main path launches by instance: {instances}")
+    if instances != want_inst:
+        raise AssertionError(f"phase 31 launched the instances {instances}, expected {want_inst}")
+    for n_tf, ls, st in ((FINISH_TRAIN_TF, losses, state), (FINISH_WIDE_TF, losses_wide,
+                                                          state_wide)):
+        print(f"exact trainer from a {n_tf}-entry TF ({exact.tf_instance(n_tf)} K3 and K4 "
+              f"instances), view 0, {len(ls)} Adam steps: losses {ls}")
+        if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+            raise AssertionError(f"the T = {n_tf} trainer did not lower its loss: {ls}")
+        if st.params["tf"].shape != (n_tf, 4):
+            raise AssertionError(f"the trainer's TF is {tuple(st.params['tf'].shape)}")
+    # The xla frame from the wide TF: K3 (global instance) vs plain on a
+    # window of its first pass's rays.
+    (xargs, xkw), = xla_calls[:1]
+    side_x = camera.viewport[2]
+    lo_x = (side_x - SUBSET) // 2
+    pack = xargs[4].reshape(8, -1, side_x)[:, lo_x:lo_x + SUBSET, lo_x:lo_x + SUBSET]
+    sub_args = (*xargs[:4], pack.reshape(8, -1).contiguous(),
+                xargs[5].reshape(-1, side_x, 4)[lo_x:lo_x + SUBSET, lo_x:lo_x + SUBSET]
+                .reshape(-1, 4).contiguous(), *xargs[6:])
+    got = exact.march_exact(*sub_args, max_steps=xkw["max_steps"], width=SUBSET)
+    want_x = exact.march_exact_reference(*sub_args, max_steps=xkw["max_steps"])
+    torch.cuda.synchronize()
+    xla_err = compare(got, want_x, f"K3 of the xla frame from a {FINISH_WIDE_TF}-entry TF, "
+                                   f"{SUBSET}x{SUBSET} window of its first pass", exact_tol)
+    errs["exact_march"] = max(errs["exact_march"], xla_err)
+    inst_errs["global"] = (max(inst_errs["global"][0], xla_err), inst_errs["global"][1])
+    if not (bool(torch.isfinite(xla_frame).all()) and tuple(xla_frame.shape) == (size, size, 4)
+            and float(xla_frame[..., 3].max()) > 0.1):
+        raise AssertionError(f"the xla frame from a {FINISH_WIDE_TF}-entry TF is wrong")
+    print(f"xla frame from a {FINISH_WIDE_TF}-entry TF at {size}x{size} (sse {SERVE_SSE}): "
+          f"{len(xla_calls)} K3 launches (global instance), its window {xla_err:.3e} from plain")
+    print(f"K3 / K4 on the whole of view 0 by T (ms; T = 256 the fixed instances) {card}: "
+          + "; ".join(f"T = {t} {times[t][0]:.4f} / {times[t][1]:.4f}" for t in sorted(times)))
+    for t in (4096, 8192, 65536):
+        print(f"  T = {t} against T = 256: K3 {times[t][0] / times[256][0] - 1:+.1%}, "
+              f"K4 {times[t][1] / times[256][1] - 1:+.1%}")
 
     for layout, w in walls.items():
         wall_canvas = w["runs"]["wall"][-1][1]
@@ -2564,10 +2683,27 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
         launches[kernel] = launches.get(kernel, 0) + n
     for kernel, err in demo_errs.items():
         errs[kernel] = max(errs.get(kernel, 0.0), err)
-    del gt, state, target, svc, seng
+    del gt, state, target, state_wide, target_wide, svc, seng
     torch.cuda.empty_cache()
+    # The kernels line's entries of K3's and K4's runtime-T instances: the
+    # main path's launches of each; times on training view 0 at T = 1024
+    # (shared) and 8192 (global), the plain versions' on the window.
+    instance_entries = []
+    for kind, n_tf, label in (("shared", 1024, "shared (T <= 4096, T != 256)"),
+                              ("global", FINISH_WIDE_TF, "global (T > 4096)")):
+        for i, (name, src, replaces) in enumerate((
+                ("exact_march", "exact_march.cu", "libre_tpu/ops/exact_pallas.py:481"),
+                ("exact_march_bwd", "exact_march_bwd.cu", "libre_tpu/ops/exact_pallas.py:1405"))):
+            instance_entries.append({
+                "name": name, "instance": f"{label}, T = {n_tf}", "route": "cuda",
+                "source": f"libre_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": instances[name][kind], "max_abs_err": inst_errs[kind][i],
+                "ms": times[n_tf][i], "plain_ms": plain_ms[n_tf][i],
+                "bound_ms": bounds[n_tf][i][0], "bound_by": bounds[n_tf][i][1],
+                "library_ms": None,
+            })
     print(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
-    return launches, errs
+    return launches, errs, instance_entries
 
 
 def bf16_sites(k1_calls, k5_calls, card):
@@ -3347,14 +3483,7 @@ def main() -> int:
         return (volume[None], slot, view.brick_boxes, tf_, view.ray_pack)
 
     def k4_work_bound(volume, view, samples, filter_mode, diff_tf):
-        """K4's bound: the volume read and d_volume written once, the ray
-        pack, out and g read, the TF and (with the TF gradient) d_tf;
-        every sample's operations."""
-        ops = K4_OPS_PER_SAMPLE[filter_mode] - (0 if diff_tf else K4_TF_OPS_PER_SAMPLE)
-        return bound(
-            bytes_=2 * volume.numel() * 4 + view.n_rays * 16 * 4 + (1 + diff_tf) * TF_BYTES,
-            ops=samples * ops,
-        )
+        return k4_bound_of(volume.numel(), view.n_rays, samples, filter_mode, diff_tf)
 
     def compare_k4(got, want, what, zero_d_volume=False):
         errs = [compare_grads(a, b, f"{what}: {name}", 1.1, EXACT_GRAD_TOL_MAX,
@@ -3956,8 +4085,8 @@ def main() -> int:
     exact_set = phase_exact_set(dev, card, exact_tol)
     phase_done(30, quiet=True)
     # ----- 31. K3 and K4 at any TF size, the multi-view wall, the bf16 resample
-    p31_launches, p31_errs = phase_finish(dev, card, exact_tol, ex_views[0], engine, poses[-1],
-                                          dense_last, serve_2x2_ms)
+    p31_launches, p31_errs, p31_instances = phase_finish(
+        dev, card, exact_tol, ex_views[0], engine, poses[-1], dense_last, serve_2x2_ms)
     phase_done(31, quiet=True)
     print("phase seconds (utils.profiling.StageTimers):")
     for line in timers.report().splitlines():
@@ -4022,6 +4151,7 @@ def main() -> int:
         },
         {
             "name": "exact_march",
+            "instance": "fixed (T = 256)",
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/exact_march.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:481",
@@ -4039,6 +4169,7 @@ def main() -> int:
         },
         {
             "name": "exact_march_bwd",
+            "instance": "fixed (T = 256)",
             "route": "cuda",
             "source": "libre_tpu_torch/csrc/exact_march_bwd.cu",
             "replaces": "libre_tpu/ops/exact_pallas.py:1405",
@@ -4065,7 +4196,7 @@ def main() -> int:
             "bound_by": k5_bound[1],
             "library_ms": None,
         },
-    ] + probe_entries}))
+    ] + p31_instances + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

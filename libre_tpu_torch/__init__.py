@@ -8,24 +8,52 @@ numpy host layer it needs (octree, LOD selection, frustum, caches,
 configuration, datasources, image files) is copied into ``core/``,
 ``data/`` and ``utils/``.
 
-Implemented slices:
+Implemented slices (every module of ``libre_tpu`` has its counterpart;
+the README's port section says how each runs):
 
 * rendering, bricked: ``render_cli`` → ``RenderEngine.render_bricked``
-  (in-core, single-store branch) → the post-classification sweep kernel
-  (``csrc/post_sweep.cu``) → screen warp → image;
-* training: ``train.fit`` → per view ``render_store_grid_diff`` (the sweep
-  kernel forward, the recompute-backward kernel ``csrc/store_grid_bwd.cu``
-  backward) → MSE → ``torch.optim`` → clamp and SENTINEL pinning;
+  (in core, or out of core in slab passes; synchronous or with async
+  uploads; one view or a multi-view wall, ``render_wall``) → the
+  post-classification sweep kernel (``csrc/post_sweep.cu``, f32 or its
+  bf16-resample instance) → screen warp → image;
 * rendering, exact (the ``xla`` and ``pallas-exact`` renderers):
   ``render_cli`` → ``RenderEngine.render`` (synchronous multipass) → the
-  exact per-ray march kernel (``csrc/exact_march.cu``) → image.
+  exact per-ray march kernel (``csrc/exact_march.cu``, a TF of any size)
+  → image;
+* rendering, dense (the ``shearwarp`` renderer):
+  ``RenderEngine.render_shearwarp`` → the pre-classified sweep kernel
+  (``csrc/pre_sweep.cu``) → warp → image;
+* training: the store trainer (``train.fit``: ``post_sweep.cu`` forward,
+  ``csrc/store_grid_bwd.cu`` backward), the exact trainers over one brick
+  and over a brick set (``csrc/exact_march_bwd.cu`` backward), the dense
+  trainer (plain PyTorch through autograd) and ``models.VolumeScene``;
+* the interactive service and apps (``apps/serve``, the steering server
+  and client, ``batch``, ``convert``), per-brick histograms, the
+  benchmark scripts and gather probes (``benchmarks/``, the probe kernels
+  ``csrc/probe_*.cu``), ``entry``;
+* the multi-device layer ``parallel/``: a (ray × brick) mesh of devices,
+  the engine's sharded frame, the sharded trainers, ``torch.distributed``.
 
-The rest (the dense renderer, out of core, the exact and dense trainers,
-``models.VolumeScene``, the service and apps, the benchmark scripts,
-``entry``, and the multi-device layer ``parallel/`` with the engine's
-sharded frame and the sharded trainers) is listed in the README's port
-section; ROADMAP.md says what is left.
+The package-level names are ``libre_tpu``'s: the octree node id, the
+volume information and the LOD node of ``core/``.
 
 Kernels are compiled with ``nvcc`` at first use (``ops/_kernels.py``); on
 a CPU tensor each kernel's wrapper runs its plain PyTorch version.
 """
+
+from libre_tpu_torch.core.lodnode import LODNode
+from libre_tpu_torch.core.nodeid import NodeId, RootNode
+from libre_tpu_torch.core.volume_info import (
+    DataType,
+    VolumeInformation,
+    fill_regular_volume_info,
+)
+
+__all__ = [
+    "NodeId",
+    "RootNode",
+    "DataType",
+    "VolumeInformation",
+    "fill_regular_volume_info",
+    "LODNode",
+]

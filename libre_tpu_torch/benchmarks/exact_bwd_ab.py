@@ -2,6 +2,7 @@
 as two checkouts have it, on one NVIDIA GPU::
 
     python -m libre_tpu_torch.benchmarks.exact_bwd_ab --parent DIR [--rounds 3] [--reps 10]
+        [--tf-size T]
 
 ``DIR`` is another checkout of the repo, e.g. a parent commit unpacked
 with ``git archive``.  Both sources are built at once with the port's
@@ -9,10 +10,11 @@ flags and ``-Xptxas -v`` (registers and spills printed); each build is
 bound with the launcher signature its source declares (a launcher with no
 ``early_exit`` operand is the kernel from before the exit rule, which
 walks every sample; one with an ``n_bricks`` operand walks a brick set,
-here the one brick; one with an ``n_tf`` operand is given T = 256, its
-fixed instance).  The operands are the exact trainer's view 0 (512²
-rays, 512 samples per ray, trilinear, the early exit off) over the 512³
-smooth ground truth with the default TF, K3's forward and a seeded
+here the one brick; one with an ``n_tf`` operand is given the TF's T,
+256 by default, its fixed instance, and ``--tf-size`` another).  The
+operands are the exact trainer's view 0 (512² rays, 512 samples per ray,
+trilinear, the early exit off) over the 512³ smooth ground truth with the
+default TF (``testing.tf_of_size``), K3's forward and a seeded
 N(0, 1) cotangent.  Each build's gradients are held against the plain
 version's (normalised by its max |·|, within
 ``testing.EXACT_GRAD_TOL_MAX``); then the builds are timed with CUDA
@@ -37,22 +39,9 @@ import torch
 from ..apps.render_cli import build_camera
 from ..ops import _kernels, exact
 from ..ops.reference import RenderParams
-from ..ops.transfer_function import default_color_map
-from ..testing import EXACT_GRAD_TOL_MAX, smooth_volume
+from ..testing import EXACT_GRAD_TOL_MAX, smooth_volume, tf_of_size
 from ._common import timed
 from .demo_inverse_render import EYES
-
-
-def build(out_dir: Path, tag: str, src: Path):
-    """nvcc ``src`` with the port's flags → (library path, ptxas report)."""
-    lib = out_dir / ("lib" + re.sub(r"\W+", "_", tag) + ".so")
-    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stdout}\n{proc.stderr}")
-    regs = re.findall(r"Used (\d+) registers", proc.stderr)
-    spills = re.findall(r"(\d+) bytes spill stores", proc.stderr)
-    return lib, f"{','.join(regs)} registers, {','.join(spills) or '0'} bytes spilled"
 
 
 def launcher_params(src: Path):
@@ -71,6 +60,7 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--tf-size", type=int, default=256)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("exact_bwd_ab: no CUDA device")
@@ -88,10 +78,11 @@ def main(argv=None) -> int:
     out_dir = Path(tempfile.mkdtemp(prefix="exact_bwd_ab-"))
     try:
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-            futures = {t: pool.submit(build, out_dir, t, s) for t, s in jobs.items()}
+            futures = {t: pool.submit(_kernels.build_verbose, out_dir, t, s)
+                       for t, s in jobs.items()}
             built = {t: f.result() for t, f in futures.items()}
         for tag, (_lib, report) in built.items():
-            print(f"build {tag}: {report}")
+            print(f"build {tag}: {_kernels.report_text(report)}")
 
         n = 512
         params = RenderParams(n_samples_per_ray=512, data_source_range=(0.0, 1.0),
@@ -99,7 +90,7 @@ def main(argv=None) -> int:
         view = exact.exact_view(build_camera(512, 512, EYES[0], (0.0, 0.0, 0.0))[0], params,
                                 device=dev)
         volume = smooth_volume(n, seed=7, device=dev)
-        tf = torch.from_numpy(default_color_map()).to(dev)
+        tf = torch.from_numpy(tf_of_size(args.tf_size)).to(dev)
         with torch.no_grad():
             out = exact.render_exact_diff(volume, tf, view)
         g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(dev)
@@ -110,6 +101,8 @@ def main(argv=None) -> int:
         def run_of(tag):
             fn = getattr(ctypes.CDLL(str(built[tag][0])), "exact_march_bwd")
             floats, over_set, takes_n_tf = launcher_params(jobs[tag])
+            if not takes_n_tf and tf.shape[0] != 256:
+                raise ValueError(f"{tag}'s launcher takes only a 256-entry TF")
             ints = [1, 1] + [1] * over_set + [view.n_rays, view.width, n, n, n, view.max_steps]
             tail = [tf.shape[0]] * takes_n_tf
             fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * len(ints)
@@ -147,9 +140,9 @@ def main(argv=None) -> int:
             for tag in order + order[::-1]:
                 times[tag].append(timed(runs[tag], dev, args.reps)[0] * 1e3)
         base = min(times[order[0]])
-        print("K4 on exact training view 0 over the 512^3 ground truth (512x512 rays, 512 "
-              "samples per ray, trilinear, early exit off, TF gradient on; d_volume and d_tf "
-              "zeroed in each call):")
+        print(f"K4 on exact training view 0 over the 512^3 ground truth (512x512 rays, 512 "
+              f"samples per ray, trilinear, early exit off, TF gradient on, T = {tf.shape[0]}; "
+              f"d_volume and d_tf zeroed in each call):")
         for tag in order:
             ts = times[tag]
             print(f"  {tag}: {min(ts):.4f}-{max(ts):.4f} ms ({min(ts) / base - 1.0:+.2%} "

@@ -36,8 +36,9 @@
 // t_n > hi since t is monotone in n.  Each member sample fetches the brick in
 // place from its atlas slot (native dtype: f32, uint8 or uint16; the cast to
 // f32 is exact) at tex = (eye + dir*t)*s + o, nearest or trilinear,
-// normalises by the data range, looks the (T, 4) transfer function up in
-// shared memory, applies the opacity correction 1 - (1 - min(a, 1-1/256))^corr
+// normalises by the data range, looks the (T, 4) transfer function up (in
+// shared memory up to kSharedTfMax entries, past it in global memory),
+// applies the opacity correction 1 - (1 - min(a, 1-1/256))^corr
 // with powf and composites front to back.  A sample is skipped iff the
 // accumulated alpha before it exceeds early_exit; from then on nothing
 // changes, so the thread leaves both loops.  That is exact.  A brick left
@@ -63,13 +64,17 @@
 // sample set, taps and texel coordinates come from exact_sample.cuh, shared
 // with the recompute backward (exact_march_bwd.cu).
 //
-// The TF's size T.  A 256-entry TF (every caller of the engine, the
-// trainers' default) runs the fixed instances (kDynTf = false): a static
-// 256-entry table and T folded to the constant, so that this path keeps its
-// registers and time (PERF.md section 6).  Any other T from 1 to kMaxTf runs the runtime-T instances
-// (kDynTf = true): T is the launch operand n_tf, the table lies in dynamic
-// shared memory sized to it, and the TF coordinate is clip(d, 0, 1) T - 0.5
-// clamped to [0, T - 1], i1 = min(i0 + 1, T - 1), as the JAX marcher's
+// The TF's size T, a template choice (exact_sample.cuh's kinds).  A 256-entry
+// TF (every caller of the engine, the trainers' default) runs the fixed
+// instances (kTfFixed): a static 256-entry table and T folded to the
+// constant, so that this path keeps its registers and time (PERF.md section
+// 6).  Any other T up to kSharedTfMax runs the shared instances (kTfShared):
+// T is the launch operand n_tf and the table lies in dynamic shared memory
+// sized to it.  Past that, with no limit but memory, the global instances
+// (kTfGlobal) read the float4 TF from global memory through L2 only
+// (exact_sample.cuh::tf_entry; a 65 536-entry TF is 1 MB of the 50 MB).  In
+// every kind the TF coordinate is clip(d, 0, 1) T - 0.5 clamped to
+// [0, T - 1], i1 = min(i0 + 1, T - 1), as the JAX marcher's
 // (raycast.py:107-112).
 
 #include <cuda_runtime.h>
@@ -130,30 +135,39 @@ __device__ __forceinline__ bool in_cone(float4 p, float4 q, float ex, float ey,
   return !(angle_to(ax, ay, az, wx, wy, wz) > theta + asinf(rad / d));
 }
 
-template <typename T, bool kTrilinear, bool kDynTf>
-__global__ void __launch_bounds__(kThreads) exact_march_kernel(
-    const T* __restrict__ atlas,        // (n_slots, BZ, BY, BX)
-    const int* __restrict__ slots,      // (B,)
-    const float4* __restrict__ boxes,   // (B, 4) float4, raycast.BOX_FLOATS
-    const float4* __restrict__ tf,      // (T,) rgba
-    const float* __restrict__ rays,     // (8, R), raycast.PACK_ROWS
-    const float4* __restrict__ carry,   // (R,) rgba in
-    float4* __restrict__ out,           // (R,) rgba out
-    int* __restrict__ samples,          // (R,) or null: += samples composited
-    int* __restrict__ used,             // (B,) or null: 1 if the brick composited any
-    int n_bricks, int n_rays, int width, int bx, int by, int bz, int max_steps,
-    float ex, float ey, float ez, float step, float mult, float add, float corr,
-    float early_exit, int n_tf) {
-  __shared__ float4 s_tf_fixed[kDynTf ? 1 : kTfSize];
-  extern __shared__ float4 s_tf_dyn[];  // (n_tf,) in the runtime-T instances
-  float4* s_tf = kDynTf ? s_tf_dyn : s_tf_fixed;
-  const int n = exact::tf_size<kDynTf>(n_tf);
+// The kernels' operands.
+#define EXACT_MARCH_PARAMS                                                            \
+  const T *__restrict__ atlas,      /* (n_slots, BZ, BY, BX) */                       \
+      const int *__restrict__ slots,    /* (B,) */                                     \
+      const float4 *__restrict__ boxes, /* (B, 4) float4, raycast.BOX_FLOATS */        \
+      const float4 *__restrict__ tf,    /* (T,) rgba */                                \
+      const float *__restrict__ rays,   /* (8, R), raycast.PACK_ROWS */                \
+      const float4 *__restrict__ carry, /* (R,) rgba in */                             \
+      float4 *__restrict__ out,         /* (R,) rgba out */                            \
+      int *__restrict__ samples,        /* (R,) or null: += samples composited */      \
+      int *__restrict__ used, /* (B,) or null: 1 if the brick composited any */        \
+      int n_bricks, int n_rays, int width, int bx, int by, int bz, int max_steps,      \
+      float ex, float ey, float ez, float step, float mult, float add, float corr,     \
+      float early_exit, int n_tf
+#define EXACT_MARCH_OPERANDS                                                         \
+  atlas, slots, boxes, tf, rays, carry, out, samples, used, n_bricks, n_rays, width, \
+      bx, by, bz, max_steps, ex, ey, ez, step, mult, add, corr, early_exit, n_tf
+
+template <typename T, bool kTrilinear, int kTf>
+__device__ __forceinline__ void exact_march_body(EXACT_MARCH_PARAMS) {
+  __shared__ float4 s_tf_fixed[kTf == exact::kTfFixed ? kTfSize : 1];
+  extern __shared__ float4 s_tf_dyn[];  // (n_tf,) in the shared instances
+  float4* s_tf = kTf == exact::kTfShared ? s_tf_dyn : s_tf_fixed;
+  // The table the samples read: the global instances read the TF itself.
+  const float4* tf_table = kTf == exact::kTfGlobal ? tf : s_tf;
+  const int n = exact::tf_size<kTf>(n_tf);
   __shared__ int s_list[kBrickChunk];
   __shared__ float s_red[kWarps][4];
   __shared__ int s_count[kWarps];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < n; i += kThreads) s_tf[i] = tf[i];
+  if (kTf != exact::kTfGlobal)
+    for (int i = tid; i < n; i += kThreads) s_tf[i] = tf[i];
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -237,7 +251,8 @@ __global__ void __launch_bounds__(kThreads) exact_march_kernel(
             exact::taps_at<kTrilinear>(ray, t, ex, ey, ez, s, o, bx, by, bz);
         const float raw = exact::fetch<T, kTrilinear>(brick, k, bx, by);
         const exact::TfTaps q = exact::tf_taps(exact::normalise(raw, mult, add), n);
-        const float4 src = sweep::lerp4(s_tf[q.i0], s_tf[q.i1], q.w);
+        const float4 src = sweep::lerp4(exact::tf_entry<kTf>(tf_table, q.i0),
+                                        exact::tf_entry<kTf>(tf_table, q.i1), q.w);
         const float alpha = 1.0f - powf(1.0f - fminf(src.w, kAlphaClamp), corr);
         const float w = alpha * (1.0f - ca);
         cr = cr + src.x * w;
@@ -257,7 +272,35 @@ __global__ void __launch_bounds__(kThreads) exact_march_kernel(
   if (samples != nullptr) samples[r] += count;
 }
 
-template <typename T, bool kTrilinear, bool kDynTf>
+// The fixed and shared instances.
+template <typename T, bool kTrilinear, int kTf>
+__global__ void __launch_bounds__(kThreads) exact_march_kernel(EXACT_MARCH_PARAMS) {
+  exact_march_body<T, kTrilinear, kTf>(EXACT_MARCH_OPERANDS);
+}
+
+// The global instances, with a floor of one block an SM in their launch
+// bounds: without it ptxas holds the uint8 and uint16 trilinear instances to
+// 72 registers, for occupancy, and spills 12 and 28 bytes; with it they take
+// 84-86 and spill nothing (PERF.md section 6 has both builds' times).
+template <typename T, bool kTrilinear>
+__global__ void __launch_bounds__(kThreads, 1) exact_march_global_kernel(EXACT_MARCH_PARAMS) {
+  exact_march_body<T, kTrilinear, exact::kTfGlobal>(EXACT_MARCH_OPERANDS);
+}
+
+#undef EXACT_MARCH_OPERANDS
+#undef EXACT_MARCH_PARAMS
+
+// The kernel of an instance; only the kind asked for is instantiated.
+template <typename T, bool kTrilinear, int kTf>
+auto kernel_of() {
+  if constexpr (kTf == exact::kTfGlobal) {
+    return exact_march_global_kernel<T, kTrilinear>;
+  } else {
+    return exact_march_kernel<T, kTrilinear, kTf>;
+  }
+}
+
+template <typename T, bool kTrilinear, int kTf>
 cudaError_t launch_instance(const void* atlas, dim3 grid, dim3 block,
                             cudaStream_t stream, const int* slots,
                             const float4* boxes, const float4* tf,
@@ -266,9 +309,9 @@ cudaError_t launch_instance(const void* atlas, dim3 grid, dim3 block,
                             int width, int bx, int by, int bz, int max_steps,
                             float ex, float ey, float ez, float step, float mult,
                             float add, float corr, float early_exit, int n_tf) {
-  const auto kernel = exact_march_kernel<T, kTrilinear, kDynTf>;
-  const int smem = kDynTf ? n_tf * (int)sizeof(float4) : 0;
-  if (kDynTf) {
+  const auto kernel = kernel_of<T, kTrilinear, kTf>();
+  const int smem = kTf == exact::kTfShared ? n_tf * (int)sizeof(float4) : 0;
+  if (kTf == exact::kTfShared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -289,28 +332,33 @@ cudaError_t launch_typed(const void* atlas, int trilinear, dim3 grid, dim3 block
                          int width, int bx, int by, int bz, int max_steps,
                          float ex, float ey, float ez, float step, float mult,
                          float add, float corr, float early_exit, int n_tf) {
-#define EXACT_MARCH_INSTANCE(kTrilinear, kDynTf)                                     \
-  launch_instance<T, kTrilinear, kDynTf>(atlas, grid, block, stream, slots, boxes, tf, \
-                                         rays, carry, out, samples, used, n_bricks,    \
-                                         n_rays, width, bx, by, bz, max_steps, ex, ey, \
-                                         ez, step, mult, add, corr, early_exit, n_tf)
-  const bool dyn = n_tf != kTfSize;
-  if (trilinear) return dyn ? EXACT_MARCH_INSTANCE(true, true) : EXACT_MARCH_INSTANCE(true, false);
-  return dyn ? EXACT_MARCH_INSTANCE(false, true) : EXACT_MARCH_INSTANCE(false, false);
+#define EXACT_MARCH_INSTANCE(kTrilinear, kTf)                                       \
+  launch_instance<T, kTrilinear, kTf>(atlas, grid, block, stream, slots, boxes, tf,    \
+                                      rays, carry, out, samples, used, n_bricks,       \
+                                      n_rays, width, bx, by, bz, max_steps, ex, ey, ez, \
+                                      step, mult, add, corr, early_exit, n_tf)
+#define EXACT_MARCH_KINDS(kTrilinear)                                              \
+  (kind == exact::kTfFixed    ? EXACT_MARCH_INSTANCE(kTrilinear, exact::kTfFixed)  \
+   : kind == exact::kTfShared ? EXACT_MARCH_INSTANCE(kTrilinear, exact::kTfShared) \
+                              : EXACT_MARCH_INSTANCE(kTrilinear, exact::kTfGlobal))
+  const int kind = exact::tf_kind(n_tf);
+  const cudaError_t err = trilinear ? EXACT_MARCH_KINDS(true) : EXACT_MARCH_KINDS(false);
+#undef EXACT_MARCH_KINDS
 #undef EXACT_MARCH_INSTANCE
+  return err;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 uint8, 2 uint16 (ops/exact.py::ATLAS_DTYPES); n_tf:
-// the TF's entries, 1 to exact::kMaxTf.
+// the TF's entries, at least 1.
 extern "C" int exact_march(
     const void* atlas, const void* slots, const void* boxes, const void* tf,
     const void* rays, const void* carry, void* out, void* samples, void* used,
     int dtype, int trilinear, int n_bricks, int n_rays, int width, int bx,
     int by, int bz, int max_steps, float ex, float ey, float ez, float step,
     float mult, float add, float corr, float early_exit, int n_tf, void* stream) {
-  if (n_tf < 1 || n_tf > exact::kMaxTf) return (int)cudaErrorInvalidValue;
+  if (n_tf < 1) return (int)cudaErrorInvalidValue;
   const dim3 block(kTileX, kTileY);
   const int height = (n_rays + width - 1) / width;
   const dim3 grid((width + kTileX - 1) / kTileX, (height + kTileY - 1) / kTileY);

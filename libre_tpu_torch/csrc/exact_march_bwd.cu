@@ -54,7 +54,8 @@
 // trilinear, 1 nearest) into a d_volume the wrapper zeroes.  TF gradients go
 // through tf_grad.cuh, as store_grid_bwd.cu's: a run per thread in
 // registers, warp-aggregated flushes into the CTA's shared (T, 4) table,
-// added to the global d_tf once per CTA, so no second TF pass.  With
+// added to the global d_tf once per CTA (past kSharedTfMax entries, the
+// flushes go to d_tf itself), so no second TF pass.  With
 // diff_tf = 0 (the TF needs no gradient) the accumulator is skipped.
 //
 // What bounds it: per sample, the forward's 8 (1) dependent loads and 8 (1)
@@ -67,12 +68,17 @@
 // another order, so both must see the same samples with the same values.
 // The float atomics add in an order that changes from run to run.
 //
-// The TF's size T, as in exact_march.cu: a 256-entry TF runs the fixed
-// instances (kDynTf = false: static tables, T folded to 256, so that they
-// keep their registers and time); any other T from 1 to kMaxTf the runtime-T instances,
-// with T the launch operand n_tf and the float4 TF and (with diff_tf) its
-// gradient table in dynamic shared memory sized to it.  The gates and the
-// TF slope read T: 0 < s < T - 1, and dd scales by T.
+// The TF's size T, a template choice as in exact_march.cu: a 256-entry TF
+// runs the fixed instances (kTfFixed: static tables, T folded to 256, so
+// that they keep their registers and time); any other T up to kSharedTfMax
+// the shared instances (kTfShared), with T the launch operand n_tf and the
+// float4 TF and (with diff_tf) its gradient table in dynamic shared memory
+// sized to it; past it, with no limit but memory, the global instances
+// (kTfGlobal): the TF read from global memory through L2,
+// and tf_grad.cuh's runs and warp-aggregated flushes kept, each flush added
+// straight into the global d_tf (one float atomic per bin, channel, warp and
+// flush) in place of the block's shared table and its end-of-block pass.
+// The gates and the TF slope read T: 0 < s < T - 1, and dd scales by T.
 
 #include <cuda_runtime.h>
 
@@ -86,7 +92,7 @@ using exact::kTfSize;
 using exact::kTileX;
 using exact::kTileY;
 
-template <bool kTrilinear, bool kExit, bool kSet, bool kDynTf>
+template <bool kTrilinear, bool kExit, bool kSet, int kTf>
 __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
     const float* __restrict__ bricks,    // (B, BZ, BY, BX)
     const float4* __restrict__ boxes,    // (B, 4) float4, raycast.BOX_FLOATS
@@ -99,18 +105,29 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
     int diff_tf, int n_bricks, int n_rays, int width, int bx, int by, int bz,
     int max_steps, float ex, float ey, float ez, float step, float mult,
     float add, float corr, float early_exit, int n_tf) {
-  __shared__ float4 s_tf_fixed[kDynTf ? 1 : kTfSize];
-  __shared__ float s_dtf_fixed[kDynTf ? 1 : tfgrad::kTableFloats];
-  // Runtime T: the (n_tf,) float4 TF, then (with diff_tf) the n_tf x 4 table.
+  __shared__ float4 s_tf_fixed[kTf == exact::kTfFixed ? kTfSize : 1];
+  __shared__ float s_dtf_fixed[kTf == exact::kTfFixed ? tfgrad::kTableFloats : 1];
+  // The shared instances: the (n_tf,) float4 TF, then (with diff_tf) the
+  // n_tf x 4 table.
   extern __shared__ float4 s_dyn[];
-  const int n = exact::tf_size<kDynTf>(n_tf);
-  float4* s_tf = kDynTf ? s_dyn : s_tf_fixed;
-  float* s_dtf = kDynTf ? reinterpret_cast<float*>(s_dyn + n_tf) : s_dtf_fixed;
+  const int n = exact::tf_size<kTf>(n_tf);
+  // The nearest set instance with a shared TF holds T as floats from here:
+  // converted per sample, as the other instances do, it spilled 16 bytes.
+  constexpr bool kHoist = !kTrilinear && kSet && kTf == exact::kTfShared;
+  const float n_f = (float)n, last_f = (float)(n - 1);
+  float4* s_tf = kTf == exact::kTfShared ? s_dyn : s_tf_fixed;
+  // The global instances read the TF and flush into d_tf themselves.
+  const float4* tf_table = kTf == exact::kTfGlobal ? tf : s_tf;
+  float* dtf_table = kTf == exact::kTfShared   ? reinterpret_cast<float*>(s_dyn + n_tf)
+                     : kTf == exact::kTfGlobal ? d_tf
+                                               : s_dtf_fixed;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
-  for (int i = tid; i < n; i += n_threads) s_tf[i] = tf[i];
-  if (diff_tf) tfgrad::zero_table(s_dtf, tid, n_threads, n);
-  __syncthreads();
+  if (kTf != exact::kTfGlobal) {
+    for (int i = tid; i < n; i += n_threads) s_tf[i] = tf[i];
+    if (diff_tf) tfgrad::zero_table(dtf_table, tid, n_threads, n);
+    __syncthreads();
+  }
   tfgrad::Run run;
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -142,7 +159,8 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
             exact::normalise(exact::fetch<float, kTrilinear>(brick, k, bx, by),
                              mult, add);
         const exact::TfTaps q = exact::tf_taps(dens, n);
-        const float4 c0 = s_tf[q.i0], c1 = s_tf[q.i1];
+        const float4 c0 = exact::tf_entry<kTf>(tf_table, q.i0);
+        const float4 c1 = exact::tf_entry<kTf>(tf_table, q.i1);
         const float4 c = sweep::lerp4(c0, c1, q.w);
 
         // Forward recompute, with K3's expression for alpha.
@@ -161,13 +179,14 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
         const float wr = w * gv.x, wg = w * gv.y, wb = w * gv.z;
 
         // TF lerp -> bins i0 (1 - w) and i1 (w).
-        if (diff_tf) run.add(s_dtf, q.i0, q.w, wr, wg, wb, dav, n);
+        if (diff_tf) run.add(dtf_table, q.i0, q.w, wr, wg, wb, dav, n);
 
         // TF slope -> density gates -> data range -> the fetch's taps.
-        if (dens > 0.0f && dens < 1.0f && q.s > 0.0f && q.s < (float)(n - 1)) {
+        if (dens > 0.0f && dens < 1.0f && q.s > 0.0f &&
+            q.s < (kHoist ? last_f : (float)(n - 1))) {
           const float dd = (wr * (c1.x - c0.x) + wg * (c1.y - c0.y) +
                             wb * (c1.z - c0.z) + dav * (c1.w - c0.w)) *
-                           (float)n * mult;
+                           (kHoist ? n_f : (float)n) * mult;
           if (!kTrilinear) {
             atomicAdd(d_brick + ((size_t)k.z.i0 * by + k.y.i0) * bx + k.x.i0, dd);
           } else {
@@ -194,13 +213,15 @@ __global__ void __launch_bounds__(kTileX* kTileY) exact_march_bwd_kernel(
     }
   }
   if (diff_tf) {  // uniform over the block
-    run.flush(s_dtf, n);  // the ray's last run, if any
-    __syncthreads();
-    tfgrad::add_table(s_dtf, d_tf, tid, n_threads, n);
+    run.flush(dtf_table, n);  // the ray's last run, if any
+    if (kTf != exact::kTfGlobal) {
+      __syncthreads();
+      tfgrad::add_table(dtf_table, d_tf, tid, n_threads, n);
+    }
   }
 }
 
-template <bool kTrilinear, bool kExit, bool kSet, bool kDynTf>
+template <bool kTrilinear, bool kExit, bool kSet, int kTf>
 cudaError_t launch_instance(dim3 grid, dim3 block, cudaStream_t stream,
                             const float* bricks, const float4* boxes, const float4* tf,
                             const float* rays, const float4* out, const float4* g,
@@ -208,9 +229,10 @@ cudaError_t launch_instance(dim3 grid, dim3 block, cudaStream_t stream,
                             int n_rays, int width, int bx, int by, int bz, int max_steps,
                             float ex, float ey, float ez, float step, float mult,
                             float add, float corr, float early_exit, int n_tf) {
-  const auto kernel = exact_march_bwd_kernel<kTrilinear, kExit, kSet, kDynTf>;
-  const int smem = kDynTf ? n_tf * (int)sizeof(float4) * (diff_tf ? 2 : 1) : 0;
-  if (kDynTf) {
+  const auto kernel = exact_march_bwd_kernel<kTrilinear, kExit, kSet, kTf>;
+  const int smem =
+      kTf == exact::kTfShared ? n_tf * (int)sizeof(float4) * (diff_tf ? 2 : 1) : 0;
+  if (kTf == exact::kTfShared) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -224,14 +246,14 @@ cudaError_t launch_instance(dim3 grid, dim3 block, cudaStream_t stream,
 
 }  // namespace
 
-// n_tf: the TF's entries, 1 to exact::kMaxTf.
+// n_tf: the TF's entries, at least 1.
 extern "C" int exact_march_bwd(
     const void* bricks, const void* boxes, const void* tf, const void* rays,
     const void* out, const void* g, void* d_volume, void* d_tf,
     int trilinear, int diff_tf, int n_bricks, int n_rays, int width, int bx,
     int by, int bz, int max_steps, float ex, float ey, float ez, float step, float mult,
     float add, float corr, float early_exit, int n_tf, void* stream) {
-  if (n_tf < 1 || n_tf > exact::kMaxTf) return (int)cudaErrorInvalidValue;
+  if (n_tf < 1) return (int)cudaErrorInvalidValue;
   const dim3 block(kTileX, kTileY);
   const int height = (n_rays + width - 1) / width;
   const dim3 grid((width + kTileX - 1) / kTileX, (height + kTileY - 1) / kTileY);
@@ -242,10 +264,13 @@ extern "C" int exact_march_bwd(
       (float*)d_volume, (float*)d_tf, diff_tf, n_bricks, n_rays, width, bx,    \
       by, bz, max_steps, ex, ey, ez, step, mult, add, corr, early_exit, n_tf
   const bool exit = early_exit <= 1.0f;
-  const bool dyn = n_tf != kTfSize;
-#define EXACT_MARCH_BWD(kTrilinear, kExit, kSet)                                 \
-  (dyn ? launch_instance<kTrilinear, kExit, kSet, true>(EXACT_MARCH_BWD_ARGS)    \
-       : launch_instance<kTrilinear, kExit, kSet, false>(EXACT_MARCH_BWD_ARGS))
+  const int kind = exact::tf_kind(n_tf);
+#define EXACT_MARCH_BWD(kTrilinear, kExit, kSet)                                          \
+  (kind == exact::kTfFixed                                                                \
+       ? launch_instance<kTrilinear, kExit, kSet, exact::kTfFixed>(EXACT_MARCH_BWD_ARGS)  \
+   : kind == exact::kTfShared                                                             \
+       ? launch_instance<kTrilinear, kExit, kSet, exact::kTfShared>(EXACT_MARCH_BWD_ARGS) \
+       : launch_instance<kTrilinear, kExit, kSet, exact::kTfGlobal>(EXACT_MARCH_BWD_ARGS))
   cudaError_t err;
   if (n_bricks > 1) {
     if (trilinear && exit) err = EXACT_MARCH_BWD(true, true, true);

@@ -207,17 +207,50 @@ __device__ __forceinline__ TfTaps tf_taps(float dens, int n = kTfSize) {
   return k;
 }
 
-// The largest TF the runtime-T instances take (ops/exact.py::EXACT_TF_MAX):
-// K4 holds the float4 table and its gradient table in dynamic shared memory,
-// 32 bytes an entry, 128 KB at this size (of the 227 KB a block may use).
-constexpr int kMaxTf = 4096;
+// Where K3 and K4 keep the TF, a template choice of each instance, never a
+// branch at run time (8-11 more registers cost K4 7% of its time, PERF.md).
+//   kTfFixed:  a 256-entry TF (every caller of the engine, the trainers'
+//              default) in a static shared table, T folded to 256;
+//   kTfShared: any other T up to kSharedTfMax, in dynamic shared memory
+//              sized to T (K4 also holds its gradient table there);
+//   kTfGlobal: T past kSharedTfMax, with no upper limit: the float4 TF read
+//              from global memory through L2 (a 65 536-entry TF is 1 MB and
+//              stays there), K4's TF-gradient flushes added straight into
+//              the global d_tf.
+constexpr int kTfFixed = 0;
+constexpr int kTfShared = 1;
+constexpr int kTfGlobal = 2;
 
-// The TF's size: 256 in the fixed instances (kDynTf = false), where it
-// folds to the constant; the launch operand n_tf in the runtime-T
-// instances.
-template <bool kDynTf>
+// The largest TF the shared instances hold (ops/exact.py::EXACT_TF_MAX):
+// K4 keeps the float4 table and its gradient table in dynamic shared
+// memory, 32 bytes an entry, 128 KB at this size (of the 227 KB a block
+// may use).  Past it the global instances run.
+constexpr int kSharedTfMax = 4096;
+
+// The instance kind of an n_tf-entry TF.
+__host__ __device__ __forceinline__ int tf_kind(int n_tf) {
+  return n_tf == kTfSize ? kTfFixed : n_tf <= kSharedTfMax ? kTfShared : kTfGlobal;
+}
+
+// The TF's size: 256 in the fixed instances, where it folds to the
+// constant; the launch operand n_tf in the others.
+template <int kTf>
 __device__ __forceinline__ int tf_size(int n_tf) {
-  return kDynTf ? n_tf : kTfSize;
+  return kTf == kTfFixed ? kTfSize : n_tf;
+}
+
+// TF entry i from the table an instance keeps: `table` in shared memory
+// for the fixed and shared instances, the global TF for the global ones,
+// read through L2 only (__ldcg), so that the TF's scattered lines do not
+// take L1 from the brick's voxels (K3 11% faster than through the read-only
+// L1 path, PERF.md).
+template <int kTf>
+__device__ __forceinline__ float4 tf_entry(const float4* table, int i) {
+  if constexpr (kTf == kTfGlobal) {
+    return __ldcg(table + i);
+  } else {
+    return table[i];
+  }
 }
 
 }  // namespace exact

@@ -2,8 +2,9 @@
 // store_grid_bwd.cu (K2) and exact_march_bwd.cu (K4): one accumulator that
 // both share, over an n-entry TF: n = 256 (kTfSize) in K2 and in K4's fixed
 // instances, where every n below folds to that constant (K2's code stays
-// what it is); any n up to exact_sample.cuh's kMaxTf in K4's
-// runtime-T instances, whose table lies in dynamic shared memory.  A sample
+// what it is); any n up to exact_sample.cuh's kSharedTfMax in K4's shared
+// instances, whose table lies in dynamic shared memory; any larger n in
+// K4's global instances, whose "table" is the global d_tf itself.  A sample
 // at TF coordinate s (bins i0 = floor(s) and i1 = min(i0 + 1, n - 1), lerp
 // weight wt) adds its (w g_r, w g_g, w g_b,
 // dL/da) x (1 - wt) to bin i0 and x wt to bin i1, as the plain versions'
@@ -22,7 +23,9 @@
 //    divergent code) sum their runs with shuffles, and one lane adds the
 //    sum to the block's n x 4 table in shared memory with shared atomics.
 //    At the end of the block the table is added to the global d_tf, one
-//    float atomic per non-zero entry.
+//    float atomic per non-zero entry.  K4's global instances (a TF too
+//    large for shared memory) give d_tf as the table: the flush's atomics
+//    go to L2 and there is no end-of-block pass.
 //
 // So a sample's TF gradient reaches shared memory only through a run's
 // flush: on the trainers' flat start, one shared atomic per bin and warp

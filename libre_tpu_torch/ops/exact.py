@@ -21,11 +21,13 @@ exit on K4 walks only the samples K3 composited.
 :func:`render_exact_diff` is the same render with the early exit off
 (the exact trainer's semantics).
 
-The TF is any (T, 4), as the JAX marcher's: the plain versions take any
-T ≥ 1; the kernels take 1 ≤ T ≤ ``EXACT_TF_MAX`` (4096, their tables in
-shared memory), a 256-entry TF through their fixed
-instances and any other T through their runtime-T instances, and raise a
-``ValueError`` that states the limit above it.
+The TF is any (T, 4) with T ≥ 1, as the JAX marcher's, on the CPU and on
+the card: the kernels run a 256-entry TF through their fixed instances,
+any other T up to ``EXACT_TF_MAX`` (4096) through their shared instances
+(the TF, and K4's gradient table, in shared memory) and any larger T
+through their global instances (the TF read from global memory, K4's TF
+gradient flushed straight into ``d_tf``); :func:`tf_instance` names the
+kind a T runs.
 
 Of the JAX package's planning (``plan_exact``) only what fixes the sample
 grid and the per-brick box is kept: ``raycast.ray_pack`` and
@@ -60,17 +62,38 @@ from libre_tpu_torch.ops.reference import (
 )
 
 __all__ = [
-    "ATLAS_DTYPES", "EXACT_TF_MAX", "ExactView", "RenderMarcherDiff", "exact_view",
-    "march_exact", "march_exact_backward", "march_exact_backward_reference",
+    "ATLAS_DTYPES", "EXACT_TF_MAX", "ExactView", "RenderMarcherDiff", "TF_INSTANCES",
+    "exact_view", "march_exact", "march_exact_backward", "march_exact_backward_reference",
     "march_exact_reference", "render_exact", "render_exact_diff",
-    "render_exact_rays", "render_marcher_diff",
+    "render_exact_rays", "render_marcher_diff", "tf_instance",
 ]
 
 # Atlas dtypes the kernel reads in place, by its dtype code.
 ATLAS_DTYPES = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
-# The largest TF the kernels take (csrc/exact_sample.cuh::kMaxTf): K4's
-# runtime-T instances hold the TF and its gradient table in shared memory.
+# The largest TF the kernels' shared instances hold
+# (csrc/exact_sample.cuh::kSharedTfMax): K4's hold the TF and its gradient
+# table in shared memory.  Past it the global instances run.
 EXACT_TF_MAX = 4096
+# The kernels' instance kinds by where they keep the TF
+# (csrc/exact_sample.cuh::tf_kind).
+TF_INSTANCES = ("fixed", "shared", "global")
+
+
+def tf_instance(n_tf: int) -> str:
+    """The kind of K3's and K4's instance an ``n_tf``-entry TF runs:
+    "fixed" at 256 entries, "shared" up to ``EXACT_TF_MAX``, "global"
+    past it."""
+    if n_tf < 1:
+        raise ValueError(f"a TF has at least one entry, got {n_tf}")
+    return "fixed" if n_tf == 256 else "shared" if n_tf <= EXACT_TF_MAX else "global"
+
+
+def _count(wrapper, n_tf):
+    """One launch of ``wrapper``'s kernel through the instance kind of an
+    ``n_tf``-entry TF: ``wrapper.launches`` and
+    ``wrapper.instance_launches[kind]``."""
+    wrapper.launches += 1
+    wrapper.instance_launches[tf_instance(n_tf)] += 1
 
 
 def _check_operands(who, atlas, slots, boxes, tf, rays, params, per_ray, samples=None,
@@ -79,15 +102,10 @@ def _check_operands(who, atlas, slots, boxes, tf, rays, params, per_ray, samples
     ``slots`` None means every brick of ``atlas`` in its order (the
     backward's set).  ``per_ray`` names the (R, 4) f32 operands (the carry,
     or the backward's forward output and cotangent).  The TF is any (T, 4)
-    with T ≥ 1, and T ≤ ``EXACT_TF_MAX`` off the CPU."""
+    with T ≥ 1."""
     n_bricks = atlas.shape[0] if slots is None else slots.shape[0]
     n_rays = next(iter(per_ray.values())).shape[0]
     n_tf = tf.shape[0] if tf.dim() == 2 else 0
-    if atlas.device.type != "cpu" and n_tf > EXACT_TF_MAX:
-        raise ValueError(
-            f"{who}: the kernels take a TF of 1 to {EXACT_TF_MAX} entries (their tables "
-            f"lie in shared memory), got T = {n_tf}"
-        )
     expect = {
         "boxes": (boxes, torch.float32, (n_bricks, BOX_FLOATS)),
         "tf": (tf, torch.float32, (max(n_tf, 1), 4)),
@@ -135,7 +153,8 @@ def march_exact(
 
     Operands and result as :func:`march_exact_reference`.  On a CUDA
     tensor this launches ``csrc/exact_march.cu`` on the current stream
-    (``march_exact.launches`` counts the launches); ``width`` is the
+    (``march_exact.launches`` counts the launches, and
+    ``march_exact.instance_launches`` by :func:`tf_instance`); ``width`` is the
     screen width the kernel tiles the rays by (16×8 rays per block;
     default: all rays in one row).  On a CPU tensor it runs the plain
     version; on any other device it raises.
@@ -173,11 +192,12 @@ def march_exact(
             int(max_steps), ex, ey, ez, params.step_size, 1.0 / (hi - lo),
             -lo / (hi - lo), params.alpha_correction, params.early_exit, tf.shape[0],
         )
-    march_exact.launches += 1
+    _count(march_exact, tf.shape[0])
     return out
 
 
 march_exact.launches = 0
+march_exact.instance_launches = dict.fromkeys(TF_INSTANCES, 0)
 
 
 def march_exact_backward(
@@ -203,7 +223,7 @@ def march_exact_backward(
     On a CUDA tensor this zeroes the gradients and launches
     ``csrc/exact_march_bwd.cu`` on the current stream, in tiles of
     ``view.width`` rays per row (``march_exact_backward.launches`` counts
-    the launches); on a CPU tensor it runs the plain version; on any other
+    the launches, ``instance_launches`` by :func:`tf_instance`); on a CPU tensor it runs the plain version; on any other
     device it raises."""
     who = "march_exact_backward"
     if volume.dtype != torch.float32:
@@ -240,11 +260,12 @@ def march_exact_backward(
             1.0 / (hi - lo), -lo / (hi - lo), params.alpha_correction, params.early_exit,
             tf.shape[0],
         )
-    march_exact_backward.launches += 1
+    _count(march_exact_backward, tf.shape[0])
     return d_volume, d_tf
 
 
 march_exact_backward.launches = 0
+march_exact_backward.instance_launches = dict.fromkeys(TF_INSTANCES, 0)
 
 
 def _require_no_early_exit(who, params: RenderParams):

@@ -130,7 +130,8 @@ def take_along(
     along it the table may be wider or taller than the index.
 
     Serves the probes' ``take_along_axis`` lookups (P2-P4, P7, P10, P16)
-    and their loop sums (P5, P6, P8)."""
+    and their loop sums (P5, P6, P8: the part of the table a warp's outputs
+    read staged in shared memory, up to 48 KB of it)."""
     what = "take_along"
     device = _check_operands(what, [table], [idx])
     _check(what, table.dim() == 2 and idx.dim() == 2, "table and idx must be 2-D")

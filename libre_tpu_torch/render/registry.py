@@ -34,6 +34,11 @@ def create_renderer(name: str) -> "RendererPlugin":
         ) from None
 
 
+def available_renderers():
+    """The registered renderers' names, sorted."""
+    return sorted(_RENDERERS)
+
+
 class RendererPlugin:
     """Renderer interface: produce an (H, W, 4) frame for a view."""
 

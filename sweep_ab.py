@@ -4,6 +4,7 @@ as this checkout and another have them (K4 has its own script,
 ``python -m libre_tpu_torch.benchmarks.exact_bwd_ab``).
 
     python3 sweep_ab.py --parent DIR [--rounds 2] [--reps 20] [--kernels K5,K1,K3,K2]
+                        [--tf-size T]
 
 ``DIR`` is another checkout of the repo, e.g. a parent commit unpacked
 with ``git archive``.  The script builds K5 (``csrc/pre_sweep.cu``), K1
@@ -22,7 +23,9 @@ bricks), ``testing.dense_case("slice")`` and, for K2, the 512² rays × 512
 planes of ``testing.store_grad_case`` over a random 512³ store with the
 early exit off and the TF gradient on.  It checks every sweep build
 bit-equal to the plain version, every K3 build bit-equal to the
-recorded launch, every K2 build within the backward kernels' bound of
+recorded launch (with ``--tf-size`` T other than 256, the recorded launch
+with a T-entry TF, every K3 build bit-equal to the parent's: the runtime-T
+instances), every K2 build within the backward kernels' bound of
 the plain backward, prints the work behind the time (planes listed per
 tile and composited at), and times the builds by CUDA events in rounds
 of the order given and its reverse, each time with the card's name and
@@ -33,27 +36,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import re
 import shutil
 import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-
-def build(out_dir: Path, tag: str, src: Path):
-    """nvcc ``src`` with the port's flags → (library path, ptxas report)."""
-    from libre_tpu_torch.ops import _kernels
-
-    lib = out_dir / ("lib" + re.sub(r"\W+", "_", tag) + ".so")
-    cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stdout}\n{proc.stderr}")
-    regs = re.findall(r"Used (\d+) registers", proc.stderr)
-    spills = re.findall(r"(\d+) bytes spill stores", proc.stderr)
-    return lib, f"{','.join(regs)} registers, {','.join(spills) or '0'} bytes spilled"
-
 
 def bind(lib: Path, name: str, src: Path):
     """Launcher ``name`` of ``lib``, typed as its source ``src`` declares it."""
@@ -117,6 +105,8 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", default="K5,K1,K3,K2")
+    ap.add_argument("--tf-size", type=int, default=256,
+                    help="K3's TF entries (256: the recorded launch's TF)")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     parent_src = args.parent.resolve() / "libre_tpu_torch" / "csrc"
@@ -151,10 +141,11 @@ def main() -> int:
             jobs[f"{k} parent"] = parent_src / f"{sources[k]}.cu"
             jobs[k] = src / f"{sources[k]}.cu"
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-            futures = {t: pool.submit(build, out_dir, t, s) for t, s in jobs.items()}
+            futures = {t: pool.submit(_kernels.build_verbose, out_dir, t, s)
+                       for t, s in jobs.items()}
             built = {t: f.result() for t, f in futures.items()}
         for tag, (_lib, report) in built.items():
-            print(f"build {tag}: {report}")
+            print(f"build {tag}: {_kernels.report_text(report)}")
 
         def runs_of(k, recorded, out_index, zero=()):
             return {t: launcher(bind(built[t][0], sources[k], jobs[t]), recorded, out_index, zero)
@@ -219,12 +210,24 @@ def main() -> int:
             want, _t = swb.post_sweep_reference(store, tf, tables, clip, **kw)
             time_builds("K1, orbit view", runs_of("K1", k1_args, 12), want, args.rounds,
                         args.reps, card, cuda_ms)
-        if "K3" in kernels:
+        if "K3" in kernels and args.tf_size == 256:
             # The recorded launch's output is the check: a build of the same
             # f32, T = 256 code gives it bit for bit.
             time_builds(f"K3, orbit view ({k3_args[11]} bricks, {k3_args[12]} rays)",
                         runs_of("K3", k3_args, 6), k3_want, args.rounds, args.reps, card,
                         cuda_ms, against="the recorded K3 launch")
+        elif "K3" in kernels:
+            # Another T: the recorded launch with an n-entry TF, every build
+            # bit-equal to the parent's.
+            from libre_tpu_torch.testing import tf_of_size
+
+            tf_n = torch.from_numpy(tf_of_size(args.tf_size)).to(dev)
+            k3_args = (*k3_args[:3], tf_n, *k3_args[4:-1], args.tf_size)
+            runs = runs_of("K3", k3_args, 6)
+            parent_out = runs["K3 parent"]().clone()
+            time_builds(f"K3, orbit view ({k3_args[11]} bricks, {k3_args[12]} rays), "
+                        f"T = {args.tf_size}", runs, parent_out, args.rounds, args.reps, card,
+                        cuda_ms, against="the parent build")
         if "K2" in kernels:
             store, tf, tables, out, t_out, g, kw = store_grad_case(
                 (512, 512, 512, 512, 512, 512), seed=0, device=dev, early_exit=1.1)

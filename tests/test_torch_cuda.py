@@ -9,6 +9,7 @@ jax is not installed:
 
 import contextlib
 import dataclasses
+import functools
 import importlib
 
 import numpy as np
@@ -629,12 +630,57 @@ PROBES = [p for m in PROBE_MODULES
           for p in importlib.import_module(f"libre_tpu_torch.benchmarks.{m}").PROBES]
 
 
+def _gather_case(wrapper, table_shape, idx_range, idx_shape, **kw):
+    """A build of a probe-like case: a seeded table, int32 indices in
+    ``idx_range`` (and, for a ``lane`` of width w, lanes in [0, w))."""
+    lane, offset = kw.pop("lane", False), kw.pop("offset", False)
+
+    def build(device, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        table = torch.randn(table_shape, generator=g, device=device)
+        lo, hi = idx_range
+        idx = torch.randint(lo, hi, idx_shape, generator=g, device=device, dtype=torch.int32)
+        args = (table, idx)
+        if lane:
+            args += (torch.randint(0, table_shape[-1], idx_shape, generator=g, device=device,
+                                   dtype=torch.int32),)
+        if offset:  # a view 4 bytes past an aligned start
+            args = (table, torch.cat([idx.new_zeros(1), idx.reshape(-1)])[1:].reshape(idx_shape),
+                    *args[2:])
+        return functools.partial(wrapper, **kw), args, idx.numel()
+    return build
+
+
+# The redesigned paths at inputs the probes do not reach (ids name them):
+# the staged loop sum with no mod, a mod below its chunk, a ragged loop and
+# ragged lanes; the vector take with rows of 12 and of 6, lanes, an output
+# count that is no multiple of 4, and unaligned indices (the scalar path).
+GATHER_CASES = [
+    ("loop no mod", _gather_case(gather.take_along, (8, 1024), (0, 512), (8, 128),
+                                 axis=1, loop=512)),
+    ("loop mod 5", _gather_case(gather.take_along, (8, 128), (-40, 40), (8, 100),
+                                axis=1, loop=37, mod=5)),
+    ("loop ragged axis 0", _gather_case(gather.take_along, (24, 45), (-100, 100), (3, 45),
+                                        axis=0, loop=83, mod=24)),
+    ("loop ragged axis 1", _gather_case(gather.take_along, (5, 300), (0, 300), (5, 70),
+                                        axis=1, loop=29, mod=300)),
+    ("take row 12", _gather_case(gather.take, (300, 12), (0, 300), (37,), row=12)),
+    ("take row 6", _gather_case(gather.take, (300, 6), (0, 300), (37,), row=6)),
+    ("take lane", _gather_case(gather.take, (256, 128), (0, 256), (1027,), lane=True)),
+    ("take ragged count", _gather_case(gather.take, (4099,), (0, 4099), (7, 147))),
+    ("take unaligned", _gather_case(gather.take, (4099,), (0, 4099), (1021,), offset=True)),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("probe", PROBES, ids=lambda p: p.id)
+@pytest.mark.parametrize("probe", PROBES + [c for _, c in GATHER_CASES],
+                         ids=[p.id for p in PROBES] + [n for n, _ in GATHER_CASES])
 def test_gather_probe_kernel_bit_equal(cuda, probe):
-    """Each gather probe (P1-P17) at its full shape: one launch of its
-    kernel, bit-equal to the plain version on the same seeded inputs."""
-    fn, args, _work = probe.build(device=cuda, seed=0)
+    """Each gather probe (P1-P17) at its full shape, and each case of
+    ``GATHER_CASES``: one launch of its kernel, bit-equal to the plain
+    version on the same seeded inputs."""
+    build = probe.build if hasattr(probe, "build") else probe
+    fn, args, _work = build(device=cuda, seed=0)
     launches = fn.func.launches
     got = fn(*args)
     want = plain_of(fn)(*args)
@@ -699,7 +745,13 @@ def test_gather_kernels_edges(cuda, case):
 @pytest.mark.cuda
 def test_gather_kernels_out_of_range_index_gives_nan(cuda):
     """An index past its table reads nothing and gives NaN (jnp's fill
-    mode); the others are unaffected."""
+    mode); the others are unaffected.  The loop sum: a negative index or a
+    run past the table without mod, and (launched directly: the wrapper
+    refuses it) a mod past the table's extent, whose sums are NaN exactly
+    where the loop reaches an index outside the table; the vector take:
+    a row past the table, a lane past the width, and a ragged last group."""
+    from libre_tpu_torch.ops import _kernels
+
     table = torch.arange(16.0, device=cuda)
     idx = torch.tensor([3, 16, -1, 15], device=cuda, dtype=torch.int32)
     got = gather.take(table, idx).cpu()
@@ -710,6 +762,45 @@ def test_gather_kernels_out_of_range_index_gives_nan(cuda):
     idx = torch.tensor([[3, 8], [-1, 7]], device=cuda, dtype=torch.int32)
     got = gather.take_along(table.reshape(2, 8), idx, 1).cpu()
     assert got[0, 0] == 3.0 and got[1, 1] == 15.0 and bool(got[[0, 1], [1, 0]].isnan().all())
+
+    # The staged loop sum over (2, 40): a negative start and a run past the
+    # end are NaN, the rest the plain sums.
+    rows = torch.arange(80.0, device=cuda).reshape(2, 40)
+    idx = torch.tensor([[-1, 0, 31, 32], [0, 5, 33, -7]], device=cuda, dtype=torch.int32)
+    got = gather.take_along(rows, idx, 1, loop=9).cpu()
+    bad = torch.tensor([[True, False, False, True], [False, False, True, True]])
+    assert bool(got[bad].isnan().all()) and not bool(got[~bad].isnan().any())
+    ok = idx.clamp(0, 31)
+    want = gather.take_along_reference(rows, ok, 1, loop=9).cpu()
+    assert torch.equal(got[~bad], want[~bad])
+    # mod = 50 past the extent 40: from i the loop visits i .. min(i + 8,
+    # 49) and wraps to 0; NaN iff that reaches 40.
+    idx = torch.tensor([[0, 30, 35, 45], [49, 31, 20, -3]], device=cuda, dtype=torch.int32)
+    out = torch.empty(idx.shape, device=cuda)
+    _kernels.launch("probe_take_along", rows, idx, out, 2, 4, 2, 40, 1, 9, 50)
+    got = out.cpu()
+    table_np, idx_np = rows.cpu().numpy().astype(np.float64), idx.cpu().numpy()
+    for r in range(2):
+        for c in range(4):
+            visits = [(int(idx_np[r, c]) % 50 + k) % 50 for k in range(9)]
+            if max(visits) >= 40:
+                assert bool(got[r, c].isnan()), (r, c, visits)
+            else:
+                acc = np.float32(0.0)
+                for i in visits:
+                    acc = np.float32(acc + np.float32(table_np[r, i]))
+                assert float(got[r, c]) == float(acc), (r, c)
+    # The vector take: rows of 4 (one float4 each), one past the table; a
+    # lane past the width; 7 outputs (a ragged last group).
+    got = gather.take(table.reshape(4, 4), torch.tensor([2, 4, 0], device=cuda,
+                                                        dtype=torch.int32), row=4).cpu()
+    assert torch.equal(got[[0, 2]], torch.tensor([[8.0, 9, 10, 11], [0, 1, 2, 3]]))
+    assert bool(got[1].isnan().all())
+    idx = torch.tensor([0, 1, 2, 3, 3, 2, 1], device=cuda, dtype=torch.int32)
+    lane = torch.tensor([0, 1, 2, 3, 4, 3, 2], device=cuda, dtype=torch.int32)
+    got = gather.take(table.reshape(4, 4), idx, lane).cpu()
+    assert torch.equal(got[[0, 1, 2, 3, 5, 6]], torch.tensor([0.0, 5, 10, 15, 11, 6]))
+    assert bool(got[4].isnan())
 
 
 # --------------------------- the exit rule in K4, and the paths over it
@@ -986,54 +1077,73 @@ def test_exact_march_bwd_one_brick_set_is_the_brick_form(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tf", [1, 32, 255, 1024])
+@pytest.mark.parametrize("n_tf", [1, 32, 255, 1024, 4096, 4097, 8192, 65536])
 def test_exact_kernels_take_any_tf_size(cuda, n_tf):
-    """K3 and K4 through their runtime-T instances: K3 on the scattered
+    """K3 and K4 through their runtime-T instances (shared up to 4096
+    entries, global past it, ``exact.tf_instance``): K3 on the scattered
     brick atlas (saturating TF, carry in, clip planes) within its bounds of
-    the plain march; K4 on one brick and over a brick set within 1e-3
-    (normalised) of the plain backward, the TF gradient (T, 4)."""
+    the plain march; K4 on one brick and over a brick set, with the early
+    exit off and on (0.999), within 1e-3 (normalised) of the plain
+    backward, the TF gradient (T, 4); each launch counted on its instance."""
+    kind = exact.tf_instance(n_tf)
     c = exact_case("bricks", seed=0, device=cuda, n_tf=n_tf)
     args = (c.atlas, c.slots, c.boxes, c.tf, c.rays, c.carry, c.eye, c.params)
-    launches = exact.march_exact.launches
+    launches = exact.march_exact.launches, exact.march_exact.instance_launches[kind]
     got = exact.march_exact(*args, max_steps=c.max_steps, width=c.width)
     want = exact.march_exact_reference(*args, max_steps=c.max_steps)
     torch.cuda.synchronize()
-    assert exact.march_exact.launches == launches + 1
+    assert (exact.march_exact.launches, exact.march_exact.instance_launches[kind]) == (
+        launches[0] + 1, launches[1] + 1)
     err = (got - want).abs()
     assert float(err.max()) <= EXACT_TOL_MAX and float(err.mean()) <= EXACT_TOL_MEAN
     assert float(got[:, 3].max()) > 0.3
-    for g in (exact_grad_case("wide", seed=0, device=cuda, n_tf=n_tf),
-              exact_set_grad_case(seed=0, device=cuda, n_tf=n_tf)):
-        launches = exact.march_exact_backward.launches
-        got = exact.march_exact_backward(g.volume, g.tf, g.view, g.out, g.g)
-        want = exact.march_exact_backward_reference(g.volume, g.tf, g.view, g.out, g.g)
-        torch.cuda.synchronize()
-        assert exact.march_exact_backward.launches == launches + 1
-        assert got[1].shape == (n_tf, 4)
-        if n_tf == 1:  # a flat lookup: no density gradient
-            assert float(got[0].abs().max()) == 0.0 and float(want[0].abs().max()) == 0.0
-        else:
-            assert_grad_close(got[0], want[0], EXACT_GRAD_TOL_MAX)
-        assert_grad_close(got[1], want[1], EXACT_GRAD_TOL_MAX)
+    for early_exit in (1.1, 0.999):
+        for g in (exact_grad_case("wide", seed=0, device=cuda, n_tf=n_tf, early_exit=early_exit),
+                  exact_set_grad_case(seed=0, device=cuda, n_tf=n_tf, early_exit=early_exit)):
+            bwd = exact.march_exact_backward
+            launches = bwd.launches, bwd.instance_launches[kind]
+            got = bwd(g.volume, g.tf, g.view, g.out, g.g)
+            want = exact.march_exact_backward_reference(g.volume, g.tf, g.view, g.out, g.g)
+            torch.cuda.synchronize()
+            assert (bwd.launches, bwd.instance_launches[kind]) == (launches[0] + 1,
+                                                                   launches[1] + 1)
+            assert got[1].shape == (n_tf, 4)
+            if n_tf == 1:  # a flat lookup: no density gradient
+                assert float(got[0].abs().max()) == 0.0 and float(want[0].abs().max()) == 0.0
+            else:
+                assert_grad_close(got[0], want[0], EXACT_GRAD_TOL_MAX)
+            assert_grad_close(got[1], want[1], EXACT_GRAD_TOL_MAX)
 
 
 @pytest.mark.cuda
 def test_exact_kernels_refuse_a_tf_past_the_limit(cuda):
-    """Past ``EXACT_TF_MAX`` entries a CUDA tensor raises a ValueError that
-    states the limit, with no launch and no fallback to the plain version
-    (which takes it on the CPU)."""
+    """The old limit is gone: a CUDA TF past ``EXACT_TF_MAX`` entries
+    renders through ``render_marcher_diff`` with K3 and K4 launched once
+    each through their global instances, and matches the plain versions
+    on the CPU: the image within K3's bounds, the gradients within 1e-3
+    (normalised)."""
     c = exact_grad_case("wide", seed=0, device=cuda)
-    big = torch.rand((exact.EXACT_TF_MAX + 1, 4), device=cuda)
-    launches = (exact.march_exact.launches, exact.march_exact_backward.launches)
-    with pytest.raises(ValueError, match="1 to 4096 entries"):
-        exact.render_marcher_diff(c.volume, big, c.view)
-    with pytest.raises(ValueError, match="1 to 4096 entries"):
-        exact.march_exact_backward(c.volume, big, c.view, c.out, c.g)
-    assert (exact.march_exact.launches, exact.march_exact_backward.launches) == launches
-    cpu_view = dataclasses.replace(c.view, ray_pack=c.view.ray_pack.cpu(),
-                                   brick_boxes=c.view.brick_boxes.cpu())
-    out = exact.render_marcher_diff(c.volume.cpu(), big.cpu(), cpu_view)
-    assert out.shape == c.out.shape
+    big = torch.rand((exact.EXACT_TF_MAX + 1, 4), generator=torch.Generator().manual_seed(3))
+    counts = (exact.march_exact.instance_launches["global"],
+              exact.march_exact_backward.instance_launches["global"])
+    results = []
+    for dev in (cuda, "cpu"):
+        view = dataclasses.replace(c.view, ray_pack=c.view.ray_pack.to(dev),
+                                   brick_boxes=c.view.brick_boxes.to(dev))
+        vol = c.volume.detach().to(dev).requires_grad_()
+        tf = big.detach().to(dev).requires_grad_()
+        out = exact.render_marcher_diff(vol, tf, view)
+        (out * c.g.to(dev)).sum().backward()
+        results.append((out.detach().cpu(), vol.grad.cpu(), tf.grad.cpu()))
+    torch.cuda.synchronize()
+    assert (exact.march_exact.instance_launches["global"],
+            exact.march_exact_backward.instance_launches["global"]) == (counts[0] + 1,
+                                                                       counts[1] + 1)
+    (img_c, dv_c, dt_c), (img_p, dv_p, dt_p) = results
+    err = (img_c - img_p).abs()
+    assert float(err.max()) <= EXACT_TOL_MAX and float(err.mean()) <= EXACT_TOL_MEAN
+    assert_grad_close(dv_c, dv_p, EXACT_GRAD_TOL_MAX)
+    assert_grad_close(dt_c, dt_p, EXACT_GRAD_TOL_MAX)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ their integer ids.
 
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -120,6 +121,36 @@ def test_render_matches_jax(tmp_path, monkeypatch, name):
     assert stats_t.n_passes == (-(-n // 2) if starve else 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
     assert float(got[..., 3].max()) > 0.1
+
+
+def test_render_with_a_large_1dt_tf_matches_jax(tmp_path):
+    """A whole frame from an 8192-entry TF (past the kernels' shared
+    instances): written by ``save_1dt``, read back by the port's
+    ``load_1dt`` (``.1dt`` files size the table to the data's value range),
+    set as both engines' TF; the port's ``xla`` renderer against the JAX
+    engine's ``render(marcher="xla")`` on two poses, max 5e-5 and mean
+    1e-5 (the frames' bound of ``PERF.md`` §2)."""
+    from libre_tpu_torch.ops.transfer_function import load_1dt, save_1dt
+    from libre_tpu_torch.testing import tf_of_size
+
+    path = str(tmp_path / "wide.1dt")
+    save_1dt(path, tf_of_size(8192))
+    tf = load_1dt(path)
+    assert tf.shape == (8192, 4)
+    eng_j = EngineJ(DataSourceJ(GRADIENT), max_gpu_cache_mb=64)
+    eng_t = EngineT(DataSourceT(GRADIENT), max_gpu_cache_mb=64, device="cpu")
+    eng_j.transfer_function = jnp.asarray(tf)
+    eng_t.transfer_function = torch.from_numpy(tf)
+    renderer = create_renderer("xla")
+    kw = dict(n_samples_per_ray=64, data_source_range=(0.0, 255.0), filter_mode="trilinear")
+    for eye in ((0.3, 0.2, 1.4), (-0.4, 0.9, 1.1)):
+        cam_j, cam_t, fr_j, fr_t = view(eye)
+        want, _, _ = eng_j.render(cam_j, fr_j, params=ParamsJ(**kw), screen_space_error=1.0,
+                                  marcher="xla")
+        got = renderer.render(eng_t, cam_t, fr_t, params=ParamsT(**kw), screen_space_error=1.0)
+        err = np.abs(got.numpy() - np.asarray(want))
+        assert err.max() <= 5e-5 and err.mean() <= 1e-5, (err.max(), err.mean())
+        assert float(got[..., 3].max()) > 0.1
 
 
 def test_marchers_agree_and_params_default():

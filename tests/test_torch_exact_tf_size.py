@@ -2,8 +2,9 @@
 port's plain K3 forward and plain K4 backward (``exact.render_marcher_diff``
 over a brick set and over one (Z, Y, X) brick) against the JAX marcher
 ``raycast.render_rays`` and ``jax.grad`` of it, at T ∈ {1, 2, 32, 255,
-1024}; ``VolumeScene`` trained two SGD steps at T = 32 against the JAX
-scene; the kernels' limit on T.
+1024, 4097, 8192} (past 4096 the kernels' global instances); ``VolumeScene``
+trained two SGD steps at T = 32 against the JAX scene; no limit on T on
+the card.
 
 The scene is tests/test_torch_exact_set_grad.py's (the 16³ smoothed volume
 of tests/test_reference_marcher.py, 2³ bricks with two ghost voxels, its
@@ -13,7 +14,22 @@ colormap at T entries (``testing.tf_of_size``: at one entry an opaque
 colour).  Tolerances (``PERF.md`` §2): frames max 5e-5, mean
 1e-5; gradients within 1e-4 of their largest entry (the TF gradient summed
 in float64 by the plain version); the scene's parameters after two steps
-within 1e-5.  The mesh-sharded exact trainer's steps at T = 32 are held
+within 1e-5.
+
+The JAX references (``jax_reference``) run op by op (``jax.disable_jit``):
+compiled, XLA:CPU contracts the TF coordinate clip(d)·T − 0.5 into one
+fused multiply-add, which at a T that is no power of two (4097) moves s,
+and so the lerp weight, by one f32 ulp (2.4e-4 past s = 2048) on about
+0.08% of samples, and with it the TF gradient by 2.4e-4 of its largest
+entry.  Op by op the reference rounds each operation as written, as the
+port's plain version and its kernels (built without contraction) do.  The
+density gradient is held against ``jax.grad`` of the marcher in float64
+(``jax.enable_x64``): in float32 jax.grad differentiates the TF lerp
+c0·(1 − w) + c1·w into g·c1 − g·c0, two roundings that do not cancel where
+neighbouring entries differ by ~1/T, which at T = 8192 reach 1.07e-4 of
+the density gradient's largest entry, where the port subtracts c1 − c0
+exactly (3.7e-7 from float64).  The TF gradient stays against float32: it
+moves with the f32 rounding of the TF coordinate, which the port shares.  The mesh-sharded exact trainer's steps at T = 32 are held
 to the JAX trainer's in tests/test_torch_exact_sharded_trainer.py.
 """
 
@@ -44,7 +60,7 @@ from tests.test_torch_exact_set_grad import (
 
 torch.set_num_threads(1)
 
-TF_SIZES = (1, 2, 32, 255, 1024)
+TF_SIZES = (1, 2, 32, 255, 1024, 4097, 8192)
 TOL_FRAME = (5e-5, 1e-5)
 TOL_STEP = 1e-5
 
@@ -67,6 +83,19 @@ def check_grads(got, want, n_tf):
     assert_grads_close(got, want)
 
 
+def jax_reference(bricks_j, order, p_j, tf, eye, dirs, tnp, g):
+    """The JAX marcher's frame and TF gradient in float32 and its density
+    gradient in float64, each op by op, over the bricks in ``order``
+    (``jax_set``): (out, (d_data, d_tf))."""
+    with jax.disable_jit():
+        out_j, (_, d_tf) = jax_set(bricks_j, order, p_j, tf, eye, dirs, tnp)(g)
+        with jax.enable_x64():
+            b64 = bricks_j._replace(data=jnp.asarray(bricks_j.data, jnp.float64))
+            _, (d_data, _) = jax_set(b64, order, p_j, tf.astype(np.float64), eye, dirs,
+                                     tnp)(g.astype(np.float64))
+    return out_j, (d_data, d_tf)
+
+
 @pytest.mark.parametrize("n_tf", TF_SIZES)
 def test_set_march_and_gradient_at_any_tf_size(n_tf):
     """Over the 8-brick set in front-to-back order."""
@@ -77,9 +106,8 @@ def test_set_march_and_gradient_at_any_tf_size(n_tf):
         np.asarray(bricks_j.world_min), np.asarray(bricks_j.world_max), np.asarray(eye)),
         np.int64)
     out_t, port_grads = port_set(bricks_t, order, p_t, tf)
-    jax_grads = jax_set(bricks_j, order, p_j, tf, eye, dirs, tnp)
     g = np.random.default_rng(2).random((N_RAYS, 4), dtype=np.float32)
-    out_j, want = jax_grads(g)
+    out_j, want = jax_reference(bricks_j, order, p_j, tf, eye, dirs, tnp, g)
     assert out_j[:, 3].max() > 0.3
     assert_frames_close(out_t, out_j)
     check_grads(port_grads(g), want, n_tf)
@@ -94,14 +122,14 @@ def test_brick_march_and_gradient_at_any_tf_size(n_tf):
     _bj, _bt, eye, dirs, tnp = scene()
     p_j, p_t = params_pair("trilinear", 1.1)
     tf = tf_of_size(n_tf)
-    jax_grads = jax_set(one_j, np.zeros(1, np.int64), p_j, tf, eye, dirs, tnp)
     view = exact.exact_view(CAMERA_T, p_t, device="cpu")
     leaf = torch.from_numpy(vol).requires_grad_()
     tf_t = torch.from_numpy(tf).requires_grad_()
     out = exact.render_marcher_diff(leaf, tf_t, view)
     g = np.random.default_rng(3).random((N_RAYS, 4), dtype=np.float32)
     (out * torch.from_numpy(g)).sum().backward()
-    out_j, (d_vol, d_tf) = jax_grads(g)
+    out_j, (d_vol, d_tf) = jax_reference(one_j, np.zeros(1, np.int64), p_j, tf, eye, dirs,
+                                         tnp, g)
     assert_frames_close(out.detach().numpy(), out_j)
     check_grads((leaf.grad.numpy(), tf_t.grad.numpy()), (d_vol[0], d_tf), n_tf)
 
@@ -142,12 +170,18 @@ def test_scene_two_steps_at_32_entries():
 
 
 def test_kernels_refuse_a_tf_past_the_limit():
-    """Off the CPU the kernels take 1 ≤ T ≤ ``EXACT_TF_MAX``: on ``meta``
-    tensors (the check that runs before any launch) T = 4097 raises a
-    ``ValueError`` that states the limit, where T = 4096 passes it and
-    meets the device check; the plain version on the CPU takes 4097."""
+    """The kernels' old limit is gone: off the CPU the kernels take any
+    T ≥ 1.  On ``meta`` tensors (the check that runs before any launch)
+    T = 4096, 4097 and 65 536 pass the operand check and meet only the
+    device check; ``tf_instance`` names the instance each T runs (past
+    ``EXACT_TF_MAX`` the global ones); the plain version on the CPU takes
+    4097."""
     c = exact.EXACT_TF_MAX
     assert c == 4096
+    assert [exact.tf_instance(t) for t in (1, 255, 256, 257, c, c + 1, 65536)] == [
+        "shared", "shared", "fixed", "shared", "shared", "global", "global"]
+    with pytest.raises(ValueError, match="at least one entry"):
+        exact.tf_instance(0)
     _bj, bricks_t, _eye, _dirs, _tnp = scene()
     _p_j, p_t = params_pair("trilinear", 1.1)
     view = exact.exact_view(CAMERA_T, p_t, device="cpu")
@@ -155,12 +189,12 @@ def test_kernels_refuse_a_tf_past_the_limit():
     meta_view = view.__class__(**{**view.__dict__, "ray_pack": view.ray_pack.to("meta"),
                                   "brick_boxes": view.brick_boxes.to("meta")})
     out = torch.empty((N_RAYS, 4), device="meta")
-    for n_tf, match in ((c + 1, "1 to 4096 entries"), (c, "no kernel for device meta")):
+    for n_tf in (c, c + 1, 65536):
         tf = torch.empty((n_tf, 4), device="meta")
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
             exact.march_exact_backward(vol.to("meta"), tf, meta_view, out, out)
         slots = torch.zeros(1, dtype=torch.int32, device="meta")
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
             exact.march_exact(vol[None].to("meta"), slots, meta_view.brick_boxes, tf,
                               meta_view.ray_pack, out, view.eye, p_t,
                               max_steps=view.max_steps)

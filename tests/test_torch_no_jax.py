@@ -1,4 +1,6 @@
 """The port imports neither jax nor anything of the JAX package (the
+package-level exports and ``available_renderers``, an exact frame from
+an 8192-entry TF, the
 wall, the bf16 resample's plan arguments, ``demo_wall`` and
 ``data.memory_unit`` among the rest): every
 libre_tpu_torch module imports (the later modules by name: the dense
@@ -49,6 +51,14 @@ later = {"libre_tpu_torch.train.shearwarp_trainer", "libre_tpu_torch.models.volu
          "libre_tpu_torch.benchmarks.bench_scaling",
          "libre_tpu_torch.benchmarks.demo_wall", "libre_tpu_torch.data.memory_unit"}
 assert later <= set(names), later - set(names)
+from libre_tpu_torch import (DataType, LODNode, NodeId, RootNode, VolumeInformation,
+                             fill_regular_volume_info)
+from libre_tpu_torch.render.registry import available_renderers
+assert {"bricked", "pallas-exact", "shearwarp", "xla"} <= set(available_renderers())
+info = fill_regular_volume_info(VolumeInformation(voxels=(32, 32, 32),
+                                                  maximum_block_size=(16, 16, 16)))
+assert isinstance(info.root_node, RootNode) and info.data_type is DataType.UINT8
+assert LODNode(NodeId.from_coords(0, (0, 0, 0)), (16, 16, 16), (0, 0, 0), (1, 1, 1)).is_valid()
 from libre_tpu_torch.apps.render_cli import build_camera
 from libre_tpu_torch.data.datasource import DataSource, load_plugins
 from libre_tpu_torch.ops.reference import RenderParams
@@ -65,6 +75,13 @@ img, stats, _ = engine.render(
     screen_space_error=1.0, marcher="pallas")
 assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0
 assert stats.n_passes == 1 and stats.n_available > 1
+from libre_tpu_torch.testing import tf_of_size
+wide = RenderEngine(DataSource("mem://#32,32,32,16?pattern=gradient"), max_gpu_cache_mb=16,
+                    device="cpu")
+wide.transfer_function = torch.from_numpy(tf_of_size(8192))  # past the shared instances
+img, _, _ = wide.render(camera, frustum, params=RenderParams(n_samples_per_ray=32),
+                        screen_space_error=1.0)
+assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0
 for backend in ("jnp", "pallas"):
     img = engine.render_shearwarp(camera, n_planes=16, backend=backend)
     assert img.shape == (16, 16, 4) and float(img[..., 3].max()) > 0

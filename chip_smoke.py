@@ -187,6 +187,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -273,10 +274,12 @@ PROBE_WORK = {
 }
 
 
-# The probes of the kernels redesigned after their port (probe_take.cu; the
-# loop sums of probe_take_along.cu) and P2, the unchanged single gather:
-# phase 19 times them against the parent checkout's build when there is one.
-PROBE_AB = ("P1", "P2", "P5", "P6", "P8", "P9", "P14", "P15")
+# The probes of the kernels redesigned after their port: probe_take.cu (P1,
+# P9, P14, P15), probe_take_along.cu's loop sums (P5, P6, P8) and single
+# gather (P2-P4, P7, P10, P16), and probe_tf_nearest.cu (P11, P13, P17).
+# Phase 19 times them against the parent checkout's build when there is one.
+PROBE_AB = ("P1", "P2", "P3", "P4", "P5", "P6", "P7", "P8", "P9", "P10 axis 1", "P10 axis 0",
+            "P11", "P13", "P14", "P15", "P16", "P17")
 
 
 def bound(bytes_, ops):
@@ -284,6 +287,17 @@ def bound(bytes_, ops):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def free_device_memory():
+    """Free what the deleted objects held on the card: the cycle collector
+    first (a ``RenderEngine`` is freed only by it, so without it a deleted
+    engine's 10 GB atlas may outlive the next engine's allocation), then
+    the allocator's cached blocks."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -653,7 +667,7 @@ def phase_out_of_core(dev, card):
               f"{cli_ops[2].a0.shape[0]} planes): {cli_ms:.4f} ms, bit-equal to plain; bound "
               f"{cli_bound[0]:.4f} ms ({cli_bound[1]}) {card}")
         del k1_cli, cli_ops, cli_out, cli_t, cli_work, cli_args
-        torch.cuda.empty_cache()
+        free_device_memory()
         print(f"phase 18, CLI frame: {time.perf_counter() - t_phase:.1f} s")
 
         # ------------------------------------------- the out-of-core orbit
@@ -787,7 +801,7 @@ def phase_out_of_core(dev, card):
               f"synchronise; upload_view's copies {up['copy_ms']:.3f} ms device {card}")
         clock.close()
         del ooc, clock, last
-        torch.cuda.empty_cache()
+        free_device_memory()
 
         # ------------------------------------------------ the in-core orbit
         incore = RenderEngine(DataSource(OOC_URI), max_gpu_cache_mb=INCORE_MB, device=dev)
@@ -821,7 +835,7 @@ def phase_out_of_core(dev, card):
         sync_bricked = ooc_frames[0]
         sync_exact = incore.render(poses[0][0], poses[0][1], **kw)[0]
         del incore, ooc_frames
-        torch.cuda.empty_cache()
+        free_device_memory()
         print(f"phase 18, in-core orbit: {time.perf_counter() - t_phase:.1f} s")
 
         # ------------------------------------------------------ async frames
@@ -855,8 +869,8 @@ def phase_out_of_core(dev, card):
             print(f"async {method}{under} on a cold engine: done after {frames} frames, "
                   f"{async_s:.3f} s ({len(futures)} upload batches); the last frame bit-equal to "
                   f"the synchronous default-stream one {card}")
-            del cold
-            torch.cuda.empty_cache()
+            del cold, out, img, stats, futures
+            free_device_memory()
     finally:
         memory.MemoryDataSource.get_data = real_get_data
         RenderEngine._render_slabs = real_render_slabs
@@ -881,11 +895,12 @@ def phase_probes(dev, card):
     call.  The four gather kernels' counts are set to 0 just before and
     read just after; each must have launched, as often as its probes say.
     Then an empty kernel timed in a CUDA graph as the probes are, the
-    launch floor printed beside each probe, and the probes of the two
-    redesigned kernels (``probe_take.cu``; ``probe_take_along.cu``'s loop
-    sums, with P2 as the unchanged single gather) timed against the parent
-    checkout's build where one is unpacked under ``_archive/base``
-    (``_probe.against_parent``, bound as ``sweep_ab.py`` binds it).
+    launch floor printed beside each probe, and the probes of the three
+    redesigned kernels (``PROBE_AB``: ``probe_take.cu``,
+    ``probe_take_along.cu``'s loop sums and single gather,
+    ``probe_tf_nearest.cu``) timed against the parent checkout's build where
+    one is unpacked under ``_archive/base`` (``_probe.against_parent``,
+    bound as ``sweep_ab.py`` binds it).
     Returns the probes' entries of the ``kernels`` line."""
     import importlib
     from pathlib import Path
@@ -947,12 +962,12 @@ def phase_probes(dev, card):
         probes = [p for name in MODULES
                   for p in importlib.import_module(f"libre_tpu_torch.benchmarks.{name}").PROBES
                   if p.id in PROBE_AB]
-        ab = _probe.against_parent(probes, parent, ("probe_take", "probe_take_along"), dev)
-        print(f"  against the parent's build ({parent}), us in a CUDA graph, bit-equal "
-              f"{card}:")
-        for pid, (ms, parent_ms) in ab.items():
-            print(f"    {pid}: {ms * 1e3:.3f} against the parent's {parent_ms * 1e3:.3f} "
-                  f"({ms / parent_ms - 1:+.1%}); launch floor {floor * 1e3:.3f}")
+        ab = _probe.against_parent(
+            probes, parent, ("probe_take", "probe_take_along", "probe_tf_nearest"), dev)
+        print(f"  against the parent's build ({parent}), us in a CUDA graph, least-most of "
+              f"each build's runs, bit-equal {card}:")
+        for line in _probe.against_parent_lines(ab, floor):
+            print(line)
     else:
         print("  no parent checkout under _archive/base: the redesigned probes are not timed "
               "against the parent")
@@ -1202,7 +1217,7 @@ def phase_serve(dev, card, uri=URI, size=512):
           f"{min(steady_hist):.3f} ms; JPEG encoding median {med(jpeg_ms):.3f} ms, min "
           f"{min(jpeg_ms):.3f} ms {card}")
     del svc, engine, served
-    torch.cuda.empty_cache()
+    free_device_memory()
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
     return k1, k3, latency[10]
 
@@ -1799,7 +1814,7 @@ def phase_sharded_orbit(dev, card, engine, poses):
                 split = k1_site(rec.calls, "a shard of the 2x2 orbit frame", card)
     engine.mesh = None
     del slab_engine
-    torch.cuda.empty_cache()
+    free_device_memory()
     sites.append(("K1", "render_store_grid_sharded, sharded orbit (2x2, 4x1; replicated, slabs)",
                   launches, *split))
     return launches, sites
@@ -1906,7 +1921,7 @@ def phase_sharded_training(dev, card, problem, store, tf, targets):
             ms, b, k2_err = k2_site(rec.calls, "a slab shard's backward (n_brick 4)", card)
             k2_site_ms = (ms, b)
         del leaves, tf_p, params, step, rec
-        torch.cuda.empty_cache()
+        free_device_memory()
     sites = [("K1", "store trainer forward, sharded (2x2 replicated; slabs on 2, 4)", k1_total,
               *k1_site_ms),
              ("K2", "store trainer backward, sharded (2x2 replicated; slabs on 2, 4)", k2_total,
@@ -2684,7 +2699,7 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
     for kernel, err in demo_errs.items():
         errs[kernel] = max(errs.get(kernel, 0.0), err)
     del gt, state, target, state_wide, target_wide, svc, seng
-    torch.cuda.empty_cache()
+    free_device_memory()
     # The kernels line's entries of K3's and K4's runtime-T instances: the
     # main path's launches of each; times on training view 0 at T = 1024
     # (shared) and 8192 (global), the plain versions' on the window.

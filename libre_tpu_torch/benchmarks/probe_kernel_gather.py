@@ -1,7 +1,8 @@
 """The in-kernel TF lookup probes of ``benchmarks/probe_kernel_gather.py``
 (P11-P13) on the card: nearest and two-tap linear RGBA lookups of a
 256-entry table by density, at the sweep's shapes (512 planes of 64×256),
-on the port's hand-written kernels, the table in shared memory.  P13's
+on the port's hand-written kernels, the table in L1 (nearest) or in
+shared memory (linear).  P13's
 table, padded to 512 entries on the TPU, is looked up unpadded.  No one
 PyTorch call computes them.  Unlike the reference module, nothing runs
 at import.

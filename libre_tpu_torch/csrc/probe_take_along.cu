@@ -13,15 +13,24 @@
 //   axis 1: v_k = table[r, i_k]      axis 0: v_k = table[i_k, l]
 //   loop 1: out[r, l] = v_0;  loop > 1: out[r, l] = ((0 + v_0) + v_1) + ...
 //
-// Two kernels.
+// Three kernels.
 //
-// The single gather (loop 1), and a loop whose table slice is too large to
-// stage: one thread per output value, neighbouring threads on neighbouring
-// lanes l, table reads through the read-only path (__ldg); a loop wraps its
-// index by one compare per step and tests its range per step.  The TPU's
+// The single gather (loop 1, P2-P4, P7, P10, P16): a kernel of its own,
+// templated on the axis and on whether a mod wraps the index, one thread per
+// output value, neighbouring threads on neighbouring outputs, blocks of 256
+// threads.  Its body is one chain: the index load, the table load that
+// depends on it, the store.  The row and lane of output n (a division by
+// cols) are formed while the index load is in flight, and the table load is
+// not predicated on the range test (an index outside the table reads entry 0
+// of its row or column, and the store selects NaN), so that the compiler
+// loads the table's address operands before the index arrives and not after
+// it.  On a 2-D grid (row by blockIdx.y, no division), with the load
+// predicated, at 32-128 threads a block or with two outputs a thread, the
+// same chain measured slower than the shared kernel it replaces on P7
+// (PERF.md §6).  The TPU's
 // sublane/lane distinction (a dynamic gather along lanes, a different
 // lowering or a one-hot matrix product along sublanes, P4) does not exist
-// here: both axes are one strided load.
+// here: both axes are one load through the read-only path.
 //
 // The loop sum (loop > 1, P5, P6, P8), as the TPU kernel held its table in
 // VMEM: one warp per 32 lanes of one row of outputs, so that the 1024
@@ -40,10 +49,15 @@
 // ((0 + v_0) + v_1) + ..., sets the time and the result is bit for bit the
 // plain version's.
 //
+// A loop whose table slice is too large to stage, or a table with no entry
+// along the axis: one thread per output value, neighbouring threads on
+// neighbouring lanes, table reads through the read-only path (__ldg); the
+// loop wraps its index by one compare per step and tests its range per step.
+//
 // What bounds it: at the probes' sizes (1024 to 65 536 outputs, loops of up
-// to 512) the launch and each thread's chain of dependent adds (512 adds of
-// about 4 cycles), not bytes.  An index outside the table reads nothing and
-// gives NaN (jnp's fill mode; the plain version raises).
+// to 512) the launch and each thread's chain of dependent loads, or of
+// dependent adds (512 adds of about 4 cycles), not bytes.  An index outside
+// the table gives NaN (jnp's fill mode; the plain version raises).
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -58,6 +72,26 @@ constexpr int kChunk = 16;
 // The largest table slice the staged loop holds: 48 KB, the dynamic shared
 // memory a block takes without opting in.
 constexpr int kStageFloats = 48 * 1024 / 4;
+
+template <int kAxis, bool kMod>
+__global__ void __launch_bounds__(kThreads)
+    probe_take_along_single_kernel(const float* __restrict__ table,
+                                   const int* __restrict__ idx, float* __restrict__ out,
+                                   int rows, int cols, int t_cols, int extent, int mod) {
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  if (n >= rows * cols) return;
+  int i = __ldg(idx + n);
+  const int r = n / cols;
+  const int l = n - r * cols;
+  if (kMod) {
+    i %= mod;
+    if (i < 0) i += mod;
+  }
+  const bool inside = (unsigned)i < (unsigned)extent;
+  const int at = inside ? i : 0;
+  const float v = __ldg(table + (kAxis == 1 ? r * t_cols + at : at * t_cols + l));
+  out[n] = inside ? v : CUDART_NAN_F;
+}
 
 __global__ void __launch_bounds__(kThreads)
     probe_take_along_kernel(const float* __restrict__ table, const int* __restrict__ idx,
@@ -74,10 +108,6 @@ __global__ void __launch_bounds__(kThreads)
   if (mod > 0) {
     i %= mod;
     if (i < 0) i += mod;
-  }
-  if (loop == 1) {
-    out[n] = (unsigned)i < (unsigned)extent ? __ldg(base + (long long)i * stride) : CUDART_NAN_F;
-    return;
   }
   float acc = 0.0f;
 #pragma unroll 8
@@ -181,24 +211,45 @@ __global__ void __launch_bounds__(kLanes)
   out[n] = acc;
 }
 
+template <int kAxis, bool kMod>
+void launch_single(const float* table, const int* idx, float* out, int rows, int cols,
+                   int t_cols, int extent, int mod, cudaStream_t stream) {
+  const int blocks = (rows * cols + kThreads - 1) / kThreads;
+  probe_take_along_single_kernel<kAxis, kMod><<<blocks, kThreads, 0, stream>>>(
+      table, idx, out, rows, cols, t_cols, extent, mod);
+}
+
 }  // namespace
 
 extern "C" int probe_take_along(const void* table, const void* idx, void* out, int rows,
                                 int cols, int t_rows, int t_cols, int axis, int loop, int mod,
                                 void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* t = (const float*)table;
+  const int* ix = (const int*)idx;
+  float* o = (float*)out;
+  const int extent = axis == 1 ? t_cols : t_rows;
+  if (loop == 1 && extent > 0) {
+    if (axis == 1 && mod > 0)
+      launch_single<1, true>(t, ix, o, rows, cols, t_cols, extent, mod, s);
+    else if (axis == 1)
+      launch_single<1, false>(t, ix, o, rows, cols, t_cols, extent, 0, s);
+    else if (mod > 0)
+      launch_single<0, true>(t, ix, o, rows, cols, t_cols, extent, mod, s);
+    else
+      launch_single<0, false>(t, ix, o, rows, cols, t_cols, extent, 0, s);
+    return (int)cudaGetLastError();
+  }
   // The slice and the kChunk entries that repeat its start past mod.
   const int staged = (axis == 1 ? t_cols : t_rows * kLanes) + kChunk * (axis == 1 ? 1 : kLanes);
   if (loop > 1 && staged <= kStageFloats) {
     const int blocks = rows * ((cols + kLanes - 1) / kLanes);
-    probe_take_along_loop_kernel<<<blocks, kLanes, staged * sizeof(float),
-                                   (cudaStream_t)stream>>>(
-        (const float*)table, (const int*)idx, (float*)out, cols, t_rows, t_cols, axis, loop,
-        mod);
+    probe_take_along_loop_kernel<<<blocks, kLanes, staged * sizeof(float), s>>>(
+        t, ix, o, cols, t_rows, t_cols, axis, loop, mod);
     return (int)cudaGetLastError();
   }
   const int blocks = (rows * cols + kThreads - 1) / kThreads;
-  probe_take_along_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (const int*)idx, (float*)out, rows, cols, t_rows, t_cols, axis,
-      loop, mod);
+  probe_take_along_kernel<<<blocks, kThreads, 0, s>>>(t, ix, o, rows, cols, t_rows, t_cols, axis,
+                                                       loop, mod);
   return (int)cudaGetLastError();
 }

@@ -9,26 +9,54 @@
 //   zero (P17):      i = floor(d * scale);  out = tf[i], or 0 if i not in [0, T)
 //
 // tf is (T, C), C >= 1, and the output is channels last: out[e * C + c].
-// Each block stages the table in shared memory once and then walks the
-// outputs grid-stride, one thread per output value, neighbouring threads on
-// neighbouring outputs (coalesced density reads and output writes; the C
-// threads of one density read the same word).  The grid is a few blocks per
-// SM, so the table is read once per block, not once per 256 outputs.  The
-// TPU probes broadcast the table to the tile and lowered the lookup to a
+// The TPU probes broadcast the table to the tile and lowered the lookup to a
 // lane gather, padded the table to the tile width (P13's 512 entries) or
 // built it as a one-hot matrix product on the matrix unit (P17); here each
-// lookup is one shared-memory load.
+// lookup is one load from a table that sits in L1 or shared memory.
+//
+// Two kernels.
+//
+// The row lookup (C = 1 or 4, operands 16 B aligned): one thread per
+// density, no integer division, the grid sized to the work, and the table
+// read through the read-only path with no staging and no barrier: at most a
+// few KB, resident in L1 after the first warp of a block.  For C = 4 the
+// thread loads its density, then the table row as one float4, and stores it
+// as one float4; for C = 1 it loads four densities as one float4 and stores
+// their four lookups as one float4 (the last n mod 4 densities one by one).
+// Staging the table in shared memory once per block of a grid-stride walk
+// (the per-value kernel's way) measured slower at every probe's size, P11's
+// 8.4 M outputs included (PERF.md §6).
+//
+// The per-value lookup (any other C, or an operand that is not 16 B
+// aligned): one thread per output value, neighbouring threads on
+// neighbouring outputs; a few blocks per SM stage the table in shared memory
+// and walk the outputs grid-stride.
 //
 // What bounds it: bytes, at P11's 512 planes of 64x256 (33.5 MB read, 33.5 MB
-// written).  The index arithmetic is a multiply and a rounding, exact as the
-// plain version's (no contraction; ops/_kernels.py builds with --fmad=false).
+// written); at P13's and P17's 0.1-2.5 MB the launch and one chain of two
+// dependent loads and a store.  The index arithmetic is a multiply and a
+// rounding, exact as the plain version's (no contraction; ops/_kernels.py
+// builds with --fmad=false).
 
+#include <cstddef>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kThreads = 256;     // the per-value kernel
+constexpr int kBlocksPerSm = 8;   // its grid
+constexpr int kRowThreads = 128;  // the row kernel
+
+// The table entry of density d: clip(trunc(d * scale), 0, T - 1), or for
+// "zero" floor(d * scale), -1 outside [0, T).
+__device__ __forceinline__ int entry(float d, float scale, int t_size, int zero_outside) {
+  const float s = d * scale;
+  if (zero_outside) {
+    const float f = floorf(s);
+    return (f >= 0.0f && f < (float)t_size) ? (int)f : -1;
+  }
+  return (int)fminf(fmaxf(truncf(s), 0.0f), (float)(t_size - 1));
+}
 
 __global__ void __launch_bounds__(kThreads)
     probe_tf_nearest_kernel(const float* __restrict__ d, const float* __restrict__ tf,
@@ -37,19 +65,40 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ float tab[];
   for (int i = threadIdx.x; i < t_size * channels; i += kThreads) tab[i] = __ldg(tf + i);
   __syncthreads();
-  const float top = (float)(t_size - 1);
   for (int n = blockIdx.x * kThreads + threadIdx.x; n < n_out; n += gridDim.x * kThreads) {
     const int e = channels == 1 ? n : n / channels;
     const int c = n - e * channels;
-    const float s = __ldg(d + e) * scale;
-    float v;
-    if (zero_outside) {
-      const float f = floorf(s);
-      v = (f >= 0.0f && f < (float)t_size) ? tab[(int)f * channels + c] : 0.0f;
-    } else {
-      v = tab[(int)fminf(fmaxf(truncf(s), 0.0f), top) * channels + c];
+    const int i = entry(__ldg(d + e), scale, t_size, zero_outside);
+    out[n] = i >= 0 ? tab[i * channels + c] : 0.0f;
+  }
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kRowThreads)
+    probe_tf_nearest_row_kernel(const float* __restrict__ d, const float* __restrict__ tf,
+                                float* __restrict__ out, int n_dens, int t_size, float scale,
+                                int zero_outside) {
+  const int j = blockIdx.x * kRowThreads + threadIdx.x;
+  if (kC == 4) {
+    if (j >= n_dens) return;
+    const int i = entry(__ldg(d + j), scale, t_size, zero_outside);
+    reinterpret_cast<float4*>(out)[j] =
+        i >= 0 ? __ldg(reinterpret_cast<const float4*>(tf) + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else if (4 * j + 4 <= n_dens) {
+    const float4 dv = __ldg(reinterpret_cast<const float4*>(d) + j);
+    const int i[4] = {entry(dv.x, scale, t_size, zero_outside),
+                      entry(dv.y, scale, t_size, zero_outside),
+                      entry(dv.z, scale, t_size, zero_outside),
+                      entry(dv.w, scale, t_size, zero_outside)};
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = i[k] >= 0 ? __ldg(tf + i[k]) : 0.0f;
+    reinterpret_cast<float4*>(out)[j] = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int e = 4 * j; e < n_dens; ++e) {
+      const int i = entry(__ldg(d + e), scale, t_size, zero_outside);
+      out[e] = i >= 0 ? __ldg(tf + i) : 0.0f;
     }
-    out[n] = v;
   }
 }
 
@@ -63,17 +112,37 @@ int sm_count() {
   return sms;
 }
 
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
+template <int kC>
+void launch_rows(const float* d, const float* tf, float* out, int n_dens, int t_size,
+                 float scale, int zero_outside, cudaStream_t stream) {
+  const int items = kC == 4 ? n_dens : (n_dens + 3) / 4;  // a thread's work: 1 or 4 densities
+  const int blocks = (items + kRowThreads - 1) / kRowThreads;
+  probe_tf_nearest_row_kernel<kC><<<blocks, kRowThreads, 0, stream>>>(d, tf, out, n_dens, t_size,
+                                                                      scale, zero_outside);
+}
+
 }  // namespace
 
 extern "C" int probe_tf_nearest(const void* d, const void* tf, void* out, int n_out,
                                 int t_size, int channels, float scale, int zero_outside,
                                 void* stream) {
-  const int needed = (n_out + kThreads - 1) / kThreads;
-  const int cap = sm_count() * kBlocksPerSm;
-  const int blocks = needed < cap ? needed : cap;
-  const size_t smem = (size_t)t_size * channels * sizeof(float);
-  probe_tf_nearest_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)d, (const float*)tf, (float*)out, n_out, t_size, channels, scale,
-      zero_outside);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* df = (const float*)d;
+  const float* tff = (const float*)tf;
+  float* o = (float*)out;
+  if (channels == 4 && aligned16(tf) && aligned16(out)) {
+    launch_rows<4>(df, tff, o, n_out / 4, t_size, scale, zero_outside, s);
+  } else if (channels == 1 && aligned16(d) && aligned16(out)) {
+    launch_rows<1>(df, tff, o, n_out, t_size, scale, zero_outside, s);
+  } else {
+    const int needed = (n_out + kThreads - 1) / kThreads;
+    const int cap = sm_count() * kBlocksPerSm;
+    const int blocks = needed < cap ? needed : cap;
+    const size_t smem = (size_t)t_size * channels * sizeof(float);
+    probe_tf_nearest_kernel<<<blocks, kThreads, smem, s>>>(df, tff, o, n_out, t_size, channels,
+                                                           scale, zero_outside);
+  }
   return (int)cudaGetLastError();
 }

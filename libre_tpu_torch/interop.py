@@ -177,7 +177,7 @@ def scene_params_from_jax(params: Dict) -> Dict[str, np.ndarray]:
     return {"density": np.array(density), "tf": np.array(np.asarray(params["tf"]), np.float32)}
 
 
-def brick_set_from_jax(bricks, device="cpu") -> BrickSet:
+def brick_set_from_jax(bricks, device="cuda") -> BrickSet:
     """The JAX package's ``BrickSet`` → the port's, f32 tensors on
     ``device``."""
     return BrickSet(*(
@@ -185,7 +185,7 @@ def brick_set_from_jax(bricks, device="cpu") -> BrickSet:
     ))
 
 
-def inverse_render_problem_from_jax(problem, width=None, device="cpu") -> InverseRenderProblem:
+def inverse_render_problem_from_jax(problem, width=None, device="cuda") -> InverseRenderProblem:
     """The JAX package's ``InverseRenderProblem`` → the port's, its brick
     set on ``device``; its XLA ``chunk`` dropped, ``width`` the screen width
     the port's kernels tile each shard's rays by."""
@@ -242,7 +242,7 @@ def store_slabs_from_jax(
     return out, a_base
 
 
-def mesh_from_jax(mesh, device="cpu") -> Mesh:
+def mesh_from_jax(mesh, device="cuda") -> Mesh:
     """A JAX ``Mesh`` with axes (ray, brick) → a port :class:`Mesh` of
     the same shape whose every shard is ``device``."""
     n_ray, n_brick = int(mesh.shape[RAY_AXIS]), int(mesh.shape[BRICK_AXIS])

@@ -651,10 +651,33 @@ def _gather_case(wrapper, table_shape, idx_range, idx_shape, **kw):
     return build
 
 
+def _nearest_case(table_shape, n, *, outside="clip", offset=False):
+    """A build of a nearest TF lookup: a seeded (T,) or (T, C) table and
+    ``n`` densities in [-0.5, 1.5) with the edge values first, scaled by
+    T; with ``offset`` the densities (C = 1) or the table (C > 1) are a
+    contiguous view 4 bytes past an aligned start."""
+
+    def build(device, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        tf = torch.rand(table_shape, generator=g, device=device)
+        d = _edge_densities((n,), g, device)
+        if offset and tf.dim() == 1:
+            d = torch.cat([d.new_zeros(1), d])[1:]
+        elif offset:
+            tf = torch.cat([tf.new_zeros(1), tf.reshape(-1)])[1:].reshape(table_shape)
+        fn = functools.partial(gather.tf_nearest, scale=float(table_shape[0]), outside=outside)
+        return fn, (d, tf), n
+    return build
+
+
 # The redesigned paths at inputs the probes do not reach (ids name them):
 # the staged loop sum with no mod, a mod below its chunk, a ragged loop and
 # ragged lanes; the vector take with rows of 12 and of 6, lanes, an output
-# count that is no multiple of 4, and unaligned indices (the scalar path).
+# count that is no multiple of 4, and unaligned indices (the scalar path);
+# the nearest lookup's row paths (C = 1 and 4, "clip" and "zero", a ragged
+# density count, T = 1) and its per-value path (C = 3, and operands that are
+# not 16 B aligned); the single gather on both axes with ragged rows, with
+# a mod, with unaligned indices, and one lane a row over a ragged count.
 GATHER_CASES = [
     ("loop no mod", _gather_case(gather.take_along, (8, 1024), (0, 512), (8, 128),
                                  axis=1, loop=512)),
@@ -669,6 +692,28 @@ GATHER_CASES = [
     ("take lane", _gather_case(gather.take, (256, 128), (0, 256), (1027,), lane=True)),
     ("take ragged count", _gather_case(gather.take, (4099,), (0, 4099), (7, 147))),
     ("take unaligned", _gather_case(gather.take, (4099,), (0, 4099), (1021,), offset=True)),
+    ("nearest C=1", _nearest_case((256,), 4096)),
+    ("nearest C=1 zero", _nearest_case((256,), 4096, outside="zero")),
+    ("nearest C=1 ragged", _nearest_case((256,), 4099)),
+    ("nearest C=1 unaligned", _nearest_case((256,), 1021, offset=True)),
+    ("nearest C=3", _nearest_case((64, 3), 1000)),
+    ("nearest C=3 zero", _nearest_case((64, 3), 1000, outside="zero")),
+    ("nearest C=4", _nearest_case((256, 4), 3001)),
+    ("nearest C=4 zero", _nearest_case((256, 4), 3001, outside="zero")),
+    ("nearest C=4 unaligned table", _nearest_case((256, 4), 3001, offset=True)),
+    ("nearest T=1", _nearest_case((1,), 1023)),
+    ("nearest T=1 C=4 zero", _nearest_case((1, 4), 1023, outside="zero")),
+    ("single ragged axis 1", _gather_case(gather.take_along, (5, 300), (0, 300), (5, 70), axis=1)),
+    ("single ragged axis 0", _gather_case(gather.take_along, (300, 45), (0, 300), (7, 45),
+                                          axis=0)),
+    ("single mod axis 1", _gather_case(gather.take_along, (9, 40), (-100, 100), (9, 33),
+                                       axis=1, mod=37)),
+    ("single mod axis 0", _gather_case(gather.take_along, (24, 45), (-100, 100), (3, 45),
+                                       axis=0, mod=24)),
+    ("single unaligned", _gather_case(gather.take_along, (512, 37), (0, 512), (40, 37),
+                                      axis=0, offset=True)),
+    ("single one lane ragged", _gather_case(gather.take_along, (1001, 3), (0, 3), (1001, 1),
+                                            axis=1)),
 ]
 
 
@@ -748,8 +793,9 @@ def test_gather_kernels_out_of_range_index_gives_nan(cuda):
     mode); the others are unaffected.  The loop sum: a negative index or a
     run past the table without mod, and (launched directly: the wrapper
     refuses it) a mod past the table's extent, whose sums are NaN exactly
-    where the loop reaches an index outside the table; the vector take:
-    a row past the table, a lane past the width, and a ragged last group."""
+    where the loop reaches an index outside the table; the single gather
+    along axis 0 and over an empty table; the vector take: a row past the
+    table, a lane past the width, and a ragged last group."""
     from libre_tpu_torch.ops import _kernels
 
     table = torch.arange(16.0, device=cuda)
@@ -762,6 +808,15 @@ def test_gather_kernels_out_of_range_index_gives_nan(cuda):
     idx = torch.tensor([[3, 8], [-1, 7]], device=cuda, dtype=torch.int32)
     got = gather.take_along(table.reshape(2, 8), idx, 1).cpu()
     assert got[0, 0] == 3.0 and got[1, 1] == 15.0 and bool(got[[0, 1], [1, 0]].isnan().all())
+    # The single gather along axis 0 over 3 ragged lanes: rows 4 and 5 past
+    # a 4-row table and -1 are NaN.
+    idx = torch.tensor([[0, 4, 2], [-1, 3, 5]], device=cuda, dtype=torch.int32)
+    got = gather.take_along(table[:12].reshape(4, 3), idx, 0).cpu()
+    assert torch.equal(got[[0, 0, 1], [0, 2, 1]], torch.tensor([0.0, 8.0, 10.0]))
+    assert bool(got[[0, 1, 1], [1, 0, 2]].isnan().all())
+    # A table with no entry along the axis: every output NaN.
+    got = gather.take_along(table.new_empty(3, 0), idx.new_zeros(3, 5), 1).cpu()
+    assert got.shape == (3, 5) and bool(got.isnan().all())
 
     # The staged loop sum over (2, 40): a negative start and a run past the
     # end are NaN, the rest the plain sums.

@@ -80,14 +80,16 @@ def setup():
         bricks=sharded, global_min=GLOBAL_MIN, global_max=GLOBAL_MAX, params=params,
         max_steps=max_steps_for_bricks(sharded.world_min, sharded.world_max, params.step_size),
     )
-    truth_t = interop.inverse_render_problem_from_jax(truth_j, width=CAMERA.viewport[2])
+    truth_t = interop.inverse_render_problem_from_jax(truth_j, width=CAMERA.viewport[2],
+                                                      device="cpu")
     rays_t = tuple(torch.from_numpy(np.array(x)) for x in (eye, dirs, tnp))
     with torch.no_grad():
         target = truth_t.render(cpu_mesh(2, 1), truth_t.bricks.data,
                                 torch.from_numpy(tf_j.default_color_map(32)), *rays_t).numpy()
     problem_j = dataclasses.replace(
         truth_j, bricks=sharded._replace(data=jnp.full_like(sharded.data, 0.3)))
-    problem_t = interop.inverse_render_problem_from_jax(problem_j, width=CAMERA.viewport[2])
+    problem_t = interop.inverse_render_problem_from_jax(problem_j, width=CAMERA.viewport[2],
+                                                        device="cpu")
     return problem_j, problem_t, (eye, dirs, tnp), rays_t, target
 
 

@@ -69,7 +69,7 @@ def test_make_mesh_and_parse():
 
 def test_interop_mesh_and_slabs():
     mj = make_mesh_j(n_brick=4, n_ray=2)
-    mt = interop.mesh_from_jax(mj)
+    mt = interop.mesh_from_jax(mj, device="cpu")
     assert mt.shape == {"ray": 2, "brick": 4} and mt.distinct_devices() == (CPU,)
     rng = np.random.default_rng(0)
     store = rng.random((16, 6, 5)).astype(np.float32)
@@ -222,7 +222,7 @@ def test_render_rays_sharded_matches_jax(march_scene, n_brick, n_ray, n_keep):
         params_j, GLOBAL_MIN, GLOBAL_MAX, max_steps,
     ))
     sharded_t, slots_t = render_t.shard_bricks_front_to_back(
-        interop.brick_set_from_jax(bricks_j), np.asarray(eye), n_brick
+        interop.brick_set_from_jax(bricks_j, device="cpu"), np.asarray(eye), n_brick
     )
     np.testing.assert_array_equal(slots_t, slots_j)
     assert sharded_t.num_bricks % n_brick == 0
@@ -268,7 +268,7 @@ def test_render_rays_sharded_gradient_rules(march_scene):
         in_shardings=(NamedSharding(mesh_j, P("brick")), NamedSharding(mesh_j, P())),
     )
     (_, want), (want_d, want_tf) = grad_j(sharded_j.data, jnp.asarray(tf))
-    bricks, _ = render_t.shard_bricks_front_to_back(interop.brick_set_from_jax(bricks_j), np.asarray(eye), 2)
+    bricks, _ = render_t.shard_bricks_front_to_back(interop.brick_set_from_jax(bricks_j, device="cpu"), np.asarray(eye), 2)
     data = bricks.data.clone().requires_grad_()
     tf_t = torch.from_numpy(np.array(tf)).requires_grad_()
     args = (torch.from_numpy(np.array(eye)), torch.from_numpy(np.array(dirs)),

@@ -894,8 +894,13 @@ def phase_probes(dev, card):
     CUDA graph and from Python, with the plain version and the library
     call.  The four gather kernels' counts are set to 0 just before and
     read just after; each must have launched, as often as its probes say.
-    Then an empty kernel timed in a CUDA graph as the probes are, the
-    launch floor printed beside each probe, and the probes of the three
+    Then the kernel instances no probe reaches, each once, bit-equal to its
+    plain version: the nearest lookup's scalar instance (a C = 3 table;
+    densities 4 B past an aligned start), the loop sum too large to stage
+    (either axis), and the NaN fill for a table with no entry along the
+    axis (where the plain version raises).  Then an
+    empty kernel timed in a CUDA graph as the probes are, the launch floor
+    printed beside each probe, and the probes of the three
     redesigned kernels (``PROBE_AB``: ``probe_take.cu``,
     ``probe_take_along.cu``'s loop sums and single gather,
     ``probe_tf_nearest.cu``) timed against the parent checkout's build where
@@ -904,6 +909,8 @@ def phase_probes(dev, card):
     Returns the probes' entries of the ``kernels`` line."""
     import importlib
     from pathlib import Path
+
+    import torch
 
     from libre_tpu_torch.benchmarks import MODULES
     from libre_tpu_torch.benchmarks import _probe
@@ -922,6 +929,39 @@ def phase_probes(dev, card):
             raise AssertionError(f"{kernel}: {n} launches, its probes counted {per_probe}")
     if [r["probe"] for r in results] != list(PROBE_WORK):
         raise AssertionError(f"probes {[r['probe'] for r in results]} vs {list(PROBE_WORK)}")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
+
+    d = torch.rand(4097, generator=g, device=dev) * 1.5 - 0.25
+    wide = torch.randn(8, 13000, generator=g, device=dev)
+    tall = torch.randn(400, 64, generator=g, device=dev)
+    unreached = [
+        ("nearest, a (256, 3) table", gather.tf_nearest,
+         (d, torch.rand(256, 3, generator=g, device=dev)), dict(scale=256.0)),
+        ("nearest, densities 4 B past an aligned start", gather.tf_nearest,
+         (d[1:], torch.rand(256, generator=g, device=dev)), dict(scale=256.0, outside="zero")),
+        ("loop sum of 3 over an (8, 13000) table along axis 1", gather.take_along,
+         (wide, ints(-20000, 20000, (8, 300)), 1), dict(loop=3, mod=13000)),
+        ("loop sum of 5 over a (400, 64) table along axis 0", gather.take_along,
+         (tall, ints(-1000, 1000, (50, 64)), 0), dict(loop=5, mod=400)),
+        ("a gather over an (8, 0) table (the NaN fill)", gather.take_along,
+         (wide.new_empty(8, 0), ints(0, 300, (8, 300)), 1), {}),
+    ]
+    for label, wrapper, args, kw in unreached:
+        before = wrapper.launches
+        got = wrapper(*args, **kw)
+        if args[0].numel():
+            ok = torch.equal(got, wrapper.reference(*args, **kw))
+        else:  # no entry to read: every output NaN (the plain version raises)
+            ok = bool(got.isnan().all())
+        torch.cuda.synchronize(dev)
+        if wrapper.launches != before + 1 or not ok:
+            raise AssertionError(f"{label}: {wrapper.launches - before} launches, "
+                                 f"{'bit-equal' if ok else 'differs from plain'}")
+        print(f"  {label}: one launch, {'bit-equal to plain' if args[0].numel() else 'all NaN'} "
+              f"({got.numel()} values)")
     floor = _probe.launch_floor_ms()
     print(f"gather probes: us per call in a CUDA graph (from Python), bound, kernel / library; "
           f"launch floor (an empty kernel in a CUDA graph) {floor * 1e3:.3f} us {card}")

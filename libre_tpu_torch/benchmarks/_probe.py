@@ -163,47 +163,42 @@ def launch_floor_ms(reps: int = 200) -> float:
 
 
 def against_parent(probes: Sequence[Probe], parent: Path, kernels: Sequence[str],
-                   device="cuda", seed: int = 0, reps: int = 200, rounds: int = 2,
-                   variants: Optional[Dict[str, Path]] = None) -> Dict[str, Dict[str, List[float]]]:
+                   device="cuda", seed: int = 0, reps: int = 200,
+                   rounds: int = 2) -> Dict[str, Dict[str, List[float]]]:
     """Each probe of ``probes`` whose kernel is one of ``kernels``, timed
-    as this checkout builds it, as ``parent`` (another checkout, e.g. a
-    parent commit unpacked with ``git archive``) does and as each checkout
-    of ``variants`` (tag → directory) does: every source built with the
-    port's flags and ``-Xptxas -v``, the others bound with the launcher
-    their own source declares and launched on the operands this
-    checkout's wrapper passes (recorded from one call), each output held
-    bit-equal to this checkout's; then all timed in a CUDA graph
-    (``graph_ms``), in ``rounds`` rounds of this, the parent, the variants,
-    the variants again in reverse, the parent, this.  Prints every build's
-    registers and returns {probe id: {"this" / "parent" / tag: [ms of each
-    run]}}."""
+    as this checkout builds it and as ``parent`` (another checkout, e.g.
+    a parent commit unpacked with ``git archive``) does: both sources
+    built with the port's flags and ``-Xptxas -v``, the parent's bound
+    with the launcher its own source declares and launched on the
+    operands this checkout's wrapper passes (recorded from one call),
+    its output held bit-equal to this checkout's; then both timed in a
+    CUDA graph (``graph_ms``), in ``rounds`` rounds of this, parent,
+    parent, this.  Prints both builds' registers and returns {probe id:
+    {"this" / "parent": [ms of each run]}}."""
     device = require_card(device)
-    others = {"parent": parent, **(variants or {})}
     out_dir = Path(tempfile.mkdtemp(prefix="probe_ab-"))
     try:
         jobs = {}
         for name in kernels:
-            jobs[(name, "this")] = _kernels.SRC_DIR / f"{name}.cu"
-            for tag, root in others.items():
-                jobs[(name, tag)] = root / "libre_tpu_torch" / "csrc" / f"{name}.cu"
+            jobs[name] = _kernels.SRC_DIR / f"{name}.cu"
+            jobs[f"{name} parent"] = parent / "libre_tpu_torch" / "csrc" / f"{name}.cu"
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-            futures = {job: pool.submit(_kernels.build_verbose, out_dir, " ".join(job), src)
-                       for job, src in jobs.items()}
-            built = {job: f.result() for job, f in futures.items()}
-        launchers = {}
-        for (name, tag), (lib, report) in built.items():
-            print(f"  build {name} {tag}: {_kernels.report_text(report)}")
-            if tag != "this":
-                fn = getattr(ctypes.CDLL(str(lib)), name)
-                fn.argtypes = _kernels.declared_signature(jobs[(name, tag)], name)
-                fn.restype = ctypes.c_int
-                launchers[(name, tag)] = fn
-        order = ["this", *others, *reversed(list(others)), "this"]
+            futures = {t: pool.submit(_kernels.build_verbose, out_dir, t, src)
+                       for t, src in jobs.items()}
+            built = {t: f.result() for t, f in futures.items()}
+        parents = {}
+        for tag, (lib, report) in built.items():
+            print(f"  build {tag}: {_kernels.report_text(report)}")
+        for name in kernels:
+            fn = getattr(ctypes.CDLL(str(built[f"{name} parent"][0])), name)
+            fn.argtypes = _kernels.declared_signature(jobs[f"{name} parent"], name)
+            fn.restype = ctypes.c_int
+            parents[name] = fn
         times = {}
         for p in probes:
             fn, args, _work = p.build(device=device, seed=seed)
             name = kernel_name(fn)
-            if name not in kernels:
+            if name not in parents:
                 continue
             recorded = []
             real = _kernels.launch
@@ -215,26 +210,24 @@ def against_parent(probes: Sequence[Probe], parent: Path, kernels: Sequence[str]
             (operands,) = recorded
             out_at = next(i for i, a in enumerate(operands) if a is not None
                           and isinstance(a, torch.Tensor) and a.data_ptr() == got.data_ptr())
-            runs, outs = {"this": lambda: fn(*args)}, {}
-            for tag in others:
-                out = outs[tag] = torch.empty_like(got)  # alive while the probe is timed
-                cargs = [out.data_ptr() if i == out_at else
-                         a.data_ptr() if isinstance(a, torch.Tensor) else a
-                         for i, a in enumerate(operands)]
+            out = torch.empty_like(got)
+            cargs = [out.data_ptr() if i == out_at else
+                     a.data_ptr() if isinstance(a, torch.Tensor) else a
+                     for i, a in enumerate(operands)]
 
-                def call(f=launchers[(name, tag)], cargs=cargs, tag=tag):
-                    err = f(*cargs, torch.cuda.current_stream().cuda_stream)
-                    if err != 0:
-                        raise RuntimeError(f"{name} {tag} launch failed: cudaError_t {err}")
+            def parent_call(f=parents[name], cargs=cargs):
+                err = f(*cargs, torch.cuda.current_stream().cuda_stream)
+                if err != 0:
+                    raise RuntimeError(f"{name} parent launch failed: cudaError_t {err}")
 
-                call()
-                torch.cuda.synchronize(device)
-                if not torch.equal(out, got):
-                    raise AssertionError(f"{p.id}: the {tag} build of {name} differs from this one")
-                runs[tag] = call
+            parent_call()
+            torch.cuda.synchronize(device)
+            if not torch.equal(out, got):
+                raise AssertionError(f"{p.id}: the parent's {name} differs from this build's")
+            runs = {"this": lambda: fn(*args), "parent": parent_call}
             ms = {k: [] for k in runs}
             for _ in range(rounds):
-                for k in order:
+                for k in ("this", "parent", "parent", "this"):
                     ms[k].append(graph_ms(runs[k], reps))
             times[p.id] = ms
         return times
@@ -244,16 +237,15 @@ def against_parent(probes: Sequence[Probe], parent: Path, kernels: Sequence[str]
 
 def against_parent_lines(times: Dict[str, Dict[str, List[float]]], floor_ms: float) -> List[str]:
     """One line per probe of ``against_parent``'s times, in µs: each
-    build's least and most run, each other build's least against this
-    build's least, the spread (the wider of this build's and the parent's
-    most − least) and the launch floor."""
+    build's least and most run, this build's least against the parent's,
+    the spread (the wider of the two builds' most − least) and the launch
+    floor."""
     lines = []
     for pid, ms in times.items():
-        this = min(ms["this"])
-        spread = max(max(ms[k]) - min(ms[k]) for k in ("this", "parent"))
-        parts = [f"this {this * 1e3:.3f}-{max(ms['this']) * 1e3:.3f}"]
-        parts += [f"{tag} {min(v) * 1e3:.3f}-{max(v) * 1e3:.3f} (this {this / min(v) - 1:+.1%})"
-                  for tag, v in ms.items() if tag != "this"]
-        lines.append(f"    {pid}: " + "; ".join(parts)
-                     + f"; spread {spread * 1e3:.3f}; launch floor {floor_ms * 1e3:.3f}")
+        this, parent = min(ms["this"]), min(ms["parent"])
+        spread = max(max(v) - min(v) for v in ms.values())
+        lines.append(f"    {pid}: this {this * 1e3:.3f}-{max(ms['this']) * 1e3:.3f}; parent "
+                     f"{parent * 1e3:.3f}-{max(ms['parent']) * 1e3:.3f} (this "
+                     f"{this / parent - 1:+.1%}); spread {spread * 1e3:.3f}; launch floor "
+                     f"{floor_ms * 1e3:.3f}")
     return lines

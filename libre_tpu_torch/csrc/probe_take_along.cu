@@ -13,7 +13,7 @@
 //   axis 1: v_k = table[r, i_k]      axis 0: v_k = table[i_k, l]
 //   loop 1: out[r, l] = v_0;  loop > 1: out[r, l] = ((0 + v_0) + v_1) + ...
 //
-// Three kernels.
+// Three kernels, and a fill.
 //
 // The single gather (loop 1, P2-P4, P7, P10, P16): a kernel of its own,
 // templated on the axis and on whether a mod wraps the index, one thread per
@@ -49,10 +49,13 @@
 // ((0 + v_0) + v_1) + ..., sets the time and the result is bit for bit the
 // plain version's.
 //
-// A loop whose table slice is too large to stage, or a table with no entry
-// along the axis: one thread per output value, neighbouring threads on
-// neighbouring lanes, table reads through the read-only path (__ldg); the
-// loop wraps its index by one compare per step and tests its range per step.
+// A loop whose table slice is too large to stage: one thread per output
+// value, neighbouring threads on neighbouring lanes, table reads through the
+// read-only path (__ldg); the loop wraps its index by one compare per step
+// and tests its range per step.
+//
+// A table with no entry along the axis has nothing to read: a fill writes
+// NaN to every output, so that no kernel above meets it.
 //
 // What bounds it: at the probes' sizes (1024 to 65 536 outputs, loops of up
 // to 512) the launch and each thread's chain of dependent loads, or of
@@ -91,6 +94,11 @@ __global__ void __launch_bounds__(kThreads)
   const int at = inside ? i : 0;
   const float v = __ldg(table + (kAxis == 1 ? r * t_cols + at : at * t_cols + l));
   out[n] = inside ? v : CUDART_NAN_F;
+}
+
+__global__ void __launch_bounds__(kThreads) fill_nan_kernel(float* __restrict__ out, int n) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k < n) out[k] = CUDART_NAN_F;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -229,7 +237,12 @@ extern "C" int probe_take_along(const void* table, const void* idx, void* out, i
   const int* ix = (const int*)idx;
   float* o = (float*)out;
   const int extent = axis == 1 ? t_cols : t_rows;
-  if (loop == 1 && extent > 0) {
+  const int blocks = (rows * cols + kThreads - 1) / kThreads;
+  if (extent == 0) {
+    fill_nan_kernel<<<blocks, kThreads, 0, s>>>(o, rows * cols);
+    return (int)cudaGetLastError();
+  }
+  if (loop == 1) {
     if (axis == 1 && mod > 0)
       launch_single<1, true>(t, ix, o, rows, cols, t_cols, extent, mod, s);
     else if (axis == 1)
@@ -242,13 +255,12 @@ extern "C" int probe_take_along(const void* table, const void* idx, void* out, i
   }
   // The slice and the kChunk entries that repeat its start past mod.
   const int staged = (axis == 1 ? t_cols : t_rows * kLanes) + kChunk * (axis == 1 ? 1 : kLanes);
-  if (loop > 1 && staged <= kStageFloats) {
-    const int blocks = rows * ((cols + kLanes - 1) / kLanes);
-    probe_take_along_loop_kernel<<<blocks, kLanes, staged * sizeof(float), s>>>(
+  if (staged <= kStageFloats) {
+    const int warps = rows * ((cols + kLanes - 1) / kLanes);
+    probe_take_along_loop_kernel<<<warps, kLanes, staged * sizeof(float), s>>>(
         t, ix, o, cols, t_rows, t_cols, axis, loop, mod);
     return (int)cudaGetLastError();
   }
-  const int blocks = (rows * cols + kThreads - 1) / kThreads;
   probe_take_along_kernel<<<blocks, kThreads, 0, s>>>(t, ix, o, rows, cols, t_rows, t_cols, axis,
                                                        loop, mod);
   return (int)cudaGetLastError();

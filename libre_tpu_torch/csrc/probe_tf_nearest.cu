@@ -12,25 +12,20 @@
 // The TPU probes broadcast the table to the tile and lowered the lookup to a
 // lane gather, padded the table to the tile width (P13's 512 entries) or
 // built it as a one-hot matrix product on the matrix unit (P17); here each
-// lookup is one load from a table that sits in L1 or shared memory.
+// lookup is one load from a table that sits in L1.
 //
-// Two kernels.
-//
-// The row lookup (C = 1 or 4, operands 16 B aligned): one thread per
-// density, no integer division, the grid sized to the work, and the table
-// read through the read-only path with no staging and no barrier: at most a
-// few KB, resident in L1 after the first warp of a block.  For C = 4 the
-// thread loads its density, then the table row as one float4, and stores it
-// as one float4; for C = 1 it loads four densities as one float4 and stores
-// their four lookups as one float4 (the last n mod 4 densities one by one).
-// Staging the table in shared memory once per block of a grid-stride walk
-// (the per-value kernel's way) measured slower at every probe's size, P11's
-// 8.4 M outputs included (PERF.md §6).
-//
-// The per-value lookup (any other C, or an operand that is not 16 B
-// aligned): one thread per output value, neighbouring threads on
-// neighbouring outputs; a few blocks per SM stage the table in shared memory
-// and walk the outputs grid-stride.
+// One kernel, one thread per density, no integer division, the grid sized
+// to the work, and the table read through the read-only path with no
+// staging and no barrier: at most a few KB, resident in L1 after the first
+// warp of a block.  Three instances, chosen by the launcher from C and the
+// operands' alignment.  C = 4 (table and output 16 B aligned): the thread
+// loads its density, then the table row as one float4, and stores it as one
+// float4.  C = 1 (densities and output 16 B aligned): four densities as one
+// float4, their four lookups stored as one float4, the last n mod 4
+// densities one by one.  Any other C or alignment: the density's C values
+// by scalar loads and stores.  Staging the table in shared memory once per
+// block of a grid-stride walk (the parent's way) measured slower at every
+// probe's size, P11's 8.4 M outputs included (PERF.md §6).
 //
 // What bounds it: bytes, at P11's 512 planes of 64x256 (33.5 MB read, 33.5 MB
 // written); at P13's and P17's 0.1-2.5 MB the launch and one chain of two
@@ -43,9 +38,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;     // the per-value kernel
-constexpr int kBlocksPerSm = 8;   // its grid
-constexpr int kRowThreads = 128;  // the row kernel
+constexpr int kThreads = 128;
 
 // The table entry of density d: clip(trunc(d * scale), 0, T - 1), or for
 // "zero" floor(d * scale), -1 outside [0, T).
@@ -58,28 +51,19 @@ __device__ __forceinline__ int entry(float d, float scale, int t_size, int zero_
   return (int)fminf(fmaxf(truncf(s), 0.0f), (float)(t_size - 1));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    probe_tf_nearest_kernel(const float* __restrict__ d, const float* __restrict__ tf,
-                            float* __restrict__ out, int n_out, int t_size, int channels,
-                            float scale, int zero_outside) {
-  extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < t_size * channels; i += kThreads) tab[i] = __ldg(tf + i);
-  __syncthreads();
-  for (int n = blockIdx.x * kThreads + threadIdx.x; n < n_out; n += gridDim.x * kThreads) {
-    const int e = channels == 1 ? n : n / channels;
-    const int c = n - e * channels;
-    const int i = entry(__ldg(d + e), scale, t_size, zero_outside);
-    out[n] = i >= 0 ? tab[i * channels + c] : 0.0f;
-  }
-}
-
+// kC is 4 or 1 for the float4 instances, 0 for any C (`channels`).
 template <int kC>
-__global__ void __launch_bounds__(kRowThreads)
+__global__ void __launch_bounds__(kThreads)
     probe_tf_nearest_row_kernel(const float* __restrict__ d, const float* __restrict__ tf,
-                                float* __restrict__ out, int n_dens, int t_size, float scale,
-                                int zero_outside) {
-  const int j = blockIdx.x * kRowThreads + threadIdx.x;
-  if (kC == 4) {
+                                float* __restrict__ out, int n_dens, int t_size, int channels,
+                                float scale, int zero_outside) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (kC == 0) {
+    if (j >= n_dens) return;
+    const int i = entry(__ldg(d + j), scale, t_size, zero_outside);
+    for (int c = 0; c < channels; ++c)
+      out[j * channels + c] = i >= 0 ? __ldg(tf + i * channels + c) : 0.0f;
+  } else if (kC == 4) {
     if (j >= n_dens) return;
     const int i = entry(__ldg(d + j), scale, t_size, zero_outside);
     reinterpret_cast<float4*>(out)[j] =
@@ -102,25 +86,15 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
 template <int kC>
 void launch_rows(const float* d, const float* tf, float* out, int n_dens, int t_size,
-                 float scale, int zero_outside, cudaStream_t stream) {
-  const int items = kC == 4 ? n_dens : (n_dens + 3) / 4;  // a thread's work: 1 or 4 densities
-  const int blocks = (items + kRowThreads - 1) / kRowThreads;
-  probe_tf_nearest_row_kernel<kC><<<blocks, kRowThreads, 0, stream>>>(d, tf, out, n_dens, t_size,
-                                                                      scale, zero_outside);
+                 int channels, float scale, int zero_outside, cudaStream_t stream) {
+  const int items = kC == 1 ? (n_dens + 3) / 4 : n_dens;  // a thread's work: 4 or 1 densities
+  const int blocks = (items + kThreads - 1) / kThreads;
+  probe_tf_nearest_row_kernel<kC><<<blocks, kThreads, 0, stream>>>(
+      d, tf, out, n_dens, t_size, channels, scale, zero_outside);
 }
 
 }  // namespace
@@ -132,17 +106,12 @@ extern "C" int probe_tf_nearest(const void* d, const void* tf, void* out, int n_
   const float* df = (const float*)d;
   const float* tff = (const float*)tf;
   float* o = (float*)out;
-  if (channels == 4 && aligned16(tf) && aligned16(out)) {
-    launch_rows<4>(df, tff, o, n_out / 4, t_size, scale, zero_outside, s);
-  } else if (channels == 1 && aligned16(d) && aligned16(out)) {
-    launch_rows<1>(df, tff, o, n_out, t_size, scale, zero_outside, s);
-  } else {
-    const int needed = (n_out + kThreads - 1) / kThreads;
-    const int cap = sm_count() * kBlocksPerSm;
-    const int blocks = needed < cap ? needed : cap;
-    const size_t smem = (size_t)t_size * channels * sizeof(float);
-    probe_tf_nearest_kernel<<<blocks, kThreads, smem, s>>>(df, tff, o, n_out, t_size, channels,
-                                                           scale, zero_outside);
-  }
+  const int n_dens = n_out / channels;
+  if (channels == 4 && aligned16(tf) && aligned16(out))
+    launch_rows<4>(df, tff, o, n_dens, t_size, 4, scale, zero_outside, s);
+  else if (channels == 1 && aligned16(d) && aligned16(out))
+    launch_rows<1>(df, tff, o, n_dens, t_size, 1, scale, zero_outside, s);
+  else
+    launch_rows<0>(df, tff, o, n_dens, t_size, channels, scale, zero_outside, s);
   return (int)cudaGetLastError();
 }

@@ -132,7 +132,8 @@ def take_along(
     Serves the probes' ``take_along_axis`` lookups (P2-P4, P7, P10, P16:
     a kernel of their own, one chain of two loads a thread) and their loop
     sums (P5, P6, P8: the part of the table a warp's outputs read staged in
-    shared memory, up to 48 KB of it)."""
+    shared memory, up to 48 KB of it; past that, one thread per output
+    reading the table through L1)."""
     what = "take_along"
     device = _check_operands(what, [table], [idx])
     _check(what, table.dim() == 2 and idx.dim() == 2, "table and idx must be 2-D")
@@ -189,10 +190,9 @@ def tf_nearest(
     d: torch.Tensor, tf: torch.Tensor, *, scale: float, outside: str = "clip"
 ) -> torch.Tensor:
     """:func:`tf_nearest_reference` by ``csrc/probe_tf_nearest.cu`` on
-    CUDA tensors (P11, P13, P17): one thread per density for a (T,) or
-    (T, 4) table, the table read through L1 (float4 densities or rows
-    where the operands are 16 B aligned), else one thread per output value
-    with the table staged in shared memory once per block."""
+    CUDA tensors (P11, P13, P17): one thread per density, the table read
+    through L1; float4 densities (C = 1) or rows (C = 4) where the
+    operands are 16 B aligned, else the density's C values one by one."""
     what = "tf_nearest"
     device = _check_operands(what, [d, tf])
     _check(what, tf.dim() in (1, 2) and tf.shape[0] >= 1, f"tf {tuple(tf.shape)}: (T,) or (T, C)")

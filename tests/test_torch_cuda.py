@@ -672,12 +672,13 @@ def _nearest_case(table_shape, n, *, outside="clip", offset=False):
 
 # The redesigned paths at inputs the probes do not reach (ids name them):
 # the staged loop sum with no mod, a mod below its chunk, a ragged loop and
-# ragged lanes; the vector take with rows of 12 and of 6, lanes, an output
-# count that is no multiple of 4, and unaligned indices (the scalar path);
-# the nearest lookup's row paths (C = 1 and 4, "clip" and "zero", a ragged
-# density count, T = 1) and its per-value path (C = 3, and operands that are
-# not 16 B aligned); the single gather on both axes with ragged rows, with
-# a mod, with unaligned indices, and one lane a row over a ragged count.
+# ragged lanes; the loop sum too large to stage, on either axis; the vector
+# take with rows of 12 and of 6, lanes, an output count that is no multiple
+# of 4, and unaligned indices (the scalar path); the nearest lookup's float4
+# instances (C = 1 and 4, "clip" and "zero", a ragged density count, T = 1)
+# and its scalar instance (C = 3, and operands that are not 16 B aligned);
+# the single gather on both axes with ragged rows, with a mod, with
+# unaligned indices, and one lane a row over a ragged count.
 GATHER_CASES = [
     ("loop no mod", _gather_case(gather.take_along, (8, 1024), (0, 512), (8, 128),
                                  axis=1, loop=512)),
@@ -687,6 +688,10 @@ GATHER_CASES = [
                                         axis=0, loop=83, mod=24)),
     ("loop ragged axis 1", _gather_case(gather.take_along, (5, 300), (0, 300), (5, 70),
                                         axis=1, loop=29, mod=300)),
+    ("loop unstaged axis 1", _gather_case(gather.take_along, (6, 13000), (-20000, 20000),
+                                          (6, 90), axis=1, loop=3, mod=13000)),
+    ("loop unstaged axis 0", _gather_case(gather.take_along, (400, 37), (-1000, 1000), (11, 37),
+                                          axis=0, loop=5, mod=400)),
     ("take row 12", _gather_case(gather.take, (300, 12), (0, 300), (37,), row=12)),
     ("take row 6", _gather_case(gather.take, (300, 6), (0, 300), (37,), row=6)),
     ("take lane", _gather_case(gather.take, (256, 128), (0, 256), (1027,), lane=True)),
@@ -794,8 +799,9 @@ def test_gather_kernels_out_of_range_index_gives_nan(cuda):
     run past the table without mod, and (launched directly: the wrapper
     refuses it) a mod past the table's extent, whose sums are NaN exactly
     where the loop reaches an index outside the table; the single gather
-    along axis 0 and over an empty table; the vector take: a row past the
-    table, a lane past the width, and a ragged last group."""
+    along axis 0; a table with no entry along the axis (the NaN fill), alone
+    and in a loop; the vector take: a row past the table, a lane past the
+    width, and a ragged last group."""
     from libre_tpu_torch.ops import _kernels
 
     table = torch.arange(16.0, device=cuda)
@@ -816,6 +822,8 @@ def test_gather_kernels_out_of_range_index_gives_nan(cuda):
     assert bool(got[[0, 1, 1], [1, 0, 2]].isnan().all())
     # A table with no entry along the axis: every output NaN.
     got = gather.take_along(table.new_empty(3, 0), idx.new_zeros(3, 5), 1).cpu()
+    assert got.shape == (3, 5) and bool(got.isnan().all())
+    got = gather.take_along(table.new_empty(0, 5), idx.new_zeros(3, 5), 0, loop=4).cpu()
     assert got.shape == (3, 5) and bool(got.isnan().all())
 
     # The staged loop sum over (2, 40): a negative start and a run past the

@@ -331,20 +331,18 @@ def test_take_along_loop_order(loop, mod):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_probe_ab_raises_without_a_card():
+def test_against_parent_raises_without_a_card():
     """The A/B against a parent build times CUDA kernels: on the CPU it
     raises before building anything."""
-    from libre_tpu_torch.benchmarks import probe_ab
-
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        probe_ab.main(["--parent", ROOT, "--device", "cpu"])
+        _probe.against_parent(port("probe_gather2").PROBES, ROOT, ("probe_take_along",),
+                              device="cpu")
 
 
 def test_against_parent_lines():
-    """Each build's least and most run in µs, the others against this
-    build's least, and the spread: the wider of this build's and the
-    parent's ranges."""
-    times = {"P7": {"this": [1.9e-3, 1.8e-3], "parent": [2.0e-3, 2.1e-3], "v": [2.4e-3, 1.8e-3]}}
+    """Each build's least and most run in µs, this build's least against
+    the parent's, and the spread: the wider of the two builds' ranges."""
+    times = {"P7": {"this": [1.9e-3, 1.8e-3], "parent": [2.0e-3, 2.15e-3]}}
     (line,) = _probe.against_parent_lines(times, 1e-3)
-    assert line == ("    P7: this 1.800-1.900; parent 2.000-2.100 (this -10.0%); "
-                    "v 1.800-2.400 (this +0.0%); spread 0.100; launch floor 1.000")
+    assert line == ("    P7: this 1.800-1.900; parent 2.000-2.150 (this -10.0%); "
+                    "spread 0.150; launch floor 1.000")

@@ -36,6 +36,7 @@ from libre_tpu_torch.ops.reference import (
     single_brick_set,
 )
 from libre_tpu_torch.ops.transfer_function import default_color_map
+from libre_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -94,16 +95,17 @@ class VolumeScene:
         """(H, W, 4) image, bottom-up rows, on the scene's device, the
         bricks marched in their storage order; differentiable in
         ``density`` and ``tf``."""
-        density = self.bricks.data
-        vx, vy, vw, vh = camera.viewport
-        images = []
-        for s in range(self.params.samples_per_pixel):
-            view = exact.exact_view(
-                camera, self.params, self.global_min, self.global_max, bricks=self.bricks,
-                sample_index=s, device=density.device,
-            )
-            images.append(exact.render_marcher_diff(density, self.tf, view))
-        return (sum(images) / float(len(images))).reshape(vh, vw, 4)
+        with span("libre.scene.render"):
+            density = self.bricks.data
+            vx, vy, vw, vh = camera.viewport
+            images = []
+            for s in range(self.params.samples_per_pixel):
+                view = exact.exact_view(
+                    camera, self.params, self.global_min, self.global_max, bricks=self.bricks,
+                    sample_index=s, device=density.device,
+                )
+                images.append(exact.render_marcher_diff(density, self.tf, view))
+            return (sum(images) / float(len(images))).reshape(vh, vw, 4)
 
     def render_sharded(self, mesh, camera: Camera) -> torch.Tensor:
         """(H, W, 4) image over a (ray, brick) mesh, on the mesh's lead

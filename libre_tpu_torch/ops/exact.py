@@ -60,6 +60,7 @@ from libre_tpu_torch.ops.reference import (
     RenderParams,
     max_steps_for_bricks,
 )
+from libre_tpu_torch.utils.profiling import span
 
 __all__ = [
     "ATLAS_DTYPES", "EXACT_TF_MAX", "ExactView", "RenderMarcherDiff", "TF_INSTANCES",
@@ -319,37 +320,38 @@ def exact_view(
     their own length, so build such a set's view with the real bricks'
     ``max_steps``).  The sample grid is the global box's
     (fragRaycast.glsl:152-158)."""
-    if bricks is not None:
-        if world_min is not None or world_max is not None:
-            raise ValueError("exact_view: pass either bricks or world_min/max")
+    with span("libre.exact.view"):
+        if bricks is not None:
+            if world_min is not None or world_max is not None:
+                raise ValueError("exact_view: pass either bricks or world_min/max")
 
-        def host(t):
-            return t.detach().cpu().numpy()
+            def host(t):
+                return t.detach().cpu().numpy()
 
-        wmin, wmax = host(bricks.world_min), host(bricks.world_max)
-        tmin, tmax = host(bricks.tex_min), host(bricks.tex_max)
-    else:
-        wmin = global_min if world_min is None else world_min
-        wmax = global_max if world_max is None else world_max
-        tmin, tmax = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
-    eye, dirs, cos_z, _ = ray_ops.make_rays(
-        camera.inv_proj, camera.inv_mv, camera.viewport,
-        sample_index=sample_index, device=device,
-    )
-    tnp_ = ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)
-    return ExactView(
-        ray_pack=ray_pack(
-            eye, dirs.reshape(-1, 3), tnp_, params.step_size, global_min, global_max,
-            clip_planes,
-        ),
-        brick_boxes=brick_boxes(wmin, wmax, tmin, tmax).to(device),
-        eye=np.asarray(camera.inv_mv, np.float32)[:3, 3],
-        max_steps=max_steps_for_bricks(
-            np.asarray(wmin, np.float32), np.asarray(wmax, np.float32), params.step_size
-        ),
-        width=camera.viewport[2],
-        params=params,
-    )
+            wmin, wmax = host(bricks.world_min), host(bricks.world_max)
+            tmin, tmax = host(bricks.tex_min), host(bricks.tex_max)
+        else:
+            wmin = global_min if world_min is None else world_min
+            wmax = global_max if world_max is None else world_max
+            tmin, tmax = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+        eye, dirs, cos_z, _ = ray_ops.make_rays(
+            camera.inv_proj, camera.inv_mv, camera.viewport,
+            sample_index=sample_index, device=device,
+        )
+        tnp_ = ray_ops.near_plane_t(cos_z.reshape(-1), camera.near)
+        return ExactView(
+            ray_pack=ray_pack(
+                eye, dirs.reshape(-1, 3), tnp_, params.step_size, global_min, global_max,
+                clip_planes,
+            ),
+            brick_boxes=brick_boxes(wmin, wmax, tmin, tmax).to(device),
+            eye=np.asarray(camera.inv_mv, np.float32)[:3, 3],
+            max_steps=max_steps_for_bricks(
+                np.asarray(wmin, np.float32), np.asarray(wmax, np.float32), params.step_size
+            ),
+            width=camera.viewport[2],
+            params=params,
+        )
 
 
 def _march_view(volume_zyx, tf, view: ExactView, carry) -> torch.Tensor:
@@ -370,14 +372,15 @@ class RenderMarcherDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, volume, tf, view: ExactView):
-        volume, tf = volume.contiguous(), tf.contiguous()
-        bricks = volume if volume.dim() == 4 else volume[None]
-        dev = volume.device
-        out = march_exact(
-            bricks, torch.arange(bricks.shape[0], dtype=torch.int32, device=dev),
-            view.brick_boxes, tf, view.ray_pack, torch.zeros((view.n_rays, 4), device=dev),
-            view.eye, view.params, max_steps=view.max_steps, width=view.width,
-        )
+        with span("libre.exact.forward"):
+            volume, tf = volume.contiguous(), tf.contiguous()
+            bricks = volume if volume.dim() == 4 else volume[None]
+            dev = volume.device
+            out = march_exact(
+                bricks, torch.arange(bricks.shape[0], dtype=torch.int32, device=dev),
+                view.brick_boxes, tf, view.ray_pack, torch.zeros((view.n_rays, 4), device=dev),
+                view.eye, view.params, max_steps=view.max_steps, width=view.width,
+            )
         ctx.view = view
         ctx.save_for_backward(volume, tf, out)
         return out
@@ -386,9 +389,10 @@ class RenderMarcherDiff(torch.autograd.Function):
     def backward(ctx, g):
         volume, tf, out = ctx.saved_tensors
         diff_tf = ctx.needs_input_grad[1]
-        d_volume, d_tf = march_exact_backward(
-            volume, tf, ctx.view, out, g.contiguous(), diff_tf=diff_tf
-        )
+        with span("libre.exact.backward"):
+            d_volume, d_tf = march_exact_backward(
+                volume, tf, ctx.view, out, g.contiguous(), diff_tf=diff_tf
+            )
         return d_volume, (d_tf if diff_tf else None), None
 
 

@@ -36,6 +36,7 @@ from libre_tpu_torch.ops import _kernels
 from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops.reference import ALPHA_CLAMP
+from libre_tpu_torch.utils.profiling import span
 
 TF_SIZE = swb.TF_SIZE
 VIEW_LEN = 11
@@ -293,17 +294,19 @@ class RenderStoreGridDiff(torch.autograd.Function):
         slab = None
         if static.k_total is not None:
             slab = (vs[11], vs[12], static.k_total, static.na_store)
-        tables = swb.sweep_tables(
-            vs, na=static.na, k_planes=static.k_planes,
-            v_size=static.v_size, u_size=static.u_size, slab=slab,
-        )
-        clip = torch.zeros(
-            (swb.MAX_CLIP_PLANES, 4), dtype=torch.float32, device=store.device
-        )
-        out, t_out = swb.post_sweep(
-            store, tf, tables, clip, n_clip=0, wb=static.wb, wc=static.wc,
-            early_exit=static.early_exit,
-        )
+        with span("libre.sweep.tables"):
+            tables = swb.sweep_tables(
+                vs, na=static.na, k_planes=static.k_planes,
+                v_size=static.v_size, u_size=static.u_size, slab=slab,
+            )
+        with span("libre.sweep.forward"):
+            clip = torch.zeros(
+                (swb.MAX_CLIP_PLANES, 4), dtype=torch.float32, device=store.device
+            )
+            out, t_out = swb.post_sweep(
+                store, tf, tables, clip, n_clip=0, wb=static.wb, wc=static.wc,
+                early_exit=static.early_exit,
+            )
         ctx.save_for_backward(store, tf, out, t_out)
         ctx.tables = tables
         ctx.static = static
@@ -314,11 +317,12 @@ class RenderStoreGridDiff(torch.autograd.Function):
         store, tf, out, t_out = ctx.saved_tensors
         static = ctx.static
         diff_tf = static.diff_tf and ctx.needs_input_grad[1]
-        d_store, dtf = store_grid_backward(
-            store, tf, ctx.tables, out, t_out, g.contiguous(),
-            wb=static.wb, wc=static.wc, early_exit=static.early_exit,
-            diff_tf=diff_tf,
-        )
+        with span("libre.sweep.backward"):
+            d_store, dtf = store_grid_backward(
+                store, tf, ctx.tables, out, t_out, g.contiguous(),
+                wb=static.wb, wc=static.wc, early_exit=static.early_exit,
+                diff_tf=diff_tf,
+            )
         return d_store, (dtf if diff_tf else None), None, None
 
 

@@ -36,6 +36,7 @@ from libre_tpu_torch.ops.exact import ExactView, render_exact_diff
 from libre_tpu_torch.ops.reference import BrickSet, RenderParams
 from libre_tpu_torch.parallel.mesh import BRICK_AXIS, Mesh, require_mesh
 from libre_tpu_torch.parallel.render import render_rays_sharded
+from libre_tpu_torch.utils.profiling import span
 
 OptimizerFactory = Callable[[Sequence[torch.Tensor]], torch.optim.Optimizer]
 
@@ -176,13 +177,16 @@ def make_exact_train_step(
 
     def step(state: TrainState, target: torch.Tensor) -> torch.Tensor:
         density, tf = state.params["density"], state.params["tf"]
-        state.optimizer.zero_grad(set_to_none=False)
-        loss = loss_fn(render_exact_diff(density, tf, view), target)
-        loss.backward()
-        with torch.no_grad():
-            state.optimizer.step()
-            tf.clamp_(0.0, 1.0)
-        state.step += 1
-        return loss.detach()
+        with span("libre.train.step"):
+            with span("libre.train.loss"):
+                state.optimizer.zero_grad(set_to_none=False)
+                loss = loss_fn(render_exact_diff(density, tf, view), target)
+            with span("libre.train.backward"):
+                loss.backward()
+            with span("libre.train.update"), torch.no_grad():
+                state.optimizer.step()
+                tf.clamp_(0.0, 1.0)
+            state.step += 1
+            return loss.detach()
 
     return step

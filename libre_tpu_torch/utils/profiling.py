@@ -1,12 +1,15 @@
-"""Tracing and metrics (``libre_tpu.utils.profiling``).
+"""Tracing (``libre_tpu.utils.profiling``): one span primitive, a device
+trace around a region, and per-stage wall timers.
 
-Per-stage wall timers, the rays/s counter (the BASELINE metric) and a
-device trace around a region.  ``StageTimers`` and ``RaysPerSecond`` are
-host clocks, as in the reference: a caller timing work on the card
+:func:`span` names a stretch of the program's host work.  While a
+``torch.profiler`` records, it is a ``record_function`` range: it lands
+in the same trace, on the same clock, as the device's kernels, copies and
+memsets, on whatever thread opened it.  Otherwise it is one shared no-op
+context after a single flag check.  The program's spans are named
+``libre.<layer>.<stage>``.  ``device_trace`` is ``torch.profiler`` with
+CPU and CUDA activities, written as a Chrome trace.  ``StageTimers`` is a
+host clock, as in the reference: a caller timing work on the card
 synchronises before the region ends (no synchronise is hidden here).
-``device_trace`` is ``torch.profiler`` with CPU and CUDA activities,
-written as a Chrome trace; ``annotate`` is a ``record_function`` range,
-plus an NVTX range when CUDA is present.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
 
@@ -52,27 +56,6 @@ class StageTimers:
         self.counts.clear()
 
 
-class RaysPerSecond:
-    """The BASELINE throughput counter: rays rendered / wall time."""
-
-    def __init__(self):
-        self.rays = 0
-        self.seconds = 0.0
-
-    @contextlib.contextmanager
-    def measure(self, n_rays: int) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.seconds += time.perf_counter() - t0
-            self.rays += n_rays
-
-    @property
-    def mrays_per_s(self) -> float:
-        return self.rays / self.seconds / 1e6 if self.seconds else 0.0
-
-
 @contextlib.contextmanager
 def device_trace(log_dir: Optional[str]) -> Iterator[Optional[torch.profiler.profile]]:
     """``torch.profiler`` trace (CPU, and CUDA when present) around a
@@ -93,16 +76,13 @@ def device_trace(log_dir: Optional[str]) -> Iterator[Optional[torch.profiler.pro
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named range for host-side stages inside a ``device_trace``: a
-    ``record_function`` range, and an NVTX range when CUDA is present."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a
+    ``torch.profiler`` records; otherwise :data:`NO_SPAN`, the shared
+    no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NO_SPAN
+    return torch.profiler.record_function(name)

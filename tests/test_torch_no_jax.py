@@ -157,6 +157,8 @@ timers = StageTimers()
 with timers.stage("x"):
     pass
 assert timers.report().startswith("x: ")
+from libre_tpu_torch.utils.profiling import NO_SPAN, span
+assert span("libre.x") is NO_SPAN
 from libre_tpu_torch.benchmarks import probe_gather2
 from libre_tpu_torch.ops import gather
 fn, args, work = probe_gather2.build_lane_gather_loop(device="cpu")

@@ -1,7 +1,10 @@
 """The port's ``utils/profiling`` against the JAX package's: the same
-``StageTimers.report()`` text for the same totals, the ``RaysPerSecond``
-arithmetic, ``device_trace`` on the CPU writing a Chrome trace (and doing
-nothing for None), and nested ``annotate`` ranges in that trace."""
+``StageTimers.report()`` text for the same totals, ``device_trace`` on
+the CPU writing a Chrome trace (and doing nothing for None), nested
+``span`` ranges in that trace, ``span`` as the shared no-op context while
+no profiler records, and the program's ``libre.*`` spans, nested as
+named, on the store trainer's and the exact trainer's step and a
+``VolumeScene`` frame of one and of two samples a pixel."""
 
 import json
 import os
@@ -40,26 +43,13 @@ def test_stage_timers_report_matches_jax():
     assert timers.report() == ""
 
 
-def test_rays_per_second():
-    counter = prof_t.RaysPerSecond()
-    assert counter.mrays_per_s == 0.0
-    counter.rays, counter.seconds = 3_000_000, 1.5
-    assert counter.mrays_per_s == pytest.approx(2.0)
-    with counter.measure(1_000_000):
-        pass
-    assert counter.rays == 4_000_000 and counter.seconds >= 1.5
-    ref = prof_j.RaysPerSecond()
-    ref.rays, ref.seconds = 3_000_000, 1.5
-    assert ref.mrays_per_s == pytest.approx(2.0)
-
-
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with prof_t.device_trace(None) as nothing:
         assert nothing is None
     log_dir = str(tmp_path / "trace")
     with prof_t.device_trace(log_dir) as prof:
-        with prof_t.annotate("outer"):
-            with prof_t.annotate("inner"):
+        with prof_t.span("outer"):
+            with prof_t.span("inner"):
                 torch.ones(64).cumsum(0)
     path = os.path.join(log_dir, prof_t.TRACE_FILE)
     with open(path) as f:
@@ -71,3 +61,120 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
     names = {e.key for e in prof.key_averages()}
     assert {"outer", "inner"} <= names
+
+
+def test_span_is_the_shared_noop_without_a_profiler(tmp_path):
+    first, second = prof_t.span("libre.a"), prof_t.span("libre.b")
+    assert first is prof_t.NO_SPAN and second is prof_t.NO_SPAN
+    with first:
+        with second:
+            torch.ones(8).sum()
+    with prof_t.device_trace(str(tmp_path)) as prof:
+        with prof_t.span("libre.inside") as inside:
+            torch.ones(8).sum()
+    assert inside is not prof_t.NO_SPAN
+    names = {e.key for e in prof.key_averages()}
+    assert "libre.inside" in names and not {"libre.a", "libre.b"} & names
+    assert prof_t.span("libre.after") is prof_t.NO_SPAN
+
+
+def _store_step():
+    import numpy as np
+
+    from libre_tpu_torch.ops import shearwarp_grad as swg
+    from libre_tpu_torch.train.store_trainer import StoreProblem, make_train_step
+
+    vs = swg.view_vector(world_min=[-0.5] * 3, world_max=[0.5] * 3, axis=2,
+                         eye=[0.1, 0.05, 1.4], sign=-1.0,
+                         slope_bounds=(-0.45, 0.45, -0.4, 0.4), inter_size=(6, 5),
+                         max_samples_per_ray=32)
+    problem = StoreProblem(views=vs[None], na_store=8, na_real=8, nc_real=8, nb_real=8,
+                           k_planes=8, inter_size=(6, 5), world_min=np.float32([-0.5] * 3),
+                           world_max=np.float32([0.5] * 3), axis=2)
+    params = {"store": torch.full((8, 8, 8), 0.5).requires_grad_(),
+              "tf": torch.linspace(0, 1, 1024).reshape(256, 4).requires_grad_()}
+    step = make_train_step(problem, torch.optim.Adam([params["store"], params["tf"]], lr=1e-2))
+    targets = torch.zeros((1, 6, 5, 4))
+    return lambda: step(params, targets)
+
+
+def _exact_parts(samples_per_pixel=1):
+    import numpy as np
+
+    from libre_tpu_torch.apps.render_cli import build_camera
+    from libre_tpu_torch.ops.reference import RenderParams
+
+    camera, _frustum = build_camera(12, 10, (0.2, 0.1, 1.4), (0.0, 0.0, 0.0))
+    params = RenderParams(n_samples_per_ray=16, data_source_range=(0.0, 1.0),
+                          filter_mode="trilinear", early_exit=1.1,
+                          samples_per_pixel=samples_per_pixel)
+    tf = np.stack([np.linspace(0, 1, 256, dtype=np.float32)] * 4, axis=-1)
+    return camera, params, tf
+
+
+def _exact_step():
+    import numpy as np
+
+    from libre_tpu_torch.ops.exact import exact_view
+    from libre_tpu_torch.train import init_exact_state, make_exact_train_step
+
+    camera, params, tf = _exact_parts()
+    state = init_exact_state(np.full((8, 8, 8), 0.5, np.float32), tf,
+                             lambda p: torch.optim.Adam(p, lr=1e-2), device="cpu")
+    view = exact_view(camera, params, device="cpu")
+    step = make_exact_train_step(view)
+    return lambda: step(state, torch.zeros(view.n_rays, 4))
+
+
+def _scene_frame(samples_per_pixel=1):
+    import numpy as np
+
+    from libre_tpu_torch.models import VolumeScene
+
+    camera, params, tf = _exact_parts(samples_per_pixel)
+    scene = VolumeScene.from_volume(np.full((8, 8, 8), 0.7, np.float32), tf, device="cpu",
+                                    params=params)
+    return lambda: scene.render(camera)
+
+
+# (path, its set-up, each span named with the span it nests in; None: the outermost)
+PATHS = {
+    "store_step": (_store_step, {
+        "libre.train.step": None, "libre.train.loss": "libre.train.step",
+        "libre.sweep.tables": "libre.train.loss", "libre.sweep.forward": "libre.train.loss",
+        "libre.train.backward": "libre.train.step",
+        "libre.sweep.backward": "libre.train.backward",
+        "libre.train.update": "libre.train.step"}),
+    "exact_step": (_exact_step, {
+        "libre.train.step": None, "libre.train.loss": "libre.train.step",
+        "libre.exact.forward": "libre.train.loss", "libre.train.backward": "libre.train.step",
+        "libre.exact.backward": "libre.train.backward",
+        "libre.train.update": "libre.train.step"}),
+}
+SCENE = {"libre.scene.render": None, "libre.exact.view": "libre.scene.render",
+         "libre.exact.forward": "libre.scene.render"}
+PATHS["scene_frame"] = (_scene_frame, SCENE)
+PATHS["scene_frame_two_samples"] = (lambda: _scene_frame(samples_per_pixel=2), SCENE)
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_program_spans_nest_as_named(tmp_path, path):
+    make, parents = PATHS[path]
+    run = make()
+    run()  # outside the trace: records nothing, builds what the first call builds
+    with prof_t.device_trace(str(tmp_path)) as prof:
+        run()
+    with open(os.path.join(str(tmp_path), prof_t.TRACE_FILE)) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("name", "").startswith("libre.")]
+    assert {e["name"] for e in events} == set(parents)
+    samples = 2 if path.endswith("two_samples") else 1
+    assert sum(e["name"] == "libre.exact.view" for e in events) == (
+        samples if "libre.exact.view" in parents else 0)
+    for e in events:
+        parent = parents[e["name"]]
+        if parent is None:
+            assert sum(o["name"] == e["name"] for o in events) == 1
+            continue
+        assert any(o["name"] == parent and o["ts"] <= e["ts"]
+                   and e["ts"] + e["dur"] <= o["ts"] + o["dur"] for o in events), e["name"]

@@ -171,7 +171,18 @@ Phases, each of which raises on failure (any failure exits non-zero):
    through the wall and through the loop, and the bf16 store frame (K1)
    and dense frame (K5); every wall tile and served canvas bit-equal to
    the loop's, the bf16 launches bit-equal to plain and timed beside the
-   f32 instances'; ``benchmarks/demo_wall`` at its defaults.
+   f32 instances'; ``benchmarks/demo_wall`` at its defaults;
+32. the trainers' update (``phase_adam``): ``train.update.step_optimizer``
+   over a 512³ leaf and a (256, 4) TF through ``csrc/adam_update.cu`` (one
+   launch a leaf, no fallback), each epilogue held to ``torch.optim.Adam``
+   plus the old epilogue over 5 steps within ``testing.ADAM_TOL_ULPS``;
+   the kernel timed on the 512³ leaf beside its bound (28 B a value),
+   ``torch.optim.Adam``'s foreach step plus the old epilogue's passes (the
+   path it replaced), torch's fused Adam with the epilogue in place (the
+   ``library_ms``), and the plain version.  The trainers' runs on the card
+   (dense, sharded store, exact set, exact and store trainers) and these
+   checked steps count the kernel's launches from 0 and raise on a
+   fallback (``adam_counted``); the ``kernels`` line sums those counts.
 
 Prints every kernel's launch sites on the main paths (launches, time
 per launch on the site's operands, bound, and launches × (time − bound),
@@ -240,6 +251,11 @@ K4_TF_OPS_PER_SAMPLE = 18  # the TF gradient's share: not done with diff_tf=Fals
 # (87: 7 four-channel lerps, each weight's 1 − w once), the opacity
 # correction (6) and the composite (9).
 K5_OPS_PER_SAMPLE = 136
+# The Adam kernel per value (adam_update.cu): p, g, m and v read, p, m and v
+# written; the lerp (3), the second moment (4), the denominator (3), the
+# update (3) and the epilogue's compares (2).
+ADAM_BYTES_PER_VALUE = 28
+ADAM_OPS_PER_VALUE = 15
 # The exact trainer's views: benchmarks/demo_inverse_render.py:34-37.
 EXACT_EYES = ([0.1, 0.05, 1.4], [-0.15, 0.1, 1.3], [0.02, -0.12, 1.5], [-0.05, -0.02, 1.2])
 EXACT_TRAIN_N = 512
@@ -298,6 +314,27 @@ def free_device_memory():
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+ADAM_RUNS = []  # (main path, the Adam kernel's launches there), for the kernels line
+
+
+@contextlib.contextmanager
+def adam_counted(what, want):
+    """A main path of the trainers' update: ``adam_update.launches`` and
+    ``step_optimizer.fallbacks`` set to 0 before it, and after it raises
+    unless the kernel launched ``want`` times (a leaf a step) with no
+    fallback; the count goes into ``ADAM_RUNS``."""
+    from libre_tpu_torch.ops.adam import adam_update
+    from libre_tpu_torch.train.update import step_optimizer
+
+    adam_update.launches = step_optimizer.fallbacks = 0
+    yield
+    got = (adam_update.launches, step_optimizer.fallbacks)
+    if got != (want, 0):
+        raise AssertionError(f"{what}: the Adam kernel launched {got[0]} times and the update "
+                             f"fell back {got[1]} times, want {want} and none")
+    ADAM_RUNS.append((what, want))
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -1336,9 +1373,10 @@ def phase_dense_trainer(dev, card):
         base = torch.cuda.memory_allocated(dev)
         losses, at = [], []
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            losses.append(float(step(leaves, targets)))  # synchronises
-            at.append(time.perf_counter())
+        with adam_counted(f"dense trainer ({classification})", 2 * n_steps):
+            for _ in range(n_steps):
+                losses.append(float(step(leaves, targets)))  # synchronises
+                at.append(time.perf_counter())
         peak = torch.cuda.max_memory_allocated(dev) - base
         steps_ms = np.diff([t0] + at) * 1e3
         step_ms = float(np.median(steps_ms[1:]))
@@ -1936,11 +1974,12 @@ def phase_sharded_training(dev, card, problem, store, tf, targets):
         # (recording every step would hold each launch's slab and d_store).
         rec = Recorder("post_sweep", "store_grid_bwd")
         t0 = time.perf_counter()
-        for i in range(SHARD_TRAIN_STEPS):
-            last = slabs and n_brick == 4 and i == SHARD_TRAIN_STEPS - 1
-            with rec if last else contextlib.nullcontext():
-                losses.append(float(step(params, targets)))
-            ends.append(time.perf_counter())
+        with adam_counted(name, (len(leaves) + 1) * SHARD_TRAIN_STEPS):
+            for i in range(SHARD_TRAIN_STEPS):
+                last = slabs and n_brick == 4 and i == SHARD_TRAIN_STEPS - 1
+                with rec if last else contextlib.nullcontext():
+                    losses.append(float(step(params, targets)))
+                ends.append(time.perf_counter())
         n_k1, n_k2 = swb.post_sweep.launches, swg.store_grid_backward.launches
         # ------------------------------------------ end of the training run
         k1_total += n_k1
@@ -2265,7 +2304,9 @@ def phase_exact_set(dev, card, exact_tol):
         losses, at, first = [], [], None
         torch.cuda.synchronize()
         exact.march_exact.launches = exact.march_exact_backward.launches = 0
-        with captured(exact, "march_exact_backward") as calls:
+        n_leaves = sum(len(g["params"]) for g in state.optimizer.param_groups)
+        with captured(exact, "march_exact_backward") as calls, adam_counted(
+                f"exact set trainer ({n_ray}x{n_brick})", n_leaves * SET_STEPS):
             t_start = time.perf_counter()
             for i in range(SET_STEPS):
                 losses.append(float(step(state, eye, dirs, tnp, target)))  # synchronises
@@ -2584,9 +2625,11 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
             wrapper.launches = 0
         for wrapper in counts[2:4]:
             wrapper.instance_launches = dict.fromkeys(exact.TF_INSTANCES, 0)
-        losses = [float(train_step(state, target)) for _ in range(FINISH_STEPS)]
-        losses_wide = [float(train_step(state_wide, target_wide))
-                       for _ in range(FINISH_WIDE_STEPS)]
+        with adam_counted("exact trainer, 32- and 8192-entry TFs",
+                          2 * (FINISH_STEPS + FINISH_WIDE_STEPS)):
+            losses = [float(train_step(state, target)) for _ in range(FINISH_STEPS)]
+            losses_wide = [float(train_step(state_wide, target_wide))
+                           for _ in range(FINISH_WIDE_STEPS)]
         engine.transfer_function = tf_wide
         try:
             with captured(exact, "march_exact") as xla_calls:
@@ -2759,6 +2802,123 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
             })
     print(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
     return launches, errs, instance_entries
+
+
+def phase_adam(dev, card, n=512, steps=5, reps=20):
+    """32. The trainers' update at full width: one Adam step of an n^3 leaf
+    and a (256, 4) TF through ``step_optimizer`` (the kernel, one launch
+    a leaf), for each epilogue (the exact trainer's density "none", the
+    dense volume "clamp01", the store "pin" over a store whose first
+    eighth is SENTINEL), against ``torch.optim.Adam``'s foreach step and
+    the old epilogue as separate passes over ``steps`` steps (launches
+    counted from 0, no fallback); then, with a count of its own, the
+    kernel timed (CUDA events, ``reps`` launches) on the n^3 leaf beside
+    its bound, ``step_optimizer`` over the leaf and the TF beside the
+    foreach step and the old epilogue (the path the kernel replaced),
+    torch's fused Adam (``fused=True``, one multi-tensor pass of 28 B a
+    value) over the leaf with the epilogue in place (the pin by a
+    coverage mask, ``clamp_`` and ``masked_fill_``), and the plain
+    version.  Returns the ``kernels`` line's entry (the pin's numbers, the
+    fused Adam with the pin as ``library_ms``, the launches of every
+    counted main path, ``ADAM_RUNS``) and each epilogue's (ms, bound) on
+    the n^3 leaf."""
+    import torch
+
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
+    from libre_tpu_torch.ops.adam import EPILOGUES, adam_update
+    from libre_tpu_torch.testing import ADAM_TOL_ULPS
+    from libre_tpu_torch.train.update import separate_passes, step_optimizer
+
+    def epilogues(leaves, epilogue):
+        pin = [leaves[0]] if epilogue == "pin" else []
+        return pin, [leaves[1]] + ([leaves[0]] if epilogue == "clamp01" else [])
+
+    unit = 2.0**-23
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n_values = n**3
+    b_ms, b_by = bound(ADAM_BYTES_PER_VALUE * n_values, ADAM_OPS_PER_VALUE * n_values)
+    rows, gap = {}, 0.0
+    for epilogue in EPILOGUES:
+        start = torch.rand((n, n, n), device=dev, generator=gen)
+        if epilogue == "pin":
+            start[:, :, : n // 8] = swb.SENTINEL
+        tf0 = torch.rand((256, 4), device=dev, generator=gen)
+        got = [start.clone().requires_grad_(), tf0.clone().requires_grad_()]
+        want = [start.clone().requires_grad_(), tf0.clone().requires_grad_()]
+        opt_got, opt_want = torch.optim.Adam(got, lr=3e-2), torch.optim.Adam(want, lr=3e-2)
+        with adam_counted(f"phase 32's checked steps ({epilogue}, {n}^3 and the TF)", 2 * steps):
+            for _ in range(steps):
+                for a, b in zip(got, want):
+                    b.grad = torch.randn(a.shape, device=dev, generator=gen)
+                    a.grad = b.grad.clone()
+                step_optimizer(opt_got, **dict(zip(("pin", "clamp"), epilogues(got, epilogue))))
+                separate_passes(opt_want, *epilogues(want, epilogue))
+        torch.cuda.synchronize()
+        errs = []
+        for a, b in zip(got, want):
+            pairs = [(a.detach(), b.detach(), 1.0)] + [
+                (opt_got.state[a][k], opt_want.state[b][k], None)
+                for k in ("exp_avg", "exp_avg_sq")]
+            for x, y, floor in pairs:
+                scale = float(y.abs().max()) if floor is None else floor
+                errs.append(float(((x - y).abs() / (y.abs() + scale)).max()) / unit)
+                gap = max(gap, float((x - y).abs().max()))
+        if max(errs) > ADAM_TOL_ULPS:
+            raise AssertionError(f"adam_update {epilogue}: {max(errs):.2f} ulps from torch")
+        leaf, g = got[0].detach(), got[0].grad
+        m, v = opt_got.state[got[0]]["exp_avg"], opt_got.state[got[0]]["exp_avg_sq"]
+        kw = dict(step=steps + 1, lr=3e-2, betas=(0.9, 0.999), eps=1e-8, epilogue=epilogue)
+        # Torch's fused Adam over a copy of the leaf, its gradient shared.
+        lib = start.clone().requires_grad_()
+        lib.grad = g
+        fused = torch.optim.Adam([lib], lr=3e-2, fused=True)
+
+        @torch.no_grad()
+        def fused_step():
+            uncovered = (lib > -0.5).logical_not_() if epilogue == "pin" else None
+            fused.step()
+            if epilogue != "none":
+                lib.clamp_(0.0, 1.0)
+            if uncovered is not None:
+                lib.masked_fill_(uncovered, swb.SENTINEL)
+
+        del start
+        adam_update.launches = step_optimizer.fallbacks = 0
+        ms = cuda_ms(lambda: adam_update(leaf, g, m, v, **kw), reps)
+        ours_ms = cuda_ms(lambda: step_optimizer(
+            opt_got, **dict(zip(("pin", "clamp"), epilogues(got, epilogue)))), reps)
+        if step_optimizer.fallbacks:
+            raise AssertionError(f"phase 32's timed steps fell back {step_optimizer.fallbacks} "
+                                 "times")
+        timed = adam_update.launches
+        lib_ms = cuda_ms(lambda: separate_passes(opt_want, *epilogues(want, epilogue)), reps)
+        fused_ms = cuda_ms(fused_step, reps)
+        plain_ms = cuda_ms(lambda: adam_update.reference(leaf, g, m, v, **kw), 3, warmup=1)
+        rows[epilogue] = (ms, ours_ms, lib_ms, fused_ms, plain_ms)
+        print(f"adam_update {epilogue}: {max(errs):.2f} ulps from torch over {steps} steps "
+              f"(largest absolute gap so far {gap:.3e}); "
+              f"kernel {ms:.4f} ms on {n}^3 (bound {b_ms:.4f} ms, {b_by}; at {b_ms / ms:.3f} "
+              f"of it); step_optimizer over the leaf and the TF {ours_ms:.4f} ms, "
+              f"torch.optim.Adam (foreach) and the epilogue {lib_ms:.4f} ms; torch's fused "
+              f"Adam and the epilogue in place over the leaf {fused_ms:.4f} ms (kernel ÷ fused "
+              f"{ms / fused_ms:.3f}); plain {plain_ms:.4f} ms; {timed} timed launches, "
+              f"counted apart {card}")
+        del got, want, opt_got, opt_want, leaf, g, m, v, lib, fused
+        free_device_memory()
+    ms, _ours, _foreach, fused_ms, plain_ms = rows["pin"]
+    return {
+        "name": "adam_update",
+        "route": "cuda",
+        "source": "libre_tpu_torch/csrc/adam_update.cu",
+        "replaces": None,
+        "launches": sum(k for _, k in ADAM_RUNS),
+        "max_abs_err": gap,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": fused_ms,
+    }, {e: (r[0], (b_ms, b_by)) for e, r in rows.items()}
 
 
 def bf16_sites(k1_calls, k5_calls, card):
@@ -3122,12 +3282,16 @@ def main() -> int:
     swg.store_grid_backward.launches = 0
     with torch.no_grad():
         targets = render_views(problem, store, tf)
+    if store.numel() != 512**3:  # the ranking's A1 site takes phase 32's 512^3 timing
+        raise AssertionError(f"the training store {tuple(store.shape)} is not 512^3")
     t0 = time.perf_counter()
-    params, losses = fit(
-        problem, targets, init, tf, device=dev,
-        optimizer=lambda p: torch.optim.Adam(p, lr=5e-2), steps=TRAIN_STEPS,
-        on_step=on_step,
-    )
+    with adam_counted(f"store trainer fit ({'x'.join(map(str, store.shape))} store, pin)",
+                      2 * TRAIN_STEPS):
+        params, losses = fit(
+            problem, targets, init, tf, device=dev,
+            optimizer=lambda p: torch.optim.Adam(p, lr=5e-2), steps=TRAIN_STEPS,
+            on_step=on_step,
+        )
     torch.cuda.synchronize()
     train_fwd_launches = swb.post_sweep.launches
     train_bwd_launches = swg.store_grid_backward.launches
@@ -3632,9 +3796,10 @@ def main() -> int:
     exact.march_exact.launches = 0
     exact.march_exact_backward.launches = 0
     t0 = time.perf_counter()
-    for i in EXACT_TRAIN_ORDER:
-        ex_losses.append(float(ex_steps[i](state, ex_targets[i])))  # synchronises
-        ex_step_at.append(time.perf_counter())
+    with adam_counted(f"exact trainer ({n}^3 density)", 2 * len(EXACT_TRAIN_ORDER)):
+        for i in EXACT_TRAIN_ORDER:
+            ex_losses.append(float(ex_steps[i](state, ex_targets[i])))  # synchronises
+            ex_step_at.append(time.perf_counter())
     ex_fwd_launches = exact.march_exact.launches
     ex_bwd_launches = exact.march_exact_backward.launches
     # ----------------------------------- end of the exact training path
@@ -4143,6 +4308,11 @@ def main() -> int:
     p31_launches, p31_errs, p31_instances = phase_finish(
         dev, card, exact_tol, ex_views[0], engine, poses[-1], dense_last, serve_2x2_ms)
     phase_done(31, quiet=True)
+    # ------------------------------- 32. the trainers' update (the Adam kernel)
+    adam_entry, adam_ms = phase_adam(dev, card)
+    print("the Adam kernel's launches on the main paths, each counted from 0 with no fallback "
+          "(a leaf a step): " + "; ".join(f"{what} {k}" for what, k in ADAM_RUNS))
+    phase_done(32)
     print("phase seconds (utils.profiling.StageTimers):")
     for line in timers.report().splitlines():
         print(f"  {line}")
@@ -4163,7 +4333,12 @@ def main() -> int:
     ] + ooc_sites + mesh_sites + train_sites + k3_sites + [
         ("K1", "render_store_grid_sharded, render_cli --mesh and the sharded service", apps_k1,
          *mesh_sites[0][3:]),
-    ] + exact_set["sites"]
+    ] + exact_set["sites"] + [
+        ("A1", "step_optimizer, the store trainer's fit (512^3 store, pin; its TF's launches "
+         "aside)", TRAIN_STEPS, *adam_ms["pin"]),
+        ("A1", "step_optimizer, the exact trainer (512^3 density; its TF's launches aside)",
+         len(EXACT_TRAIN_ORDER), *adam_ms["none"]),
+    ]
     print(f"launch sites on the main paths: launches, ms per launch on the site's operands, "
           f"bound, launches x (ms - bound) {card}")
     above = {}
@@ -4251,7 +4426,7 @@ def main() -> int:
             "bound_by": k5_bound[1],
             "library_ms": None,
         },
-    ] + p31_instances + probe_entries}))
+    ] + p31_instances + probe_entries + [adam_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,7 @@ SIGNATURES: Dict[str, List] = {
     "probe_take_along": [_P] * 3 + [_I] * 7 + [_P],
     "probe_tf_nearest": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
     "probe_tf_linear": [_P] * 3 + [_I] * 4 + [_P],
+    "adam_update": [_P] * 4 + [_I] * 2 + [_F] * 7 + [_P],
     # an empty kernel, the launch floor the probes are read against
     "launch_floor": [_P],
 }

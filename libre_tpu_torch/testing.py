@@ -27,6 +27,10 @@ KERNEL_TOL_MEAN = 1e-5  # powf vs torch.pow rounding
 GRAD_TOL_MAX = 1e-3
 GRAD_TOL_MAX_EARLY_EXIT = 1e-2
 GRAD_TOL_MEAN_EARLY_EXIT = 1e-5
+# The Adam kernel (csrc/adam_update.cu, no contraction) vs torch.optim.Adam's
+# CUDA kernels (which contract products into sums): f32 ulps, relative to
+# each value and absolute to the leaf's range, over ten steps.
+ADAM_TOL_ULPS = 8
 
 
 def compare(got, want, what, tol=None):

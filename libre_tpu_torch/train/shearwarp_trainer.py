@@ -31,6 +31,7 @@ from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops.reference import Camera, RenderParams
 from libre_tpu_torch.parallel.mesh import require_mesh
 from libre_tpu_torch.parallel.shearwarp_sharded import render_slope_grid_sharded
+from libre_tpu_torch.train.update import step_optimizer
 
 EARLY_EXIT_OFF = 1.1  # 1 − T never exceeds it: no early exit under grad
 
@@ -108,10 +109,7 @@ def make_train_step(problem: ShearWarpProblem, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=False)
         loss = loss_fn(volume, tf, targets)
         loss.backward()
-        with torch.no_grad():
-            optimizer.step()
-            volume.clamp_(0.0, 1.0)
-            tf.clamp_(0.0, 1.0)
+        step_optimizer(optimizer, clamp=[volume, tf])
         return loss.detach()
 
     return step

@@ -43,6 +43,7 @@ from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.ops.shearwarp_bricked import SENTINEL
 from libre_tpu_torch.parallel.compositing import fold_segments, join_rgba, move, split_rgba
 from libre_tpu_torch.parallel.mesh import BRICK_AXIS, RAY_AXIS, require_mesh
+from libre_tpu_torch.train.update import step_optimizer
 from libre_tpu_torch.utils.profiling import span
 
 EARLY_EXIT_OFF = 1.1  # 1 − t never exceeds it: no early exit under grad
@@ -298,7 +299,8 @@ def _update(problem, optimizer, compute_loss, stores: Sequence[torch.Tensor], tf
     """One step in place: ``compute_loss()``, backward, the optimizer's
     update, then each store tensor clamped to [0, 1] where it was covered
     before the update and set to SENTINEL elsewhere, and the TF clamped to
-    [0, 1]."""
+    [0, 1] (``update.step_optimizer``: one kernel pass a leaf for a plain
+    Adam on the card)."""
     with span("libre.train.step"):
         with span("libre.train.loss"):
             optimizer.zero_grad(set_to_none=False)
@@ -308,14 +310,7 @@ def _update(problem, optimizer, compute_loss, stores: Sequence[torch.Tensor], tf
         with span("libre.train.update"), torch.no_grad():
             if not problem.diff_tf:
                 tf.grad = torch.zeros_like(tf)
-            # Coverage is a property of the initial store: taken before the
-            # update, so a large step that pushes a covered voxel below the
-            # sentinel threshold cannot uncover it for good.
-            covered = [s > -0.5 for s in stores]
-            optimizer.step()
-            for s, cov in zip(stores, covered):
-                s.copy_(torch.where(cov, s.clamp(0.0, 1.0), SENTINEL))
-            tf.clamp_(0.0, 1.0)
+            step_optimizer(optimizer, pin=stores, clamp=[tf])
         return loss.detach()
 
 

@@ -36,6 +36,7 @@ from libre_tpu_torch.ops.exact import ExactView, render_exact_diff
 from libre_tpu_torch.ops.reference import BrickSet, RenderParams
 from libre_tpu_torch.parallel.mesh import BRICK_AXIS, Mesh, require_mesh
 from libre_tpu_torch.parallel.render import render_rays_sharded
+from libre_tpu_torch.train.update import step_optimizer
 from libre_tpu_torch.utils.profiling import span
 
 OptimizerFactory = Callable[[Sequence[torch.Tensor]], torch.optim.Optimizer]
@@ -141,9 +142,7 @@ def make_train_step(
         out = problem.render(mesh, state.params["density"], tf, eye, dirs, t_near_plane)
         loss = loss_fn(out, target.to(out.device))
         loss.backward()
-        with torch.no_grad():
-            state.optimizer.step()
-            tf.clamp_(0.0, 1.0)
+        step_optimizer(state.optimizer, clamp=[tf])
         state.step += 1
         return loss.detach()
 
@@ -183,9 +182,8 @@ def make_exact_train_step(
                 loss = loss_fn(render_exact_diff(density, tf, view), target)
             with span("libre.train.backward"):
                 loss.backward()
-            with span("libre.train.update"), torch.no_grad():
-                state.optimizer.step()
-                tf.clamp_(0.0, 1.0)
+            with span("libre.train.update"):
+                step_optimizer(state.optimizer, clamp=[tf])
             state.step += 1
             return loss.detach()
 

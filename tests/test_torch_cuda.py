@@ -8,6 +8,7 @@ jax is not installed:
 """
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import importlib
@@ -1307,3 +1308,199 @@ def test_sharded_exact_trainer_on_logical_shards(cuda):
     assert abs(l4 - l1) <= SHARD_LOSS_RTOL * abs(l1) and l1 > 0
     assert float((d4 - d1).abs().max()) <= SHARD_GRAD_TOL and float(d1.abs().max()) > 0
     assert float((t4 - t1).abs().max()) <= SHARD_GRAD_TOL
+
+
+# --------------------------------------- the trainers' update: the Adam kernel
+def _assert_adam_close(opt_got, opt_want, got, want):
+    """Each leaf and its moments within ``ADAM_TOL_ULPS`` f32 ulp of
+    torch's: relative to the value, and for the leaf absolute to 1 (its
+    range), for the moments to the moment's largest value (a lerp's sum
+    can cancel)."""
+    from libre_tpu_torch.testing import ADAM_TOL_ULPS
+
+    tol = ADAM_TOL_ULPS * 2.0**-23
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=tol, atol=tol)
+        for key in ("exp_avg", "exp_avg_sq"):
+            x, y = opt_got.state[a][key], opt_want.state[b][key]
+            torch.testing.assert_close(x, y, rtol=tol, atol=tol * float(y.abs().max()))
+        assert float(opt_got.state[a]["step"]) == float(opt_want.state[b]["step"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["none", "clamp01", "pin"])
+def test_adam_kernel_matches_torch_adam(cuda, epilogue):
+    """Ten steps of ``step_optimizer`` over a 512³ leaf and a (256, 4) TF
+    (the kernel, one launch a leaf a step, no fallback) against
+    ``torch.optim.Adam``'s foreach step followed by the epilogue
+    (``separate_passes``)."""
+    from libre_tpu_torch.ops.adam import adam_update
+    from libre_tpu_torch.train.update import separate_passes, step_optimizer
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    p0 = torch.rand((512, 512, 512), device=cuda, generator=gen)
+    if epilogue == "pin":
+        p0[:, :, :64] = swb.SENTINEL
+    tf0 = torch.rand((256, 4), device=cuda, generator=gen)
+    got = [p0.clone().requires_grad_(), tf0.clone().requires_grad_()]
+    want = [p0.clone().requires_grad_(), tf0.clone().requires_grad_()]
+    del p0
+    opt_got, opt_want = torch.optim.Adam(got, lr=0.3), torch.optim.Adam(want, lr=0.3)
+
+    def epilogues(leaves):
+        pin = [leaves[0]] if epilogue == "pin" else []
+        return pin, [leaves[1]] + ([leaves[0]] if epilogue == "clamp01" else [])
+
+    launches, fallbacks = adam_update.launches, step_optimizer.fallbacks
+    for _ in range(10):
+        for a, b in zip(got, want):
+            b.grad = torch.randn(a.shape, device=cuda, generator=gen)
+            a.grad = b.grad.clone()
+        pin, clamp = epilogues(got)
+        step_optimizer(opt_got, pin=pin, clamp=clamp)
+        separate_passes(opt_want, *epilogues(want))
+    torch.cuda.synchronize()
+    assert adam_update.launches == launches + 20
+    assert step_optimizer.fallbacks == fallbacks
+    _assert_adam_close(opt_got, opt_want, got, want)
+    if epilogue == "pin":
+        assert bool((got[0].detach()[:, :, :64] == swb.SENTINEL).all())
+
+
+@pytest.mark.cuda
+def test_adam_kernel_tail_lr_edit_and_clear(cuda):
+    """Leaves whose lengths are not multiples of 4 (one under 4), an ``lr``
+    edited between steps and ``state.clear()`` mid-run, against torch;
+    the wrapper refuses a leaf that is not 16 B aligned, and so does
+    ``step_optimizer``: it never gives way to ``optimizer.step()`` on the
+    card."""
+    from libre_tpu_torch.ops.adam import adam_update
+    from libre_tpu_torch.train.update import separate_passes, step_optimizer
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    starts = [torch.rand(4 * 100_003 + 3, device=cuda, generator=gen),
+              torch.rand(3, device=cuda, generator=gen)]
+    got = [s.clone().requires_grad_() for s in starts]
+    want = [s.clone().requires_grad_() for s in starts]
+    opt_got, opt_want = torch.optim.Adam(got, lr=3e-2), torch.optim.Adam(want, lr=3e-2)
+    fallbacks = step_optimizer.fallbacks
+    for k in range(8):
+        if k == 3:
+            opt_got.param_groups[0]["lr"] = opt_want.param_groups[0]["lr"] = 0.2
+        if k == 5:
+            opt_got.state.clear()
+            opt_want.state.clear()
+        for a, b in zip(got, want):
+            b.grad = torch.randn(a.shape, device=cuda, generator=gen)
+            a.grad = b.grad.clone()
+        step_optimizer(opt_got, clamp=[got[0]])
+        separate_passes(opt_want, [], [want[0]])
+    torch.cuda.synchronize()
+    assert step_optimizer.fallbacks == fallbacks
+    assert float(opt_got.state[got[0]]["step"]) == 3.0
+    _assert_adam_close(opt_got, opt_want, got, want)
+
+    base = torch.zeros(17, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        adam_update(base[1:], *(torch.zeros(16, device=cuda) for _ in range(3)), step=1,
+                    lr=1e-2, betas=(0.9, 0.999), eps=1e-8)
+    leaf = base[1:].requires_grad_()
+    leaf.grad = torch.ones_like(leaf)
+    launches = adam_update.launches
+    with pytest.raises(ValueError, match="aligned"):
+        step_optimizer(torch.optim.Adam([leaf], lr=1e-2))
+    assert step_optimizer.fallbacks == fallbacks and adam_update.launches == launches
+    assert bool((leaf.detach() == 0.0).all())
+
+
+@pytest.mark.cuda
+def test_trainers_take_the_adam_kernel(cuda):
+    """Each trainer's step with a plain Adam on the card goes through the
+    kernel: one launch a leaf, no fallback.  The store trainer's update is
+    also held to ``torch.optim.Adam`` and the old epilogue given the same
+    gradients: K2 sums with atomics, so two backward passes from one state
+    differ in their last bits, and Adam's scale-free step turns the sign
+    flips of near-zero gradients into moves of order lr; two runs of
+    torch's own Adam from one start, each with its own backward, drift
+    apart as far (0.17 by step 3 at lr 0.3 on an H100)."""
+    from libre_tpu_torch.ops import shearwarp as sw
+    from libre_tpu_torch.ops.adam import adam_update
+    from libre_tpu_torch.ops.transfer_function import default_color_map, grayscale_ramp
+    from libre_tpu_torch.testing import smooth_volume
+    from libre_tpu_torch.train import (
+        ShearWarpProblem,
+        fit_shearwarp,
+        init_exact_state,
+        make_exact_train_step,
+    )
+    from libre_tpu_torch.train import store_trainer as st
+    from libre_tpu_torch.train.update import separate_passes, step_optimizer
+
+    def counted(run, leaves):
+        launches, fallbacks = adam_update.launches, step_optimizer.fallbacks
+        out = run()
+        torch.cuda.synchronize()
+        assert adam_update.launches == launches + leaves
+        assert step_optimizer.fallbacks == fallbacks
+        return out
+
+    # The store trainer, one device and slabs over 4 x 1 logical shards.
+    store = smooth_volume(64, seed=5, device=cuda).permute(sw._PERM[2]).contiguous()
+    store[:, :, :8] = swb.SENTINEL
+    tf = torch.from_numpy(default_color_map()).to(cuda)
+    views = np.stack([swg.view_vector(
+        world_min=[-0.5] * 3, world_max=[0.5] * 3, axis=2, eye=e, sign=-1.0,
+        slope_bounds=(-0.45, 0.45, -0.4, 0.4), inter_size=(64, 48), max_samples_per_ray=128,
+    ) for e in ([0.1, 0.05, 1.4], [-0.15, 0.1, 1.3])])
+    problem = st.StoreProblem(
+        views=views, na_store=64, na_real=64, nc_real=64, nb_real=64, k_planes=128,
+        inter_size=(64, 48), world_min=np.float32([-0.5] * 3),
+        world_max=np.float32([0.5] * 3), axis=2,
+    )
+    targets = (st.render_views(problem, store, tf) * 0.8 + 0.05).detach()
+    got = [store.clone().requires_grad_(), tf.clone().requires_grad_()]
+    want = [store.clone().requires_grad_(), tf.clone().requires_grad_()]
+    opt = torch.optim.Adam(got, lr=0.3)
+    step = st.make_train_step(problem, opt)
+    for _ in range(3):
+        for a, b in zip(got, want):
+            b.data.copy_(a.detach())
+        ref = torch.optim.Adam(want, lr=0.3)
+        ref.load_state_dict(copy.deepcopy(opt.state_dict()))
+        counted(lambda: step({"store": got[0], "tf": got[1]}, targets), 2)
+        for a, b in zip(got, want):
+            b.grad = a.grad.clone()
+        separate_passes(ref, [want[0]], [want[1]])
+        _assert_adam_close(opt, ref, got, want)
+    assert bool((got[0].detach()[:, :, :8] == swb.SENTINEL).all())
+
+    slabs = [s.requires_grad_() for s in st.shard_store_slabs_uniform(store, 4)]
+    tf_slab = tf.clone().requires_grad_()
+    slab_step = st.make_slab_train_step(
+        problem, torch.optim.Adam([*slabs, tf_slab], lr=3e-2), _logical_mesh(cuda, 4, 1))
+    counted(lambda: slab_step({"slabs": slabs, "tf": tf_slab}, targets), 5)
+
+    # The exact trainer, one brick.
+    params = RenderParams(n_samples_per_ray=64, data_source_range=(0.0, 1.0),
+                          filter_mode="trilinear", early_exit=1.1)
+    camera, _ = build_camera(24, 20, (0.1, 0.05, 1.4), (0.0, 0.0, 0.0))
+    view = exact.exact_view(camera, params, device=cuda)
+    truth = smooth_volume(32, seed=7, device=cuda)
+    with torch.no_grad():
+        target = exact.render_exact_diff(truth, torch.from_numpy(default_color_map()).to(cuda),
+                                         view)
+    state = init_exact_state(torch.full_like(truth, 0.5), default_color_map(),
+                             lambda p: torch.optim.Adam(p, lr=5e-2), device=cuda)
+    counted(lambda: make_exact_train_step(view)(state, target), 2)
+
+    # The dense trainer.
+    cams = [build_camera(32, 32, (0.2, 0.1, 1.4), (0.0, 0.0, 0.0))[0]]
+    dense = ShearWarpProblem.from_cameras(
+        cams, [-0.5] * 3, [0.5] * 3,
+        RenderParams(n_samples_per_ray=32, data_source_range=(0.0, 1.0)),
+        sw.ShearWarpParams(n_planes=32, inter_size=(32, 32), classification="post"))
+    with torch.no_grad():
+        dense_targets = dense.render_views(None, smooth_volume(32, seed=7, device="cpu"),
+                                           torch.from_numpy(default_color_map()))
+    counted(lambda: fit_shearwarp(dense, dense_targets, np.full((32,) * 3, 0.5, np.float32),
+                                  grayscale_ramp(), device=cuda, steps=1), 2)

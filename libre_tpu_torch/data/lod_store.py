@@ -29,11 +29,13 @@ import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from libre_tpu_torch.core.lodnode import LODNode
 from libre_tpu_torch.core.nodeid import NodeId, RootNode
 from libre_tpu_torch.core.volume_info import DataType, VolumeInformation, fill_regular_volume_info
 from libre_tpu_torch.data.datasource import DataSourcePlugin, ParsedURI, register_datasource
+from libre_tpu_torch.ops.reference import BrickSet
 
 MAGIC = b"LTPULOD1"
 
@@ -51,6 +53,13 @@ def _downsample2(vol: np.ndarray) -> np.ndarray:
     )
 
 
+def _padded_range(lo: int, block: int, overlap: int, dim: int) -> np.ndarray:
+    """The voxel indices of one axis of a padded brick whose interior starts
+    at ``lo``: ``overlap`` ghost voxels each side, clamped at the volume
+    border (edge padding) so ghost voxels are always defined."""
+    return np.clip(np.arange(lo - overlap, lo + block + overlap), 0, dim - 1)
+
+
 def _extract_padded_brick(
     vol: np.ndarray, voxel_lo: Tuple[int, int, int], block: Tuple[int, int, int],
     overlap: Tuple[int, int, int],
@@ -61,10 +70,62 @@ def _extract_padded_brick(
     bx, by, bz = block
     x0, y0, z0 = voxel_lo
     zdim, ydim, xdim = vol.shape
-    zi = np.clip(np.arange(z0 - oz, z0 + bz + oz), 0, zdim - 1)
-    yi = np.clip(np.arange(y0 - oy, y0 + by + oy), 0, ydim - 1)
-    xi = np.clip(np.arange(x0 - ox, x0 + bx + ox), 0, xdim - 1)
+    zi = _padded_range(z0, bz, oz, zdim)
+    yi = _padded_range(y0, by, oy, ydim)
+    xi = _padded_range(x0, bx, ox, xdim)
     return vol[np.ix_(zi, yi, xi)]
+
+
+def brick_volume(volume_zyx, block_size: int, overlap: int = 2, device=None) -> BrickSet:
+    """Brick a (Z, Y, X) volume into a :class:`BrickSet` of padded bricks,
+    the store's layout at one level: interiors of ``block_size``³ voxels,
+    each with ``overlap`` ghost voxels a side (:func:`_extract_padded_brick`'s
+    extraction, clamped at the border), in x-major, then y, then z order.
+    World boxes are the interiors' in the volume's box (its longest axis
+    spans 1, centred on the origin, as ``LODStoreDataSource``'s); texture
+    insets place the interior in its padded brick.
+
+    ``volume_zyx`` is a numpy array or a tensor, whose bricks are cut on
+    its own device in one gather; the set lands on ``device`` (default:
+    the tensor's device, or the CPU).  Every extent must be a multiple of
+    ``block_size``."""
+    dims = tuple(int(d) for d in volume_zyx.shape)
+    if len(dims) != 3 or any(d % block_size for d in dims):
+        raise ValueError(f"brick_volume: a (Z, Y, X) volume whose extents are multiples of "
+                         f"{block_size}, got {dims}")
+    counts_zyx = [d // block_size for d in dims]
+    order = [(bx, by, bz) for bx in range(counts_zyx[2]) for by in range(counts_zyx[1])
+             for bz in range(counts_zyx[0])]
+
+    def ranges(axis, coord):  # (B, padded) voxel indices along one axis
+        return np.stack([_padded_range(c[coord] * block_size, block_size, overlap, dims[axis])
+                         for c in order])
+
+    zi, yi, xi = ranges(0, 2), ranges(1, 1), ranges(2, 0)
+    index = (zi[:, :, None, None], yi[:, None, :, None], xi[:, None, None, :])
+    if isinstance(volume_zyx, torch.Tensor):
+        src = volume_zyx.device
+        data = volume_zyx[tuple(torch.from_numpy(i).to(src) for i in index)]
+        device = src if device is None else device
+    else:
+        data = torch.from_numpy(np.ascontiguousarray(np.asarray(volume_zyx)[index]))
+        device = "cpu" if device is None else device
+    scale = max(dims)
+    half = np.float32(dims[::-1]) / scale / 2
+    lo = np.float32(order) * block_size
+    pdim = block_size + 2 * overlap
+
+    def rows(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    n = len(order)
+    return BrickSet(
+        data=data.to(device).contiguous(),
+        world_min=rows(lo / scale - half),
+        world_max=rows((lo + block_size) / scale - half),
+        tex_min=rows(np.full((n, 3), overlap / pdim, np.float32)),
+        tex_max=rows(np.full((n, 3), (overlap + block_size) / pdim, np.float32)),
+    )
 
 
 def build_lod_store(

@@ -48,6 +48,7 @@ from libre_tpu_torch.parallel.compositing import (
     split_rgba,
 )
 from libre_tpu_torch.parallel.mesh import BRICK_AXIS, RAY_AXIS, Mesh, require_mesh
+from libre_tpu_torch.utils.profiling import span
 
 
 def shard_bricks_front_to_back(
@@ -117,7 +118,13 @@ def render_rays_sharded(
     Ray-axis shard vd takes rays [vd·R/d_v, (vd+1)·R/d_v).  ``width`` is
     the screen width K3 and K4 tile each shard's rays by; ``max_steps``
     the longest real brick's march (the pads' boxes are far larger).  K3
-    launches once per shard, and K4 once per shard in the backward."""
+    launches once per shard, and K4 once per shard in the backward.
+
+    Spans: ``libre.shard.rays`` (the ray pack, the box rows, the host
+    reads of the boxes and the eye, the views' moves) and
+    ``libre.shard.composite`` (each ray row's fold and join).
+    ``render_rays_sharded.host_reads`` counts the tensors the calls copy
+    to the host."""
     require_mesh("render_rays_sharded", mesh)
     d_v, d_k = mesh.shape[RAY_AXIS], mesh.shape[BRICK_AXIS]
     n_rays, n_bricks = dirs.shape[0], bricks.num_bricks
@@ -132,30 +139,39 @@ def render_rays_sharded(
             f"want {d_k} chunks of {(b_l, *bricks.data.shape[1:])}"
         )
     lead = mesh.lead
-    eye_t = torch.as_tensor(eye, dtype=torch.float32).to(dirs.device)
-    pack = ray_pack(
-        eye_t, dirs, t_near_plane, params.step_size, global_min, global_max, clip_planes,
-    )
-    boxes = brick_boxes(
-        bricks.world_min.detach().cpu().numpy(), bricks.world_max.detach().cpu().numpy(),
-        bricks.tex_min.detach().cpu().numpy(), bricks.tex_max.detach().cpu().numpy(),
-    )
-    eye_host = eye_t.cpu().numpy()
+    with span("libre.shard.rays"):
+        eye_t = torch.as_tensor(eye, dtype=torch.float32).to(dirs.device)
+        pack = ray_pack(
+            eye_t, dirs, t_near_plane, params.step_size, global_min, global_max, clip_planes,
+        )
+        host = [bricks.world_min, bricks.world_max, bricks.tex_min, bricks.tex_max, eye_t]
+        render_rays_sharded.host_reads += len(host)
+        wmin, wmax, tmin, tmax, eye_host = (x.detach().cpu().numpy() for x in host)
+        boxes = brick_boxes(wmin, wmax, tmin, tmax)
+        views = {}
+        for vd, kd, dev in mesh.shards():
+            with on_stream(streams, dev):
+                views[vd, kd] = exact.ExactView(
+                    ray_pack=move(pack[:, vd * r_l:(vd + 1) * r_l].contiguous(), dev, streams),
+                    brick_boxes=move(boxes[kd * b_l:(kd + 1) * b_l].contiguous(), dev, streams),
+                    eye=eye_host, max_steps=int(max_steps), width=int(width or r_l),
+                    params=params,
+                )
     rows = []
     for vd in range(d_v):
         segs = []
         for kd in range(d_k):
             dev = mesh.device(vd, kd)
             with on_stream(streams, dev):
-                view = exact.ExactView(
-                    ray_pack=move(pack[:, vd * r_l:(vd + 1) * r_l].contiguous(), dev, streams),
-                    brick_boxes=move(boxes[kd * b_l:(kd + 1) * b_l].contiguous(), dev, streams),
-                    eye=eye_host, max_steps=int(max_steps), width=int(width or r_l),
-                    params=params,
-                )
                 seg = exact.render_marcher_diff(
-                    move(brick_data[kd], dev, streams), move(tf, dev, streams), view
+                    move(brick_data[kd], dev, streams), move(tf, dev, streams), views[vd, kd]
                 )
             segs.append(split_rgba(seg))
-        rows.append(join_rgba(composite_along_axis_gather(segs, lead, streams)))
+        with span("libre.shard.composite"):
+            rows.append(join_rgba(composite_along_axis_gather(segs, lead, streams)))
     return torch.cat(rows, dim=0) if d_v > 1 else rows[0]
+
+
+# The tensors each call copies to the host (the brick boxes and the eye):
+# on a card, each a device-to-host read and a synchronise.
+render_rays_sharded.host_reads = 0

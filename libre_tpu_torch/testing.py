@@ -635,32 +635,11 @@ SHARD_GRAD_TOL = 1e-5
 
 
 def split_into_bricks(volume_zyx, n_split: int, overlap: int, device="cuda"):
-    """Split a (Z, Y, X) volume into n_split³ bricks of (b + 2·overlap)³
-    voxels, ghost voxels clamped at the border (``lod_store``'s
-    extraction; the JAX tests' ``_split_into_bricks``) → a
-    ``reference.BrickSet`` on ``device``."""
-    from libre_tpu_torch.ops.reference import BrickSet
+    """Split a cubic (Z, Y, X) volume into n_split³ bricks of (b + 2·overlap)³
+    f32 voxels, ghost voxels clamped at the border (the JAX tests'
+    ``_split_into_bricks``) → a ``reference.BrickSet`` on ``device``:
+    ``data.lod_store.brick_volume``."""
+    from libre_tpu_torch.data.lod_store import brick_volume
 
     volume = np.asarray(volume_zyx, np.float32)
-    _nz, _ny, nx = volume.shape
-    bs = nx // n_split
-    padded = np.pad(volume, overlap, mode="edge")
-    pdim = bs + 2 * overlap
-    data, wmin, wmax = [], [], []
-    for bx in range(n_split):
-        for by in range(n_split):
-            for bz in range(n_split):
-                z0, y0, x0 = bz * bs, by * bs, bx * bs
-                data.append(padded[z0:z0 + pdim, y0:y0 + pdim, x0:x0 + pdim])
-                wmin.append(np.float32([x0, y0, z0]) / nx - 0.5)
-                wmax.append(np.float32([x0 + bs, y0 + bs, z0 + bs]) / nx - 0.5)
-    n = len(data)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(np.stack(a), np.float32)).to(device)
-
-    return BrickSet(
-        data=t(data), world_min=t(wmin), world_max=t(wmax),
-        tex_min=t([np.full(3, overlap / pdim, np.float32)] * n),
-        tex_max=t([np.full(3, (overlap + bs) / pdim, np.float32)] * n),
-    )
+    return brick_volume(volume, volume.shape[2] // n_split, overlap, device=device)

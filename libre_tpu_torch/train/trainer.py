@@ -138,13 +138,17 @@ def make_train_step(
 
     def step(state: TrainState, eye, dirs, t_near_plane, target) -> torch.Tensor:
         tf = state.params["tf"]
-        state.optimizer.zero_grad(set_to_none=False)
-        out = problem.render(mesh, state.params["density"], tf, eye, dirs, t_near_plane)
-        loss = loss_fn(out, target.to(out.device))
-        loss.backward()
-        step_optimizer(state.optimizer, clamp=[tf])
-        state.step += 1
-        return loss.detach()
+        with span("libre.train.step"):
+            with span("libre.train.loss"):
+                state.optimizer.zero_grad(set_to_none=False)
+                out = problem.render(mesh, state.params["density"], tf, eye, dirs, t_near_plane)
+                loss = loss_fn(out, target.to(out.device))
+            with span("libre.train.backward"):
+                loss.backward()
+            with span("libre.train.update"):
+                step_optimizer(state.optimizer, clamp=[tf])
+            state.step += 1
+            return loss.detach()
 
     return step
 

@@ -3,16 +3,18 @@
 the CPU writing a Chrome trace (and doing nothing for None), nested
 ``span`` ranges in that trace, ``span`` as the shared no-op context while
 no profiler records, and the program's ``libre.*`` spans, nested as
-named, on the store trainer's and the exact trainer's step and a
-``VolumeScene`` frame of one and of two samples a pixel."""
+named, on the store trainer's, the exact trainer's and the mesh trainer's
+step and a ``VolumeScene`` frame of one and of two samples a pixel."""
 
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from libre_tpu.utils import profiling as prof_j
+from libre_tpu_torch.ops import rays as ray_ops
 from libre_tpu_torch.utils import profiling as prof_t
 
 TOTALS = {"select": (0.0123456, 3), "upload": (1.5, 2), "render": (0.25, 7), "a": (1e-6, 1)}
@@ -137,6 +139,27 @@ def _scene_frame(samples_per_pixel=1):
     return lambda: scene.render(camera)
 
 
+def _set_step():
+    from libre_tpu_torch.parallel.mesh import make_mesh
+    from libre_tpu_torch.parallel.render import shard_bricks_front_to_back
+    from libre_tpu_torch.testing import split_into_bricks
+    from libre_tpu_torch.train import InverseRenderProblem, init_state, make_train_step
+
+    camera, params, tf = _exact_parts()
+    bricks, _ = shard_bricks_front_to_back(
+        split_into_bricks(np.full((8, 8, 8), 0.5, np.float32), 2, 1, device="cpu"),
+        np.float32([0.2, 0.1, 1.4]), 1)
+    problem = InverseRenderProblem(bricks, (-0.5,) * 3, (0.5,) * 3, params, 16, width=12)
+    mesh = make_mesh(devices=["cpu"])
+    adam = lambda p: torch.optim.Adam(p, lr=1e-2)  # noqa: E731
+    state = init_state(problem, tf, adam, mesh=mesh)
+    step = make_train_step(problem, adam, mesh)
+    eye, dirs, cos_z, _ = ray_ops.make_rays(camera.inv_proj, camera.inv_mv, camera.viewport,
+                                            device="cpu")
+    rays = (eye, dirs.reshape(-1, 3), ray_ops.near_plane_t(cos_z.reshape(-1), camera.near))
+    return lambda: step(state, *rays, torch.zeros(120, 4))
+
+
 # (path, its set-up, each span named with the span it nests in; None: the outermost)
 PATHS = {
     "store_step": (_store_step, {
@@ -148,6 +171,12 @@ PATHS = {
     "exact_step": (_exact_step, {
         "libre.train.step": None, "libre.train.loss": "libre.train.step",
         "libre.exact.forward": "libre.train.loss", "libre.train.backward": "libre.train.step",
+        "libre.exact.backward": "libre.train.backward",
+        "libre.train.update": "libre.train.step"}),
+    "set_step": (_set_step, {
+        "libre.train.step": None, "libre.train.loss": "libre.train.step",
+        "libre.shard.rays": "libre.train.loss", "libre.exact.forward": "libre.train.loss",
+        "libre.shard.composite": "libre.train.loss", "libre.train.backward": "libre.train.step",
         "libre.exact.backward": "libre.train.backward",
         "libre.train.update": "libre.train.step"}),
 }

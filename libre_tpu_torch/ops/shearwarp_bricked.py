@@ -444,7 +444,9 @@ def sweep_tables(
     global grid of ``k_total``, read from a store slab of ``na_store``
     slices whose slice 0 is global slice ``a_base``.  Plane positions and
     the edge clamp are computed on the global grid first (the same
-    floats as the global tables), then shifted into the slab, clamped."""
+    floats as the global tables), then shifted into the slab, clamped.
+    ``sweep_tables.builds`` counts calls."""
+    sweep_tables.builds += 1
     dev = fv.device
     f32 = torch.float32
     wa0, wa1, eye_a = fv[0], fv[1], fv[2]
@@ -485,6 +487,9 @@ def sweep_tables(
         rgb_in=torch.zeros((v_size, u_size, 4), dtype=f32, device=dev),
         t_in=torch.ones((v_size, u_size), dtype=f32, device=dev),
     )
+
+
+sweep_tables.builds = 0
 
 
 def _taps(s: torch.Tensor, n: int):

@@ -7,7 +7,10 @@ slope grid of a normalized (Na, Nc, Nb) density store under a
 * **Forward**: the post-classification sweep of
   ``shearwarp_bricked.post_sweep`` (the K1 kernel on a GPU) with no clip
   planes, no content skipping and a fresh carry; it also yields the final
-  transmittance the backward needs.
+  transmittance the backward needs.  Its operands, the view's sweep
+  tables and clip operand (:func:`sweep_operands`), are built for the
+  call unless the caller hands in a set built once for the view (the
+  store trainer's loss functions do).
 * **Slab mode** (the slab-sharded store trainer): a 13-float view vector
   appends [k0, a_base]; the render covers global planes [k0, k0 +
   k_planes) of ``k_total`` out of a store slab whose slice 0 is global
@@ -285,24 +288,33 @@ store_grid_backward.launches = 0
 
 
 # ======================================================== autograd function
+def sweep_operands(vs: torch.Tensor, static: StaticView) -> Tuple[swb.SweepTables, torch.Tensor]:
+    """One view's sweep operands on ``vs``'s device: its
+    ``shearwarp_bricked.sweep_tables`` (in slab mode over the planes and
+    slab that ``vs[11:13]`` and ``static`` give) and a zero clip operand
+    (no clip planes).  They depend on ``vs`` and ``static`` alone, and K1
+    and K2 only read them, so one set serves every render of the view."""
+    slab = None
+    if static.k_total is not None:
+        slab = (vs[11], vs[12], static.k_total, static.na_store)
+    with span("libre.sweep.tables"):
+        tables = swb.sweep_tables(
+            vs, na=static.na, k_planes=static.k_planes,
+            v_size=static.v_size, u_size=static.u_size, slab=slab,
+        )
+        clip = torch.zeros((swb.MAX_CLIP_PLANES, 4), dtype=torch.float32, device=vs.device)
+    return tables, clip
+
+
 class RenderStoreGridDiff(torch.autograd.Function):
-    """(store, tf, vs, static) → (V, U, 4) slope grid, differentiable in
-    the store and the TF."""
+    """(store, tf, vs, static, operands) → (V, U, 4) slope grid,
+    differentiable in the store and the TF; ``operands`` None builds the
+    view's :func:`sweep_operands` for this call."""
 
     @staticmethod
-    def forward(ctx, store, tf, vs, static: StaticView):
-        slab = None
-        if static.k_total is not None:
-            slab = (vs[11], vs[12], static.k_total, static.na_store)
-        with span("libre.sweep.tables"):
-            tables = swb.sweep_tables(
-                vs, na=static.na, k_planes=static.k_planes,
-                v_size=static.v_size, u_size=static.u_size, slab=slab,
-            )
+    def forward(ctx, store, tf, vs, static: StaticView, operands):
+        tables, clip = sweep_operands(vs, static) if operands is None else operands
         with span("libre.sweep.forward"):
-            clip = torch.zeros(
-                (swb.MAX_CLIP_PLANES, 4), dtype=torch.float32, device=store.device
-            )
             out, t_out = swb.post_sweep(
                 store, tf, tables, clip, n_clip=0, wb=static.wb, wc=static.wc,
                 early_exit=static.early_exit,
@@ -323,11 +335,15 @@ class RenderStoreGridDiff(torch.autograd.Function):
                 wb=static.wb, wc=static.wc, early_exit=static.early_exit,
                 diff_tf=diff_tf,
             )
-        return d_store, (dtf if diff_tf else None), None, None
+        return d_store, (dtf if diff_tf else None), None, None, None
 
 
 def render_store_grid_diff(
-    store: torch.Tensor, tf: torch.Tensor, vs, static: StaticView
+    store: torch.Tensor,
+    tf: torch.Tensor,
+    vs,
+    static: StaticView,
+    operands: Optional[Tuple[swb.SweepTables, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Differentiable slope-grid render of an unpadded (Na, Nc, Nb)
     normalized density store and a (256, 4) TF → (V, U, 4).
@@ -335,9 +351,13 @@ def render_store_grid_diff(
     ``vs`` is the 11-float view vector (:func:`view_vector`), as a tensor
     or array; ``static`` the view's :class:`StaticView`.  In slab mode
     (``static.k_total`` set) ``vs`` has 13 floats, [k0, a_base] appended,
-    and ``store`` is the (na_store, Nc, Nb) slab.  The resample is
-    float32 in both directions whatever a view's ``ShearWarpParams.
-    compute_dtype``, as the JAX store backward forces it
+    and ``store`` is the (na_store, Nc, Nb) slab.  ``operands``, if given,
+    are :func:`sweep_operands` of ``vs`` and ``static`` on the store's
+    device, built once by a caller that renders the view again and again
+    (the store trainer's loss functions build them on their first call);
+    without them each call builds its own.  The resample is float32 in
+    both directions whatever a view's ``ShearWarpParams.compute_dtype``,
+    as the JAX store backward forces it
     (``libre_tpu/ops/shearwarp_grad.py:868``)."""
     vs = torch.as_tensor(vs, dtype=torch.float32, device=store.device)
     want = VIEW_LEN if static.k_total is None else VIEW_LEN + 2
@@ -350,4 +370,4 @@ def render_store_grid_diff(
             f"render_store_grid_diff: store shape {tuple(store.shape)} != "
             f"{(static.store_slices, static.nc, static.nb)}"
         )
-    return RenderStoreGridDiff.apply(store, tf, vs, static)
+    return RenderStoreGridDiff.apply(store, tf, vs, static, operands)

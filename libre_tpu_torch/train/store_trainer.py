@@ -4,7 +4,8 @@
 Optimizes a normalized density store (and the transfer function) so
 that the post-classification renders of a set of views match target
 slope grids: per view ``shearwarp_grad.render_store_grid_diff`` (the
-sweep kernel forward, the recompute-backward kernel backward), a mean
+sweep kernel forward, the recompute-backward kernel backward; each
+view's sweep tables built once per loss function and device), a mean
 squared error, a ``torch.optim`` update, then the store clamped to
 [0, 1] where covered with uncovered voxels pinned at SENTINEL, and the
 TF clamped to [0, 1].
@@ -34,6 +35,7 @@ Over a (ray × brick) mesh (``parallel/mesh.py``):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -105,13 +107,31 @@ def _row_view(vs: torch.Tensor, vd: int, v_l: int) -> torch.Tensor:
     return out
 
 
+def _view_operands(static: swg.StaticView, make_vs: Callable) -> Callable:
+    """``operands(*key)`` → (vs, ``shearwarp_grad.sweep_operands(vs,
+    static)``) with vs = ``make_vs(*key)``, a view vector on its render's
+    device, built the first time ``key`` comes and kept: a problem's views
+    never change, so a loss function builds each render's operands once,
+    not once a step."""
+
+    @functools.cache
+    def operands(*key):
+        vs = make_vs(*key)
+        return vs, swg.sweep_operands(vs, static)
+
+    return operands
+
+
 def make_loss_fn(problem: StoreProblem, mesh=None):
     """(store, tf, targets (Nv, V, U, 4)) → mean-squared error over every
     view, on the store's device.
 
-    With ``mesh``, shard (vd, kd) renders rows vd of views kd·Nv/d_k …
-    (kd+1)·Nv/d_k − 1 on its device (K1 and K2 once per view each), and
-    the loss lands on the mesh's lead device.  The views must divide the
+    Each view's vector, sweep tables and clip operand are built on a
+    device the first time the function renders there, and serve every
+    later call.  With ``mesh``, shard (vd, kd) renders rows vd of views
+    kd·Nv/d_k … (kd+1)·Nv/d_k − 1 on its device (K1 and K2 once per view
+    each; the row-shifted views' operands built once per shard), and the
+    loss lands on the mesh's lead device.  The views must divide the
     brick axis and V the ray axis (else ValueError)."""
     v_size, u_size = problem.inter_size
     n_views = len(problem.views)
@@ -120,12 +140,13 @@ def make_loss_fn(problem: StoreProblem, mesh=None):
 
     if mesh is None:
         static = problem.static_for(v_size)
+        operands = _view_operands(static, lambda i, dev: views[i].to(dev))
 
         def loss_fn(store, tf, targets):
-            vs = views.to(store.device)
             se = 0.0
             for i in range(n_views):
-                img = swg.render_store_grid_diff(store, tf, vs[i], static)
+                vs, ops = operands(i, store.device)
+                img = swg.render_store_grid_diff(store, tf, vs, static, ops)
                 se = se + torch.sum((img - targets[i]) ** 2)
             return se / denom
 
@@ -137,6 +158,9 @@ def make_loss_fn(problem: StoreProblem, mesh=None):
         raise ValueError(f"views={n_views} V={v_size} must divide mesh axes {d_k}x{d_v}")
     nv_l, v_l = n_views // d_k, v_size // d_v
     static_l = problem.static_for(v_l)
+    operands = _view_operands(
+        static_l, lambda i, vd, kd: move(_row_view(views[i], vd, v_l), mesh.device(vd, kd))
+    )
 
     def sharded_loss_fn(store, tf, targets):
         parts = []
@@ -144,8 +168,8 @@ def make_loss_fn(problem: StoreProblem, mesh=None):
             store_l, tf_l = move(store, dev), move(tf, dev)
             se = 0.0
             for i in range(kd * nv_l, (kd + 1) * nv_l):
-                vs = move(_row_view(views[i], vd, v_l), dev)
-                img = swg.render_store_grid_diff(store_l, tf_l, vs, static_l)
+                vs, ops = operands(i, vd, kd)
+                img = swg.render_store_grid_diff(store_l, tf_l, vs, static_l, ops)
                 tgt = move(targets[i, vd * v_l:(vd + 1) * v_l], dev)
                 se = se + torch.sum((img - tgt) ** 2)
             parts.append(move(se, mesh.lead))
@@ -182,7 +206,8 @@ def make_slab_loss_fn(problem: StoreProblem, mesh):
        SENTINEL slices, which no plane reads);
     2. sweeps its GLOBAL plane range against the extended slab with a
        fresh carry through ``render_store_grid_diff``'s slab mode (a
-       13-float view vector carrying [k0, a_base]);
+       13-float view vector carrying [k0, a_base]; the vector, its sweep
+       tables and clip operand are built on the first call and kept);
     3. the segments fold in plane order on the lead device.
 
     With the early exit off, the fold equals the one-device sweep up to fp
@@ -219,6 +244,19 @@ def make_slab_loss_fn(problem: StoreProblem, mesh):
     )
     denom = float(n_views * v_size * u_size * 4)
 
+    def slab_view(i, vd, kd):
+        """View i's 13-float vector for shard (vd, kd), on its device.
+        Shard kd's planes cover its slab's z range: the plane grid runs
+        front to back, so toward −A it starts at the far end."""
+        k0 = kd * k_l if sign > 0 else (d_k - 1 - kd) * k_l
+        vs = torch.cat([
+            _row_view(views[i], vd, v_l),
+            torch.tensor([float(k0), float(kd * na_l - 1)]),
+        ])
+        return move(vs, mesh.device(vd, kd))
+
+    operands = _view_operands(static_l, slab_view)
+
     def extended_slab(slabs, kd, dev):
         own = move(slabs[kd], dev)
         edge = torch.full((1,) + tuple(own.shape[1:]), SENTINEL, dtype=own.dtype, device=dev)
@@ -238,17 +276,8 @@ def make_slab_loss_fn(problem: StoreProblem, mesh):
                 segs = []
                 for kd in range(d_k):
                     dev = mesh.device(vd, kd)
-                    # Shard kd's planes cover its slab's z range: the plane
-                    # grid runs front to back, so toward −A it starts at
-                    # the far end.
-                    k0 = kd * k_l if sign > 0 else (d_k - 1 - kd) * k_l
-                    vs = torch.cat([
-                        _row_view(views[i], vd, v_l),
-                        torch.tensor([float(k0), float(kd * na_l - 1)]),
-                    ])
-                    seg = swg.render_store_grid_diff(
-                        ext[vd, kd], tfs[dev], move(vs, dev), static_l
-                    )
+                    vs, ops = operands(i, vd, kd)
+                    seg = swg.render_store_grid_diff(ext[vd, kd], tfs[dev], vs, static_l, ops)
                     segs.append(split_rgba(move(seg, mesh.lead)))
                 if sign < 0:
                     segs = segs[::-1]  # fold in front-to-back plane order

@@ -1011,6 +1011,45 @@ def test_sharded_k1_frame_on_logical_shards(cuda, shape, slabs):
 
 
 @pytest.mark.cuda
+def test_store_train_step_reuses_sweep_tables(cuda, monkeypatch):
+    """After its first step the store trainer's step builds no sweep
+    tables on the card, and its loss equals, bit for bit, the loss of the
+    same state from a loss function that rebuilds them on every call."""
+    from libre_tpu_torch.ops import shearwarp as sw
+    from libre_tpu_torch.ops.transfer_function import default_color_map
+    from libre_tpu_torch.testing import smooth_volume
+    from libre_tpu_torch.train import store_trainer as st
+
+    store = smooth_volume(64, seed=5, device=cuda).permute(sw._PERM[2]).contiguous()
+    tf = torch.from_numpy(default_color_map()).to(cuda)
+    views = np.stack([swg.view_vector(
+        world_min=[-0.5] * 3, world_max=[0.5] * 3, axis=2, eye=e, sign=-1.0,
+        slope_bounds=(-0.45, 0.45, -0.4, 0.4), inter_size=(64, 48), max_samples_per_ray=128,
+    ) for e in ([0.1, 0.05, 1.4], [-0.15, 0.1, 1.3])])
+    problem = st.StoreProblem(
+        views=views, na_store=64, na_real=64, nc_real=64, nb_real=64, k_planes=128,
+        inter_size=(64, 48), world_min=np.float32([-0.5] * 3),
+        world_max=np.float32([0.5] * 3), axis=2,
+    )
+    targets = (st.render_views(problem, store, tf) * 0.8 + 0.05).detach()
+    params = {"store": torch.where(store > -0.5, 0.5, swb.SENTINEL).requires_grad_(),
+              "tf": tf.clone().requires_grad_()}
+    step = st.make_train_step(problem, torch.optim.Adam(list(params.values()), lr=3e-2))
+    step(params, targets)
+    with monkeypatch.context() as m, torch.no_grad():
+        # The loss as it was: view vectors and tables made anew each call.
+        m.setattr(st, "_view_operands",
+                  lambda static, make_vs: lambda *key: (make_vs(*key), None))
+        want = st.make_loss_fn(problem)(params["store"], params["tf"], targets)
+    builds = swb.sweep_tables.builds
+    got = step(params, targets)
+    torch.cuda.synchronize()
+    assert swb.sweep_tables.builds == builds
+    assert torch.equal(got, want)
+    assert float(got) > 0.0
+
+
+@pytest.mark.cuda
 def test_slab_loss_on_logical_shards(cuda):
     """The slab-sharded store loss on 4 × 1 logical shards of the card (K1
     and K2 once per shard) against the replicated loss on the card: loss

@@ -80,7 +80,9 @@ def test_span_is_the_shared_noop_without_a_profiler(tmp_path):
     assert prof_t.span("libre.after") is prof_t.NO_SPAN
 
 
-def _store_step():
+def _store_step(first=False):
+    """A store train step; with ``first``, each run the first step of a new
+    loss function, which builds its views' sweep tables."""
     import numpy as np
 
     from libre_tpu_torch.ops import shearwarp_grad as swg
@@ -95,8 +97,11 @@ def _store_step():
                            world_max=np.float32([0.5] * 3), axis=2)
     params = {"store": torch.full((8, 8, 8), 0.5).requires_grad_(),
               "tf": torch.linspace(0, 1, 1024).reshape(256, 4).requires_grad_()}
-    step = make_train_step(problem, torch.optim.Adam([params["store"], params["tf"]], lr=1e-2))
+    opt = torch.optim.Adam([params["store"], params["tf"]], lr=1e-2)
+    step = make_train_step(problem, opt)
     targets = torch.zeros((1, 6, 5, 4))
+    if first:
+        return lambda: make_train_step(problem, opt)(params, targets)
     return lambda: step(params, targets)
 
 
@@ -161,13 +166,14 @@ def _set_step():
 
 
 # (path, its set-up, each span named with the span it nests in; None: the outermost)
+STORE = {"libre.train.step": None, "libre.train.loss": "libre.train.step",
+         "libre.sweep.forward": "libre.train.loss", "libre.train.backward": "libre.train.step",
+         "libre.sweep.backward": "libre.train.backward", "libre.train.update": "libre.train.step"}
 PATHS = {
-    "store_step": (_store_step, {
-        "libre.train.step": None, "libre.train.loss": "libre.train.step",
-        "libre.sweep.tables": "libre.train.loss", "libre.sweep.forward": "libre.train.loss",
-        "libre.train.backward": "libre.train.step",
-        "libre.sweep.backward": "libre.train.backward",
-        "libre.train.update": "libre.train.step"}),
+    # A later step reuses the tables its loss function built on its first.
+    "store_step": (_store_step, STORE),
+    "store_first_step": (lambda: _store_step(first=True),
+                         {**STORE, "libre.sweep.tables": "libre.train.loss"}),
     "exact_step": (_exact_step, {
         "libre.train.step": None, "libre.train.loss": "libre.train.step",
         "libre.exact.forward": "libre.train.loss", "libre.train.backward": "libre.train.step",

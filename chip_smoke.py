@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (libre_tpu_torch) on one NVIDIA GPU.
+"""Correctness sweep of the PyTorch port (libre_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (any failure exits non-zero):
+Every hand-written kernel is held against its plain PyTorch version, and
+every main path is run end to end with its kernels' launches counted.
+Times are not taken here: the benchmark (``perfbench/run.py``) measures
+the port.  Phases, each of which raises on failure (any failure exits
+non-zero):
 
 1. the card: CUDA present, compute capability 9.0, full-f32 matmuls;
    prints ``nvidia-smi``'s name and power limit;
@@ -22,9 +26,8 @@ Phases, each of which raises on failure (any failure exits non-zero):
    (all 4096 finest bricks, a 512³ store) within one major axis, so
    frames 2-8 reuse the cached store; the sweep kernel must launch once
    per frame;
-5. kernel vs plain on the main path's own operands, bit-equal (timed,
-   with the work behind the time: active planes, rays that fetch, early
-   exits, samples fetched, planes listed per tile), the same for the
+5. kernel vs plain on the main path's own operands, bit-equal, with the
+   plain plane lists a superset of each tile's fetches, the same for the
    CLI frame's recorded launch, and the port on the card vs the port on
    the CPU on a small volume;
 6. the backward kernel vs plain PyTorch on seeded operands at 96×80 rays
@@ -35,10 +38,9 @@ Phases, each of which raises on failure (any failure exits non-zero):
 7. the training path: ``fit`` recovers the orbit's 512³ store and the TF
    from 4 orbit views (512² slope grids, K = 512) in 5 Adam steps from a
    flat init; every step launches the sweep and the backward kernel once
-   per view; a checkpoint round trip; step and plain times; the backward
-   kernel vs plain on view 0 over the trained store and over the truth
-   store, each timed with the TF gradient on and off (samples/s, share of
-   the bound); K1 on view 0 bit-equal to plain, with its bound;
+   per view; a checkpoint round trip; the backward kernel vs plain on
+   view 0 over the trained store and over the truth store; K1 on view 0
+   bit-equal to plain;
 8. the exact marcher K3 vs plain PyTorch on seeded operands: the
    ``bench_exact`` shape (one 64³ f32 brick, 256² rays, 512 samples per
    ray) and a scattered 64-brick uint8 atlas with clip planes and a carry
@@ -53,9 +55,8 @@ Phases, each of which raises on failure (any failure exits non-zero):
    an 8-pose orbit through ``RenderEngine.render(marcher="pallas")`` at
    screen-space error 1 (all 4096 finest bricks, 512 samples per ray) on
    the bricked orbit's engine; K3 must launch once per pass per sample;
-   frame, select and kernel times and the work behind them (samples
-   composited, bricks sampled, bricks listed per tile, rays ended by the
-   early exit); K3 on the CLI frames' recorded launches;
+   the last frame rebuilt from its operands, and again from only the
+   bricks some ray samples;
 10. K3 vs plain on a 64×64 window of the orbit view's rays (the plain
    version over all 512² rays and 4096 bricks would take minutes), with
    phase 8's checks of counts and lists;
@@ -66,19 +67,16 @@ Phases, each of which raises on failure (any failure exits non-zero):
    samples per ray) on every field of ``testing.FIELDS`` and a (24, 144,
    136) random brick with two clip planes and a jittered sample, nearest
    and trilinear, the TF gradient on and off; an autograd round trip of
-   ``render_exact_diff`` on the card vs the plain backward; the fwd+bwd
-   rate at the ``exact_fwd_bwd`` shape, K4 timed with the TF gradient on
-   and off;
+   ``render_exact_diff`` on the card vs the plain backward;
 13. the exact training path at full width: ``init_exact_state`` from a
    flat 0.5 volume, ``make_exact_train_step`` with Adam (lr 5e-2) for 5
    steps over 4 views (512² rays, 512 samples per ray, trilinear) of a
    512³ smooth ground truth; K3 and K4 must launch once per step and the
-   loss of view 0 must fall; step, kernel and plain times, samples per
-   view, K4 vs plain on the whole of view 0 over the trained volume and
-   over the ground truth (three seeded cotangents, K4 twice on each, its
-   TF gradient also against the plain version over float64 operands),
-   each timed with the TF gradient on and off; K3's bound on view 0; K3
-   (with its sample counts) and K4 vs plain on a 64×64 window of it;
+   loss of view 0 must fall; K4 vs plain on the whole of view 0 over the
+   trained volume and over the ground truth (three seeded cotangents, K4
+   twice on each, its TF gradient also against the plain version over
+   float64 operands); K3 (with its sample counts) and K4 vs plain on a
+   64×64 window of it;
 14. the exact trainer on the card vs on the CPU: 2 SGD steps on a 32³
    volume seen by 24×20 rays;
 15. the dense pre-classified sweep K5 vs plain PyTorch on seeded
@@ -92,9 +90,8 @@ Phases, each of which raises on failure (any failure exits non-zero):
    volume at 512×512 (level 4, a 2 GiB classified stack, K = 512), then
    the 8-pose orbit through ``RenderEngine.render_shearwarp``, frames 2-8
    on the cached stack; K5 must launch once per frame and no plain
-   version may run; first-frame split (level assembly, classify), steady
-   frames, K5 (bit-equal) and plain times on the last pose and the work
-   behind them: planes listed per tile and composited at;
+   version may run; K5 bit-equal to plain on the last pose's operands,
+   with its plane lists;
 17. the dense path on the card (K5) vs on the CPU (the plain pipeline) on
    a small volume, and the autograd Function's forward and gradients on
    the card vs on the CPU.
@@ -107,39 +104,35 @@ Phases, each of which raises on failure (any failure exits non-zero):
    full shape: each probe's kernel (``csrc/probe_take.cu``,
    ``probe_take_along.cu``, ``probe_tf_nearest.cu``,
    ``probe_tf_linear.cu``) bit-equal to its plain version and to its
-   PyTorch library call, timed in a CUDA graph and from Python; the four
-   kernels' launch counts set to 0 before and read after;
+   PyTorch library call; the four kernels' launch counts set to 0 before
+   and read after;
 20. the interactive service (``phase_serve``): ``RenderService`` on the
    512³ volume at 512×512 driven over HTTP on 127.0.0.1 (orbit, colormap,
    the exact renderer, the 2×2 layout through the wall, an asynchronous
    frame), K1's and
    K3's counts set to 0 before and read after; each served frame
    bit-equal to the engine's own frame, each histogram equal to numpy's
-   bincount over the frame's bricks; request latency, histogram and JPEG
-   times;
+   bincount over the frame's bricks;
 21. the dense shear-warp trainer at full width (``phase_dense_trainer``):
    ``train.shearwarp_trainer`` over a 256³ smooth truth with
    ``ShearWarpParams``' defaults (K = 256, 256² slope grids), 4 views,
    5 Adam steps ("post") and 2 ("pre"), the plain pipeline (batched
-   products, no kernel); step time, Mrays/s, peak memory, one step under
-   ``profiled`` (``utils.profiling.device_trace``, as every profiled
-   step and frame); the TF gather's ``bincount`` backward against
-   autograd's indexing in ``render_slope_grid_fused`` at full width,
-   timed; card vs CPU on a 32³ problem;
+   products, no kernel); the TF gather's ``bincount`` backward against
+   autograd's indexing in ``render_slope_grid_fused`` at full width;
+   card vs CPU on a 32³ problem;
 22. ``models.VolumeScene`` at full width (``phase_scene``): a 512³
    smooth volume, 512² rays, the early exit 0.999: the target's render
-   and 5 Adam steps on the estimate's MSE (the step time the median of
-   steps 2-5), with K3's and K4's counts set to 0 before and read after
-   and the plain marcher made to raise; K3 and
-   K4 (with the exit rule) vs plain on a 64×64 window, K4 on every field
-   of ``testing.FIELDS`` with the rays that exit counted; K4 with the exit
-   on and off, timed; the 16³ test scene on the card vs the CPU;
+   and 5 Adam steps on the estimate's MSE, with K3's and K4's counts set
+   to 0 before and read after and the plain marcher made to raise; K3
+   and K4 (with the exit rule) vs plain on a 64×64 window, K4 on every
+   field of ``testing.FIELDS`` with the rays that exit counted; the 16³
+   test scene on the card vs the CPU;
 23. the benchmark scripts (``phase_scripts``): ``bench_forward --quick``,
    ``probe_bwd_breakdown``, ``demo_inverse_render`` (store and
    ``--exact``) and ``demo_out_of_core`` cut to 512³, each ``python -m``
-   in its own process with its wall time, each holding one call of every
-   kernel it runs against the kernel's plain version; their launch counts
-   and largest errors go into the kernels line;
+   in its own process, each holding one call of every kernel it runs
+   against the kernel's plain version; their launch counts and largest
+   errors go into the kernels line;
 24. ``entry()`` on the card (``phase_entry``) vs the plain march, and the
    phases' seconds through ``utils.profiling.StageTimers``;
 25-29. the multi-device layer (M9) on logical shards of the one card
@@ -158,40 +151,31 @@ Phases, each of which raises on failure (any failure exits non-zero):
    68³, 512² rays, 5 Adam steps on a 1x1 mesh and on a 2x2 mesh of
    logical shards (K3 and K4 once per shard and step; the 2x2 loss and
    gradients against the 1x1 ones), and ``VolumeScene.render`` over the
-   same set with the early exit on; each K4 site (512 and 256 bricks)
-   timed with its bound and held against the plain version on a 64x64
-   window of its rays;
+   same set with the early exit on; each K4 call (512 and 256 bricks)
+   held against the plain version on a 64x64 window of its rays;
 31. what finished the one-card port (``phase_finish``): K3 and K4 through
    their runtime-T instances at T = 1, 32 and 1024 against their plain
-   versions on a 64x64 window of phase 13's view 0, the whole view timed
-   at those T beside T = 256; then, with the counts set to 0 before and
-   read after, 5 Adam steps of the exact trainer from a 32-entry TF, the
-   1x2 and 2x2 walls of ``RenderService`` at 512x512 through
-   ``render_wall`` against the sequential loop, 2x2 requests over HTTP
-   through the wall and through the loop, and the bf16 store frame (K1)
-   and dense frame (K5); every wall tile and served canvas bit-equal to
-   the loop's, the bf16 launches bit-equal to plain and timed beside the
-   f32 instances'; ``benchmarks/demo_wall`` at its defaults;
+   versions on a 64x64 window of phase 13's view 0; then, with the counts
+   set to 0 before and read after, 5 Adam steps of the exact trainer from
+   a 32-entry TF, the 1x2 and 2x2 walls of ``RenderService`` at 512x512
+   through ``render_wall`` and the sequential loop, 2x2 requests over
+   HTTP through the wall and through the loop, and the bf16 store frame
+   (K1) and dense frame (K5); every wall tile and served canvas bit-equal
+   to the loop's, the bf16 launches bit-equal to plain;
+   ``benchmarks/demo_wall`` at its defaults;
 32. the trainers' update (``phase_adam``): ``train.update.step_optimizer``
    over a 512³ leaf and a (256, 4) TF through ``csrc/adam_update.cu`` (one
    launch a leaf, no fallback), each epilogue held to ``torch.optim.Adam``
-   plus the old epilogue over 5 steps within ``testing.ADAM_TOL_ULPS``;
-   the kernel timed on the 512³ leaf beside its bound (28 B a value),
-   ``torch.optim.Adam``'s foreach step plus the old epilogue's passes (the
-   path it replaced), torch's fused Adam with the epilogue in place (the
-   ``library_ms``), and the plain version.  The trainers' runs on the card
-   (dense, sharded store, exact set, exact and store trainers) and these
-   checked steps count the kernel's launches from 0 and raise on a
-   fallback (``adam_counted``); the ``kernels`` line sums those counts.
+   plus the old epilogue over 5 steps within ``testing.ADAM_TOL_ULPS``.
+   The trainers' runs on the card (dense, sharded store, exact set,
+   exact and store trainers) and these checked steps count the kernel's
+   launches from 0 and raise on a fallback (``adam_counted``); the
+   ``kernels`` line sums those counts.
 
-Prints every kernel's launch sites on the main paths (launches, time
-per launch on the site's operands, bound, and launches × (time − bound),
-the port's rule-2 ranking), then one JSON line describing the kernels
-(with each kernel's bound:
-the larger of its bytes over the HBM rate and its f32 operations over
-their peak, from this run's work), then, as the last line,
-``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
-no CUDA device is present.
+Prints one JSON line describing the kernels (each kernel's launches on
+the main paths and its largest error against its plain version), then,
+as the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero
+without a result when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -215,94 +199,14 @@ URI = "mem://#512,512,512,32?pattern=gradient"
 TRAIN_VIEWS = 4
 TRAIN_STEPS = 5
 SUBSET = 64  # K3 vs plain on a SUBSET x SUBSET window of the main-path view
-
-# The least time an H100 SXM could take for a kernel's work: bytes over the
-# HBM rate, f32 operations (outside the tensor cores) over their peak
-# (NVIDIA's data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-TF_BYTES = 256 * 4 * 4
-# f32 operations per sample, counted from the kernels' per-sample code
-# (an add, multiply, divide, compare, min/max, floor, conversion or atomic
-# add counts one, powf three; integer index arithmetic is not counted):
-# K1 and K2 per fetched plane sample (post_sweep.cu, store_grid_bwd.cu
-# with the TF gradient), K3 per composited sample by filter, for a uint8
-# atlas (exact_march.cu).
-K1_OPS_PER_SAMPLE = 97
-K2_OPS_PER_SAMPLE = 173
-# Of those, the TF gradient's: a run's bin test, 1 - wt, and the 8
-# products and 8 adds into the run (tf_grad.cuh's Run.add; a flush is per
-# run, not per sample, and not counted): what diff_tf=False does not do.
-K2_TF_OPS_PER_SAMPLE = 18
-K3_OPS_PER_SAMPLE = {"nearest": 69, "trilinear": 122}
-# Of those, the casts of a uint8 atlas's taps to f32, which an f32 atlas
-# does not do.
-K3_CAST_OPS = {"nearest": 1, "trilinear": 8}
-# K4 per sample of an f32 brick (exact_march_bwd.cu): K3's count without
-# the 8 (1) conversions and its composite (10), plus the recompute's
-# backward: the weight and prefix (8), the inversion (9), the opacity
-# correction's slope and gate (9), the TF gradient (18, as K2's), the
-# density gates and slope (17), the taps' weights, products and global
-# atomics (44 trilinear, 1 nearest), T (2).
-K4_OPS_PER_SAMPLE = {"nearest": 122, "trilinear": 211}
-K4_TF_OPS_PER_SAMPLE = 18  # the TF gradient's share: not done with diff_tf=False
-# K5 per composited sample (pre_sweep.cu): the early-exit test (2), the
-# sample point (4) and box test (4), both axes' taps (24), the RGBA lerps
-# (87: 7 four-channel lerps, each weight's 1 − w once), the opacity
-# correction (6) and the composite (9).
-K5_OPS_PER_SAMPLE = 136
-# The Adam kernel per value (adam_update.cu): p, g, m and v read, p, m and v
-# written; the lerp (3), the second moment (4), the denominator (3), the
-# update (3) and the epilogue's compares (2).
-ADAM_BYTES_PER_VALUE = 28
-ADAM_OPS_PER_VALUE = 15
 # The exact trainer's views: benchmarks/demo_inverse_render.py:34-37.
 EXACT_EYES = ([0.1, 0.05, 1.4], [-0.15, 0.1, 1.3], [0.02, -0.12, 1.5], [-0.05, -0.02, 1.2])
 EXACT_TRAIN_N = 512
 EXACT_TRAIN_ORDER = (0, 1, 2, 3, 0)
-
-
-# The gather probes P1-P17 (benchmarks/probe_*.py, ported as
-# libre_tpu_torch/benchmarks on ops/gather.py), each as (bytes, f32
-# operations) from its shapes: each input read once and each output written
-# once, where a gather reads only the table entries its indices can reach
-# (at most one per index); one add per gathered value in the probes that
-# sum over a loop of LOOP = 512, three per two-tap lerp (P12).
-PROBE_WORK = {
-    "P1": (3 * 1024 * 4, 0),
-    "P2": (3 * 1024 * 4, 0),
-    "P3": (3 * 1024 * 4, 0),
-    "P4": (3 * 1024 * 4, 0),
-    "P5": (3 * 1024 * 4, 512 * 1024),
-    "P6": ((8 * 1024 + 2 * 1024) * 4, 512 * 1024),
-    "P7": (3 * 512 * 128 * 4, 0),
-    "P8": (3 * 1024 * 4, 512 * 1024),
-    "P9": ((2 * 8 * 128 + 128) * 4, 0),
-    "P10 axis 1": (3 * 128 * 128 * 4, 0),
-    "P10 axis 0": (3 * 128 * 128 * 4, 0),
-    "P11": ((2 * 512 * 64 * 256 + 256) * 4, 0),
-    "P12": ((512 * 64 * 256 + 4 * 256 + 512 * 4 * 64 * 256) * 4, 512 * 4 * 64 * 256 * 3),
-    "P13": ((2 * 64 * 512 + 256) * 4, 0),
-    "P14": ((32768 + 2 * 1024 * 128) * 4, 0),
-    "P15": ((32768 + 3 * 1024 * 128) * 4, 0),
-    "P16": (3 * 1024 * 4, 0),
-    "P17": ((256 * 4 + 1024 * 128 + 1024 * 128 * 4) * 4, 0),
-}
-
-
-# The probes of the kernels redesigned after their port: probe_take.cu (P1,
-# P9, P14, P15), probe_take_along.cu's loop sums (P5, P6, P8) and single
-# gather (P2-P4, P7, P10, P16), and probe_tf_nearest.cu (P11, P13, P17).
-# Phase 19 times them against the parent checkout's build when there is one.
-PROBE_AB = ("P1", "P2", "P3", "P4", "P5", "P6", "P7", "P8", "P9", "P10 axis 1", "P10 axis 0",
-            "P11", "P13", "P14", "P15", "P16", "P17")
-
-
-def bound(bytes_, ops):
-    """(ms, "bytes" or "operations"): the larger of the two times."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+# The gather probes (benchmarks/probe_*.py, ported as libre_tpu_torch/benchmarks
+# on ops/gather.py), in the order their modules run them.
+PROBES = ("P1", "P2", "P3", "P4", "P5", "P6", "P7", "P8", "P9", "P10 axis 1", "P10 axis 0",
+          "P11", "P12", "P13", "P14", "P15", "P16", "P17")
 
 
 def free_device_memory():
@@ -335,80 +239,6 @@ def adam_counted(what, want):
         raise AssertionError(f"{what}: the Adam kernel launched {got[0]} times and the update "
                              f"fell back {got[1]} times, want {want} and none")
     ADAM_RUNS.append((what, want))
-
-
-def cuda_ms(fn, reps, warmup=2):
-    """Mean device milliseconds per call of ``fn`` (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def profiled(what, fn, tags, card, unprofiled_ms, top=0):
-    """Run ``fn`` (which must end by synchronising) once inside
-    ``utils.profiling.device_trace`` (torch.profiler, a Chrome trace into
-    a temporary directory) and print its host-clock time, its device time
-    in kernels and in copies (memcpy, memset) with their counts, the
-    device's idle share of ``unprofiled_ms`` (the same work's host-clock
-    time without the profiler, whose own cost inflates its clock) and of
-    the profiled clock, the kernels' time by the first of ``tags`` in each
-    kernel's name ("other" for none), and with ``top`` the ``top`` device
-    ops by time.  Annotated ranges, which span kernels, are left out.
-    Raises if the trace holds no device time."""
-    from torch.autograd import DeviceType
-
-    from libre_tpu_torch.utils.profiling import device_trace
-
-    with tempfile.TemporaryDirectory() as log_dir, device_trace(log_dir) as prof:
-        t = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    groups, n_kernels, copy_ms, n_copies, ops = {}, 0, 0.0, 0, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        ms = e.self_device_time_total / 1e3
-        ops.append((ms, e.count, e.key))
-        if e.key.startswith(("Memcpy", "Memset")):
-            copy_ms += ms
-            n_copies += e.count
-            continue
-        tag = next((t for t in tags if t in e.key), "other")
-        groups[tag] = groups.get(tag, 0.0) + ms
-        n_kernels += e.count
-    kernel_ms = sum(groups.values())
-    busy_ms = kernel_ms + copy_ms
-    print(
-        f"{what} under torch.profiler: {wall_ms:.3f} ms host clock ({unprofiled_ms:.3f} ms "
-        f"unprofiled); device {kernel_ms:.3f} ms in {n_kernels} kernels + {copy_ms:.3f} ms in "
-        f"{n_copies} copies; idle share {1.0 - busy_ms / unprofiled_ms:.3f} of the unprofiled "
-        f"time ({1.0 - busy_ms / wall_ms:.3f} of the profiled clock); kernels: "
-        + "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))
-        + f" {card}"
-    )
-    for ms, n, key in sorted(ops, reverse=True)[:top]:
-        print(f"  {ms:.3f} ms in {n} x {key[:90]}")
-    if busy_ms <= 0.0:
-        raise AssertionError(f"{what}: the trace holds no device time")
-
-
-def rate(what, ms, samples, bound_ms, card):
-    """Print a kernel time with its samples per second and its share of
-    the bound."""
-    print(
-        f"  {what}: {ms:.4f} ms, {samples / (ms * 1e-3) / 1e9:.3f} G samples/s; bound "
-        f"{bound_ms:.4f} ms, kernel at {bound_ms / ms:.4f} of it {card}"
-    )
 
 
 class Recorder:
@@ -452,76 +282,39 @@ def k1_operands(args):
     return (store, tf, tables, clip, kw), (out, t_out)
 
 
-def k1_work(store, tf, tables, clip, kw):
-    """K1's work on these operands, from the plain sweep: a dict of its
-    output (``want``, ``t_want``), the per-ray ``samples`` fetched, the
-    (K,) ``planes`` and (TV, TU, K) tiles' ``fetches`` at which some ray
-    fetches, the number of store voxels ``touched`` under the taps, and
-    K1's ``bound``: those voxels read once, the per-ray operands and
-    outputs, the TF and the plane tables; the fetched samples' operations."""
+def k1_plain(store, tf, tables, clip, kw):
+    """The plain sweep on K1's operands: (out, t_out, and the (TV, TU, K)
+    tiles' planes at which some ray fetches)."""
     import torch
 
     from libre_tpu_torch.ops import shearwarp_bricked as swb
 
-    dev = store.device
     v_size, u_size = tables.corr.shape
-    k_planes = tables.a0.shape[0]
     rows, cols = swb.SWEEP_TILE
-    samples = torch.zeros((v_size, u_size), dtype=torch.int64, device=dev)
-    planes = torch.zeros(k_planes, dtype=torch.bool, device=dev)
-    touched = torch.zeros(store.shape, dtype=torch.bool, device=dev)
-    fetches = torch.zeros((-(-v_size // rows), -(-u_size // cols), k_planes),
-                          dtype=torch.bool, device=dev)
-    want, t_want = swb.post_sweep_reference(store, tf, tables, clip, samples=samples,
-                                            planes=planes, touched=touched, fetches=fetches,
-                                            **kw)
-    n_touched = int(touched.sum())
-    return dict(
-        want=want, t_want=t_want, samples=samples, planes=planes, fetches=fetches,
-        touched=n_touched,
-        bound=bound(bytes_=n_touched * 4 + v_size * u_size * 11 * 4 + TF_BYTES + k_planes * 5 * 4,
-                    ops=int(samples.sum()) * K1_OPS_PER_SAMPLE),
-    )
+    fetches = torch.zeros((-(-v_size // rows), -(-u_size // cols), tables.a0.shape[0]),
+                          dtype=torch.bool, device=store.device)
+    want, t_want = swb.post_sweep_reference(store, tf, tables, clip, fetches=fetches, **kw)
+    return want, t_want, fetches
 
 
-def k3_counts(args):
-    """Relaunch a recorded ``exact_march`` with fresh per-ray sample
-    counts and per-brick use flags (not counted as a main-path launch):
-    (out, samples, used)."""
+def check_k1_again(calls, what):
+    """The last recorded K1 launch of ``calls`` ((name, args) of a
+    ``Recorder``) at a sharded call site, launched again on its operands
+    as they are now (a training step's optimizer has updated the TF in
+    place since): bit-equal to the plain sweep on them."""
     import torch
 
-    from libre_tpu_torch.ops import _kernels
+    from libre_tpu_torch.ops import shearwarp_bricked as swb
 
-    args = list(args)
-    carry, n_bricks = args[5], args[11]
-    out = torch.empty_like(carry)
-    samples = torch.zeros(carry.shape[0], dtype=torch.int32, device=carry.device)
-    used = torch.zeros(n_bricks, dtype=torch.int32, device=carry.device)
-    args[6:9] = out, samples, used
-    _kernels.launch("exact_march", *args)
-    return out, samples, used
-
-
-def k3_bound_of(samples, used, slot_bytes, n_bricks, n_rays, filter_mode, f32_atlas,
-                n_tf=256):
-    """K3's bound: the bricks some ray samples (their atlas slots) read
-    once, the boxes, slots, ray pack, carry in and out and the n_tf-entry
-    TF; the composited samples' operations (an f32 atlas casts nothing)."""
-    ops = K3_OPS_PER_SAMPLE[filter_mode] - (K3_CAST_OPS[filter_mode] if f32_atlas else 0)
-    return bound(
-        bytes_=int(used.sum()) * slot_bytes + n_bricks * (16 + 1) * 4
-        + n_rays * (8 + 4 + 4) * 4 + n_tf * 16,
-        ops=int(samples.sum()) * ops,
-    )
-
-
-def k4_bound_of(n_voxels, n_rays, samples, filter_mode, diff_tf, n_tf=256):
-    """K4's bound: the f32 volume read and d_volume written once, the ray
-    pack, out and g read, the n_tf-entry TF and (with the TF gradient)
-    d_tf; every sample's operations."""
-    ops = K4_OPS_PER_SAMPLE[filter_mode] - (0 if diff_tf else K4_TF_OPS_PER_SAMPLE)
-    return bound(bytes_=2 * n_voxels * 4 + n_rays * 16 * 4 + (1 + diff_tf) * n_tf * 16,
-                 ops=samples * ops)
+    args = [a for name, a in calls if name == "post_sweep"][-1]
+    ops, _recorded = k1_operands(args)
+    out, t_out = swb.post_sweep(*ops[:4], **ops[4])
+    want, t_want, _fetches = k1_plain(*ops)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want) and torch.equal(t_out, t_want)):
+        raise AssertionError(f"{what}: K1 is not bit-equal to the plain sweep")
+    print(f"  K1 at {what}: {tuple(out.shape)} rays x {ops[2].a0.shape[0]} planes over "
+          f"{tuple(ops[0].shape)}, bit-equal to plain")
 
 
 def check_k3_counts(got, want, what, early_exit):
@@ -565,77 +358,22 @@ INCORE_MB = 10240  # an atlas of every brick and a derived budget over the 4 GiB
 OOC_FINEST = 4  # min_lod: the finest level of the 1024^3 volume in 64^3 bricks
 
 
-class UploadClock:
-    """Times an atlas's uploads apart, by wrapping its instance methods:
-    host stacking (``_stack``) and pinning (``_pinned``) on the host
-    clock, the copy into the slots (``_copy``: host → device and the
-    indexed write) by CUDA events on the atlas's stream.  ``take()``
-    returns and resets the sums (after a synchronise)."""
-
-    def __init__(self, atlas):
-        import torch
-
-        self.atlas = atlas
-        self.real = (atlas._stack, atlas._pinned, atlas._copy)
-        self.reset()
-
-        def stack(bricks):
-            t = time.perf_counter()
-            out = self.real[0](bricks)
-            self.stack_s += time.perf_counter() - t
-            self.bricks += out.shape[0]
-            self.bytes += out.nbytes
-            return out
-
-        def pinned(bricks):
-            t = time.perf_counter()
-            out = self.real[1](bricks)
-            self.pin_s += time.perf_counter() - t
-            return out
-
-        def copy(slots, host):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record(atlas.stream)
-            self.real[2](slots, host)
-            end.record(atlas.stream)
-            self.events.append((start, end))
-            self.slots.extend(int(x) for x in slots)
-
-        atlas._stack, atlas._pinned, atlas._copy = stack, pinned, copy
-
-    def reset(self):
-        self.bricks, self.bytes, self.stack_s, self.pin_s = 0, 0, 0.0, 0.0
-        self.events, self.slots = [], []
-
-    def take(self):
-        out = dict(bricks=self.bricks, bytes=self.bytes, stack_ms=self.stack_s * 1e3,
-                   pin_ms=self.pin_s * 1e3,
-                   copy_ms=sum(a.elapsed_time(b) for a, b in self.events), slots=self.slots)
-        self.reset()
-        return out
-
-    def close(self):
-        self.atlas._stack, self.atlas._pinned, self.atlas._copy = self.real
-
-
 def phase_out_of_core(dev, card):
     """18. The out-of-core slab multipass and the upload pipeline on the
     reference's own out-of-core demo size (benchmarks/demo_out_of_core.py,
     OOC_RUN_r05.json): a 1024^3 uint8 volume in 64^3 bricks, rendered at
     its finest level (4096 bricks, a 4 GiB store).  ``render_cli`` at the
     default 3072 MB budget; an 8-pose orbit at 512 MB (two warm laps, a
-    measured one) against the same orbit in core, bit for bit; the
+    checked one) against the same orbit in core, bit for bit; the
     asynchronous ``render_bricked`` and ``render`` on cold engines; and
     ``upload_view`` behind a frame's kernels.  Bricks are generated once,
     by the CLI frame, and served from a memo to the later engines.
-    Returns (K1 launch sites, K1 launches on its main paths, K1's max |d|
-    against plain)."""
+    Returns (K1 launches on its main paths, K1's max |d| against plain)."""
     import torch
 
     from libre_tpu_torch.apps import render_cli
     from libre_tpu_torch.data import memory
     from libre_tpu_torch.data.datasource import DataSource, load_plugins
-    from libre_tpu_torch.ops import _kernels
     from libre_tpu_torch.ops import shearwarp_bricked as swb
     from libre_tpu_torch.render.engine import RenderEngine
     from libre_tpu_torch.utils.image import read_image
@@ -669,13 +407,11 @@ def phase_out_of_core(dev, card):
         # ---------------------------------------------- the CLI frame
         swb.post_sweep.launches = 0
         with tempfile.TemporaryDirectory() as out_dir, Recorder("post_sweep") as k1_cli:
-            t0 = time.perf_counter()
             rc = render_cli.main([
                 "--volume", OOC_URI, "--width", "512", "--height", "512",
                 "--min-lod", str(OOC_FINEST), "--output-dir", out_dir,
             ])
             torch.cuda.synchronize()
-            cli_s = time.perf_counter() - t0
             png = read_image(os.path.join(out_dir, "frame_000000.png"))
         cli_launches = swb.post_sweep.launches
         # ------------------------------------------ end of the CLI frame
@@ -690,20 +426,13 @@ def phase_out_of_core(dev, card):
                                  f"launches")
         print(f"out-of-core render_cli 512x512 frame at the default 3072 MB: render level "
               f"{level}, {n_bricks} bricks, store {dims} = {int(np.prod(dims)) * 4} B over a "
-              f"{budget} B derived budget, {n_passes} slab passes, {cli_launches} K1 launches; "
-              f"{cli_s:.3f} s incl. generating the bricks {card}")
+              f"{budget} B derived budget, {n_passes} slab passes, {cli_launches} K1 launches")
         cli_ops, (cli_out, cli_t) = k1_operands(k1_cli.calls[0][1])
-        cli_work = k1_work(*cli_ops)
+        want, t_want, _fetches = k1_plain(*cli_ops)
         torch.cuda.synchronize()
-        if not (torch.equal(cli_out, cli_work["want"]) and torch.equal(cli_t, cli_work["t_want"])):
+        if not (torch.equal(cli_out, want) and torch.equal(cli_t, t_want)):
             raise AssertionError("render_cli at 1024^3, pass 1: K1 is not bit-equal to plain")
-        cli_args = k1_cli.calls[0][1]
-        cli_ms = cuda_ms(lambda: _kernels.launch("post_sweep", *cli_args), reps=10)
-        cli_bound = cli_work["bound"]
-        print(f"  K1 on pass 1's operands (slab {tuple(cli_ops[0].shape)}, "
-              f"{cli_ops[2].a0.shape[0]} planes): {cli_ms:.4f} ms, bit-equal to plain; bound "
-              f"{cli_bound[0]:.4f} ms ({cli_bound[1]}) {card}")
-        del k1_cli, cli_ops, cli_out, cli_t, cli_work, cli_args
+        del k1_cli, cli_ops, cli_out, cli_t, want, t_want, _fetches
         free_device_memory()
         print(f"phase 18, CLI frame: {time.perf_counter() - t_phase:.1f} s")
 
@@ -711,7 +440,6 @@ def phase_out_of_core(dev, card):
         poses = orbit_cameras()
         kw = dict(screen_space_error=1.0, min_lod=OOC_FINEST)
         ooc = RenderEngine(DataSource(OOC_URI), max_gpu_cache_mb=OOC_MB, device=dev)
-        clock = UploadClock(ooc.atlas)
         passes = []
         real_nodes = ooc._slab_nodes
 
@@ -724,7 +452,6 @@ def phase_out_of_core(dev, card):
             for camera, frustum in poses:
                 ooc.render_bricked(camera, frustum, **kw)
         torch.cuda.synchronize()
-        clock.take()
         rows, ooc_frames = [], []
         evictions = ooc.texture_cache.statistics.evictions
         swb.post_sweep.launches = 0
@@ -734,15 +461,12 @@ def phase_out_of_core(dev, card):
             torch.cuda.reset_peak_memory_stats(dev)
             at_start = torch.cuda.memory_allocated(dev)
             before = swb.post_sweep.launches
-            t0 = time.perf_counter()
             img, stats = ooc.render_bricked(camera, frustum, **kw)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            up = clock.take()
             ev = ooc.texture_cache.statistics.evictions
-            rows.append(dict(ms=ms, passes=stats.n_passes, nonempty=sum(1 for p in passes if p),
+            rows.append(dict(passes=stats.n_passes, nonempty=sum(1 for p in passes if p),
                              launches=swb.post_sweep.launches - before, evicted=ev - evictions,
-                             peak=torch.cuda.max_memory_allocated(dev), at_start=at_start, **up))
+                             peak=torch.cuda.max_memory_allocated(dev), at_start=at_start))
             evictions = ev
             ooc_frames.append(img)
         orbit_launches = swb.post_sweep.launches
@@ -754,28 +478,16 @@ def phase_out_of_core(dev, card):
                 raise AssertionError(f"out-of-core frame {i}: {r['passes']} passes, {r['evicted']} "
                                      f"evictions, {r['launches']} K1 launches for {r['nonempty']} "
                                      f"passes with bricks")
-            refilled = len(r["slots"]) - len(set(r["slots"]))
-            print(f"  out-of-core frame {i}: {r['ms']:.3f} ms, {r['passes']} passes "
-                  f"({r['nonempty']} with bricks, as many K1 launches), {r['evicted']} evictions, "
-                  f"{r['bricks']} bricks = {r['bytes']} B uploaded ({refilled} slot refills within "
-                  f"the frame): stack {r['stack_ms']:.3f} ms, pin {r['pin_ms']:.3f} ms (host), copy "
-                  f"{r['copy_ms']:.3f} ms (device); peak allocated {r['peak']} B, "
-                  f"{r['peak'] - r['at_start']} B above the frame's start {card}")
-        med = lambda xs: float(np.median(xs))  # noqa: E731
-        ooc_ms = [r["ms"] for r in rows]
+            print(f"  out-of-core frame {i}: {r['passes']} passes ({r['nonempty']} with bricks, "
+                  f"as many K1 launches), {r['evicted']} evictions; peak allocated {r['peak']} B, "
+                  f"{r['peak'] - r['at_start']} B above the frame's start")
         print(f"out-of-core orbit at {OOC_MB} MB ({ooc.atlas.n_slots}-slot atlas, "
-              f"{ooc.device_budget.budget} B derived budget): frame median {med(ooc_ms):.3f} ms, "
-              f"min {min(ooc_ms):.3f} ms; per frame (medians) {med([r['passes'] for r in rows])} "
-              f"passes, {med([r['bricks'] for r in rows])} bricks, {med([r['bytes'] for r in rows])} "
-              f"B uploaded; host stacking {med([r['stack_ms'] for r in rows]):.3f} ms, pinning "
-              f"{med([r['pin_ms'] for r in rows]):.3f} ms; copies {med([r['copy_ms'] for r in rows]):.3f} "
-              f"ms of device time on the frame's stream, serialised with the kernels (0 ms "
-              f"overlapped); peak allocated above a frame's start "
-              f"{max(r['peak'] - r['at_start'] for r in rows)} B against the {OOC_MB} MB budget "
-              f"{card}")
+              f"{ooc.device_budget.budget} B derived budget): peak allocated above a frame's "
+              f"start {max(r['peak'] - r['at_start'] for r in rows)} B against the {OOC_MB} MB "
+              f"budget {card}")
         print(f"phase 18, out-of-core orbit: {time.perf_counter() - t_phase:.1f} s")
 
-        # K1 on every pass of the last frame, bit-equal to plain and timed.
+        # K1 on every pass of the last frame, bit-equal to plain.
         camera, frustum = poses[-1]
         with Recorder("post_sweep") as k1_ooc:
             last, _ = ooc.render_bricked(camera, frustum, **kw)
@@ -795,49 +507,23 @@ def phase_out_of_core(dev, card):
         print(f"out-of-core frame of the last pose under a side stream: {side_stats.n_passes} "
               f"passes, bit-equal to the default-stream frame")
         del side_img
-        pass_ms, pass_bounds, pass_by = [], [], []
         for _name, args in k1_ooc.calls:
             ops, (out, t_out) = k1_operands(args)
-            work = k1_work(*ops)
+            want, t_want, _fetches = k1_plain(*ops)
             torch.cuda.synchronize()
-            if not (torch.equal(out, work["want"]) and torch.equal(t_out, work["t_want"])):
+            if not (torch.equal(out, want) and torch.equal(t_out, t_want)):
                 raise AssertionError("an out-of-core pass: K1 is not bit-equal to plain")
-            pass_ms.append(cuda_ms(lambda: _kernels.launch("post_sweep", *args), reps=10))
-            pass_bounds.append(work["bound"][0])
-            pass_by.append(work["bound"][1])
-            del ops, out, t_out, work
-        print(f"K1 on the {len(pass_ms)} passes of the last out-of-core frame, each bit-equal to "
-              f"plain: {sum(pass_ms):.4f} ms in all, per pass mean {med(pass_ms):.4f} ms "
-              f"(min {min(pass_ms):.4f}, max {max(pass_ms):.4f}); bound per pass mean "
-              f"{float(np.mean(pass_bounds)):.4f} ms, {sum(pass_bounds):.4f} ms in all {card}")
+            del ops, out, t_out, want, t_want, _fetches
+        print(f"K1 on the {len(k1_ooc.calls)} passes of the last out-of-core frame: each "
+              f"bit-equal to plain")
         del k1_ooc
 
-        unprofiled = med(ooc_ms)
-
-        def ooc_frame():
-            ooc.render_bricked(camera, frustum, **kw)
-            torch.cuda.synchronize()
-
-        profiled("one out-of-core frame", ooc_frame,
-                 ("post_sweep_kernel", "index", "elementwise", "reduce", "cat", "copy"), card,
-                 unprofiled)
-
         # upload_view for the next pose behind the current frame's kernels.
-        t0 = time.perf_counter()
         ooc.render_bricked(poses[0][0], poses[0][1], **kw)
-        t1 = time.perf_counter()
-        clock.reset()
         n_up = ooc.upload_view(poses[1][1], 512, **kw)
-        t2 = time.perf_counter()
         torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        up = clock.take()
-        print(f"upload_view of pose 1 after pose 0's frame was enqueued: {n_up} bricks, "
-              f"{(t2 - t1) * 1e3:.3f} ms host (select, stack {up['stack_ms']:.3f} ms, pin "
-              f"{up['pin_ms']:.3f} ms), frame + upload_view {(t3 - t0) * 1e3:.3f} ms to the "
-              f"synchronise; upload_view's copies {up['copy_ms']:.3f} ms device {card}")
-        clock.close()
-        del ooc, clock, last
+        print(f"upload_view of pose 1 after pose 0's frame was enqueued: {n_up} bricks")
+        del ooc, last
         free_device_memory()
 
         # ------------------------------------------------ the in-core orbit
@@ -846,29 +532,16 @@ def phase_out_of_core(dev, card):
         for camera, frustum in poses:
             incore.render_bricked(camera, frustum, **kw)
         torch.cuda.synchronize()
-        incore_ms = []
         for i, (camera, frustum) in enumerate(poses):
-            t0 = time.perf_counter()
             img, stats = incore.render_bricked(camera, frustum, **kw)
             torch.cuda.synchronize()
-            incore_ms.append((time.perf_counter() - t0) * 1e3)
             if stats.n_passes != 1 or not torch.equal(img, ooc_frames[i]):
                 raise AssertionError(f"pose {i}: the out-of-core frame is not the in-core frame "
                                      f"bit for bit ({stats.n_passes} in-core passes)")
         if slab_frames:
             raise AssertionError("the in-core orbit went out of core")
-        with Recorder("post_sweep") as k1_in:
-            incore.render_bricked(poses[-1][0], poses[-1][1], **kw)
-        (_name, in_args), = k1_in.calls
-        in_ms = cuda_ms(lambda: _kernels.launch("post_sweep", *in_args), reps=10)
-        print(f"K1 in core on the last pose (one sweep of {in_args[14]} planes over the "
-              f"{tuple(in_args[0].shape)} store): {in_ms:.4f} ms, against {sum(pass_ms):.4f} ms for "
-              f"the out-of-core frame's {len(pass_ms)} passes {card}")
-        del k1_in, in_args
-        print(f"in-core orbit at {INCORE_MB} MB: frame median {med(incore_ms):.3f} ms, min "
-              f"{min(incore_ms):.3f} ms; every out-of-core frame bit-equal to its in-core frame; "
-              f"ooc_vs_incore {med(incore_ms) / med(ooc_ms):.4f} (in-core / out-of-core frame "
-              f"median) {card}")
+        print(f"in-core orbit at {INCORE_MB} MB: every out-of-core frame bit-equal to its "
+              f"in-core frame")
         sync_bricked = ooc_frames[0]
         sync_exact = incore.render(poses[0][0], poses[0][1], **kw)[0]
         del incore, ooc_frames
@@ -884,7 +557,6 @@ def phase_out_of_core(dev, card):
                                      ("render_bricked", sync_bricked, torch.cuda.Stream(dev))):
             cold = RenderEngine(DataSource(OOC_URI), max_gpu_cache_mb=INCORE_MB, device=dev)
             futures = []
-            t0 = time.perf_counter()
             with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
                 for frames in range(1, 51):
                     out = getattr(cold, method)(camera, frustum, synchronous=False, **kw)
@@ -896,16 +568,15 @@ def phase_out_of_core(dev, card):
                 else:
                     raise AssertionError(f"async {method} not done after 50 frames")
             torch.cuda.synchronize()
-            async_s = time.perf_counter() - t0
             for f in futures:
                 f.result()
             if frames < 2 or not torch.equal(img, want):
                 raise AssertionError(f"async {method}: {frames} frames; the last is not the "
                                      f"synchronous frame bit for bit")
             under = " under a side stream" if stream is not None else ""
-            print(f"async {method}{under} on a cold engine: done after {frames} frames, "
-                  f"{async_s:.3f} s ({len(futures)} upload batches); the last frame bit-equal to "
-                  f"the synchronous default-stream one {card}")
+            print(f"async {method}{under} on a cold engine: done after {frames} frames "
+                  f"({len(futures)} upload batches); the last frame bit-equal to the "
+                  f"synchronous default-stream one")
             del cold, out, img, stats, futures
             free_device_memory()
     finally:
@@ -913,44 +584,27 @@ def phase_out_of_core(dev, card):
         RenderEngine._render_slabs = real_render_slabs
         swb.post_sweep_reference = real_plain
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
-    sites = [
-        ("K1", "render_bricked out of core, render_cli frame (1024^3, 3072 MB, pass 1)",
-         cli_launches, cli_ms, cli_bound),
-        ("K1", f"render_bricked out of core, orbit (1024^3, {OOC_MB} MB, per pass)",
-         orbit_launches, med(pass_ms),
-         (float(np.mean(pass_bounds)), max(set(pass_by), key=pass_by.count))),
-    ]
-    return sites, cli_launches + orbit_launches, 0.0
+    return cli_launches + orbit_launches, 0.0
 
 
 def phase_probes(dev, card):
     """19. The gather probes P1-P17 through the port's own entry points
     (``python -m libre_tpu_torch.benchmarks.<module>``'s ``main``) at
     their full shapes: each probe's kernel bit-equal to its plain version
-    and its library call (``_probe.run`` raises otherwise), timed in a
-    CUDA graph and from Python, with the plain version and the library
-    call.  The four gather kernels' counts are set to 0 just before and
-    read just after; each must have launched, as often as its probes say.
-    Then the kernel instances no probe reaches, each once, bit-equal to its
-    plain version: the nearest lookup's scalar instance (a C = 3 table;
-    densities 4 B past an aligned start), the loop sum too large to stage
-    (either axis), and the NaN fill for a table with no entry along the
-    axis (where the plain version raises).  Then an
-    empty kernel timed in a CUDA graph as the probes are, the launch floor
-    printed beside each probe, and the probes of the three
-    redesigned kernels (``PROBE_AB``: ``probe_take.cu``,
-    ``probe_take_along.cu``'s loop sums and single gather,
-    ``probe_tf_nearest.cu``) timed against the parent checkout's build where
-    one is unpacked under ``_archive/base`` (``_probe.against_parent``,
-    bound as ``sweep_ab.py`` binds it).
-    Returns the probes' entries of the ``kernels`` line."""
+    and its library call (``_probe.run`` raises otherwise).  The four
+    gather kernels' counts are set to 0 just before and read just after;
+    each must have launched, as often as its probes say.  Then the kernel
+    instances no probe reaches, each once, bit-equal to its plain version:
+    the nearest lookup's scalar instance (a C = 3 table; densities 4 B past
+    an aligned start), the loop sum too large to stage (either axis), and
+    the NaN fill for a table with no entry along the axis (where the plain
+    version raises).  Returns the probes' entries of the ``kernels``
+    line."""
     import importlib
-    from pathlib import Path
 
     import torch
 
     from libre_tpu_torch.benchmarks import MODULES
-    from libre_tpu_torch.benchmarks import _probe
     from libre_tpu_torch.ops import gather
 
     t_phase = time.perf_counter()
@@ -964,8 +618,8 @@ def phase_probes(dev, card):
         per_probe = sum(r["launches"] for r in results if r["kernel"] == kernel)
         if n == 0 or n != per_probe:
             raise AssertionError(f"{kernel}: {n} launches, its probes counted {per_probe}")
-    if [r["probe"] for r in results] != list(PROBE_WORK):
-        raise AssertionError(f"probes {[r['probe'] for r in results]} vs {list(PROBE_WORK)}")
+    if [r["probe"] for r in results] != list(PROBES):
+        raise AssertionError(f"probes {[r['probe'] for r in results]} vs {list(PROBES)}")
     g = torch.Generator(device=dev).manual_seed(7)
 
     def ints(lo, hi, shape):
@@ -999,55 +653,16 @@ def phase_probes(dev, card):
                                  f"{'bit-equal' if ok else 'differs from plain'}")
         print(f"  {label}: one launch, {'bit-equal to plain' if args[0].numel() else 'all NaN'} "
               f"({got.numel()} values)")
-    floor = _probe.launch_floor_ms()
-    print(f"gather probes: us per call in a CUDA graph (from Python), bound, kernel / library; "
-          f"launch floor (an empty kernel in a CUDA graph) {floor * 1e3:.3f} us {card}")
-    entries, slower = [], []
-    for r in results:
-        b_ms, b_by = bound(*PROBE_WORK[r["probe"]])
-        lib = r["library_ms"]
-        vs_lib = f"{r['ms'] / lib:.3f}" if lib is not None else "no library call"
-        print(f"  {r['probe']} {r['kernel']}: {r['ms'] * 1e3:.3f} ({r['ms_call'] * 1e3:.3f}) us; "
-              f"plain {r['plain_ms'] * 1e3:.3f} us; library {r['library']}"
-              + (f" {lib * 1e3:.3f} ({r['library_call_ms'] * 1e3:.3f}) us" if lib is not None
-                 else "")
-              + f"; bound {b_ms * 1e3:.5f} us ({b_by}), kernel at {b_ms / r['ms']:.4f} of it; "
-              f"{r['ms'] / floor:.2f}x the launch floor; kernel / library {vs_lib}; "
-              f"{r['launches']} launches")
-        if lib is not None and r["ms"] > lib:
-            slower.append((r["ms"] / lib, r["probe"], r["kernel"]))
-        entries.append({
-            "name": r["kernel"],
-            "probe": r["probe"],
-            "route": "cuda",
-            "source": f"libre_tpu_torch/csrc/{r['kernel']}.cu",
-            "replaces": r["replaces"],
-            "launches": r["launches"],
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": lib,
-        })
+    entries = [{
+        "name": r["kernel"],
+        "probe": r["probe"],
+        "route": "cuda",
+        "source": f"libre_tpu_torch/csrc/{r['kernel']}.cu",
+        "replaces": r["replaces"],
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+    } for r in results]
     print("  launches: " + "; ".join(f"{k} {n}" for k, n in counts.items()))
-    print("  kernels slower than their library call (rule 2's order), kernel / library: "
-          + ("; ".join(f"{p} {k} {x:.3f}" for x, p, k in sorted(slower, reverse=True))
-             or "none"))
-    parent = Path(__file__).resolve().parent / "_archive" / "base"
-    if (parent / "libre_tpu_torch" / "csrc" / "probe_take.cu").exists():
-        probes = [p for name in MODULES
-                  for p in importlib.import_module(f"libre_tpu_torch.benchmarks.{name}").PROBES
-                  if p.id in PROBE_AB]
-        ab = _probe.against_parent(
-            probes, parent, ("probe_take", "probe_take_along", "probe_tf_nearest"), dev)
-        print(f"  against the parent's build ({parent}), us in a CUDA graph, least-most of "
-              f"each build's runs, bit-equal {card}:")
-        for line in _probe.against_parent_lines(ab, floor):
-            print(line)
-    else:
-        print("  no parent checkout under _archive/base: the redesigned probes are not timed "
-              "against the parent")
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     return entries
 
@@ -1082,7 +697,7 @@ def phase_serve(dev, card, uri=URI, size=512):
     held bit-equal to the engine's own frame at the same camera and state,
     the async frame to the synchronous one, and each histogram's bins to
     numpy's over the frame's bricks, their sum to bricks x 32^3.  Returns
-    (K1 launches, K3 launches, the 2x2 request's latency in ms)."""
+    (K1 launches, K3 launches)."""
     import urllib.request
 
     import torch
@@ -1090,31 +705,15 @@ def phase_serve(dev, card, uri=URI, size=512):
     from libre_tpu_torch.apps.serve import RenderService
     from libre_tpu_torch.ops import exact
     from libre_tpu_torch.ops import shearwarp_bricked as swb
-    from libre_tpu_torch.utils import image
 
     t_phase = time.perf_counter()
     svc = RenderService(uri, width=size, height=size, host="127.0.0.1", port=0, device=dev)
     engine = svc.engine
-    served, hist_calls, jpeg_ms = [], [], []
-    real_frame, real_hist, real_jpeg = svc.render_frame, engine.accumulate_histogram, image.encode_jpeg
-    real_select, real_view = engine.select, engine.render_bricked
-    # Host ms of each call, for the split of an orbit request (one call of
-    # each per orbit request): render_frame, its engine frame, the frame's
-    # LOD selection.
-    split = {"render_frame": [], "render_bricked": [], "select": []}
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            split[name].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return call
+    served, hist_calls = [], []
+    real_frame, real_hist = svc.render_frame, engine.accumulate_histogram
 
     def render_frame(progressive=False):
-        t0 = time.perf_counter()
         canvas = real_frame(progressive)
-        split["render_frame"].append((time.perf_counter() - t0) * 1e3)
         served.append(dict(
             canvas=canvas, mv=svc.frame_data.camera_settings.get_modelview_matrix().copy(),
             color_map=np.array(svc.frame_data.render_settings.color_map),
@@ -1123,21 +722,10 @@ def phase_serve(dev, card, uri=URI, size=512):
         return canvas
 
     def accumulate_histogram(nodes, *args):
-        t0 = time.perf_counter()
-        out = real_hist(nodes, *args)
-        hist_calls.append(((time.perf_counter() - t0) * 1e3, list(nodes)))
-        return out
+        hist_calls.append(list(nodes))
+        return real_hist(nodes, *args)
 
-    def encode_jpeg(img, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = real_jpeg(img, *args, **kwargs)
-        jpeg_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    svc.render_frame, engine.accumulate_histogram, image.encode_jpeg = (
-        render_frame, accumulate_histogram, encode_jpeg)
-    engine.select = timed("select", real_select)
-    engine.render_bricked = timed("render_bricked", real_view)
+    svc.render_frame, engine.accumulate_histogram = render_frame, accumulate_histogram
     svc.server.start()
     host, port = svc.server.address
     base = f"http://{host}:{port}"
@@ -1149,17 +737,15 @@ def phase_serve(dev, card, uri=URI, size=512):
             raw = resp.read()
             return json.loads(raw) if "json" in resp.headers.get("Content-Type", "") else raw
 
-    latency, hists, steps = [], [], []
+    hists, steps = [], []
 
     def frame(step):
         n_hist = len(hist_calls)
-        t0 = time.perf_counter()
         jpeg = call("/image-jpeg", "POST", {})
-        latency.append((time.perf_counter() - t0) * 1e3)
         if jpeg[:2] != b"\xff\xd8":
             raise AssertionError(f"serve {step}: /image-jpeg gave no JPEG")
         hists.append(call("/histogram"))
-        served[-1]["sets"] = [nodes for _ms, nodes in hist_calls[n_hist:]]
+        served[-1]["sets"] = hist_calls[n_hist:]
         steps.append(step)
 
     try:
@@ -1206,9 +792,7 @@ def phase_serve(dev, card, uri=URI, size=512):
             time.sleep(0.05)
     finally:
         svc.server.stop()
-        svc.render_frame, engine.accumulate_histogram, image.encode_jpeg = (
-            real_frame, real_hist, real_jpeg)
-        engine.select, engine.render_bricked = real_select, real_view
+        svc.render_frame, engine.accumulate_histogram = real_frame, real_hist
     if svc._running:
         raise AssertionError("POST /exit did not stop the service")
     for name in ("data_cache", "texture_cache"):
@@ -1271,32 +855,10 @@ def phase_serve(dev, card, uri=URI, size=512):
     print(f"serve: every served frame bit-equal to the engine's direct frame (the async one to "
           f"the synchronous frame), every histogram's bins equal to numpy's over its bricks, "
           f"sum = bricks x {brick_voxels} (sets of {sizes} bricks)")
-    med = lambda xs: float(np.median(xs))  # noqa: E731
-    first_hist = hist_calls[0][0]
-    steady_hist = [ms for ms, _ in hist_calls[1:8]]
-    print(f"serve request latency (POST /image-jpeg, {size}x{size}): orbit request 1 {latency[0]:.3f} "
-          f"ms, requests 2-8 median {med(latency[1:8]):.3f} ms, min {min(latency[1:8]):.3f} ms; "
-          f"colormap {latency[8]:.3f} ms, exact {latency[9]:.3f} ms, 2x2 {latency[10]:.3f} ms, "
-          f"async {latency[11]:.3f} ms {card}")
-    orbit = {k: v[1:8] for k, v in split.items()}
-    hist_2_8 = [ms for ms, _ in hist_calls[1:8]]
-    parts = [np.asarray(latency[1:8]) - np.asarray(orbit["render_frame"]) - np.asarray(jpeg_ms[1:8]),
-             np.asarray(orbit["render_frame"]) - np.asarray(orbit["render_bricked"]),
-             np.asarray(orbit["render_bricked"]) - np.asarray(orbit["select"])
-             - np.asarray(hist_2_8)]
-    print(f"serve orbit requests 2-8, medians of the host split: select "
-          f"{med(orbit['select']):.3f} ms, histogram {med(hist_2_8):.3f} ms, the rest of the "
-          f"engine frame {med(parts[2]):.3f} ms, render_frame around it (camera, TF upload, "
-          f"canvas copy) {med(parts[1]):.3f} ms, JPEG {med(jpeg_ms[1:8]):.3f} ms, HTTP and the "
-          f"handler {med(parts[0]):.3f} ms {card}")
-    print(f"serve histogram (host): first frame {first_hist:.3f} ms ({len(hist_calls[0][1])} "
-          f"bricks), steady frames 2-8 median {med(steady_hist):.3f} ms, min "
-          f"{min(steady_hist):.3f} ms; JPEG encoding median {med(jpeg_ms):.3f} ms, min "
-          f"{min(jpeg_ms):.3f} ms {card}")
     del svc, engine, served
     free_device_memory()
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
-    return k1, k3, latency[10]
+    return k1, k3
 
 
 # ------------------------------------------------------------- phases 21-24
@@ -1306,7 +868,7 @@ DENSE_PRE_STEPS = 2
 SCENE_N = 512  # phase 22: the scene's volume, SCENE_RAYS^2 rays, the scene's default params
 SCENE_RAYS = 512
 SCENE_EXIT = 0.999  # its early exit (RenderParams' default)
-SCENE_STEPS = 5  # Adam steps (lr SCENE_LR) on its MSE, timed as the trainers' steps
+SCENE_STEPS = 5  # Adam steps (lr SCENE_LR) on its MSE
 SCENE_LR = 1e-2
 # Phase 23: the benchmark scripts, each in a process of its own, as
 # (module, arguments); demo_out_of_core cut from 1024^3 to 512^3 (its
@@ -1326,14 +888,12 @@ def phase_dense_trainer(dev, card):
     """21. The dense shear-warp trainer at full width: a 256^3 smooth truth,
     ``ShearWarpParams``' defaults (K = 256 planes, 256^2 slope grids), 4
     views ("post"), 5 Adam steps (lr 3e-2) from a flat 0.5 volume and a
-    grayscale TF; the loss must fall.  Step time (median of steps 2-5),
-    Mrays/s, peak memory above the phase's start, one step under
-    ``profiled`` with its top device ops; "pre" for 2 steps; the TF
-    gather's backward by bincount against autograd's indexing in
-    ``render_slope_grid_fused`` at full width, timed, gradients within
-    ``DENSE_GRAD_TOL``; card vs CPU on a 32^3 / 32^2 problem, loss and one
-    Adam step's leaves within 1e-4.  The trainer runs the plain pipeline
-    (batched products): no kernel of the port."""
+    grayscale TF; the loss must fall and the leaves stay in [0, 1]; "pre"
+    for 2 steps; the TF gather's backward by bincount against autograd's
+    indexing in ``render_slope_grid_fused`` at full width, gradients
+    within ``DENSE_GRAD_TOL``; card vs CPU on a 32^3 / 32^2 problem, loss
+    and one Adam step's leaves within 1e-4.  The trainer runs the plain
+    pipeline (batched products): no kernel of the port but the update's."""
     import torch
 
     from libre_tpu_torch.apps.render_cli import build_camera
@@ -1361,53 +921,33 @@ def phase_dense_trainer(dev, card):
 
     truth = smooth_volume(DENSE_TRAIN_N, seed=7, device=dev)
     tf_true = torch.from_numpy(default_color_map()).to(dev)
-    runs = {}
     for classification, n_steps in (("post", DENSE_TRAIN_STEPS), ("pre", DENSE_PRE_STEPS)):
         prob = problem(classification)
         with torch.no_grad():
             targets = prob.render_views(None, truth, tf_true)
         leaves, opt = start(truth.shape, dev)
         step = make_shearwarp_train_step(prob, opt)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        losses, at = [], []
-        t0 = time.perf_counter()
         with adam_counted(f"dense trainer ({classification})", 2 * n_steps):
-            for _ in range(n_steps):
-                losses.append(float(step(leaves, targets)))  # synchronises
-                at.append(time.perf_counter())
-        peak = torch.cuda.max_memory_allocated(dev) - base
-        steps_ms = np.diff([t0] + at) * 1e3
-        step_ms = float(np.median(steps_ms[1:]))
-        n_rays = len(prob.plans) * prob.swp.inter_size[0] * prob.swp.inter_size[1]
+            losses = [float(step(leaves, targets)) for _ in range(n_steps)]
         print(
             f"dense trainer ({classification}): {DENSE_TRAIN_N}^3, K = {prob.swp.n_planes}, "
             f"{len(prob.plans)} views of {prob.swp.inter_size} slope rays, {n_steps} Adam steps;"
-            f" losses {losses}; step median of steps 2-{n_steps} {step_ms:.3f} ms (all steps "
-            f"{', '.join(f'{x:.3f}' for x in steps_ms)} ms); fwd+bwd "
-            f"{n_rays / (step_ms * 1e-3) / 1e6:.3f} Mrays/s; peak memory {peak} B above the "
-            f"start {card}"
+            f" losses {losses} {card}"
         )
         if not all(np.isfinite(losses)):
             raise AssertionError(f"dense trainer ({classification}): losses {losses}")
         for k, v in leaves.items():
             if float(v.detach().min()) < 0.0 or float(v.detach().max()) > 1.0:
                 raise AssertionError(f"dense trainer ({classification}): {k} left [0, 1]")
-        if classification == "post":
-            if not losses[-1] < losses[0]:
-                raise AssertionError(f"dense trainer did not lower its loss: {losses}")
-            profiled("one dense training step (post, 4 views)",
-                     lambda: float(step(leaves, targets)), ("gather", "Histogram", "gemm"),
-                     card, step_ms, top=6)
-        runs[classification] = dict(step_ms=step_ms, losses=losses, peak=peak)
+        if classification == "post" and not losses[-1] < losses[0]:
+            raise AssertionError(f"dense trainer did not lower its loss: {losses}")
         del targets, leaves, opt, step
 
     # The TF gather's backward (``transfer_function._TakeRows``, by
     # bincount) against autograd's own backward of ``table[idx]``, which it
     # replaced: ``render_slope_grid_fused`` (K5 forward, the recompute
     # backward of the plain pipeline, as the trainer's) over the truth from
-    # view 0 at full width, timed and its gradients held against each other.
+    # view 0 at full width, its gradients held against each other.
     pre = problem("pre")
     pa = swd.slope_grid_plan_args(pre.plans[0], gmin, gmax, pre.params, pre.swp)
     g = torch.randn(pre.swp.inter_size + (4,), generator=torch.Generator().manual_seed(2))
@@ -1420,18 +960,12 @@ def phase_dense_trainer(dev, card):
         apply = staticmethod(lambda table, idx: table[idx])
 
     take_rows, got = tfm._TakeRows, {}
-    times = {"bincount": cuda_ms(fused_grads, reps=2, warmup=1)}
     got["bincount"] = fused_grads()
     tfm._TakeRows = Indexing
     try:
-        times["indexing"] = cuda_ms(fused_grads, reps=2, warmup=1)
         got["indexing"] = fused_grads()
     finally:
         tfm._TakeRows = take_rows
-    print(f"render_slope_grid_fused forward + backward ({DENSE_TRAIN_N}^3, K = {pre.swp.n_planes}, "
-          f"{pre.swp.inter_size} rays, view 0): the TF gather's backward by bincount "
-          f"(_TakeRows) {times['bincount']:.3f} ms, by autograd's indexing "
-          f"{times['indexing']:.3f} ms {card}")
     for name, a, b in zip(("d_volume", "d_tf"), got["bincount"], got["indexing"]):
         compare_grads(a, b, f"render_slope_grid_fused's {name}, bincount vs indexing",
                       pre.params.early_exit, tol_max=DENSE_GRAD_TOL)
@@ -1455,7 +989,6 @@ def phase_dense_trainer(dev, card):
           f"{l_c:.6f} / {l_p:.6f}, max|d| {err:.3e}")
     if err > 1e-4:
         raise AssertionError(f"dense trainer on the card disagrees with the CPU ({err})")
-    return runs
 
 
 def phase_scene(dev, card, exact_tol):
@@ -1465,15 +998,13 @@ def phase_scene(dev, card, exact_tol):
     plain marcher's functions made to raise, then the target's render and
     ``SCENE_STEPS`` Adam steps on the estimate, each its render,
     ``torch.autograd`` of the MSE (K3 once, K4 once, with the exit rule),
-    the update and a clamp to [0, 1]; the step time is the median of steps
-    2 on; the loss must fall and the last gradients be finite and
-    non-zero.  Then, off
-    the main path: K3 vs plain on a 64x64 window of the view, K4 with the
-    exit rule vs plain on that window over every field of
-    ``testing.FIELDS`` (the backward kernels' early-exit bound, rays that
-    exit counted), K4 with the exit on against the same view with it off,
-    timed, and the 16^3 / 24^2 test scene on the card vs the CPU.
-    Returns the counts, errors and times for the ``kernels`` line."""
+    the update and a clamp to [0, 1]; the loss must fall and the last
+    gradients be finite and non-zero.  Then, off the main path: K3 vs
+    plain on a 64x64 window of the view, K4 with the exit rule vs plain on
+    that window over every field of ``testing.FIELDS`` (the backward
+    kernels' early-exit bound, rays that exit counted), and the 16^3 /
+    24^2 test scene on the card vs the CPU.  Returns the counts and errors
+    for the ``kernels`` line."""
     import torch
 
     from libre_tpu_torch.apps.render_cli import build_camera
@@ -1502,8 +1033,7 @@ def phase_scene(dev, card, exact_tol):
         with torch.no_grad():
             target = target_scene.render(camera)
         opt = torch.optim.Adam(list(leaves.values()), lr=SCENE_LR)
-        losses, at = [], []
-        t0 = time.perf_counter()
+        losses = []
         for _ in range(SCENE_STEPS):
             opt.zero_grad()
             img = scene.with_parameters(leaves).render(camera)
@@ -1513,21 +1043,17 @@ def phase_scene(dev, card, exact_tol):
             with torch.no_grad():
                 for v in leaves.values():
                     v.clamp_(0.0, 1.0)
-            losses.append(float(loss.detach()))  # synchronises
-            at.append(time.perf_counter())
+            losses.append(float(loss.detach()))
     finally:
         exact.march_exact_reference, exact.march_exact_backward_reference = plain
     k3_launches, k4_launches = exact.march_exact.launches, exact.march_exact_backward.launches
     # ----------------------------------- end of the scene's main path
-    steps_ms = np.diff([t0] + at) * 1e3
-    step_ms = float(np.median(steps_ms[1:]))
     exits = int((img.detach()[..., 3] > SCENE_EXIT).sum())
     print(
         f"VolumeScene: {SCENE_N}^3, {SCENE_RAYS}^2 rays, 512 samples per ray, trilinear, early exit "
-        f"{SCENE_EXIT}, {SCENE_STEPS} Adam steps (lr {SCENE_LR}): losses {losses}; step (render, "
-        f"backward, Adam, clamp) median of steps 2-{SCENE_STEPS} {step_ms:.3f} ms (all steps "
-        f"{', '.join(f'{x:.3f}' for x in steps_ms)} ms, host clock); K3 launches {k3_launches}, "
-        f"K4 launches {k4_launches}; {exits} of {img.shape[0] * img.shape[1]} rays exit {card}"
+        f"{SCENE_EXIT}, {SCENE_STEPS} Adam steps (lr {SCENE_LR}): losses {losses}; K3 launches "
+        f"{k3_launches}, K4 launches {k4_launches}; {exits} of {img.shape[0] * img.shape[1]} rays "
+        f"exit {card}"
     )
     if (k3_launches, k4_launches) != (1 + SCENE_STEPS, SCENE_STEPS):
         raise AssertionError(f"the scene launched K3 {k3_launches} and K4 {k4_launches} times")
@@ -1587,26 +1113,6 @@ def phase_scene(dev, card, exact_tol):
     if sum(exit_rays.values()) == 0:
         raise AssertionError("no ray of the window exits: the exit rule was not exercised")
 
-    # K4 with the exit on against the same view with it off, over the truth.
-    off = dataclasses.replace(view, params=dataclasses.replace(view.params, early_exit=1.1))
-    g = torch.randn((view.n_rays, 4), generator=torch.Generator().manual_seed(1)).to(dev)
-    times, samples = {}, {}
-    for name, v in (("on", view), ("off", off)):
-        n_samples = torch.zeros(v.n_rays, dtype=torch.int32, device=dev)
-        args, _ = fwd(gt, v)
-        out_v = exact.march_exact(*args, max_steps=v.max_steps, width=v.width, samples=n_samples)
-        samples[name] = int(n_samples.sum())
-        times[name] = cuda_ms(lambda: exact.march_exact_backward(gt, tf, v, out_v, g), reps=5,
-                              warmup=1)
-    # K4's bound as phase 13's: the volume read and d_volume written, the ray
-    # pack, out and g, the TF and d_tf; the samples K3 composited.
-    k4_on_bound = bound(bytes_=2 * gt.numel() * 4 + view.n_rays * 16 * 4 + 2 * TF_BYTES,
-                        ops=samples["on"] * K4_OPS_PER_SAMPLE["trilinear"])
-    print(f"K4 on the scene's view ({SCENE_RAYS}^2 rays over the {SCENE_N}^3 truth, TF gradient on): "
-          f"exit on {times['on']:.4f} ms over {samples['on']} samples (bound "
-          f"{k4_on_bound[0]:.4f} ms, {k4_on_bound[1]}), exit off {times['off']:.4f} ms over "
-          f"{samples['off']} samples {card}")
-
     # The 16^3 / 24^2 test scene, card vs CPU.
     small = smooth_volume(16, seed=7, device="cpu")
     small_params = RenderParams(n_samples_per_ray=32, data_source_range=(0.0, 1.0),
@@ -1624,21 +1130,20 @@ def phase_scene(dev, card, exact_tol):
     for name, a, b in zip(("d_density", "d_tf"), grads_c, grads_p):
         compare_grads(a, b, f"VolumeScene 16^3 / 24^2, card vs CPU: {name}", SCENE_EXIT)
     return dict(k3_launches=k3_launches, k4_launches=k4_launches, k3_err=k3_err,
-                k4_err=k4_err, k4_on_ms=times["on"], k4_off_ms=times["off"],
-                k4_on_bound=k4_on_bound, step_ms=step_ms)
+                k4_err=k4_err)
 
 
 def phase_scripts(card):
     """23. The benchmark scripts (``libre_tpu_torch/benchmarks``), each
-    ``python -m`` in a process of its own (``SCRIPT_RUNS``), each with its
-    wall time.  Each script holds one call of every kernel it runs against
-    its plain version on the same inputs, and exits non-zero past the
-    kernel's bound; its output's last two lines give those checks' largest
-    errors and its render kernels' launch counts (the checks' launches not
-    counted), and a kernel it launched must have been checked.
-    ``demo_out_of_core`` writes into a temporary directory, and its record
-    must have the reference's keys.  Returns the summed launch counts and
-    the largest errors, by kernel."""
+    ``python -m`` in a process of its own (``SCRIPT_RUNS``).  Each script
+    holds one call of every kernel it runs against its plain version on
+    the same inputs, and exits non-zero past the kernel's bound; its
+    output's last two lines give those checks' largest errors and its
+    render kernels' launch counts (the checks' launches not counted), and
+    a kernel it launched must have been checked.  ``demo_out_of_core``
+    writes into a temporary directory, and its record must have the
+    reference's keys.  Returns the summed launch counts and the largest
+    errors, by kernel."""
     from libre_tpu_torch.benchmarks import demo_out_of_core
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1672,7 +1177,7 @@ def phase_scripts(card):
 def phase_entry(dev, card, exact_tol):
     """24. ``entry()`` on the card: its ``fn`` on its example inputs (K3
     once; the count set to 0 before and read after), held against the
-    plain march on the same inputs on the CPU, and timed."""
+    plain march on the same inputs on the CPU."""
     import torch
 
     from libre_tpu_torch.entry import entry
@@ -1688,8 +1193,6 @@ def phase_entry(dev, card, exact_tol):
         raise AssertionError(f"entry(): {launches} K3 launches, image {tuple(img.shape)}")
     fn_p, args_p = entry(device="cpu")
     err = compare(img.cpu(), fn_p(*args_p), "entry() on the card vs the plain march", exact_tol)
-    ms = cuda_ms(lambda: fn(*args), reps=10)
-    print(f"entry(): 32^3, 128x128 rays, 128 samples per ray: {ms:.4f} ms per call {card}")
     return launches, err
 
 
@@ -1728,36 +1231,10 @@ def captured(module, name):
         setattr(module, name, real)
 
 
-def k1_site(calls, what, card):
-    """The last recorded K1 launch of ``calls`` ((name, args) of a
-    ``Recorder``) at a sharded call site: launched again on its operands
-    as they are now (a training step's optimizer has updated the TF in
-    place since), bit-equal to the plain sweep on them, timed, with its
-    bound → (ms, bound)."""
-    import torch
-
-    from libre_tpu_torch.ops import _kernels
-    from libre_tpu_torch.ops import shearwarp_bricked as swb
-
-    args = [a for name, a in calls if name == "post_sweep"][-1]
-    ops, _recorded = k1_operands(args)
-    out, t_out = swb.post_sweep(*ops[:4], **ops[4])
-    work = k1_work(*ops)
-    torch.cuda.synchronize()
-    if not (torch.equal(out, work["want"]) and torch.equal(t_out, work["t_want"])):
-        raise AssertionError(f"{what}: K1 is not bit-equal to the plain sweep")
-    ms = cuda_ms(lambda: _kernels.launch("post_sweep", *args), reps=20)
-    print(f"  K1 at {what}: {tuple(out.shape)} rays x {ops[2].a0.shape[0]} planes over "
-          f"{tuple(ops[0].shape)}: {ms:.4f} ms, bit-equal to plain; bound {work['bound'][0]:.4f} ms "
-          f"({work['bound'][1]}) {card}")
-    return ms, work["bound"]
-
-
-def k2_site(calls, what, card):
+def check_k2(calls, what):
     """The last recorded K2 launch of ``calls`` at a sharded training
     step: within the backward kernels' bound of the plain backward on its
-    operands (early exit off), timed with its ``d_store`` zeroing, with
-    its bound → (ms, bound, max |d|)."""
+    operands (early exit off) → max |d|."""
     import torch
 
     from libre_tpu_torch.ops import shearwarp_bricked as swb
@@ -1765,7 +1242,7 @@ def k2_site(calls, what, card):
 
     args = [a for name, a in calls if name == "store_grid_bwd"][-1]
     (store, tf, a0, a1, wa, dl, act, view, corr, rgb_in, t_in, out, t_out, g, _ds, _dtf,
-     k, nc, nb, v, u, diff_tf, wb0, wb1, wc0, wc1, _sb, _sc, early_exit) = args
+     _k, _nc, _nb, _v, _u, diff_tf, wb0, wb1, wc0, wc1, _sb, _sc, early_exit) = args
     tables = swb.SweepTables(a0=a0, a1=a1, wa=wa, dl=dl, act=act, view=view, corr=corr,
                              rgb_in=rgb_in, t_in=t_in)
     kw = dict(wb=(wb0, wb1), wc=(wc0, wc1), early_exit=early_exit, diff_tf=bool(diff_tf))
@@ -1775,33 +1252,7 @@ def k2_site(calls, what, card):
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(got, want)):
         compare_grads(a, b, f"{what}, K2 gradient {i} vs plain", early_exit)
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    ug = view[0] + view[1] * torch.arange(u, device=store.device)
-    vg = view[5] + view[2] * torch.arange(v, device=store.device)
-    xb = view[3] + ug[None, :] * dl[:, None]
-    xc = view[4] + vg[None, :] * dl[:, None]
-    in_box = int((((xb >= wb0) & (xb < wb1)).sum(1) * ((xc >= wc0) & (xc < wc1)).sum(1)).sum())
-    b = bound(bytes_=2 * store.numel() * 4 + v * u * 15 * 4 + 2 * TF_BYTES + k * 5 * 4,
-              ops=in_box * K2_OPS_PER_SAMPLE)
-    ms = cuda_ms(lambda: swg.store_grid_backward(store, tf, tables, out, t_out, g, **kw), reps=10)
-    print(f"  K2 at {what}: {v}x{u} rays x {k} planes over {tuple(store.shape)}: {ms:.4f} ms; "
-          f"bound {b[0]:.4f} ms ({b[1]}) {card}")
-    return ms, b, err
-
-
-def k3_site(calls, slot_bytes, filter_mode, what, card):
-    """The first recorded K3 launch of ``calls`` (an f32 brick set) timed,
-    with its bound from its relaunched counts → (ms, bound)."""
-    from libre_tpu_torch.ops import _kernels
-
-    args = [a for name, a in calls if name == "exact_march"][0]
-    ms = cuda_ms(lambda: _kernels.launch("exact_march", *args), reps=10)
-    _out, samples, used = k3_counts(args)
-    b = k3_bound_of(samples, used, slot_bytes, int(args[11]), int(samples.shape[0]),
-                    filter_mode, True)
-    print(f"  K3 at {what}: {int(samples.shape[0])} rays, {int(samples.sum())} samples: "
-          f"{ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) {card}")
-    return ms, b
+    return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
 
 def phase_sharded_orbit(dev, card, engine, poses):
@@ -1815,16 +1266,13 @@ def phase_sharded_orbit(dev, card, engine, poses):
     ``sharded_frames`` are set to 0 just before each run and read just
     after: one K1 launch per shard per frame, every frame sharded.  Each
     frame is held to the same engine's one-device frame: 2e-5 (exit off),
-    below 2e-3 (0.999).  Then one sharded frame's split: the sharded sweep
-    (tables, 4 K1, fold) and the fold alone (CUDA events), and one shard's
-    K1 bit-equal to plain and timed.  Returns (K1 launches, sites, max
-    |K1 − plain|)."""
+    below 2e-3 (0.999).  Then one shard's K1 of a 2x2 frame bit-equal to
+    plain.  Returns the K1 launches."""
     import torch
 
     from libre_tpu_torch.data.datasource import DataSource
     from libre_tpu_torch.ops import shearwarp_bricked as swb
     from libre_tpu_torch.ops.reference import RenderParams
-    from libre_tpu_torch.parallel import bricked_sharded as bs
     from libre_tpu_torch.render.engine import RenderEngine
     from libre_tpu_torch.testing import SHARD_TOL_EXIT_OFF, SHARD_TOL_EXIT_ON
 
@@ -1835,7 +1283,7 @@ def phase_sharded_orbit(dev, card, engine, poses):
     refs = {e: [engine.render_bricked(cam, fr, params=params[e], **kw)[0] for cam, fr in poses]
             for e in MESH_EXITS}
     slab_engine = RenderEngine(DataSource(URI), max_gpu_cache_mb=SLAB_MB, device=dev)
-    launches, sites, split = 0, [], None
+    launches = 0
     for mode, eng in (("replicated", engine), ("slabs", slab_engine)):
         for n_brick, n_ray in MESH_SHAPES:
             eng.mesh = logical_mesh(dev, n_brick, n_ray)
@@ -1844,12 +1292,9 @@ def phase_sharded_orbit(dev, card, engine, poses):
                 torch.cuda.synchronize()
                 swb.post_sweep.launches = 0
                 eng.sharded_frames = 0
-                frame_ms, errs = [], []
+                errs = []
                 for (cam, fr), ref in zip(poses, refs[e]):
-                    t0 = time.perf_counter()
                     img, stats = eng.render_bricked(cam, fr, params=params[e], **kw)
-                    torch.cuda.synchronize()
-                    frame_ms.append((time.perf_counter() - t0) * 1e3)
                     errs.append(float((img - ref).abs().max()))
                 n_k1, n_sharded = swb.post_sweep.launches, eng.sharded_frames
                 # ----------------------------------------- end of this run
@@ -1863,39 +1308,18 @@ def phase_sharded_orbit(dev, card, engine, poses):
                 if max(errs) > tol:
                     raise AssertionError(f"{mode} {n_brick}x{n_ray} exit {e}: max|d| {max(errs)} "
                                          f"from the one-device frames, bound {tol}")
-                steady = sorted(frame_ms[1:])
                 print(f"sharded orbit, {mode} store, (brick, ray) = ({n_brick}, {n_ray}), exit {e}: "
                       f"{n_sharded} sharded frames, {n_k1} K1 launches; max|d| vs one device "
-                      f"{max(errs):.3e} (bound {tol}); frame ms first {frame_ms[0]:.1f}, steady "
-                      f"median {steady[len(steady) // 2]:.3f}, min {steady[0]:.3f} {card}")
+                      f"{max(errs):.3e} (bound {tol}) {card}")
             if mode == "replicated" and (n_brick, n_ray) == MESH_SHAPES[0]:
                 cam, fr = poses[-1]
-                with captured(bs, "render_store_grid_sharded") as sweeps, \
-                        captured(bs, "fold_rows") as folds, Recorder("post_sweep") as rec:
+                with Recorder("post_sweep") as rec:
                     eng.render_bricked(cam, fr, params=params[1.1], **kw)
-                torch.cuda.synchronize()
-                (s_args, s_kw), = sweeps
-                (f_args, f_kw), = folds
-                sweep_ms = cuda_ms(lambda: bs.render_store_grid_sharded(*s_args, **s_kw), reps=10)
-                fold_ms = cuda_ms(lambda: bs.fold_rows(*f_args, **f_kw), reps=10)
-                # The host's share: the per-shard Python loop enqueues 4
-                # wrappers' launches and the tables and moves around them.
-                t0 = time.perf_counter()
-                for _ in range(10):
-                    bs.render_store_grid_sharded(*s_args, **s_kw)
-                host_ms = (time.perf_counter() - t0) * 1e3 / 10
-                torch.cuda.synchronize()
-                print(f"  one sharded frame's sweep (tables, {len(rec.calls)} K1, fold): "
-                      f"{sweep_ms:.4f} ms device; the fold {fold_ms:.4f} ms, {fold_ms / sweep_ms:.4f} "
-                      f"of it; the host enqueues the sweep in {host_ms:.4f} ms a call "
-                      f"({host_ms / eng.mesh.size:.4f} ms a shard) {card}")
-                split = k1_site(rec.calls, "a shard of the 2x2 orbit frame", card)
+                check_k1_again(rec.calls, "a shard of the 2x2 orbit frame")
     engine.mesh = None
     del slab_engine
     free_device_memory()
-    sites.append(("K1", "render_store_grid_sharded, sharded orbit (2x2, 4x1; replicated, slabs)",
-                  launches, *split))
-    return launches, sites
+    return launches
 
 
 def phase_sharded_training(dev, card, problem, store, tf, targets):
@@ -1907,8 +1331,8 @@ def phase_sharded_training(dev, card, problem, store, tf, targets):
     loss (rtol 1e-6) and gradients (1e-5); then ``SHARD_TRAIN_STEPS`` Adam
     steps of each (lr 5e-2), K1's and K2's counts set to 0 just before
     and read just after: the loss falls, K1 and K2 launch once per view
-    per ray shard per brick shard of the view's.  Returns (K1, K2
-    launches, sites, K2 max |d|)."""
+    per ray shard per brick shard of the view's; a slab shard's last K1
+    and K2 against plain.  Returns (K1, K2 launches, K2 max |d|)."""
     import torch
 
     from libre_tpu_torch.ops import shearwarp_bricked as swb
@@ -1927,7 +1351,6 @@ def phase_sharded_training(dev, card, problem, store, tf, targets):
     configs = (("views x rows, replicated store", 2, 2, False),
                ("slab-sharded store", 2, 1, True), ("slab-sharded store", 4, 1, True))
     k1_total = k2_total = 0
-    k1_site_ms = k2_site_ms = None
     k2_err = 0.0
     for what, n_brick, n_ray, slabs in configs:
         mesh = logical_mesh(dev, n_brick, n_ray)
@@ -1969,17 +1392,15 @@ def phase_sharded_training(dev, card, problem, store, tf, targets):
         torch.cuda.synchronize()
         swb.post_sweep.launches = 0
         swg.store_grid_backward.launches = 0
-        losses, ends = [], []
+        losses = []
         # The last step of the 4-slab run records its launches' operands
         # (recording every step would hold each launch's slab and d_store).
         rec = Recorder("post_sweep", "store_grid_bwd")
-        t0 = time.perf_counter()
         with adam_counted(name, (len(leaves) + 1) * SHARD_TRAIN_STEPS):
             for i in range(SHARD_TRAIN_STEPS):
                 last = slabs and n_brick == 4 and i == SHARD_TRAIN_STEPS - 1
                 with rec if last else contextlib.nullcontext():
                     losses.append(float(step(params, targets)))
-                ends.append(time.perf_counter())
         n_k1, n_k2 = swb.post_sweep.launches, swg.store_grid_backward.launches
         # ------------------------------------------ end of the training run
         k1_total += n_k1
@@ -1990,22 +1411,14 @@ def phase_sharded_training(dev, card, problem, store, tf, targets):
                                  f"{SHARD_TRAIN_STEPS} steps, want {per_step} a step each")
         if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
             raise AssertionError(f"{name}: the loss did not fall: {losses}")
-        steps_ms = np.diff([t0] + ends) * 1e3
         print(f"{name}: {SHARD_TRAIN_STEPS} Adam steps, losses {losses}; K1 {n_k1 // SHARD_TRAIN_STEPS} "
-              f"and K2 {n_k2 // SHARD_TRAIN_STEPS} launches a step; step median of 2-"
-              f"{SHARD_TRAIN_STEPS} {float(np.median(steps_ms[1:])):.3f} ms (all "
-              f"{', '.join(f'{x:.3f}' for x in steps_ms)}) {card}")
+              f"and K2 {n_k2 // SHARD_TRAIN_STEPS} launches a step {card}")
         if slabs and n_brick == 4:
-            k1_site_ms = k1_site(rec.calls, "a slab shard's forward (n_brick 4)", card)
-            ms, b, k2_err = k2_site(rec.calls, "a slab shard's backward (n_brick 4)", card)
-            k2_site_ms = (ms, b)
+            check_k1_again(rec.calls, "a slab shard's forward (n_brick 4)")
+            k2_err = check_k2(rec.calls, "a slab shard's backward (n_brick 4)")
         del leaves, tf_p, params, step, rec
         free_device_memory()
-    sites = [("K1", "store trainer forward, sharded (2x2 replicated; slabs on 2, 4)", k1_total,
-              *k1_site_ms),
-             ("K2", "store trainer backward, sharded (2x2 replicated; slabs on 2, 4)", k2_total,
-              *k2_site_ms)]
-    return k1_total, k2_total, sites, k2_err
+    return k1_total, k2_total, k2_err
 
 
 def phase_sharded_exact(dev, card, exact_tol):
@@ -2013,8 +1426,7 @@ def phase_sharded_exact(dev, card, exact_tol):
     smooth volume, 512^2 rays, its default params) on a 2x2 mesh of
     logical shards against ``render``: K3's count set to 0 before and read
     after, once per shard (one pass each); the image within K3's bound.
-    One shard's launch timed with its bound.  Returns (K3 launches,
-    sites)."""
+    Returns the K3 launches."""
     import torch
 
     from libre_tpu_torch.apps.render_cli import build_camera
@@ -2029,22 +1441,14 @@ def phase_sharded_exact(dev, card, exact_tol):
         one = scene.render(camera)
         torch.cuda.synchronize()
         exact.march_exact.launches = 0
-        with Recorder("exact_march") as rec:
-            got = scene.render_sharded(mesh, camera)
+        got = scene.render_sharded(mesh, camera)
         torch.cuda.synchronize()
         launches = exact.march_exact.launches
         # --------------------------------------------- end of the main path
         if launches != 4:
             raise AssertionError(f"render_sharded launched K3 {launches} times, want 4")
         compare(got, one, "VolumeScene.render_sharded (2x2) vs render", exact_tol)
-        one_ms = cuda_ms(lambda: scene.render(camera), reps=5)
-        sharded_ms = cuda_ms(lambda: scene.render_sharded(mesh, camera), reps=5)
-        print(f"VolumeScene at {SCENE_N}^3, {SCENE_RAYS}^2 rays: render {one_ms:.4f} ms, "
-              f"render_sharded (2x2) {sharded_ms:.4f} ms {card}")
-        ms, b = k3_site(rec.calls, scene.bricks.data[0].numel() * 4, scene.params.filter_mode,
-                        "shard (0, 0) of the sharded scene", card)
-    return launches, [("K3", "render_rays_sharded, VolumeScene.render_sharded (2x2)", launches,
-                       ms, b)]
+    return launches
 
 
 def phase_mesh_apps(dev, card):
@@ -2112,13 +1516,10 @@ def phase_mesh_apps(dev, card):
         torch.cuda.synchronize()
         swb.post_sweep.launches = 0
         svc.engine.sharded_frames = 0
-        latency = []
         for i, (_cam, frustum) in enumerate(poses):
             call("/camera", "PUT", {"modelview": frustum.mv.tolist()})
-            t0 = time.perf_counter()
             if call("/image-jpeg", "POST", {})[:2] != b"\xff\xd8":
                 raise AssertionError(f"sharded service pose {i}: no JPEG")
-            latency.append((time.perf_counter() - t0) * 1e3)
             cam, fr = svc.view_camera(512, 512, 0.0)
             img, _ = svc.engine.render_bricked(cam, fr, **svc.frame_keywords())
             if not np.array_equal(served[-1], img.cpu().numpy()):
@@ -2133,8 +1534,7 @@ def phase_mesh_apps(dev, card):
         raise AssertionError(f"sharded service: {n_sharded} sharded frames, {n_k1} K1 launches")
     launches += n_k1
     print(f"RenderService over a 2x2 mesh: {len(poses)} orbit requests, served frames bit-equal "
-          f"to the engine's sharded frames; request ms {', '.join(f'{x:.1f}' for x in latency)} "
-          f"{card}")
+          f"to the engine's sharded frames {card}")
     return launches
 
 
@@ -2146,54 +1546,15 @@ def phase_two_process(dev, card):
     gradient (``all_reduce``) against the one-device ones."""
     from libre_tpu_torch.parallel import two_process
 
-    t0 = time.perf_counter()
     outs = two_process.run(str(dev), vox=TWO_PROCESS_N, img=TWO_PROCESS_N, timeout=300)
     for rank, out in enumerate(outs):
         line = next(ln for ln in out.splitlines() if ln.startswith(f"OK rank={rank} "))
-        print(f"two processes, rank {rank}: {line.split(' ', 2)[2]}")
-    print(f"two processes (gloo, one card): {time.perf_counter() - t0:.1f} s wall {card}")
+        print(f"two processes, rank {rank}: {line.split(' ', 2)[2]} {card}")
 
 
 SET_SPLIT = 8  # phase 30: the 512^3 smooth truth in 8^3 bricks of 64^3, two ghost voxels
 SET_STEPS = 5
 SET_LR = 1e-2
-# K4's slab test per brick and ray (exact_sample.cuh's brick_span: per axis
-# 2 subtractions, 2 products and 4 min/max; the clip interval's 2 and the
-# test), which it runs for every brick of its set.
-K4_OPS_PER_BRICK = 27
-
-
-def k4_set_site(call, what, card):
-    """A recorded ``march_exact_backward`` call over a brick set
-    ((args, kwargs) of ``captured``): timed as the trainers' K4 (its
-    ``d_volume`` zeroing included), its samples counted by K3 over the
-    same set (a relaunch, not a main-path launch), with its bound: the
-    set's f32 density read and d_volume written once, the ray pack, out
-    and g, the TF and d_tf; every sample's operations and a slab test per
-    ray and brick → (ms, bound)."""
-    import torch
-
-    from libre_tpu_torch.ops import exact
-
-    (volume, tf, view, out, g), kw = call
-    volume, tf = volume.detach(), tf.detach()
-    n_bricks = volume.shape[0]
-    samples = torch.zeros(view.n_rays, dtype=torch.int32, device=volume.device)
-    exact.march_exact(
-        volume, torch.arange(n_bricks, dtype=torch.int32, device=volume.device),
-        view.brick_boxes, tf, view.ray_pack, torch.zeros_like(out), view.eye, view.params,
-        max_steps=view.max_steps, width=view.width, samples=samples)
-    n_samples = int(samples.sum())
-    ms = cuda_ms(lambda: exact.march_exact_backward(volume, tf, view, out, g, **kw), reps=5,
-                 warmup=1)
-    b = bound(bytes_=2 * volume.numel() * 4 + view.n_rays * 16 * 4 + n_bricks * 16 * 4
-              + 2 * TF_BYTES,
-              ops=n_samples * K4_OPS_PER_SAMPLE[view.params.filter_mode]
-              + view.n_rays * n_bricks * K4_OPS_PER_BRICK)
-    print(f"  K4 at {what}: {view.n_rays} rays over {n_bricks} bricks of "
-          f"{tuple(volume.shape[1:])}, {n_samples} samples: {ms:.4f} ms; bound {b[0]:.4f} ms "
-          f"({b[1]}) {card}")
-    return ms, b
 
 
 def k4_set_window(call, what, seed):
@@ -2236,17 +1597,16 @@ def phase_exact_set(dev, card, exact_tol):
     default colormap, ``SET_STEPS`` Adam steps (lr ``SET_LR``, early exit
     off) on a 1x1 mesh and on a 2x2 mesh of logical shards of the card,
     K3's and K4's counts set to 0 before each and read after (one of each
-    per shard and step); the loss must fall, the first 2x2 step's loss and
-    gradients agree with the 1x1 step's (loss rtol ``SHARD_LOSS_RTOL``,
-    gradients within the exit-off backward bound of the largest entry),
-    and each step time is the median of steps 2 on; then
-    ``VolumeScene.render`` over the same set with the early exit on
-    (0.999): the target's render, one forward and backward of the
-    estimate's MSE (K3 twice, K4 once).  Off the main path: each K4 site
-    (the 1x1 trainer over 512 bricks, one 2x2 shard over 256, the scene
-    over 512) timed with its bound and held against the plain version on
-    a 64x64 window of its rays; K3 on the 1x1 trainer's window.  Returns
-    the counts, errors and sites for the ``kernels`` line."""
+    per shard and step); the loss must fall, and the first 2x2 step's loss
+    and gradients agree with the 1x1 step's (loss rtol
+    ``SHARD_LOSS_RTOL``, gradients within the exit-off backward bound of
+    the largest entry); then ``VolumeScene.render`` over the same set with
+    the early exit on (0.999): the target's render, one forward and
+    backward of the estimate's MSE (K3 twice, K4 once).  Off the main
+    path: each K4 call (the 1x1 trainer over 512 bricks, one 2x2 shard
+    over 256, the scene over 512) held against the plain version on a
+    64x64 window of its rays; K3 on the 1x1 trainer's window.  Returns the
+    counts and errors for the ``kernels`` line."""
     import functools
 
     import torch
@@ -2293,24 +1653,21 @@ def phase_exact_set(dev, card, exact_tol):
         problem, bricks=sharded._replace(data=torch.full_like(sharded.data, 0.5)))
     print(f"exact set: {SCENE_N}^3 smooth truth in {sharded.num_bricks} bricks of "
           f"{tuple(sharded.data.shape[1:])} ({sharded.data.numel() * 4 / 1e6:.0f} MB f32), "
-          f"{SCENE_RAYS}^2 rays, max_steps {problem.max_steps}; set-up "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{SCENE_RAYS}^2 rays, max_steps {problem.max_steps}")
     adam = functools.partial(torch.optim.Adam, lr=SET_LR)
     runs, k3_launches, k4_launches = {}, 0, 0
     for n_brick, n_ray in ((1, 1), (2, 2)):
         mesh = logical_mesh(dev, n_brick, n_ray)
         state = init_state(start, grayscale_ramp(), adam, mesh=mesh)
         step = make_train_step(start, adam, mesh)
-        losses, at, first = [], [], None
+        losses, first = [], None
         torch.cuda.synchronize()
         exact.march_exact.launches = exact.march_exact_backward.launches = 0
         n_leaves = sum(len(g["params"]) for g in state.optimizer.param_groups)
         with captured(exact, "march_exact_backward") as calls, adam_counted(
                 f"exact set trainer ({n_ray}x{n_brick})", n_leaves * SET_STEPS):
-            t_start = time.perf_counter()
             for i in range(SET_STEPS):
-                losses.append(float(step(state, eye, dirs, tnp, target)))  # synchronises
-                at.append(time.perf_counter())
+                losses.append(float(step(state, eye, dirs, tnp, target)))
                 if i == 0:
                     first = (torch.cat([d.grad for d in state.params["density"]]).clone(),
                              state.params["tf"].grad.clone())
@@ -2322,16 +1679,11 @@ def phase_exact_set(dev, card, exact_tol):
                                  f"{counts} times, want {want}")
         k3_launches += counts[0]
         k4_launches += counts[1]
-        steps_ms = np.diff([t_start] + at) * 1e3
-        step_ms = float(np.median(steps_ms[1:]))
         print(f"exact set trainer on a {n_ray}x{n_brick} mesh: {SET_STEPS} Adam steps (lr "
-              f"{SET_LR}): losses {losses}; step median of steps 2-{SET_STEPS} {step_ms:.3f} ms "
-              f"(all {', '.join(f'{x:.3f}' for x in steps_ms)} ms, host clock); K3 "
-              f"{counts[0]}, K4 {counts[1]} launches {card}")
+              f"{SET_LR}): losses {losses}; K3 {counts[0]}, K4 {counts[1]} launches {card}")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise AssertionError(f"the exact set trainer's loss did not fall: {losses}")
-        runs[(n_brick, n_ray)] = dict(losses=losses, first=first, step_ms=step_ms,
-                                      call=calls[-1])
+        runs[(n_brick, n_ray)] = dict(losses=losses, first=first, call=calls[-1])
         del state, step
     one, four = runs[(1, 1)], runs[(2, 2)]
     l1, l4 = one["losses"][0], four["losses"][0]
@@ -2354,21 +1706,18 @@ def phase_exact_set(dev, card, exact_tol):
     torch.cuda.synchronize()
     exact.march_exact.launches = exact.march_exact_backward.launches = 0
     with captured(exact, "march_exact_backward") as scene_calls:
-        t_scene = time.perf_counter()
         with torch.no_grad():
             scene_target = scene.render(camera)
         img = scene.with_parameters(leaves).render(camera)
         loss = torch.mean((img - scene_target) ** 2)
         loss.backward()
-        scene_loss = float(loss.detach())  # synchronises
-        scene_ms = (time.perf_counter() - t_scene) * 1e3
+        scene_loss = float(loss.detach())
     scene_counts = (exact.march_exact.launches, exact.march_exact_backward.launches)
     # --------------------------------------------- end of the scene's main path
     exits = int((img.detach()[..., 3] > SCENE_EXIT).sum())
     print(f"VolumeScene over {sharded.num_bricks} bricks, early exit {SCENE_EXIT}: target, "
-          f"forward and backward {scene_ms:.3f} ms (host clock, first call); loss "
-          f"{scene_loss:.6f}; {exits} of {img.shape[0] * img.shape[1]} rays exit; K3 "
-          f"{scene_counts[0]}, K4 {scene_counts[1]} launches {card}")
+          f"forward and backward: loss {scene_loss:.6f}; {exits} of {img.shape[0] * img.shape[1]} "
+          f"rays exit; K3 {scene_counts[0]}, K4 {scene_counts[1]} launches {card}")
     if scene_counts != (2, 1):
         raise AssertionError(f"the set scene launched K3 and K4 {scene_counts} times")
     if exits == 0 or not np.isfinite(scene_loss):
@@ -2380,16 +1729,14 @@ def phase_exact_set(dev, card, exact_tol):
     k4_launches += scene_counts[1]
     del img, scene_target, leaves
 
-    # Off the main path: each K4 site timed and against plain on a window.
-    sites, k4_err = [], 0.0
-    for seed, (what, call, launches) in enumerate((
-            ("the 1x1 exact set trainer", one["call"], SET_STEPS),
-            ("one shard of the 2x2 exact set trainer", four["call"], 4 * SET_STEPS),
-            ("VolumeScene over the set, exit on", scene_calls[-1], 1))):
+    # Off the main path: each K4 call against plain on a window.
+    k4_err = 0.0
+    for seed, (what, call) in enumerate((
+            ("the 1x1 exact set trainer", one["call"]),
+            ("one shard of the 2x2 exact set trainer", four["call"]),
+            ("VolumeScene over the set, exit on", scene_calls[-1]))):
         what = f"{what} ({call[0][0].shape[0]} bricks)"
-        ms, b = k4_set_site(call, what, card)
         k4_err = max(k4_err, k4_set_window(call, what, seed))
-        sites.append(("K4", f"RenderMarcherDiff backward over a set, {what}", launches, ms, b))
     (volume, tf, view, _o, _g), _kw = one["call"]
     volume, tf = volume.detach(), tf.detach()
     lo = (SCENE_RAYS - SUBSET) // 2
@@ -2404,8 +1751,7 @@ def phase_exact_set(dev, card, exact_tol):
                      exact_tol)
     print(f"phase 30: {time.perf_counter() - t0:.1f} s")
     return dict(k3_launches=k3_launches, k4_launches=k4_launches, k3_err=k3_err,
-                k4_err=k4_err, sites=sites,
-                step_ms={"1x1": one["step_ms"], "2x2": four["step_ms"]})
+                k4_err=k4_err)
 
 
 # ------------------------------------------------------------------ phase 31
@@ -2417,7 +1763,6 @@ FINISH_TRAIN_TF = 32  # the exact trainer's TF in phase 31, as the JAX trainer's
 FINISH_STEPS = 5
 FINISH_WIDE_TF = 8192  # a TF past the shared instances: trainer steps and one xla frame
 FINISH_WIDE_STEPS = 2
-WALL_FRAMES = 2  # timed frames of each wall layout and its sequential loop, after one warm-up
 WALL_REQUESTS = 3  # 2x2 service requests through the wall and through the loop (the first cold)
 
 
@@ -2448,7 +1793,7 @@ def run_script(module, argv, card, root):
     return launches, checked, lines
 
 
-def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, size=512):
+def phase_finish(dev, card, exact_tol, view, engine, pose, dense, size=512):
     """31. What finished the one-card port: K3 and K4 at any TF size, the
     multi-view wall, the bf16 resample of K1 and K5.
 
@@ -2456,29 +1801,27 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
     ``FINISH_TF_SIZES`` against their plain versions on a ``SUBSET`` x
     ``SUBSET`` window of phase 13's training view 0 over its 512^3 smooth
     truth (the tolerances of phases 10 and 13; at T = 1 the density
-    gradient is zero in both), and the whole view's K3 and K4 timed at
-    those T beside the T = 256 fixed instances.  Then the main path, with
-    the five render kernels' counts set to 0 just before and read just
-    after: 5 Adam steps of the exact trainer from a 32-entry TF on view 0;
-    the 1x2 and 2x2 walls of ``RenderService`` at 512x512 on phase 20's
-    volume and screen-space error, ``render_wall`` against the sequential
-    ``render_bricked`` loop (frame ms, host clock, ending in a
-    synchronise); ``WALL_REQUESTS`` 2x2 requests over HTTP through the
-    wall and as many through the loop; the bf16 store frame
+    gradient is zero in both).  Then the main path, with the five render
+    kernels' counts set to 0 just before and read just after: 5 Adam
+    steps of the exact trainer from a 32-entry TF on view 0; the 1x2 and
+    2x2 walls of ``RenderService`` at 512x512 on phase 20's volume and
+    screen-space error, ``render_wall`` and the sequential
+    ``render_bricked`` loop; ``WALL_REQUESTS`` 2x2 requests over HTTP
+    through the wall and as many through the loop; the bf16 store frame
     (``render_store_frame``) on phase 4's last pose and the bf16 dense
     frame (``render_frame``) on phase 16's.  Then: every wall tile and
     every wall-served canvas bit-equal to the loop's frames, the bf16
     launches bit-equal to their plain versions (``compute_dtype=
-    "bfloat16"``), their ms beside the f32 instances' and each bf16 frame's
-    distance from its f32 frame; ``benchmarks/demo_wall`` at its defaults
-    in a process of its own.  Returns the phase's launches and largest
-    errors by kernel."""
+    "bfloat16"``) and each bf16 frame's distance from its f32 frame;
+    ``benchmarks/demo_wall`` at its defaults in a process of its own.
+    Returns the phase's launches and largest errors by kernel, and the
+    runtime-T instances' entries of the ``kernels`` line."""
     import urllib.request
 
     import torch
 
     from libre_tpu_torch.apps.serve import RenderService
-    from libre_tpu_torch.ops import _kernels, exact
+    from libre_tpu_torch.ops import exact
     from libre_tpu_torch.ops import shearwarp_bricked as swb
     from libre_tpu_torch.render.registry import create_renderer
     from libre_tpu_torch.ops import shearwarp_dense as swd
@@ -2501,56 +1844,27 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
         return (gt[None], slot, v.brick_boxes, tf, v.ray_pack,
                 torch.zeros((v.n_rays, 4), device=dev), v.eye, v.params)
 
-    samples = torch.zeros(view.n_rays, dtype=torch.int32, device=dev)
-    exact.march_exact(*k3_args(torch.from_numpy(tf_of_size(256)).to(dev), view),
-                      max_steps=view.max_steps, width=view.width, samples=samples)
-    n_samples = int(samples.sum())  # the same at every T: the exit is off
-    one = torch.ones(1, dtype=torch.int32)
-    times, bounds, plain_ms, inst_errs = {}, {}, {}, {}
-    for n_tf in (256,) + FINISH_TF_SIZES:
+    inst_errs = {}
+    for n_tf in FINISH_TF_SIZES:
         kind = exact.tf_instance(n_tf)
         tf = torch.from_numpy(tf_of_size(n_tf)).to(dev)
-        if n_tf != 256:
-            what = f"T = {n_tf}, {SUBSET}x{SUBSET} window of training view 0"
-            out_w = exact.march_exact(*k3_args(tf, win), max_steps=win.max_steps, width=SUBSET)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want_w = exact.march_exact_reference(*k3_args(tf, win), max_steps=win.max_steps)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            k3_err = compare(out_w, want_w, f"K3, {what}", exact_tol)
-            got = exact.march_exact_backward(gt, tf, win, out_w, g_win)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            want = exact.march_exact_backward_reference(gt, tf, win, out_w, g_win)
-            torch.cuda.synchronize()
-            plain_ms[n_tf] = ((t1 - t0) * 1e3, (time.perf_counter() - t2) * 1e3)
-            k4_err = 0.0
-            for name, a, b in zip(("d_volume", "d_tf"), got, want):
-                compare_grads(a, b, f"K4, {what}: {name}", 1.1, EXACT_GRAD_TOL_MAX,
-                              expect_zero=n_tf == 1 and name == "d_volume")
-                k4_err = max(k4_err, float((a - b).abs().max()))
-            errs["exact_march"] = max(errs["exact_march"], k3_err)
-            errs["exact_march_bwd"] = max(errs["exact_march_bwd"], k4_err)
-            old = inst_errs.get(kind, (0.0, 0.0))
-            inst_errs[kind] = (max(old[0], k3_err), max(old[1], k4_err))
-        fwd = k3_args(tf, view)
-        out = exact.march_exact(*fwd, max_steps=view.max_steps, width=view.width)
-        times[n_tf] = (
-            cuda_ms(lambda: exact.march_exact(*fwd, max_steps=view.max_steps, width=view.width),
-                    reps=10),
-            cuda_ms(lambda: exact.march_exact_backward(gt, tf, view, out, g), reps=5, warmup=1),
-        )
-        bounds[n_tf] = (
-            k3_bound_of(samples, one, gt.numel() * 4, 1, view.n_rays, "trilinear", True, n_tf),
-            k4_bound_of(gt.numel(), view.n_rays, n_samples, "trilinear", True, n_tf),
-        )
-        print(f"  training view 0 over the {EXACT_TRAIN_N}^3 truth, T = {n_tf} ({kind} "
-              f"instances): K3 {times[n_tf][0]:.4f} ms (bound {bounds[n_tf][0][0]:.4f} ms, "
-              f"{bounds[n_tf][0][1]}), K4 {times[n_tf][1]:.4f} ms (TF gradient on, d_volume "
-              f"zeroing included; bound {bounds[n_tf][1][0]:.4f} ms, {bounds[n_tf][1][1]}) "
-              f"{card}")
-        del fwd, out
+        what = f"T = {n_tf}, {SUBSET}x{SUBSET} window of training view 0"
+        out_w = exact.march_exact(*k3_args(tf, win), max_steps=win.max_steps, width=SUBSET)
+        want_w = exact.march_exact_reference(*k3_args(tf, win), max_steps=win.max_steps)
+        torch.cuda.synchronize()
+        k3_err = compare(out_w, want_w, f"K3, {what}", exact_tol)
+        got = exact.march_exact_backward(gt, tf, win, out_w, g_win)
+        want = exact.march_exact_backward_reference(gt, tf, win, out_w, g_win)
+        torch.cuda.synchronize()
+        k4_err = 0.0
+        for name, a, b in zip(("d_volume", "d_tf"), got, want):
+            compare_grads(a, b, f"K4, {what}: {name}", 1.1, EXACT_GRAD_TOL_MAX,
+                          expect_zero=n_tf == 1 and name == "d_volume")
+            k4_err = max(k4_err, float((a - b).abs().max()))
+        errs["exact_march"] = max(errs["exact_march"], k3_err)
+        errs["exact_march_bwd"] = max(errs["exact_march_bwd"], k4_err)
+        old = inst_errs.get(kind, (0.0, 0.0))
+        inst_errs[kind] = (max(old[0], k3_err), max(old[1], k4_err))
 
     # The main path's set-up: the trainer's target and state, the service.
     tf32 = torch.from_numpy(tf_of_size(FINISH_TRAIN_TF)).to(dev)
@@ -2572,7 +1886,7 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
         return canvases[-1]
 
     def loop_only(*args, **kwargs):  # the wall's test made to fail: the sequential loop
-        return [], "timed as the sequential loop"
+        return [], "served as the sequential loop"
 
     svc.render_frame = render_frame
     svc.server.start()
@@ -2584,12 +1898,6 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
         req = urllib.request.Request(base + path, data=data, method=method)
         with urllib.request.urlopen(req, timeout=300) as resp:
             return resp.read()
-
-    def frame_ms(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, out
 
     half = np.asarray(engine.info.world_size, np.float32) * 0.5
     camera, frustum = pose
@@ -2642,27 +1950,14 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
             kw = {k: v for k, v in svc.frame_keywords().items() if k != "synchronous"}
             views = [(*svc.view_camera(vw, vh, az), (dx, dy))
                      for dx, dy, vw, vh, az in svc._layout_views()]
-
-            def wall():
-                return seng.render_wall(views, (size, size), **kw)[0]
-
-            def loop():
-                return [seng.render_bricked(c, f, **kw)[0] for c, f, _off in views]
-
-            runs = {"wall": [], "loop": []}
-            for _ in range(1 + WALL_FRAMES):
-                for name, fn in (("wall", wall), ("loop", loop)):
-                    runs[name].append(frame_ms(fn))
-            walls[layout] = dict(views=views, runs=runs)
+            walls[layout] = dict(
+                views=views, wall=seng.render_wall(views, (size, size), **kw)[0],
+                loop=[seng.render_bricked(c, f, **kw)[0] for c, f, _off in views])
         call("/layout", "PUT", {"name": "2x2"})
-        latency = {"wall": [], "loop": []}
         for name in ("wall", "loop"):
             seng.plan_wall = real_plan if name == "wall" else loop_only
             for _ in range(WALL_REQUESTS):
-                t0 = time.perf_counter()
-                jpeg = call("/image-jpeg", "POST", {})
-                latency[name].append((time.perf_counter() - t0) * 1e3)
-                if jpeg[:2] != b"\xff\xd8":
+                if call("/image-jpeg", "POST", {})[:2] != b"\xff\xd8":
                     raise AssertionError("phase 31: /image-jpeg gave no JPEG")
         seng.plan_wall = real_plan
         with Recorder("post_sweep") as k1_rec:
@@ -2686,7 +1981,7 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
     if not torch.equal(base, store_f32):
         raise AssertionError("render_store_frame's f32 frame is not the engine's frame")
     print(f"phase 31 main path launches: {launches}")
-    n_wall_views = sum(2 * len(w["views"]) * (1 + WALL_FRAMES) for w in walls.values())
+    n_wall_views = sum(2 * len(w["views"]) for w in walls.values())
     n_steps = FINISH_STEPS + FINISH_WIDE_STEPS
     want = {"exact_march": n_steps + len(xla_calls), "exact_march_bwd": n_steps,
             "store_grid_bwd": 0, "post_sweep": n_wall_views + 2 * 4 * WALL_REQUESTS + 2,
@@ -2730,38 +2025,25 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
         raise AssertionError(f"the xla frame from a {FINISH_WIDE_TF}-entry TF is wrong")
     print(f"xla frame from a {FINISH_WIDE_TF}-entry TF at {size}x{size} (sse {SERVE_SSE}): "
           f"{len(xla_calls)} K3 launches (global instance), its window {xla_err:.3e} from plain")
-    print(f"K3 / K4 on the whole of view 0 by T (ms; T = 256 the fixed instances) {card}: "
-          + "; ".join(f"T = {t} {times[t][0]:.4f} / {times[t][1]:.4f}" for t in sorted(times)))
-    for t in (4096, 8192, 65536):
-        print(f"  T = {t} against T = 256: K3 {times[t][0] / times[256][0] - 1:+.1%}, "
-              f"K4 {times[t][1] / times[256][1] - 1:+.1%}")
 
     for layout, w in walls.items():
-        wall_canvas = w["runs"]["wall"][-1][1]
-        seq = w["runs"]["loop"][-1][1]
         parity = 0.0
-        for (cam, _fr, (dx, dy)), img in zip(w["views"], seq):
+        for (cam, _fr, (dx, dy)), img in zip(w["views"], w["loop"]):
             vw, vh = cam.viewport[2:]
-            parity = max(parity, float((wall_canvas[dy:dy + vh, dx:dx + vw] - img).abs().max()))
+            parity = max(parity, float((w["wall"][dy:dy + vh, dx:dx + vw] - img).abs().max()))
         if parity != 0.0:
             raise AssertionError(f"the {layout} wall's tiles are {parity} from the loop's frames")
-        wall_ms = [ms for ms, _ in w["runs"]["wall"][1:]]
-        loop_ms = [ms for ms, _ in w["runs"]["loop"][1:]]
-        print(f"wall {layout} at {size}x{size} (sse {SERVE_SSE}): render_wall {wall_ms} ms a frame, "
-              f"the sequential loop {loop_ms} ms (first frames {w['runs']['wall'][0][0]:.3f} / "
-              f"{w['runs']['loop'][0][0]:.3f} ms); tiles vs the loop's frames max|d| {parity} "
-              f"{card}")
+        print(f"wall {layout} at {size}x{size} (sse {SERVE_SSE}): render_wall's tiles vs the "
+              f"sequential loop's frames max|d| {parity} {card}")
     served_wall = canvases[:WALL_REQUESTS]
     served_loop = canvases[WALL_REQUESTS:]
     if len(canvases) != 2 * WALL_REQUESTS or any(
             not np.array_equal(a, b) for a, b in zip(served_wall, served_loop)):
         raise AssertionError("the service's wall canvas differs from its sequential canvas")
-    print(f"service 2x2 request latency (POST /image-jpeg, {size}x{size}): through the wall "
-          f"{[round(x, 3) for x in latency['wall']]} ms, through the loop "
-          f"{[round(x, 3) for x in latency['loop']]} ms (phase 20's 2x2 request, through the "
-          f"wall: {serve_2x2_ms:.3f} ms); served canvases bit-equal {card}")
+    print(f"service 2x2 requests (POST /image-jpeg, {size}x{size}): {WALL_REQUESTS} through the "
+          f"wall, {WALL_REQUESTS} through the loop; served canvases bit-equal {card}")
 
-    bf16_sites(k1_rec.calls, k5_rec.calls, card)
+    check_bf16(k1_rec.calls, k5_rec.calls)
     store_gap = float((store_bf16 - store_f32).abs().max())
     dense_gap = float((dense_bf16 - dense_f32).abs().max())
     print(f"bf16 frame vs f32 frame, max|d|: store frame (K1) {store_gap:.3e}, dense frame (K5) "
@@ -2784,8 +2066,7 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
     del gt, state, target, state_wide, target_wide, svc, seng
     free_device_memory()
     # The kernels line's entries of K3's and K4's runtime-T instances: the
-    # main path's launches of each; times on training view 0 at T = 1024
-    # (shared) and 8192 (global), the plain versions' on the window.
+    # main path's launches of each, the largest error on the windows.
     instance_entries = []
     for kind, n_tf, label in (("shared", 1024, "shared (T <= 4096, T != 256)"),
                               ("global", FINISH_WIDE_TF, "global (T > 4096)")):
@@ -2796,36 +2077,24 @@ def phase_finish(dev, card, exact_tol, view, engine, pose, dense, serve_2x2_ms, 
                 "name": name, "instance": f"{label}, T = {n_tf}", "route": "cuda",
                 "source": f"libre_tpu_torch/csrc/{src}", "replaces": replaces,
                 "launches": instances[name][kind], "max_abs_err": inst_errs[kind][i],
-                "ms": times[n_tf][i], "plain_ms": plain_ms[n_tf][i],
-                "bound_ms": bounds[n_tf][i][0], "bound_by": bounds[n_tf][i][1],
-                "library_ms": None,
             })
     print(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
     return launches, errs, instance_entries
 
 
-def phase_adam(dev, card, n=512, steps=5, reps=20):
+def phase_adam(dev, card, n=512, steps=5):
     """32. The trainers' update at full width: one Adam step of an n^3 leaf
     and a (256, 4) TF through ``step_optimizer`` (the kernel, one launch
     a leaf), for each epilogue (the exact trainer's density "none", the
     dense volume "clamp01", the store "pin" over a store whose first
     eighth is SENTINEL), against ``torch.optim.Adam``'s foreach step and
     the old epilogue as separate passes over ``steps`` steps (launches
-    counted from 0, no fallback); then, with a count of its own, the
-    kernel timed (CUDA events, ``reps`` launches) on the n^3 leaf beside
-    its bound, ``step_optimizer`` over the leaf and the TF beside the
-    foreach step and the old epilogue (the path the kernel replaced),
-    torch's fused Adam (``fused=True``, one multi-tensor pass of 28 B a
-    value) over the leaf with the epilogue in place (the pin by a
-    coverage mask, ``clamp_`` and ``masked_fill_``), and the plain
-    version.  Returns the ``kernels`` line's entry (the pin's numbers, the
-    fused Adam with the pin as ``library_ms``, the launches of every
-    counted main path, ``ADAM_RUNS``) and each epilogue's (ms, bound) on
-    the n^3 leaf."""
+    counted from 0, no fallback).  Returns the ``kernels`` line's entry
+    (the launches of every counted main path, ``ADAM_RUNS``)."""
     import torch
 
     from libre_tpu_torch.ops import shearwarp_bricked as swb
-    from libre_tpu_torch.ops.adam import EPILOGUES, adam_update
+    from libre_tpu_torch.ops.adam import EPILOGUES
     from libre_tpu_torch.testing import ADAM_TOL_ULPS
     from libre_tpu_torch.train.update import separate_passes, step_optimizer
 
@@ -2835,9 +2104,7 @@ def phase_adam(dev, card, n=512, steps=5, reps=20):
 
     unit = 2.0**-23
     gen = torch.Generator(device=dev).manual_seed(21)
-    n_values = n**3
-    b_ms, b_by = bound(ADAM_BYTES_PER_VALUE * n_values, ADAM_OPS_PER_VALUE * n_values)
-    rows, gap = {}, 0.0
+    gap = 0.0
     for epilogue in EPILOGUES:
         start = torch.rand((n, n, n), device=dev, generator=gen)
         if epilogue == "pin":
@@ -2845,6 +2112,7 @@ def phase_adam(dev, card, n=512, steps=5, reps=20):
         tf0 = torch.rand((256, 4), device=dev, generator=gen)
         got = [start.clone().requires_grad_(), tf0.clone().requires_grad_()]
         want = [start.clone().requires_grad_(), tf0.clone().requires_grad_()]
+        del start
         opt_got, opt_want = torch.optim.Adam(got, lr=3e-2), torch.optim.Adam(want, lr=3e-2)
         with adam_counted(f"phase 32's checked steps ({epilogue}, {n}^3 and the TF)", 2 * steps):
             for _ in range(steps):
@@ -2865,47 +2133,10 @@ def phase_adam(dev, card, n=512, steps=5, reps=20):
                 gap = max(gap, float((x - y).abs().max()))
         if max(errs) > ADAM_TOL_ULPS:
             raise AssertionError(f"adam_update {epilogue}: {max(errs):.2f} ulps from torch")
-        leaf, g = got[0].detach(), got[0].grad
-        m, v = opt_got.state[got[0]]["exp_avg"], opt_got.state[got[0]]["exp_avg_sq"]
-        kw = dict(step=steps + 1, lr=3e-2, betas=(0.9, 0.999), eps=1e-8, epilogue=epilogue)
-        # Torch's fused Adam over a copy of the leaf, its gradient shared.
-        lib = start.clone().requires_grad_()
-        lib.grad = g
-        fused = torch.optim.Adam([lib], lr=3e-2, fused=True)
-
-        @torch.no_grad()
-        def fused_step():
-            uncovered = (lib > -0.5).logical_not_() if epilogue == "pin" else None
-            fused.step()
-            if epilogue != "none":
-                lib.clamp_(0.0, 1.0)
-            if uncovered is not None:
-                lib.masked_fill_(uncovered, swb.SENTINEL)
-
-        del start
-        adam_update.launches = step_optimizer.fallbacks = 0
-        ms = cuda_ms(lambda: adam_update(leaf, g, m, v, **kw), reps)
-        ours_ms = cuda_ms(lambda: step_optimizer(
-            opt_got, **dict(zip(("pin", "clamp"), epilogues(got, epilogue)))), reps)
-        if step_optimizer.fallbacks:
-            raise AssertionError(f"phase 32's timed steps fell back {step_optimizer.fallbacks} "
-                                 "times")
-        timed = adam_update.launches
-        lib_ms = cuda_ms(lambda: separate_passes(opt_want, *epilogues(want, epilogue)), reps)
-        fused_ms = cuda_ms(fused_step, reps)
-        plain_ms = cuda_ms(lambda: adam_update.reference(leaf, g, m, v, **kw), 3, warmup=1)
-        rows[epilogue] = (ms, ours_ms, lib_ms, fused_ms, plain_ms)
         print(f"adam_update {epilogue}: {max(errs):.2f} ulps from torch over {steps} steps "
-              f"(largest absolute gap so far {gap:.3e}); "
-              f"kernel {ms:.4f} ms on {n}^3 (bound {b_ms:.4f} ms, {b_by}; at {b_ms / ms:.3f} "
-              f"of it); step_optimizer over the leaf and the TF {ours_ms:.4f} ms, "
-              f"torch.optim.Adam (foreach) and the epilogue {lib_ms:.4f} ms; torch's fused "
-              f"Adam and the epilogue in place over the leaf {fused_ms:.4f} ms (kernel ÷ fused "
-              f"{ms / fused_ms:.3f}); plain {plain_ms:.4f} ms; {timed} timed launches, "
-              f"counted apart {card}")
-        del got, want, opt_got, opt_want, leaf, g, m, v, lib, fused
+              f"(largest absolute gap so far {gap:.3e}) {card}")
+        del got, want, opt_got, opt_want
         free_device_memory()
-    ms, _ours, _foreach, fused_ms, plain_ms = rows["pin"]
     return {
         "name": "adam_update",
         "route": "cuda",
@@ -2913,29 +2144,23 @@ def phase_adam(dev, card, n=512, steps=5, reps=20):
         "replaces": None,
         "launches": sum(k for _, k in ADAM_RUNS),
         "max_abs_err": gap,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": fused_ms,
-    }, {e: (r[0], (b_ms, b_by)) for e, r in rows.items()}
+    }
 
 
-def bf16_sites(k1_calls, k5_calls, card):
+def check_bf16(k1_calls, k5_calls):
     """Phase 31's recorded K1 and K5 launches, (f32, bf16) each: the bf16
     launches bit-equal to their plain versions (``compute_dtype=
-    "bfloat16"``), then every launch timed on its operands."""
+    "bfloat16"``)."""
     import torch
 
-    from libre_tpu_torch.ops import _kernels
     from libre_tpu_torch.ops import shearwarp_bricked as swb
     from libre_tpu_torch.ops import shearwarp_dense as swd
 
-    (_, k1_f32), (_, k1_bf16) = k1_calls
-    (_, k5_f32), (_, k5_bf16) = k5_calls
+    (_, _k1_f32), (_, k1_bf16) = k1_calls
+    (_, _k5_f32), (_, k5_bf16) = k5_calls
     ops, (out, t_out) = k1_operands(k1_bf16)
-    work = k1_work(*ops)
-    if not (torch.equal(out, work["want"]) and torch.equal(t_out, work["t_want"])):
+    want, t_want, _fetches = k1_plain(*ops)
+    if not (torch.equal(out, want) and torch.equal(t_out, t_want)):
         raise AssertionError("K1's bf16 instance is not bit-equal to the plain bf16 sweep")
     (chans, a0, a1, wa, dl, act, vvec, corr, out5, _k, _nc, _nb, _v, _u,
      wb0, wb1, wc0, wc1, _sb, _sc, early_exit, bf16) = k5_bf16
@@ -2945,14 +2170,8 @@ def bf16_sites(k1_calls, k5_calls, card):
                                     early_exit=early_exit, compute_dtype="bfloat16")
     if not (bf16 == 1 and torch.equal(out5, want5)):
         raise AssertionError("K5's bf16 instance is not bit-equal to the plain bf16 sweep")
-    ms = {}
-    for tag, name, args in (("K1 f32", "post_sweep", k1_f32), ("K1 bf16", "post_sweep", k1_bf16),
-                            ("K5 f32", "pre_sweep", k5_f32), ("K5 bf16", "pre_sweep", k5_bf16)):
-        ms[tag] = cuda_ms(lambda: _kernels.launch(name, *args), reps=20)
-    print(f"bf16 resample on the main-path views: K1 {ms['K1 bf16']:.4f} ms against the f32 "
-          f"instance's {ms['K1 f32']:.4f} ms (bound {work['bound'][0]:.4f} ms, "
-          f"{work['bound'][1]}); K5 {ms['K5 bf16']:.4f} ms against {ms['K5 f32']:.4f} ms; both "
-          f"bit-equal to their plain versions {card}")
+    print("bf16 resample on the main-path views: K1's and K5's bf16 launches bit-equal to "
+          "their plain versions")
 
 
 def main() -> int:
@@ -3014,8 +2233,7 @@ def main() -> int:
         for shape in ((96, 80, 128, 64, 48, 56), (512, 512, 512, 512, 512, 512)):
             store, tf, tables, clip, kw = sweep_case(shape, seed=0, device=dev, view=view)
             got, t_got = swb.post_sweep(store, tf, tables, clip, **kw)
-            work = k1_work(store, tf, tables, clip, kw)
-            want, t_want, fetches = work["want"], work["t_want"], work["fetches"]
+            want, t_want, fetches = k1_plain(store, tf, tables, clip, kw)
             lists = swb.tile_planes_reference(tables, kw["wb"], kw["wc"])
             torch.cuda.synchronize()
             what = f"seeded sweep {view} V,U,K,Na,Nc,Nb={shape}"
@@ -3031,7 +2249,7 @@ def main() -> int:
                   f"{int(fetches.sum())}")
             if view == "axis" and saturated == 0.0:
                 raise AssertionError("the seeded case never fired the early exit")
-            del store, tables, got, want, fetches, lists, work
+            del store, tables, got, want, fetches, lists
 
     phase_done(3)
     # --------------------------------------------------------- 4. main path
@@ -3045,13 +2263,11 @@ def main() -> int:
     swb.post_sweep.launches = 0
     swg.store_grid_backward.launches = 0
     with tempfile.TemporaryDirectory() as out_dir, Recorder("post_sweep") as k1_cli:
-        t0 = time.perf_counter()
         rc = render_cli.main([
             "--volume", URI, "--width", "512", "--height", "512",
             "--output-dir", out_dir,
         ])
         torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
         if rc != 0:
             raise RuntimeError(f"render_cli exited {rc}")
         png = read_image(os.path.join(out_dir, "frame_000000.png"))
@@ -3060,13 +2276,11 @@ def main() -> int:
         raise AssertionError(f"render_cli image {png.shape}, max {png.max()}")
 
     engine = RenderEngine(DataSource(URI), device=dev)
-    frames, frame_ms, stats = [], [], None
+    frames, stats = [], None
     for camera, frustum in poses:
-        t0 = time.perf_counter()
         img, stats = engine.render_bricked(camera, frustum, screen_space_error=1.0)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
         frames.append(img)
+    torch.cuda.synchronize()
     launches = swb.post_sweep.launches
     render_bwd_launches = swg.store_grid_backward.launches
     # ------------------------------------------------- end of the main path
@@ -3092,31 +2306,10 @@ def main() -> int:
     print(
         f"main path: render level {plan.render_level}, {stats.n_available} bricks, "
         f"store {tuple(store.shape)} = {store.numel() * 4} B, "
-        f"{launches} sweep launches for 1 CLI + {len(poses)} orbit frames"
+        f"{launches} sweep launches for 1 CLI + {len(poses)} orbit frames {card}"
     )
-    print(f"render_cli 512x512 frame incl. data generation: {cli_s:.3f} s {card}")
-    steady = sorted(frame_ms[1:])
-    print(
-        f"orbit first frame (bricks generated, uploaded, assembled): "
-        f"{frame_ms[0]:.1f} ms; steady frames 2-{len(poses)}: median "
-        f"{steady[len(steady) // 2]:.3f} ms, min {steady[0]:.3f} ms {card}"
-    )
-
-    # Steady-frame breakdown: host LOD selection vs the store frame
-    # (view vector upload, sweep tables, sweep kernel, warp).
     camera, frustum = poses[-1]
-    t0 = time.perf_counter()
-    engine.select(frustum, 512, 1.0)
-    select_ms = (time.perf_counter() - t0) * 1e3
     tf = engine.transfer_function
-    t0 = time.perf_counter()
-    runner(store, tf, camera)
-    torch.cuda.synchronize()
-    store_frame_ms = (time.perf_counter() - t0) * 1e3
-    print(
-        f"steady frame breakdown: select_visibles {select_ms:.3f} ms (host), "
-        f"store frame {store_frame_ms:.3f} ms {card}"
-    )
 
     phase_done(4)
     # -------------------------- 5. kernel vs plain at the main path's shape
@@ -3129,9 +2322,7 @@ def main() -> int:
     kw = dict(n_clip=runner.n_clip, wb=runner.wb, wc=runner.wc,
               early_exit=runner.early_exit)
     got, t_got = swb.post_sweep(store, tf, tables, runner.clip, **kw)
-    work = k1_work(store, tf, tables, runner.clip, kw)
-    want, t_want, samples, planes = work["want"], work["t_want"], work["samples"], work["planes"]
-    fetches, k1_bound = work["fetches"], work["bound"]
+    want, t_want, fetches = k1_plain(store, tf, tables, runner.clip, kw)
     lists = swb.tile_planes_reference(tables, runner.wb, runner.wc)
     rows, cols = swb.SWEEP_TILE
     torch.cuda.synchronize()
@@ -3147,60 +2338,16 @@ def main() -> int:
         f"active), at most {int(lists.sum(dim=-1).max())}; they fetch at "
         f"{int(fetches.sum()) / n_tiles:.1f}"
     )
-    del fetches, lists
-    ms = cuda_ms(lambda: swb.post_sweep(store, tf, tables, runner.clip, **kw), reps=20)
-    plain_ms = cuda_ms(
-        lambda: swb.post_sweep_reference(store, tf, tables, runner.clip, **kw),
-        reps=3, warmup=1,
-    )
-    # The work behind the kernel time: how many of the V·U·K plane
-    # samples this view's rays really fetch (8 store loads each).
-    n_rays = runner.v_size * runner.u_size
-    n_grid = n_rays * runner.k_planes
-    fetched = int(samples.sum())
-    print(
-        f"sweep at {runner.v_size}x{runner.u_size} rays x {runner.k_planes} planes "
-        f"over {tuple(store.shape)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms {card}"
-    )
-    print(
-        f"  this view's work: active planes {int(tables.act.sum())}/{runner.k_planes}, "
-        f"rays that fetch a sample {float((samples > 0).float().mean()):.4f}, "
-        f"rays ending in the early exit "
-        f"{float(((1.0 - t_want) > runner.early_exit).float().mean()):.4f}, "
-        f"samples fetched {fetched} of {n_grid} ({fetched / n_grid:.4f}), "
-        f"mean {fetched / max(1, int((samples > 0).sum())):.1f} per fetching ray; "
-        f"kernel {fetched / (ms * 1e-3) / 1e9:.3f} G samples/s {card}"
-    )
-    slices = torch.unique(torch.cat([tables.a0[planes], tables.a1[planes]]))
-    _na, s_nc, s_nb = store.shape
-    n_touched = work["touched"]
-    print(
-        f"  K1 bound: {n_touched} store voxels read ({n_touched / (slices.numel() * s_nc * s_nb):.4f} "
-        f"of the {slices.numel()} slices of the {int(planes.sum())} planes fetched); "
-        f"{k1_bound[0]:.4f} ms, {k1_bound[1]}-bound; kernel at {k1_bound[0] / ms:.4f} of it {card}"
-    )
-    del work
-    # K1's launch sites on the main paths: (kernel, site, launches, ms per
-    # launch on the site's operands, bound), printed with the kernels line.
-    sites = [("K1", "StoreFrameRunner, orbit frames (sse 1)", launches - cli_launches, ms,
-              k1_bound)]
+    del fetches, lists, got, want
     # The CLI frame's launch (sse 4), on the operands it was given.
     (_name, cli_args), = k1_cli.calls
     cli_ops, (cli_out, cli_t) = k1_operands(cli_args)
-    cli_work = k1_work(*cli_ops)
-    k1_cli_bound = cli_work["bound"]
+    want, t_want, _fetches = k1_plain(*cli_ops)
     torch.cuda.synchronize()
-    if not (torch.equal(cli_out, cli_work["want"]) and torch.equal(cli_t, cli_work["t_want"])):
+    if not (torch.equal(cli_out, want) and torch.equal(cli_t, t_want)):
         raise AssertionError("render_cli's sweep: K1 is not bit-equal to the plain sweep")
-    k1_cli_ms = cuda_ms(lambda: _kernels.launch("post_sweep", *cli_args), reps=20)
-    sites.insert(0, ("K1", "StoreFrameRunner, render_cli frame (sse 4)", cli_launches,
-                     k1_cli_ms, k1_cli_bound))
-    print(
-        f"K1 on render_cli's operands (store {tuple(cli_ops[0].shape)}): {k1_cli_ms:.4f} ms, "
-        f"bit-equal to plain; {int(cli_work['samples'].sum())} samples fetched; bound "
-        f"{k1_cli_bound[0]:.4f} ms ({k1_cli_bound[1]}) {card}"
-    )
-    del cli_ops, cli_args, cli_out, cli_work, k1_cli
+    print(f"K1 on render_cli's operands (store {tuple(cli_ops[0].shape)}): bit-equal to plain")
+    del cli_ops, cli_args, cli_out, cli_t, want, t_want, _fetches, k1_cli
 
     from libre_tpu_torch.apps.render_cli import build_camera
 
@@ -3273,24 +2420,20 @@ def main() -> int:
     )
     covered = store > -0.5
     init = torch.where(covered, 0.5, swb.SENTINEL)
-    step_at = []
-
-    def on_step(_i, _loss):
-        step_at.append(time.perf_counter())  # the loss read synchronised
 
     swb.post_sweep.launches = 0
     swg.store_grid_backward.launches = 0
     with torch.no_grad():
         targets = render_views(problem, store, tf)
-    if store.numel() != 512**3:  # the ranking's A1 site takes phase 32's 512^3 timing
+    # Phase 4's orbit at screen-space error 1 assembles all 4096 finest
+    # bricks: the whole 512^3 store.
+    if store.numel() != 512**3:
         raise AssertionError(f"the training store {tuple(store.shape)} is not 512^3")
-    t0 = time.perf_counter()
     with adam_counted(f"store trainer fit ({'x'.join(map(str, store.shape))} store, pin)",
                       2 * TRAIN_STEPS):
         params, losses = fit(
             problem, targets, init, tf, device=dev,
             optimizer=lambda p: torch.optim.Adam(p, lr=5e-2), steps=TRAIN_STEPS,
-            on_step=on_step,
         )
     torch.cuda.synchronize()
     train_fwd_launches = swb.post_sweep.launches
@@ -3317,21 +2460,11 @@ def main() -> int:
     for k in params:
         if not torch.equal(restored[k], params[k].detach()):
             raise AssertionError(f"checkpoint round trip changed params[{k!r}]")
-    steps_ms = np.diff([t0] + step_at) * 1e3
-    step_ms = float(np.median(steps_ms[1:]))
-    n_rays = TRAIN_VIEWS * v_size * u_size
     print(
         f"training: {TRAIN_VIEWS} views of {v_size}x{u_size} rays x "
         f"{runner.k_planes} planes over {tuple(store.shape)}, {n_uncovered} "
         f"uncovered voxels; sweep launches {train_fwd_launches}, backward "
-        f"launches {train_bwd_launches}; checkpoint round trip equal"
-    )
-    print(
-        f"training step: median of steps 2-{TRAIN_STEPS} {step_ms:.3f} ms "
-        f"(all steps {', '.join(f'{x:.3f}' for x in steps_ms)} ms; step 1 includes "
-        f"fit's set-up, where building the first torch.optim optimizer of the "
-        f"process imports torch._dynamo); fwd+bwd "
-        f"{n_rays / (step_ms * 1e-3) / 1e6:.3f} Mrays/s {card}"
+        f"launches {train_bwd_launches}; checkpoint round trip equal {card}"
     )
 
     # One view of the training path, kernel vs plain: the trained store and
@@ -3349,57 +2482,21 @@ def main() -> int:
     g = torch.randn(out.shape, generator=gen).to(dev)
     bwd_kw = dict(wb=runner.wb, wc=runner.wc, early_exit=EARLY_EXIT_OFF, diff_tf=True)
     ds, dtf = swg.store_grid_backward(p_store, p_tf, tables, out, t_out, g, **bwd_kw)
-    t1 = time.perf_counter()
     ds_ref, dtf_ref = swg.store_grid_backward_reference(
         p_store, p_tf, tables, out, t_out, g, **bwd_kw
     )
     torch.cuda.synchronize()
-    bwd_plain_ms = (time.perf_counter() - t1) * 1e3
     compare_grads(ds, ds_ref, "training-view backward: d_store", EARLY_EXIT_OFF)
     compare_grads(dtf, dtf_ref, "training-view backward: dtf", EARLY_EXIT_OFF)
     bwd_err = float((ds - ds_ref).abs().max())
     del ds_ref
-    fwd_ms = cuda_ms(lambda: swb.post_sweep(p_store, p_tf, tables, clip0, **fwd_kw), reps=10)
-    # K1 on the training view: bit-equal to plain, and its bound.
-    train_work = k1_work(p_store, p_tf, tables, clip0, fwd_kw)
+    # K1 on the training view: bit-equal to plain.
+    want, t_want, _fetches = k1_plain(p_store, p_tf, tables, clip0, fwd_kw)
     torch.cuda.synchronize()
-    if not (torch.equal(out, train_work["want"]) and torch.equal(t_out, train_work["t_want"])):
+    if not (torch.equal(out, want) and torch.equal(t_out, t_want)):
         raise AssertionError("training view 0: K1 is not bit-equal to the plain sweep")
-    rate("K1 on training view 0 (bit-equal to plain)", fwd_ms, int(train_work["samples"].sum()),
-         train_work["bound"][0], card)
-    sites.append(("K1", "RenderStoreGridDiff forward and render_views (store training)",
-                  train_fwd_launches, fwd_ms, train_work["bound"]))
-    del train_work
-    in_box = []  # samples inside the box, per view: all fetched, no early exit
-    for vs in views:
-        tv = swb.sweep_tables(
-            torch.as_tensor(vs).to(dev), na=na, k_planes=runner.k_planes,
-            v_size=v_size, u_size=u_size,
-        )
-        ug = tv.view[0] + tv.view[1] * torch.arange(u_size, device=dev)
-        vg = tv.view[5] + tv.view[2] * torch.arange(v_size, device=dev)
-        xb = tv.view[3] + ug[None, :] * tv.dl[:, None]
-        xc = tv.view[4] + vg[None, :] * tv.dl[:, None]
-        in_u = ((xb >= runner.wb[0]) & (xb < runner.wb[1])).sum(1)
-        in_v = ((xc >= runner.wc[0]) & (xc < runner.wc[1])).sum(1)
-        in_box.append(int((in_u * in_v).sum()))
-    n_grid = v_size * u_size * runner.k_planes
-    print(
-        f"samples inside the box per view (all fetched, early exit off), of "
-        f"{n_grid}: {in_box} ({', '.join(f'{x / n_grid:.4f}' for x in in_box)})"
-    )
-    # K2's bound: the store read and d_store written once, out, t_out, g and
-    # the per-ray tables read, the TF and dtf; every in-box sample's
-    # operations (early exit off).  Without the TF gradient: no dtf and
-    # none of the TF gradient's operations.
-    k2_bytes = (2 * na * nc * nb * 4 + v_size * u_size * 15 * 4 + 2 * TF_BYTES
-                + runner.k_planes * 5 * 4)
-    k2_bound = bound(bytes_=k2_bytes, ops=in_box[0] * K2_OPS_PER_SAMPLE)
-    k2_bound_no_tf = bound(bytes_=k2_bytes - TF_BYTES,
-                           ops=in_box[0] * (K2_OPS_PER_SAMPLE - K2_TF_OPS_PER_SAMPLE))
-    print(f"training view 0: sweep {fwd_ms:.3f} ms {card}")
-    print(f"  K2 bound on view 0: {k2_bound[0]:.4f} ms, {k2_bound[1]}-bound; without the "
-          f"TF gradient {k2_bound_no_tf[0]:.4f} ms, {k2_bound_no_tf[1]}-bound")
+    print("K1 on training view 0: bit-equal to plain")
+    del want, t_want, _fetches
     # The same view over the truth store (the orbit's 512^3 gradient-pattern
     # store and the engine's TF: TF bins that differ from ray to ray and
     # move along each ray), kernel vs plain.
@@ -3412,25 +2509,7 @@ def main() -> int:
     compare_grads(ds, ds_ref, "truth-store backward, view 0: d_store", EARLY_EXIT_OFF)
     compare_grads(dtf, dtf_ref, "truth-store backward, view 0: dtf", EARLY_EXIT_OFF)
     bwd_err = max(bwd_err, float((ds - ds_ref).abs().max()))
-    del ds, ds_ref
-    k2_ms = {}  # (state, diff_tf) -> ms, incl. zeroing the 512 MiB d_store
-    for state, operands in (("trained", (p_store, p_tf, tables, out, t_out)),
-                            ("truth", (store, tf, tables, out_t, t_out_t))):
-        for diff_tf in (True, False):
-            k2_ms[state, diff_tf] = cuda_ms(
-                lambda: swg.store_grid_backward(*operands, g, **dict(bwd_kw, diff_tf=diff_tf)),
-                reps=5, warmup=1,
-            )
-            rate(f"K2 on view 0, {state} state, diff_tf={diff_tf}", k2_ms[state, diff_tf],
-                 in_box[0], (k2_bound if diff_tf else k2_bound_no_tf)[0], card)
-    bwd_ms = k2_ms["trained", True]
-    print(
-        f"training view 0: backward kernel {bwd_ms:.3f} ms (incl. zeroing the "
-        f"{na * nc * nb * 4} B d_store; {k2_ms['trained', False]:.3f} ms without the TF "
-        f"gradient; truth store {k2_ms['truth', True]:.3f} / {k2_ms['truth', False]:.3f} ms), "
-        f"plain backward {bwd_plain_ms:.3f} ms (1 call) {card}"
-    )
-    del out_t, t_out_t
+    del ds, ds_ref, out_t, t_out_t
 
     phase_done(7)
     # ---------------------------------------- 8. K3 vs plain, seeded cases
@@ -3483,34 +2562,29 @@ def main() -> int:
     # --------------------------------------- 9. the exact main path
     exact.march_exact.launches = 0
     cli_ok = {}
-    with tempfile.TemporaryDirectory() as out_dir, Recorder("exact_march") as k3_cli:
+    with tempfile.TemporaryDirectory() as out_dir:
         for renderer in ("pallas-exact", "xla"):
-            t0 = time.perf_counter()
             rc = render_cli.main([
                 "--volume", URI, "--width", "512", "--height", "512",
                 "--renderer", renderer, "--output-dir", os.path.join(out_dir, renderer),
             ])
             torch.cuda.synchronize()
-            cli_ok[renderer] = (rc, time.perf_counter() - t0, read_image(
+            cli_ok[renderer] = (rc, read_image(
                 os.path.join(out_dir, renderer, "frame_000000.png")))
     exact_cli_launches = exact.march_exact.launches
-    exact_frames, exact_ms, exact_stats = [], [], []
+    exact_frames, exact_stats = [], []
     for camera, frustum in poses:
-        t0 = time.perf_counter()
         img, st, _ = engine.render(camera, frustum, screen_space_error=1.0, marcher="pallas")
-        torch.cuda.synchronize()
-        exact_ms.append((time.perf_counter() - t0) * 1e3)
         exact_frames.append(img)
         exact_stats.append(st)
+    torch.cuda.synchronize()
     exact_launches = exact.march_exact.launches
     # ------------------------------------------ end of the exact main path
 
-    for renderer, (rc, secs, png) in cli_ok.items():
+    for renderer, (rc, png) in cli_ok.items():
         if rc != 0 or png.shape[:2] != (512, 512) or png.max() == 0:
             raise AssertionError(f"render_cli --renderer {renderer}: rc {rc}, {png.shape}")
-        print(f"render_cli --renderer {renderer} 512x512 frame incl. data generation: "
-              f"{secs:.3f} s {card}")
-    if not np.array_equal(cli_ok["pallas-exact"][2], cli_ok["xla"][2]):
+    if not np.array_equal(cli_ok["pallas-exact"][1], cli_ok["xla"][1]):
         raise AssertionError("render_cli: pallas-exact and xla frames differ")
     if exact_cli_launches != 2:
         raise AssertionError(f"K3 launched {exact_cli_launches} times for 2 CLI frames")
@@ -3528,12 +2602,7 @@ def main() -> int:
     st = exact_stats[-1]
     print(
         f"exact main path: {st.n_available} bricks in {st.n_passes} pass(es) per frame, "
-        f"{exact_launches} K3 launches for 2 CLI + {len(poses)} orbit frames"
-    )
-    steady = sorted(exact_ms[1:])
-    print(
-        f"exact orbit first frame: {exact_ms[0]:.1f} ms; steady frames 2-{len(poses)}: "
-        f"median {steady[len(steady) // 2]:.3f} ms, min {steady[0]:.3f} ms {card}"
+        f"{exact_launches} K3 launches for 2 CLI + {len(poses)} orbit frames {card}"
     )
 
     # The last pose's operands, as engine.render builds them.
@@ -3541,9 +2610,7 @@ def main() -> int:
     from libre_tpu_torch.ops.raycast import ray_pack
 
     camera, frustum = poses[-1]
-    t0 = time.perf_counter()
     nodes = engine.select(frustum, 512, 1.0)
-    select_ms = (time.perf_counter() - t0) * 1e3
     exact_params = RenderParams(
         n_samples_per_ray=512, data_source_range=engine.data_source_range,
         filter_mode=engine.filter_mode,
@@ -3565,19 +2632,11 @@ def main() -> int:
     n_rays = pack.shape[1]
     carry0 = torch.zeros((n_rays, 4), device=dev)
     args = (atlas, slots, boxes, tf, pack, carry0, eye_np, exact_params)
-    k3_samples = torch.zeros(n_rays, dtype=torch.int32, device=dev)
     k3_used = torch.zeros(len(order), dtype=torch.int32, device=dev)
-    frame = exact.march_exact(*args, max_steps=max_steps, width=512,
-                              samples=k3_samples, used=k3_used)
+    frame = exact.march_exact(*args, max_steps=max_steps, width=512, used=k3_used)
     torch.cuda.synchronize()
     if float((frame.reshape(512, 512, 4) - exact_frames[-1]).abs().max()) != 0.0:
         raise AssertionError("the rebuilt operands do not give the orbit's last frame")
-    k3_ms = cuda_ms(lambda: exact.march_exact(*args, max_steps=max_steps, width=512), reps=20)
-    composited = int(k3_samples.sum())
-    used_bricks = int(k3_used.sum())
-    ended = float((frame[:, 3] > exact_params.early_exit).float().mean())
-    k3_bound = k3_bound_of(k3_samples, k3_used, engine.atlas.slot_bytes, len(order), n_rays,
-                           exact_params.filter_mode, atlas.dtype == torch.float32)
     lists = raycast.tile_bricks_reference(pack, boxes, eye_np, 512)
     n_tiles = lists[..., 0].numel()
     print(
@@ -3586,52 +2645,14 @@ def main() -> int:
         f"most {int(lists.sum(dim=-1).max())}"
     )
     del lists
-    sites.append(("K3", "RenderEngine.render, orbit frames (sse 1)",
-                  exact_launches - exact_cli_launches, k3_ms, k3_bound))
-    # The CLI frames' launches (sse 4; the two renderers march the same
-    # operands), on the operands they were given.
-    cli_times = []
-    for _name, cli_args in k3_cli.calls:
-        cli_frame, cli_samples, cli_used = k3_counts(cli_args)
-        cli_atlas = cli_args[0]
-        cli_bound = k3_bound_of(cli_samples, cli_used, cli_atlas[0].numel() * cli_atlas.element_size(),
-                                cli_args[11], cli_args[12],
-                                "trilinear" if cli_args[10] else "nearest",
-                                cli_atlas.dtype == torch.float32)
-        cli_times.append(cuda_ms(lambda: _kernels.launch("exact_march", *cli_args), reps=20))
-        print(
-            f"K3 on a render_cli frame's operands ({cli_args[12]} rays, {cli_args[11]} bricks, "
-            f"{int(cli_samples.sum())} samples composited, {int(cli_used.sum())} bricks sampled): "
-            f"{cli_times[-1]:.4f} ms; bound {cli_bound[0]:.4f} ms ({cli_bound[1]}) {card}"
-        )
-    sites.insert(len(sites) - 1, ("K3", "RenderEngine.render, render_cli frames (sse 4)",
-                                  exact_cli_launches, float(np.mean(cli_times)), cli_bound))
-    del k3_cli, cli_args, cli_atlas, cli_frame
-    # The same frame from only the bricks some ray samples: what the
-    # other bricks still cost (their culling in each tile's prologue).
+    # The same frame from only the bricks some ray samples: the others
+    # must not change it.
     keep = k3_used.bool()
     sampled_args = (atlas, slots[keep].contiguous(), boxes[keep].contiguous(), tf, pack,
                     carry0, eye_np, exact_params)
     if not torch.equal(exact.march_exact(*sampled_args, max_steps=max_steps, width=512), frame):
         raise AssertionError("the bricks that take no sample changed the frame")
-    k3_sampled_ms = cuda_ms(
-        lambda: exact.march_exact(*sampled_args, max_steps=max_steps, width=512), reps=20
-    )
-    print(f"exact steady frame breakdown: select_visibles {select_ms:.3f} ms (host) {card}")
-    print(
-        f"K3 on the orbit view's operands (512x512 rays, {len(order)} bricks, "
-        f"{exact_params.filter_mode}, {exact_params.n_samples_per_ray} samples per ray): kernel "
-        f"{k3_ms:.4f} ms; {composited} samples composited "
-        f"({composited / n_rays:.1f} per ray), {used_bricks} bricks sampled, rays "
-        f"ending in the early exit {ended:.4f}; {composited / (k3_ms * 1e-3) / 1e9:.3f} "
-        f"G samples/s; bound {k3_bound[0]:.4f} ms ({k3_bound[1]}), kernel at "
-        f"{k3_bound[0] / k3_ms:.4f} of it {card}"
-    )
-    print(
-        f"  the same frame from the {used_bricks} sampled bricks alone: kernel "
-        f"{k3_sampled_ms:.4f} ms (culling the other {len(order) - used_bricks} bricks per "
-        f"tile costs the difference) {card}"
-    )
+    print(f"  the same frame from the {int(keep.sum())} sampled bricks of {len(order)}: equal")
 
     phase_done(9)
     # ------------------ 10. K3 vs plain on a window of the main path's rays
@@ -3646,23 +2667,14 @@ def main() -> int:
     tile_used = torch.zeros_like(lists)
     got = exact.march_exact(*sub_args, max_steps=max_steps, width=SUBSET,
                             samples=counts[0][0], used=counts[0][1])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     want = exact.march_exact_reference(*sub_args, max_steps=max_steps, samples=counts[1][0],
                                        used=counts[1][1], width=SUBSET, tile_used=tile_used)
     torch.cuda.synchronize()
-    k3_plain_ms = (time.perf_counter() - t0) * 1e3
     what = f"main-path K3, {SUBSET}x{SUBSET} window"
     k3_err = compare(got, want, what, exact_tol)
     check_k3_counts((got, *counts[0]), (want, *counts[1]), what, exact_params.early_exit)
     if not bool((tile_used <= lists).all()):
         raise AssertionError(f"{what}: a tile samples a brick off its list")
-    k3_sub_ms = cuda_ms(lambda: exact.march_exact(*sub_args, max_steps=max_steps, width=SUBSET),
-                        reps=20)
-    print(
-        f"  on the {SUBSET}x{SUBSET} window: kernel {k3_sub_ms:.4f} ms, plain "
-        f"{k3_plain_ms:.3f} ms (1 call) {card}"
-    )
     for e in entries:
         e.unpin()
     del args, sampled_args, sub_args, pack, frame
@@ -3694,15 +2706,12 @@ def main() -> int:
 
     phase_done(11)
     # ---------------------------------------- 12. K4 vs plain, seeded cases
-    from libre_tpu_torch.testing import EXACT_GRAD_TOL_MAX, exact_grad_case
+    from libre_tpu_torch.testing import exact_grad_case
 
     def brick_args(volume, tf_, view):
         """K3's operands for one brick filling the view's box, less the carry."""
         slot = torch.zeros(1, dtype=torch.int32, device=volume.device)
         return (volume[None], slot, view.brick_boxes, tf_, view.ray_pack)
-
-    def k4_work_bound(volume, view, samples, filter_mode, diff_tf):
-        return k4_bound_of(volume.numel(), view.n_rays, samples, filter_mode, diff_tf)
 
     def compare_k4(got, want, what, zero_d_volume=False):
         errs = [compare_grads(a, b, f"{what}: {name}", 1.1, EXACT_GRAD_TOL_MAX,
@@ -3730,45 +2739,15 @@ def main() -> int:
                 raise AssertionError(f"{what}, diff_tf=False: d_tf is not zero")
             del c, args, got, no_tf, want
 
-    # The autograd round trip at the exact_fwd_bwd shape (trilinear), and
-    # its rate: rays / (K3 + K4 + the product, sum and accumulation).
+    # The autograd round trip at the exact_fwd_bwd shape (trilinear).
     c = exact_grad_case("bench", seed=1, device=dev)
     vol = c.volume.clone().requires_grad_()
     tf_leaf = c.tf.clone().requires_grad_()
     exact.render_exact_diff(vol, tf_leaf, c.view).mul(c.g).sum().backward()
-    args = (c.volume, c.tf, c.view, c.out, c.g)
-    want = exact.march_exact_backward_reference(*args)
+    want = exact.march_exact_backward_reference(c.volume, c.tf, c.view, c.out, c.g)
     torch.cuda.synchronize()
     compare_k4((vol.grad, tf_leaf.grad), want, "render_exact_diff backward on the card")
-
-    def fwd_bwd():
-        vol.grad = tf_leaf.grad = None
-        exact.render_exact_diff(vol, tf_leaf, c.view).mul(c.g).sum().backward()
-
-    fb_ms = cuda_ms(fwd_bwd, reps=10)
-    with torch.no_grad():
-        bench_k3_ms = cuda_ms(lambda: exact.render_exact_diff(c.volume, c.tf, c.view), reps=10)
-    bench_k4_ms = cuda_ms(lambda: exact.march_exact_backward(*args), reps=10)
-    bench_k4_no_tf_ms = cuda_ms(lambda: exact.march_exact_backward(*args, diff_tf=False),
-                                reps=10)
-    bench_samples = torch.zeros(c.view.n_rays, dtype=torch.int32, device=dev)
-    exact.march_exact(*brick_args(c.volume, c.tf, c.view), torch.zeros_like(c.out),
-                      c.view.eye, c.view.params,
-                      max_steps=c.view.max_steps, width=c.view.width, samples=bench_samples)
-    n_bench = int(bench_samples.sum())
-    bench_bound = k4_work_bound(c.volume, c.view, n_bench, "trilinear", True)
-    print(
-        f"exact fwd+bwd at the exact_fwd_bwd shape (64^3 f32, 256x256 rays, 512 samples "
-        f"per ray, trilinear, {n_bench} samples): {fb_ms:.4f} ms per step, "
-        f"{c.view.n_rays / (fb_ms * 1e-3) / 1e6:.3f} Mrays/s; K3 {bench_k3_ms:.4f} ms, "
-        f"K4 {bench_k4_ms:.4f} ms ({bench_bound[1]}-bound) {card}"
-    )
-    rate("K4 at the exact_fwd_bwd shape, diff_tf=True", bench_k4_ms, n_bench,
-         bench_bound[0], card)
-    rate("K4 at the exact_fwd_bwd shape, diff_tf=False", bench_k4_no_tf_ms, n_bench,
-         k4_work_bound(c.volume, c.view, n_bench, "trilinear", False)[0], card
-    )
-    del c, vol, tf_leaf, args, want
+    del c, vol, tf_leaf, want
 
     phase_done(12)
     # ---------------------------------- 13. the exact training path, full width
@@ -3791,15 +2770,11 @@ def main() -> int:
     state = init_exact_state(torch.full((n, n, n), 0.5, device=dev), tf_default,
                              lambda p: torch.optim.Adam(p, lr=5e-2), device=dev)
     ex_steps = [make_exact_train_step(v) for v in ex_views]
-    ex_losses, ex_step_at = [], []
     torch.cuda.synchronize()
     exact.march_exact.launches = 0
     exact.march_exact_backward.launches = 0
-    t0 = time.perf_counter()
     with adam_counted(f"exact trainer ({n}^3 density)", 2 * len(EXACT_TRAIN_ORDER)):
-        for i in EXACT_TRAIN_ORDER:
-            ex_losses.append(float(ex_steps[i](state, ex_targets[i])))  # synchronises
-            ex_step_at.append(time.perf_counter())
+        ex_losses = [float(ex_steps[i](state, ex_targets[i])) for i in EXACT_TRAIN_ORDER]
     ex_fwd_launches = exact.march_exact.launches
     ex_bwd_launches = exact.march_exact_backward.launches
     # ----------------------------------- end of the exact training path
@@ -3816,58 +2791,27 @@ def main() -> int:
     p_vol, p_tf = state.params["density"].detach(), state.params["tf"].detach()
     if float(p_tf.min()) < 0.0 or float(p_tf.max()) > 1.0:
         raise AssertionError("exact training left the TF outside [0, 1]")
-    ex_steps_ms = np.diff([t0] + ex_step_at) * 1e3
-    ex_step_ms = float(np.median(ex_steps_ms[1:]))
     v0 = ex_views[0]
     print(
         f"exact training: {n}^3 f32 volume, {len(ex_views)} views of 512x512 rays, 512 "
         f"samples per ray, trilinear, early exit off; K3 launches {ex_fwd_launches}, K4 "
         f"launches {ex_bwd_launches}; mean |density - truth| "
-        f"{float((p_vol - gt).abs().mean()):.4f}"
-    )
-    print(
-        f"exact training step: median of steps 2-{n_steps} {ex_step_ms:.3f} ms (all steps "
-        f"{', '.join(f'{x:.3f}' for x in ex_steps_ms)} ms); fwd+bwd "
-        f"{v0.n_rays / (ex_step_ms * 1e-3) / 1e6:.3f} Mrays/s {card}"
-    )
-
-    # Where a step's device time goes: one more step of view 0, after the
-    # counts were read (K4, K3, the optimizer's foreach kernels, fills,
-    # reductions).
-    profiled(
-        "one exact training step", lambda: float(ex_steps[0](state, ex_targets[0])),
-        ("exact_march_bwd", "exact_march_kernel", "multi_tensor_apply", "Fill", "reduce"),
-        card, ex_step_ms,
+        f"{float((p_vol - gt).abs().mean()):.4f} {card}"
     )
 
     # View 0 with the trained state, kernel vs plain: the forward's out and
     # a seeded N(0, 1) cotangent in place of the loss's.
     fwd_args = (*brick_args(p_vol, p_tf, v0), torch.zeros((v0.n_rays, 4), device=dev))
-    samples0 = torch.zeros(v0.n_rays, dtype=torch.int32, device=dev)
     out0 = exact.march_exact(*fwd_args, v0.eye, v0.params, max_steps=v0.max_steps,
-                             width=v0.width, samples=samples0)
+                             width=v0.width)
     gen = torch.Generator(device="cpu").manual_seed(0)
     g0 = torch.randn(out0.shape, generator=gen).to(dev)
     args = (p_vol, p_tf, v0, out0, g0)
     got = exact.march_exact_backward(*args)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     want = exact.march_exact_backward_reference(*args)
     torch.cuda.synchronize()
-    k4_plain_ms = (time.perf_counter() - t1) * 1e3
     _, k4_err = compare_k4(got, want, "K4 on training view 0")
     del got, want
-    k3_view_ms = cuda_ms(lambda: exact.march_exact(*fwd_args, v0.eye, v0.params,
-                                                   max_steps=v0.max_steps, width=v0.width),
-                         reps=10)
-    n_view = int(samples0.sum())
-    # K3's bound on the training view: the one f32 brick read once.
-    used0 = torch.ones(1, dtype=torch.int32)
-    k3_train_bound = k3_bound_of(samples0, used0, p_vol.numel() * 4, 1, v0.n_rays,
-                                 train_params.filter_mode, True)
-    rate("K3 on exact training view 0", k3_view_ms, n_view, k3_train_bound[0], card)
-    sites.append(("K3", "render_exact_diff forward (exact training)", ex_fwd_launches,
-                  k3_view_ms, k3_train_bound))
     # The same view over the 512^3 smooth ground truth with the default TF
     # (the bins move every few samples along each ray), kernel vs plain;
     # its forward is the training target of view 0.  Three seeded
@@ -3897,31 +2841,7 @@ def main() -> int:
         del runs, want, want64
     print("K4's d_tf over the ground truth, 3 cotangent seeds x 2 runs, largest error of its "
           "largest entry: " + "; ".join(f"{k} {max(v):.3e}" for k, v in dtf_errs.items()))
-    del gt64
-    k4_bound = k4_work_bound(p_vol, v0, n_view, train_params.filter_mode, True)
-    k4_bound_no_tf = k4_work_bound(p_vol, v0, n_view, train_params.filter_mode, False)
-    k4_times = {}  # (state, diff_tf) -> ms, incl. zeroing the 512 MiB d_volume
-    for state, operands in (("trained", args), ("ground truth", gt_args)):
-        for diff_tf in (True, False):
-            k4_times[state, diff_tf] = cuda_ms(
-                lambda: exact.march_exact_backward(*operands, diff_tf=diff_tf), reps=5, warmup=1
-            )
-            rate(f"K4 on view 0, {state}, diff_tf={diff_tf}", k4_times[state, diff_tf], n_view,
-                 (k4_bound if diff_tf else k4_bound_no_tf)[0], card)
-    k4_ms = k4_times["trained", True]
-    print(
-        f"training view 0: {n_view} samples ({n_view / v0.n_rays:.1f} per ray, at most "
-        f"{int(samples0.max())}); K3 {k3_view_ms:.4f} ms, K4 {k4_ms:.4f} ms (incl. zeroing "
-        f"the {p_vol.numel() * 4} B d_volume; {k4_times['trained', False]:.4f} ms without the "
-        f"TF gradient; ground truth {k4_times['ground truth', True]:.4f} / "
-        f"{k4_times['ground truth', False]:.4f} ms), plain backward {k4_plain_ms:.3f} ms "
-        f"(1 call) {card}"
-    )
-    print(
-        f"  K4 bound on view 0: {k4_bound[0]:.4f} ms, {k4_bound[1]}-bound; without the TF "
-        f"gradient {k4_bound_no_tf[0]:.4f} ms {card}"
-    )
-    del gt, ex_targets, gt_args
+    del gt64, gt, ex_targets, gt_args
 
     # K3 and K4 vs plain on a 64x64 window of view 0's rays (the 512^3
     # brick, long rays, the early exit off).
@@ -3933,30 +2853,18 @@ def main() -> int:
                torch.zeros(1, dtype=torch.int32, device=dev)) for _ in range(2)]
     out_w = exact.march_exact(*sub_fwd, w0.eye, w0.params, max_steps=w0.max_steps,
                               width=w0.width, samples=counts[0][0], used=counts[0][1])
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     want_w = exact.march_exact_reference(*sub_fwd, w0.eye, w0.params, max_steps=w0.max_steps,
                                          samples=counts[1][0], used=counts[1][1])
     torch.cuda.synchronize()
-    k3_plain_window_ms = (time.perf_counter() - t1) * 1e3
     what = f"K3 on a {SUBSET}x{SUBSET} window of training view 0"
     k3_train_err = compare(out_w, want_w, what, exact_tol)
     check_k3_counts((out_w, *counts[0]), (want_w, *counts[1]), what, train_params.early_exit)
     g_w = g0.reshape(512, 512, 4)[lo:lo + SUBSET, lo:lo + SUBSET].reshape(-1, 4).contiguous()
     sub_args = (p_vol, p_tf, w0, out_w, g_w)
     got = exact.march_exact_backward(*sub_args)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     want = exact.march_exact_backward_reference(*sub_args)
     torch.cuda.synchronize()
-    k4_plain_window_ms = (time.perf_counter() - t1) * 1e3
     compare_k4(got, want, f"K4 on a {SUBSET}x{SUBSET} window of training view 0")
-    k4_window_ms = cuda_ms(lambda: exact.march_exact_backward(*sub_args), reps=10)
-    print(
-        f"  on the {SUBSET}x{SUBSET} window: K4 {k4_window_ms:.4f} ms, plain "
-        f"{k4_plain_window_ms:.3f} ms (1 call); K3 plain {k3_plain_window_ms:.3f} ms "
-        f"(1 call) {card}"
-    )
     del state, p_vol, args, sub_args, got, want, want_w, fwd_args, sub_fwd
 
     phase_done(13)
@@ -4038,11 +2946,9 @@ def main() -> int:
     phase_done(15)
     # ------------------------------------------------- 16. the dense main path
     # The plain sweep and the plain pipeline must not run on the card's
-    # main path: count their calls.  The first frame's level assembly and
-    # classification are timed apart.
+    # main path: count their calls.
     plain_calls = []
-    spans = {}
-    real_fns = (swd.pre_sweep_reference, sw.render_slope_grid, swd.classify_planes)
+    real_fns = (swd.pre_sweep_reference, sw.render_slope_grid)
 
     def counted(fn):
         def wrapper(*args, **kwargs):
@@ -4050,44 +2956,24 @@ def main() -> int:
             return fn(*args, **kwargs)
         return wrapper
 
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + (time.perf_counter() - t) * 1e3
-            return out
-        return wrapper
-
     swd.pre_sweep_reference = counted(real_fns[0])
     sw.render_slope_grid = counted(real_fns[1])
-    swd.classify_planes = timed("classify", real_fns[2])
     dense_engine = RenderEngine(DataSource(URI), device=dev)
-    dense_engine._level_volume = timed("level", dense_engine._level_volume)
     try:
         swd.pre_sweep.launches = 0
         with tempfile.TemporaryDirectory() as out_dir:
-            t0 = time.perf_counter()
             rc = render_cli.main([
                 "--volume", URI, "--width", "512", "--height", "512",
                 "--renderer", "shearwarp", "--output-dir", out_dir,
             ])
             torch.cuda.synchronize()
-            dense_cli_s = time.perf_counter() - t0
             dense_png = read_image(os.path.join(out_dir, "frame_000000.png"))
         dense_cli_launches = swd.pre_sweep.launches
-        cli_spans = dict(spans)
-        spans.clear()
-        dense_frames, dense_ms = [], []
-        for camera, _frustum in poses:
-            t0 = time.perf_counter()
-            dense_frames.append(dense_engine.render_shearwarp(camera))
-            torch.cuda.synchronize()
-            dense_ms.append((time.perf_counter() - t0) * 1e3)
+        dense_frames = [dense_engine.render_shearwarp(camera) for camera, _frustum in poses]
+        torch.cuda.synchronize()
         dense_launches = swd.pre_sweep.launches
     finally:
-        swd.pre_sweep_reference, sw.render_slope_grid, swd.classify_planes = real_fns
+        swd.pre_sweep_reference, sw.render_slope_grid = real_fns
     # ------------------------------------------- end of the dense main path
 
     if rc != 0 or dense_png.shape[:2] != (512, 512) or dense_png.max() == 0:
@@ -4114,19 +3000,8 @@ def main() -> int:
     print(
         f"dense main path: level {level}, classified stack {tuple(chans.shape)} = "
         f"{chans.numel() * 4} B (device budget {dense_engine.device_budget.budget} B), "
-        f"{dense_launches} K5 launches for 1 CLI + {len(poses)} orbit frames, no plain call"
-    )
-    print(
-        f"render_cli --renderer shearwarp 512x512 frame incl. data generation: "
-        f"{dense_cli_s:.3f} s, of which classify {cli_spans['classify']:.1f} ms {card}"
-    )
-    steady = sorted(dense_ms[1:])
-    print(
-        f"dense orbit first frame: {dense_ms[0]:.1f} ms = level assembly "
-        f"{spans['level']:.1f} ms + classify {spans['classify']:.1f} ms + the rest "
-        f"(upload, content flags, tables, sweep, warp) "
-        f"{dense_ms[0] - spans['level'] - spans['classify']:.1f} ms; steady frames "
-        f"2-{len(poses)}: median {steady[len(steady) // 2]:.3f} ms, min {steady[0]:.3f} ms {card}"
+        f"{dense_launches} K5 launches for 1 CLI + {len(poses)} orbit frames, no plain call "
+        f"{card}"
     )
 
     # K5 on the last pose's operands, as render_shearwarp builds them.
@@ -4139,76 +3014,25 @@ def main() -> int:
         filter_mode="trilinear",
     )
     dense_swp = sw.ShearWarpParams(n_planes=dense_k, inter_size=(vh, vw))
-    t0 = time.perf_counter()
     pa = swd.slope_grid_plan_args(sw.make_view_plan(camera, dense_swp.slope_margin),
                                   -half, half, dense_params, dense_swp)
-    plan_ms = (time.perf_counter() - t0) * 1e3
     frame = swd.render_frame(chans, chans.shape[1], chans.shape[2], camera, pa, content)
     dense_last = dict(chans=chans, content=content, pa=pa, camera=camera)  # phase 31's bf16 K5
     torch.cuda.synchronize()
     if not torch.equal(frame, dense_frames[-1]):
         raise AssertionError("the rebuilt operands do not give the dense orbit's last frame")
-    frame_ms = cuda_ms(
-        lambda: swd.render_frame(chans, chans.shape[1], chans.shape[2], camera, pa, content),
-        reps=20,
-    )
     _fv, tables = swd.sweep_operands(chans, pa, camera, content)
     kw = pa.sweep_kwargs()
     got = swd.pre_sweep(chans, tables, **kw)
-    k5_samples = torch.zeros((vh, vw), dtype=torch.int64, device=dev)
-    k5_planes = torch.zeros(dense_k, dtype=torch.bool, device=dev)
-    k5_touched = torch.zeros(chans.shape[:3], dtype=torch.bool, device=dev)
     k5_lists = swb.tile_planes_reference(tables, kw["wb"], kw["wc"])
     k5_fetches = torch.zeros_like(k5_lists)
-    want = swd.pre_sweep_reference(chans, tables, samples=k5_samples, planes=k5_planes,
-                                   touched=k5_touched, fetches=k5_fetches, **kw)
+    want = swd.pre_sweep_reference(chans, tables, fetches=k5_fetches, **kw)
     torch.cuda.synchronize()
     k5_err = compare(got, want, "main-path K5")
     if not torch.equal(got, want):
         raise AssertionError("main-path K5 is not bit-equal to the plain sweep")
     if not bool((k5_fetches <= k5_lists).all()):
         raise AssertionError("main-path K5: a tile composites at a plane off its list")
-    k5_ms = cuda_ms(lambda: swd.pre_sweep(chans, tables, **kw), reps=20)
-    k5_plain_ms = cuda_ms(lambda: swd.pre_sweep_reference(chans, tables, **kw),
-                          reps=3, warmup=1)
-    vol_dev = torch.from_numpy(dense_engine._level_volume(level)).to(dev)
-    tf = dense_engine.transfer_function
-    classify_ms = cuda_ms(
-        lambda: swd.classify_planes(vol_dev, tf, pa.axis, dense_params.data_source_range),
-        reps=3, warmup=1,
-    )
-    del vol_dev
-    n_rays = vh * vw
-    composited = int(k5_samples.sum())
-    ended = float((want[..., 3] > kw["early_exit"]).float().mean())
-    # K5's bound: the RGBA texels under the taps of the composited
-    # samples, each read once, the per-ray corr and the output, the plane
-    # tables; the composited samples' operations.
-    slices = torch.unique(torch.cat([tables.a0[k5_planes], tables.a1[k5_planes]]))
-    _na, d_nc, d_nb, _ = chans.shape
-    k5_texels = int(k5_touched.sum())
-    del k5_touched
-    k5_bound = bound(
-        bytes_=k5_texels * 16 + n_rays * (4 + 16) + dense_k * 5 * 4,
-        ops=composited * K5_OPS_PER_SAMPLE,
-    )
-    print(
-        f"dense steady frame breakdown: view plan {plan_ms:.3f} ms (host), one-upload "
-        f"frame (tables, K5, warp) {frame_ms:.4f} ms by CUDA events; classify the "
-        f"{tuple(chans.shape[:3])} level {classify_ms:.3f} ms {card}"
-    )
-    print(
-        f"K5 on the orbit view's operands ({vh}x{vw} rays x {dense_k} planes over "
-        f"{tuple(chans.shape)}): kernel {k5_ms:.4f} ms, plain {k5_plain_ms:.3f} ms {card}"
-    )
-    print(
-        f"  this view's work: active planes {int(tables.act.sum())}/{dense_k}, planes sampled "
-        f"{int(k5_planes.sum())}, rays that composite "
-        f"{float((k5_samples > 0).float().mean()):.4f}, rays ending in the early exit "
-        f"{ended:.4f}, samples composited {composited} "
-        f"({composited / (n_rays * dense_k):.4f} of the grid); kernel "
-        f"{composited / (k5_ms * 1e-3) / 1e9:.3f} G samples/s {card}"
-    )
     n_tiles = k5_lists[..., 0].numel()
     print(
         f"  bit-equal; the {n_tiles} tiles of {swb.SWEEP_TILE[0]}x{swb.SWEEP_TILE[1]} rays "
@@ -4216,23 +3040,7 @@ def main() -> int:
         f"{int(tables.act.sum())} active), at most {int(k5_lists.sum(dim=-1).max())}; they "
         f"composite at {int(k5_fetches.sum()) / n_tiles:.1f}"
     )
-    del k5_lists, k5_fetches
-    print(
-        f"  K5 bound: {k5_texels} RGBA texels read ({k5_texels / (slices.numel() * d_nc * d_nb):.4f} "
-        f"of the {slices.numel()} slices of the planes sampled); {k5_bound[0]:.4f} ms, "
-        f"{k5_bound[1]}-bound; kernel at {k5_bound[0] / k5_ms:.4f} of it {card}"
-    )
-
-    # Where a steady frame's time goes: one more frame of the last pose,
-    # after the counts were read.
-    def steady_frame():
-        dense_engine.render_shearwarp(camera)
-        torch.cuda.synchronize()
-
-    profiled("one dense steady frame", steady_frame,
-             ("pre_sweep_kernel", "elementwise", "index", "reduce", "cat", "copy"), card,
-             steady[len(steady) // 2])
-    del got, want, tables, dense_frames, frame
+    del k5_lists, k5_fetches, got, want, tables, dense_frames, frame
 
     phase_done(16)
     # ----------------------------------------- 17. dense, card vs CPU
@@ -4269,13 +3077,13 @@ def main() -> int:
 
     phase_done(17)
     # ---------------- 18. out of core and asynchronous, at 1024^3 (its own timers)
-    ooc_sites, ooc_launches, ooc_err = phase_out_of_core(dev, card)
+    ooc_launches, ooc_err = phase_out_of_core(dev, card)
     phase_done(18, quiet=True)
     # ----------------------- 19. the gather probes P1-P17 (their own timers)
     probe_entries = phase_probes(dev, card)
     phase_done(19, quiet=True)
     # ------------------------------------- 20. the render service (its own timers)
-    serve_k1, serve_k3, serve_2x2_ms = phase_serve(dev, card)
+    serve_k1, serve_k3 = phase_serve(dev, card)
     phase_done(20, quiet=True)
     # ------------------------------------- 21. the dense trainer at full width
     phase_dense_trainer(dev, card)
@@ -4290,12 +3098,12 @@ def main() -> int:
     entry_k3, entry_err = phase_entry(dev, card, exact_tol)
     phase_done(24)
     # ------------------- 25-29. M9: logical shards of the card (one H100)
-    mesh_k1, mesh_sites = phase_sharded_orbit(dev, card, engine, poses)
+    mesh_k1 = phase_sharded_orbit(dev, card, engine, poses)
     phase_done(25)
-    train_k1, train_k2, train_sites, mesh_k2_err = phase_sharded_training(
+    train_k1, train_k2, mesh_k2_err = phase_sharded_training(
         dev, card, problem, store, tf, targets)
     phase_done(26)
-    mesh_k3, k3_sites = phase_sharded_exact(dev, card, exact_tol)
+    mesh_k3 = phase_sharded_exact(dev, card, exact_tol)
     phase_done(27)
     apps_k1 = phase_mesh_apps(dev, card)
     phase_done(28)
@@ -4306,10 +3114,10 @@ def main() -> int:
     phase_done(30, quiet=True)
     # ----- 31. K3 and K4 at any TF size, the multi-view wall, the bf16 resample
     p31_launches, p31_errs, p31_instances = phase_finish(
-        dev, card, exact_tol, ex_views[0], engine, poses[-1], dense_last, serve_2x2_ms)
+        dev, card, exact_tol, ex_views[0], engine, poses[-1], dense_last)
     phase_done(31, quiet=True)
     # ------------------------------- 32. the trainers' update (the Adam kernel)
-    adam_entry, adam_ms = phase_adam(dev, card)
+    adam_entry = phase_adam(dev, card)
     print("the Adam kernel's launches on the main paths, each counted from 0 with no fallback "
           "(a leaf a step): " + "; ".join(f"{what} {k}" for what, k in ADAM_RUNS))
     phase_done(32)
@@ -4321,34 +3129,6 @@ def main() -> int:
     if loaded:
         raise AssertionError(f"imported {loaded[:5]}")
 
-    # The rule-2 ranking of the port's kernels: per launch site on the
-    # main paths, launches x (ms per launch - bound), from this run.
-    sites += [
-        ("K2", "RenderStoreGridDiff backward (store training)", train_bwd_launches, bwd_ms,
-         k2_bound),
-        ("K4", "render_exact_diff backward (exact training)", ex_bwd_launches, k4_ms, k4_bound),
-        ("K4", "RenderMarcherDiff backward (VolumeScene, exit on)", scene["k4_launches"],
-         scene["k4_on_ms"], scene["k4_on_bound"]),
-        ("K5", "render_frame, render_cli and orbit frames", dense_launches, k5_ms, k5_bound),
-    ] + ooc_sites + mesh_sites + train_sites + k3_sites + [
-        ("K1", "render_store_grid_sharded, render_cli --mesh and the sharded service", apps_k1,
-         *mesh_sites[0][3:]),
-    ] + exact_set["sites"] + [
-        ("A1", "step_optimizer, the store trainer's fit (512^3 store, pin; its TF's launches "
-         "aside)", TRAIN_STEPS, *adam_ms["pin"]),
-        ("A1", "step_optimizer, the exact trainer (512^3 density; its TF's launches aside)",
-         len(EXACT_TRAIN_ORDER), *adam_ms["none"]),
-    ]
-    print(f"launch sites on the main paths: launches, ms per launch on the site's operands, "
-          f"bound, launches x (ms - bound) {card}")
-    above = {}
-    for kernel, site, n, site_ms, (b_ms, b_by) in sites:
-        above[kernel] = above.get(kernel, 0.0) + n * (site_ms - b_ms)
-        print(f"  {kernel} {site}: {n} launches, {site_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{n * (site_ms - b_ms):.3f} ms")
-    print("  by kernel: " + "; ".join(f"{k} {v:.3f} ms" for k, v in
-                                      sorted(above.items(), key=lambda kv: -kv[1])))
-
     print(json.dumps({"kernels": [
         {
             "name": "post_sweep",
@@ -4359,11 +3139,6 @@ def main() -> int:
             + scripts["post_sweep"] + mesh_k1 + train_k1 + apps_k1 + p31_launches["post_sweep"],
             "max_abs_err": max(max_err, ooc_err, script_errs["post_sweep"],
                                p31_errs["post_sweep"]),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": k1_bound[0],
-            "bound_by": k1_bound[1],
-            "library_ms": None,
         },
         {
             "name": "store_grid_bwd",
@@ -4373,11 +3148,6 @@ def main() -> int:
             "launches": render_bwd_launches + train_bwd_launches + scripts["store_grid_bwd"]
             + train_k2,
             "max_abs_err": max(bwd_err, script_errs["store_grid_bwd"], mesh_k2_err),
-            "ms": bwd_ms,
-            "plain_ms": bwd_plain_ms,
-            "bound_ms": k2_bound[0],
-            "bound_by": k2_bound[1],
-            "library_ms": None,
         },
         {
             "name": "exact_march",
@@ -4391,11 +3161,6 @@ def main() -> int:
             "max_abs_err": max(k3_err, k3_train_err, scene["k3_err"], entry_err,
                                script_errs["exact_march"], exact_set["k3_err"],
                                p31_errs["exact_march"]),
-            "ms": k3_ms,
-            "plain_ms": k3_plain_ms,
-            "bound_ms": k3_bound[0],
-            "bound_by": k3_bound[1],
-            "library_ms": None,
         },
         {
             "name": "exact_march_bwd",
@@ -4407,11 +3172,6 @@ def main() -> int:
             + exact_set["k4_launches"] + p31_launches["exact_march_bwd"],
             "max_abs_err": max(k4_err, scene["k4_err"], script_errs["exact_march_bwd"],
                                exact_set["k4_err"], p31_errs["exact_march_bwd"]),
-            "ms": k4_ms,
-            "plain_ms": k4_plain_ms,
-            "bound_ms": k4_bound[0],
-            "bound_by": k4_bound[1],
-            "library_ms": None,
         },
         {
             "name": "pre_sweep",
@@ -4420,11 +3180,6 @@ def main() -> int:
             "replaces": "libre_tpu/ops/shearwarp_pallas.py:206",
             "launches": dense_launches + p31_launches["pre_sweep"],
             "max_abs_err": max(k5_err, p31_errs["pre_sweep"]),
-            "ms": k5_ms,
-            "plain_ms": k5_plain_ms,
-            "bound_ms": k5_bound[0],
-            "bound_by": k5_bound[1],
-            "library_ms": None,
         },
     ] + p31_instances + probe_entries + [adam_entry]}))
     print(json.dumps({"ok": True, "device": {

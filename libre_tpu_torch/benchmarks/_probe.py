@@ -3,18 +3,13 @@ check against the plain version and the timing on the card."""
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
-import shutil
-import tempfile
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from ..ops import _kernels, gather
+from ..ops import gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,99 +148,3 @@ def run(probes: Sequence[Probe], device="cuda", seed: int = 0) -> List[Dict]:
             launches=launches,
         ))
     return results
-
-
-def launch_floor_ms(reps: int = 200) -> float:
-    """Device milliseconds per launch of an empty kernel
-    (``csrc/launch_floor.cu``) timed as the probes are (``graph_ms``): the
-    floor a probe's time is read against."""
-    return graph_ms(lambda: _kernels.launch("launch_floor"), reps)
-
-
-def against_parent(probes: Sequence[Probe], parent: Path, kernels: Sequence[str],
-                   device="cuda", seed: int = 0, reps: int = 200,
-                   rounds: int = 2) -> Dict[str, Dict[str, List[float]]]:
-    """Each probe of ``probes`` whose kernel is one of ``kernels``, timed
-    as this checkout builds it and as ``parent`` (another checkout, e.g.
-    a parent commit unpacked with ``git archive``) does: both sources
-    built with the port's flags and ``-Xptxas -v``, the parent's bound
-    with the launcher its own source declares and launched on the
-    operands this checkout's wrapper passes (recorded from one call),
-    its output held bit-equal to this checkout's; then both timed in a
-    CUDA graph (``graph_ms``), in ``rounds`` rounds of this, parent,
-    parent, this.  Prints both builds' registers and returns {probe id:
-    {"this" / "parent": [ms of each run]}}."""
-    device = require_card(device)
-    out_dir = Path(tempfile.mkdtemp(prefix="probe_ab-"))
-    try:
-        jobs = {}
-        for name in kernels:
-            jobs[name] = _kernels.SRC_DIR / f"{name}.cu"
-            jobs[f"{name} parent"] = parent / "libre_tpu_torch" / "csrc" / f"{name}.cu"
-        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-            futures = {t: pool.submit(_kernels.build_verbose, out_dir, t, src)
-                       for t, src in jobs.items()}
-            built = {t: f.result() for t, f in futures.items()}
-        parents = {}
-        for tag, (lib, report) in built.items():
-            print(f"  build {tag}: {_kernels.report_text(report)}")
-        for name in kernels:
-            fn = getattr(ctypes.CDLL(str(built[f"{name} parent"][0])), name)
-            fn.argtypes = _kernels.declared_signature(jobs[f"{name} parent"], name)
-            fn.restype = ctypes.c_int
-            parents[name] = fn
-        times = {}
-        for p in probes:
-            fn, args, _work = p.build(device=device, seed=seed)
-            name = kernel_name(fn)
-            if name not in parents:
-                continue
-            recorded = []
-            real = _kernels.launch
-            _kernels.launch = lambda n, *a: (recorded.append(a), real(n, *a))[1]
-            try:
-                got = fn(*args)
-            finally:
-                _kernels.launch = real
-            (operands,) = recorded
-            out_at = next(i for i, a in enumerate(operands) if a is not None
-                          and isinstance(a, torch.Tensor) and a.data_ptr() == got.data_ptr())
-            out = torch.empty_like(got)
-            cargs = [out.data_ptr() if i == out_at else
-                     a.data_ptr() if isinstance(a, torch.Tensor) else a
-                     for i, a in enumerate(operands)]
-
-            def parent_call(f=parents[name], cargs=cargs):
-                err = f(*cargs, torch.cuda.current_stream().cuda_stream)
-                if err != 0:
-                    raise RuntimeError(f"{name} parent launch failed: cudaError_t {err}")
-
-            parent_call()
-            torch.cuda.synchronize(device)
-            if not torch.equal(out, got):
-                raise AssertionError(f"{p.id}: the parent's {name} differs from this build's")
-            runs = {"this": lambda: fn(*args), "parent": parent_call}
-            ms = {k: [] for k in runs}
-            for _ in range(rounds):
-                for k in ("this", "parent", "parent", "this"):
-                    ms[k].append(graph_ms(runs[k], reps))
-            times[p.id] = ms
-        return times
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-
-
-def against_parent_lines(times: Dict[str, Dict[str, List[float]]], floor_ms: float) -> List[str]:
-    """One line per probe of ``against_parent``'s times, in µs: each
-    build's least and most run, this build's least against the parent's,
-    the spread (the wider of the two builds' most − least) and the launch
-    floor."""
-    lines = []
-    for pid, ms in times.items():
-        this, parent = min(ms["this"]), min(ms["parent"])
-        spread = max(max(v) - min(v) for v in ms.values())
-        lines.append(f"    {pid}: this {this * 1e3:.3f}-{max(ms['this']) * 1e3:.3f}; parent "
-                     f"{parent * 1e3:.3f}-{max(ms['parent']) * 1e3:.3f} (this "
-                     f"{this / parent - 1:+.1%}); spread {spread * 1e3:.3f}; launch floor "
-                     f"{floor_ms * 1e3:.3f}")
-    return lines

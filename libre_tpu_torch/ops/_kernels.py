@@ -17,7 +17,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
@@ -55,86 +54,10 @@ SIGNATURES: Dict[str, List] = {
     "probe_tf_nearest": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
     "probe_tf_linear": [_P] * 3 + [_I] * 4 + [_P],
     "adam_update": [_P] * 4 + [_I] * 2 + [_F] * 7 + [_P],
-    # an empty kernel, the launch floor the probes are read against
-    "launch_floor": [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-
-
-_C_TYPES = {"void*": _P, "int": _I, "float": _F}
-
-
-def declared_signature(src: Path, name: str) -> List:
-    """The argument types of the ``extern "C"`` launcher ``name`` as the
-    source ``src`` declares it: how another checkout's build of a kernel
-    is bound (``sweep_ab.py``, ``benchmarks/exact_bwd_ab``)."""
-    decl = re.search(rf'extern "C" int {name}\((.*?)\)\s*\{{', src.read_text(), re.S)
-    if decl is None:
-        raise ValueError(f"{src}: no extern \"C\" launcher {name}")
-    types = []
-    for param in decl.group(1).split(","):
-        words = param.replace("const ", "").split()
-        ctype = "void*" if "*" in param else words[0]
-        types.append(_C_TYPES[ctype])
-    return types
-
-
-_TEMPLATE_TYPES = {"f": "f32", "h": "u8", "t": "u16"}
-
-
-def _demangle(mangled: str) -> str:
-    """``ns::kernel<args>`` of a kernel's mangled name, as far as the
-    port's kernels need: nested names, bool and int template arguments,
-    and the atlas types float, uint8, uint16."""
-    i, names = mangled.find("N") + 1 if mangled.startswith("_ZN") else 2, []
-    while i < len(mangled) and mangled[i].isdigit():
-        digits = re.match(r"\d+", mangled[i:]).group()
-        i += len(digits)
-        names.append(mangled[i:i + int(digits)])
-        i += int(digits)
-    name = names[-1] if names else mangled
-    if not mangled[i:].startswith("I"):
-        return name
-    args = []
-    for token in re.findall(r"L[bi](\d+)E|([fht])", mangled[i + 1:mangled.find("EE", i) + 1]):
-        args.append(token[0] or _TEMPLATE_TYPES[token[1]])
-    return f"{name}<{','.join(args)}>"
-
-
-def ptxas_report(stderr: str) -> List[tuple]:
-    """(kernel with its template arguments, registers, spill store bytes)
-    of each entry function in ``nvcc -Xptxas -v``'s output, in its order."""
-    rows, current = [], None
-    for line in stderr.splitlines():
-        entry = re.search(r"Compiling entry function '(\w+)'", line)
-        if entry:
-            current = [_demangle(entry.group(1)), 0, 0]
-            rows.append(current)
-        elif current is not None and "bytes spill stores" in line:
-            current[2] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
-        elif current is not None and "Used" in line and "registers" in line:
-            current[1] = int(re.search(r"Used (\d+) registers", line).group(1))
-    return [tuple(r) for r in rows]
-
-
-def build_verbose(out_dir: Path, tag: str, src: Path):
-    """nvcc ``src`` with the port's flags and ``-Xptxas -v`` into
-    ``out_dir`` (another checkout's source too) → (library path,
-    ``ptxas_report`` of its entry functions)."""
-    lib = out_dir / ("lib" + re.sub(r"\W+", "_", tag) + ".so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stdout}\n{proc.stderr}")
-    return lib, ptxas_report(proc.stderr)
-
-
-def report_text(report) -> str:
-    """One line of a ``ptxas_report``: registers and spills per instance."""
-    return "; ".join(f"{name} {regs} registers, {spill} B spilled"
-                     for name, regs, spill in report)
 
 
 def _nvcc() -> str:

@@ -31,9 +31,8 @@ from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops.reference import Camera, RenderParams
 from libre_tpu_torch.parallel.mesh import require_mesh
 from libre_tpu_torch.parallel.shearwarp_sharded import render_slope_grid_sharded
-from libre_tpu_torch.train.update import step_optimizer
-
-EARLY_EXIT_OFF = 1.1  # 1 − T never exceeds it: no early exit under grad
+from libre_tpu_torch.train import update
+from libre_tpu_torch.train.update import EARLY_EXIT_OFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,11 +105,8 @@ def make_train_step(problem: ShearWarpProblem, optimizer: torch.optim.Optimizer,
 
     def step(params, targets):
         volume, tf = params["volume"], params["tf"]
-        optimizer.zero_grad(set_to_none=False)
-        loss = loss_fn(volume, tf, targets)
-        loss.backward()
-        step_optimizer(optimizer, clamp=[volume, tf])
-        return loss.detach()
+        return update.train_step(optimizer, lambda: loss_fn(volume, tf, targets),
+                                 clamp=[volume, tf])
 
     return step
 
@@ -133,19 +129,8 @@ def fit(
     list [volume, tf] (default ``torch.optim.Adam(lr=3e-2)``, the
     reference's ``optax.adam(3e-2)``).  ``on_step(i, loss)``, if given, is
     called after each step."""
-    if optimizer is None:
-        def optimizer(p):
-            return torch.optim.Adam(p, lr=3e-2)
-
-    def param(x):
-        return torch.as_tensor(x, dtype=torch.float32).to(device).clone().requires_grad_()
-
-    params = {"volume": param(init_volume), "tf": param(init_tf)}
-    step = make_train_step(problem, optimizer([params["volume"], params["tf"]]), mesh)
-    targets = [torch.as_tensor(t, dtype=torch.float32).to(device) for t in targets]
-    losses = []
-    for i in range(steps):
-        losses.append(float(step(params, targets)))
-        if on_step is not None:
-            on_step(i, losses[-1])
-    return params, losses
+    return update.fit(
+        lambda opt: make_train_step(problem, opt, mesh), {"volume": init_volume, "tf": init_tf},
+        [torch.as_tensor(t, dtype=torch.float32).to(device) for t in targets], device=device,
+        optimizer=optimizer, steps=steps, on_step=on_step,
+    )

@@ -45,10 +45,8 @@ from libre_tpu_torch.ops import shearwarp_grad as swg
 from libre_tpu_torch.ops.shearwarp_bricked import SENTINEL
 from libre_tpu_torch.parallel.compositing import fold_segments, join_rgba, move, split_rgba
 from libre_tpu_torch.parallel.mesh import BRICK_AXIS, RAY_AXIS, require_mesh
-from libre_tpu_torch.train.update import step_optimizer
-from libre_tpu_torch.utils.profiling import span
-
-EARLY_EXIT_OFF = 1.1  # 1 − t never exceeds it: no early exit under grad
+from libre_tpu_torch.train import update
+from libre_tpu_torch.train.update import EARLY_EXIT_OFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,22 +323,13 @@ def make_slab_train_step(problem: StoreProblem, optimizer: torch.optim.Optimizer
 
 
 def _update(problem, optimizer, compute_loss, stores: Sequence[torch.Tensor], tf):
-    """One step in place: ``compute_loss()``, backward, the optimizer's
-    update, then each store tensor clamped to [0, 1] where it was covered
-    before the update and set to SENTINEL elsewhere, and the TF clamped to
-    [0, 1] (``update.step_optimizer``: one kernel pass a leaf for a plain
-    Adam on the card)."""
-    with span("libre.train.step"):
-        with span("libre.train.loss"):
-            optimizer.zero_grad(set_to_none=False)
-            loss = compute_loss()
-        with span("libre.train.backward"):
-            loss.backward()
-        with span("libre.train.update"), torch.no_grad():
-            if not problem.diff_tf:
-                tf.grad = torch.zeros_like(tf)
-            step_optimizer(optimizer, pin=stores, clamp=[tf])
-        return loss.detach()
+    """One step in place (``update.train_step``): ``compute_loss()``,
+    backward, the optimizer's update, then each store tensor clamped to
+    [0, 1] where it was covered before the update and set to SENTINEL
+    elsewhere, and the TF clamped to [0, 1]; with ``problem.diff_tf``
+    false the TF steps on a zero gradient."""
+    return update.train_step(optimizer, compute_loss, pin=stores, clamp=[tf],
+                             zero_grads=() if problem.diff_tf else [tf])
 
 
 def fit(
@@ -360,21 +349,8 @@ def fit(
     ``optimizer`` builds a ``torch.optim.Optimizer`` from the parameter
     list [store, tf] (default ``torch.optim.Adam(lr=3e-2)``).
     ``on_step(i, loss)``, if given, is called after each step."""
-    if optimizer is None:
-        def optimizer(p):
-            return torch.optim.Adam(p, lr=3e-2)
-
-    def param(x):
-        return torch.as_tensor(x, dtype=torch.float32).to(device).clone().requires_grad_()
-
-    params = {"store": param(init_store), "tf": param(init_tf)}
-    step = make_train_step(
-        problem, optimizer([params["store"], params["tf"]]), mesh
+    return update.fit(
+        lambda opt: make_train_step(problem, opt, mesh), {"store": init_store, "tf": init_tf},
+        torch.as_tensor(targets, dtype=torch.float32).to(device), device=device,
+        optimizer=optimizer, steps=steps, on_step=on_step,
     )
-    targets = torch.as_tensor(targets, dtype=torch.float32).to(device)
-    losses = []
-    for i in range(steps):
-        losses.append(float(step(params, targets)))
-        if on_step is not None:
-            on_step(i, losses[-1])
-    return params, losses

@@ -36,8 +36,7 @@ from libre_tpu_torch.ops.exact import ExactView, render_exact_diff
 from libre_tpu_torch.ops.reference import BrickSet, RenderParams
 from libre_tpu_torch.parallel.mesh import BRICK_AXIS, Mesh, require_mesh
 from libre_tpu_torch.parallel.render import render_rays_sharded
-from libre_tpu_torch.train.update import step_optimizer
-from libre_tpu_torch.utils.profiling import span
+from libre_tpu_torch.train.update import leaf, train_step
 
 OptimizerFactory = Callable[[Sequence[torch.Tensor]], torch.optim.Optimizer]
 
@@ -100,10 +99,6 @@ def init_state(
     ``mesh.device(0, kd)`` and the TF a leaf on ``mesh.lead``."""
     data = problem.bricks.data.detach()
     tf = torch.as_tensor(tf_init, dtype=torch.float32)
-
-    def leaf(x, device):
-        return x.to(device=device, dtype=torch.float32).clone().requires_grad_()
-
     if mesh is None:
         density = leaf(data, data.device)
         tf_leaf = leaf(tf, data.device)
@@ -138,17 +133,14 @@ def make_train_step(
 
     def step(state: TrainState, eye, dirs, t_near_plane, target) -> torch.Tensor:
         tf = state.params["tf"]
-        with span("libre.train.step"):
-            with span("libre.train.loss"):
-                state.optimizer.zero_grad(set_to_none=False)
-                out = problem.render(mesh, state.params["density"], tf, eye, dirs, t_near_plane)
-                loss = loss_fn(out, target.to(out.device))
-            with span("libre.train.backward"):
-                loss.backward()
-            with span("libre.train.update"):
-                step_optimizer(state.optimizer, clamp=[tf])
-            state.step += 1
-            return loss.detach()
+
+        def compute_loss():
+            out = problem.render(mesh, state.params["density"], tf, eye, dirs, t_near_plane)
+            return loss_fn(out, target.to(out.device))
+
+        loss = train_step(state.optimizer, compute_loss, clamp=[tf])
+        state.step += 1
+        return loss
 
     return step
 
@@ -161,11 +153,7 @@ def init_exact_state(
 ) -> TrainState:
     """Copy the initial density and TF to ``device`` as f32 leaves and
     build ``optimizer([density, tf])`` over them."""
-
-    def param(x):
-        return torch.as_tensor(x, dtype=torch.float32).to(device).clone().requires_grad_()
-
-    params = {"density": param(density_init), "tf": param(tf_init)}
+    params = {"density": leaf(density_init, device), "tf": leaf(tf_init, device)}
     return TrainState(params=params, optimizer=optimizer([params["density"], params["tf"]]))
 
 
@@ -180,15 +168,10 @@ def make_exact_train_step(
 
     def step(state: TrainState, target: torch.Tensor) -> torch.Tensor:
         density, tf = state.params["density"], state.params["tf"]
-        with span("libre.train.step"):
-            with span("libre.train.loss"):
-                state.optimizer.zero_grad(set_to_none=False)
-                loss = loss_fn(render_exact_diff(density, tf, view), target)
-            with span("libre.train.backward"):
-                loss.backward()
-            with span("libre.train.update"):
-                step_optimizer(state.optimizer, clamp=[tf])
-            state.step += 1
-            return loss.detach()
+        loss = train_step(state.optimizer,
+                          lambda: loss_fn(render_exact_diff(density, tf, view), target),
+                          clamp=[tf])
+        state.step += 1
+        return loss
 
     return step

@@ -1,9 +1,14 @@
-"""The trainers' update: the optimizer's step, then each leaf's epilogue.
+"""What every trainer shares: the step, its update, its leaves and its loop.
 
-Every trainer's step ends in :func:`step_optimizer`, which names the
-leaves to pin (the store trainer's store: clamped to [0, 1] where it was
-covered before the update, > -0.5, and set to ``SENTINEL`` elsewhere)
-and to clamp to [0, 1] (every TF, the dense trainer's volume).
+Every trainer's step is :func:`train_step`: the optimizer's gradients
+zeroed and the caller's loss under ``libre.train.loss``, ``backward``
+under ``libre.train.backward``, and :func:`step_optimizer` under
+``libre.train.update``, all of it under ``libre.train.step``.
+
+:func:`step_optimizer` names the leaves to pin (the store trainer's
+store: clamped to [0, 1] where it was covered before the update, > -0.5,
+and set to ``SENTINEL`` elsewhere) and to clamp to [0, 1] (every TF, the
+dense trainer's volume).
 
 For a plain ``torch.optim.Adam`` (:func:`plain_adam`) with a leaf on the
 card (:func:`on_card`) the step and the epilogues run together in one
@@ -21,12 +26,15 @@ passes (:func:`separate_passes`) and adds one to
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.optim import optimizer as _optimizer
 
 from libre_tpu_torch.ops.adam import adam_update, apply_epilogue
+from libre_tpu_torch.utils.profiling import span
+
+EARLY_EXIT_OFF = 1.1  # 1 − T never exceeds it: no early exit under grad
 
 _OFF = ("amsgrad", "maximize", "capturable", "differentiable", "decoupled_weight_decay")
 
@@ -135,3 +143,60 @@ def step_optimizer(optimizer: torch.optim.Optimizer, *, pin: Sequence[torch.Tens
 
 
 step_optimizer.fallbacks = 0
+
+
+def train_step(optimizer: torch.optim.Optimizer, compute_loss: Callable[[], torch.Tensor], *,
+               pin: Sequence[torch.Tensor] = (), clamp: Sequence[torch.Tensor] = (),
+               zero_grads: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+    """One optimization step in place → the detached loss:
+    ``optimizer``'s gradients zeroed (kept allocated) and
+    ``compute_loss()``, ``backward``, each tensor of ``zero_grads`` (a leaf
+    the loss does not differentiate, which the optimizer still steps)
+    given a new zero gradient, then :func:`step_optimizer` with ``pin``
+    and ``clamp``, inside the spans ``libre.train.step`` / ``.loss`` /
+    ``.backward`` / ``.update``."""
+    with span("libre.train.step"):
+        with span("libre.train.loss"):
+            optimizer.zero_grad(set_to_none=False)
+            loss = compute_loss()
+        with span("libre.train.backward"):
+            loss.backward()
+        with span("libre.train.update"), torch.no_grad():
+            for t in zero_grads:
+                t.grad = torch.zeros_like(t)
+            step_optimizer(optimizer, pin=pin, clamp=clamp)
+        return loss.detach()
+
+
+def leaf(x, device) -> torch.Tensor:
+    """``x`` as an f32 leaf of its own on ``device``, with a gradient."""
+    return torch.as_tensor(x, dtype=torch.float32).to(device).clone().requires_grad_()
+
+
+def fit(
+    make_step: Callable[[torch.optim.Optimizer], Callable],
+    inits: Dict[str, object],
+    targets,
+    *,
+    device,
+    optimizer: Optional[Callable[[Sequence[torch.Tensor]], torch.optim.Optimizer]] = None,
+    steps: int,
+    on_step: Optional[Callable[[int, float], None]] = None,
+) -> Tuple[dict, List[float]]:
+    """The trainers' ``fit`` loop → (params, losses): each of ``inits`` a
+    :func:`leaf` on ``device`` under its name, ``optimizer`` (default
+    ``torch.optim.Adam(lr=3e-2)``) built over them in that order,
+    ``make_step(optimizer)`` called ``steps`` times as ``step(params,
+    targets)``, and ``on_step(i, loss)``, if given, after each."""
+    if optimizer is None:
+        def optimizer(p):
+            return torch.optim.Adam(p, lr=3e-2)
+
+    params = {name: leaf(x, device) for name, x in inits.items()}
+    step = make_step(optimizer(list(params.values())))
+    losses = []
+    for i in range(steps):
+        losses.append(float(step(params, targets)))
+        if on_step is not None:
+            on_step(i, losses[-1])
+    return params, losses

@@ -329,20 +329,3 @@ def test_take_along_loop_order(loop, mod):
         v = np.take_along_axis(t, j, axis=1)
         want = v if loop == 1 else want + v
     np.testing.assert_array_equal(got.numpy(), want)
-
-
-def test_against_parent_raises_without_a_card():
-    """The A/B against a parent build times CUDA kernels: on the CPU it
-    raises before building anything."""
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        _probe.against_parent(port("probe_gather2").PROBES, ROOT, ("probe_take_along",),
-                              device="cpu")
-
-
-def test_against_parent_lines():
-    """Each build's least and most run in µs, this build's least against
-    the parent's, and the spread: the wider of the two builds' ranges."""
-    times = {"P7": {"this": [1.9e-3, 1.8e-3], "parent": [2.0e-3, 2.15e-3]}}
-    (line,) = _probe.against_parent_lines(times, 1e-3)
-    assert line == ("    P7: this 1.800-1.900; parent 2.000-2.150 (this -10.0%); "
-                    "spread 0.150; launch floor 1.000")

@@ -5,7 +5,7 @@ wall, the bf16 resample's plan arguments, ``demo_wall`` and
 ``data.memory_unit`` among the rest): every
 libre_tpu_torch module imports (the later modules by name: the dense
 shear-warp trainer, the volume scene, profiling, the entry point, the
-four benchmark scripts and K4's A/B script), a tiny CPU frame renders through the
+four benchmark scripts), a tiny CPU frame renders through the
 bricked path, the exact path and the dense shear-warp path (both
 backends), the store trainer, the exact trainer and the dense shear-warp
 trainer each take a step, the volume scene renders and differentiates
@@ -42,7 +42,6 @@ later = {"libre_tpu_torch.train.shearwarp_trainer", "libre_tpu_torch.models.volu
          "libre_tpu_torch.benchmarks.probe_bwd_breakdown",
          "libre_tpu_torch.benchmarks.demo_inverse_render",
          "libre_tpu_torch.benchmarks.demo_out_of_core",
-         "libre_tpu_torch.benchmarks.exact_bwd_ab",
          "libre_tpu_torch.parallel.mesh", "libre_tpu_torch.parallel.compositing",
          "libre_tpu_torch.parallel.bricked_sharded", "libre_tpu_torch.parallel.render",
          "libre_tpu_torch.parallel.shearwarp_sharded", "libre_tpu_torch.parallel.distributed",

@@ -3,8 +3,10 @@
 the CPU writing a Chrome trace (and doing nothing for None), nested
 ``span`` ranges in that trace, ``span`` as the shared no-op context while
 no profiler records, and the program's ``libre.*`` spans, nested as
-named, on the store trainer's, the exact trainer's and the mesh trainer's
-step and a ``VolumeScene`` frame of one and of two samples a pixel."""
+named, on every trainer's step (the store trainer's on one device and
+over slabs, the exact trainer's, the mesh trainer's and the dense
+trainer's) and a ``VolumeScene`` frame of one and of two samples a
+pixel."""
 
 import json
 import os
@@ -80,21 +82,27 @@ def test_span_is_the_shared_noop_without_a_profiler(tmp_path):
     assert prof_t.span("libre.after") is prof_t.NO_SPAN
 
 
-def _store_step(first=False):
-    """A store train step; with ``first``, each run the first step of a new
-    loss function, which builds its views' sweep tables."""
+def _store_problem():
     import numpy as np
 
     from libre_tpu_torch.ops import shearwarp_grad as swg
-    from libre_tpu_torch.train.store_trainer import StoreProblem, make_train_step
+    from libre_tpu_torch.train.store_trainer import StoreProblem
 
     vs = swg.view_vector(world_min=[-0.5] * 3, world_max=[0.5] * 3, axis=2,
                          eye=[0.1, 0.05, 1.4], sign=-1.0,
                          slope_bounds=(-0.45, 0.45, -0.4, 0.4), inter_size=(6, 5),
                          max_samples_per_ray=32)
-    problem = StoreProblem(views=vs[None], na_store=8, na_real=8, nc_real=8, nb_real=8,
-                           k_planes=8, inter_size=(6, 5), world_min=np.float32([-0.5] * 3),
-                           world_max=np.float32([0.5] * 3), axis=2)
+    return StoreProblem(views=vs[None], na_store=8, na_real=8, nc_real=8, nb_real=8,
+                        k_planes=8, inter_size=(6, 5), world_min=np.float32([-0.5] * 3),
+                        world_max=np.float32([0.5] * 3), axis=2)
+
+
+def _store_step(first=False):
+    """A store train step; with ``first``, each run the first step of a new
+    loss function, which builds its views' sweep tables."""
+    from libre_tpu_torch.train.store_trainer import make_train_step
+
+    problem = _store_problem()
     params = {"store": torch.full((8, 8, 8), 0.5).requires_grad_(),
               "tf": torch.linspace(0, 1, 1024).reshape(256, 4).requires_grad_()}
     opt = torch.optim.Adam([params["store"], params["tf"]], lr=1e-2)
@@ -103,6 +111,41 @@ def _store_step(first=False):
     if first:
         return lambda: make_train_step(problem, opt)(params, targets)
     return lambda: step(params, targets)
+
+
+def _slab_step():
+    """A store train step over a store in two slabs, on a 1×2 CPU mesh."""
+    from libre_tpu_torch.parallel.mesh import make_mesh
+    from libre_tpu_torch.train.store_trainer import (
+        make_slab_train_step,
+        shard_store_slabs_uniform,
+    )
+
+    slabs = [s.requires_grad_() for s in shard_store_slabs_uniform(torch.full((8, 8, 8), 0.5), 2)]
+    params = {"slabs": slabs, "tf": torch.linspace(0, 1, 1024).reshape(256, 4).requires_grad_()}
+    opt = torch.optim.Adam([*slabs, params["tf"]], lr=1e-2)
+    mesh = make_mesh(n_brick=2, n_ray=1, devices=["cpu", "cpu"])
+    step = make_slab_train_step(_store_problem(), opt, mesh)
+    return lambda: step(params, torch.zeros((1, 6, 5, 4)))
+
+
+def _dense_step():
+    """A dense (plain shear-warp) train step, which opens no span of its
+    own below the trainer's."""
+    from libre_tpu_torch.apps.render_cli import build_camera
+    from libre_tpu_torch.ops import shearwarp as sw
+    from libre_tpu_torch.ops.reference import RenderParams
+    from libre_tpu_torch.train.shearwarp_trainer import ShearWarpProblem, make_train_step
+
+    camera = build_camera(12, 10, (0.2, 0.1, 1.4), (0.0, 0.0, 0.0))[0]
+    problem = ShearWarpProblem.from_cameras(
+        [camera], [-0.5] * 3, [0.5] * 3,
+        RenderParams(data_source_range=(0.0, 1.0), filter_mode="trilinear"),
+        sw.ShearWarpParams(n_planes=8, inter_size=(6, 5)))
+    params = {"volume": torch.full((8, 8, 8), 0.5).requires_grad_(),
+              "tf": torch.linspace(0, 1, 1024).reshape(256, 4).requires_grad_()}
+    step = make_train_step(problem, torch.optim.Adam([params["volume"], params["tf"]], lr=1e-2))
+    return lambda: step(params, [torch.zeros((6, 5, 4))])
 
 
 def _exact_parts(samples_per_pixel=1):
@@ -166,14 +209,17 @@ def _set_step():
 
 
 # (path, its set-up, each span named with the span it nests in; None: the outermost)
-STORE = {"libre.train.step": None, "libre.train.loss": "libre.train.step",
-         "libre.sweep.forward": "libre.train.loss", "libre.train.backward": "libre.train.step",
-         "libre.sweep.backward": "libre.train.backward", "libre.train.update": "libre.train.step"}
+STEP = {"libre.train.step": None, "libre.train.loss": "libre.train.step",
+        "libre.train.backward": "libre.train.step", "libre.train.update": "libre.train.step"}
+STORE = {**STEP, "libre.sweep.forward": "libre.train.loss",
+         "libre.sweep.backward": "libre.train.backward"}
 PATHS = {
     # A later step reuses the tables its loss function built on its first.
     "store_step": (_store_step, STORE),
     "store_first_step": (lambda: _store_step(first=True),
                          {**STORE, "libre.sweep.tables": "libre.train.loss"}),
+    "slab_step": (_slab_step, STORE),
+    "dense_step": (_dense_step, STEP),
     "exact_step": (_exact_step, {
         "libre.train.step": None, "libre.train.loss": "libre.train.step",
         "libre.exact.forward": "libre.train.loss", "libre.train.backward": "libre.train.step",

@@ -2,12 +2,13 @@
 
 ``render_store_grid_diff(store, tf, vs, static)`` renders the (V, U, 4)
 slope grid of a normalized (Na, Nc, Nb) density store under a
-``torch.autograd.Function``:
+``torch.autograd.Function``, or with an (N, 11) matrix of view vectors
+the (N, V, U, 4) grids of N views of that one store:
 
-* **Forward**: the post-classification sweep of
+* **Forward**: per view the post-classification sweep of
   ``shearwarp_bricked.post_sweep`` (the K1 kernel on a GPU) with no clip
   planes, no content skipping and a fresh carry; it also yields the final
-  transmittance the backward needs.  Its operands, the view's sweep
+  transmittance the backward needs.  A view's operands, its sweep
   tables and clip operand (:func:`sweep_operands`), are built for the
   call unless the caller hands in a set built once for the view (the
   store trainer's loss functions do).
@@ -16,11 +17,14 @@ slope grid of a normalized (Na, Nc, Nb) density store under a
   k_planes) of ``k_total`` out of a store slab whose slice 0 is global
   slice ``a_base`` (``shearwarp_bricked.sweep_tables``' ``slab``), and
   both kernels run on that slab.
-* **Backward**: :func:`store_grid_backward`, one recompute sweep that
-  inverts the front-to-back composite with the total-minus-prefix
+* **Backward**: :func:`store_grid_backward`, one recompute sweep a view
+  that inverts the front-to-back composite with the total-minus-prefix
   identity and scatters the density and transfer-function gradients —
   the hand-written CUDA kernel ``csrc/store_grid_bwd.cu`` on a GPU,
-  :func:`store_grid_backward_reference` on the CPU.
+  :func:`store_grid_backward_reference` on the CPU.  The first view's
+  sweep zeroes one store and one TF gradient and every later view's adds
+  into them, so N views leave one buffer for each, which autograd hands
+  to the leaves as their ``.grad`` without a copy.
 
 Masks (box, SENTINEL coverage, early exit) are comparisons and pass no
 gradient, as in autodiff of the plane oracle.  Training runs with the
@@ -129,6 +133,8 @@ def store_grid_backward_reference(
     wc: Tuple[float, float],
     early_exit: float,
     diff_tf: bool,
+    d_store: Optional[torch.Tensor] = None,
+    dtf: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain torch backward of ``post_sweep`` with no clip planes: the
     specification of ``csrc/store_grid_bwd.cu``.
@@ -150,7 +156,9 @@ def store_grid_backward_reference(
     millions of samples into a few texels: summed in f32, the plain
     version's own rounding would be the largest error a comparison with
     the kernel sees).  Returns (d_store (Na, Nc, Nb), dtf (256, 4) in
-    ``tf``'s dtype); ``dtf`` is zero when ``diff_tf`` is false."""
+    ``tf``'s dtype); ``dtf`` is zero when ``diff_tf`` is false.  Given
+    ``d_store`` or ``dtf``, it adds its gradient into that tensor, in
+    place, and returns it."""
     f32 = torch.float32
     dev = store.device
     _na, nc, nb = store.shape
@@ -168,8 +176,8 @@ def store_grid_backward_reference(
     g_rgb, g_a = g[..., :3], g[..., 3]
     tot = (g_rgb * (out[..., :3] - tables.rgb_in[..., :3])).sum(-1)
 
-    d_flat = torch.zeros_like(flat)
-    dtf = torch.zeros(tf.shape, dtype=torch.float64, device=dev)
+    d_flat = torch.zeros_like(flat) if d_store is None else d_store.view(-1)
+    dtf64 = torch.zeros(tf.shape, dtype=torch.float64, device=dev)
     t = tables.t_in.clone()
     p = torch.zeros_like(t)
     for k in range(tables.a0.shape[0]):
@@ -232,9 +240,11 @@ def store_grid_backward_reference(
         if diff_tf:
             drgba = torch.cat([wg, dav[..., None]], dim=-1)
             for i, wi in ((i0, 1.0 - wt), (i1, wt)):
-                dtf.index_add_(0, i.reshape(-1), (drgba * wi[..., None]).reshape(-1, 4).double())
+                dtf64.index_add_(0, i.reshape(-1), (drgba * wi[..., None]).reshape(-1, 4).double())
         t = t * (1.0 - a_eff)
-    return d_flat.reshape(store.shape), dtf.to(tf.dtype)
+    if dtf is None:
+        return d_flat.reshape(store.shape), dtf64.to(tf.dtype)
+    return d_flat.reshape(store.shape), dtf.add_(dtf64.to(dtf.dtype))
 
 
 def store_grid_backward(
@@ -249,27 +259,43 @@ def store_grid_backward(
     wc: Tuple[float, float],
     early_exit: float,
     diff_tf: bool,
+    d_store: Optional[torch.Tensor] = None,
+    dtf: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward sweep: launches ``csrc/store_grid_bwd.cu`` for CUDA
     tensors and runs :func:`store_grid_backward_reference` for CPU tensors
-    (same signature and result).  ``store_grid_backward.launches`` counts
-    kernel launches."""
+    (same signature and result).  Each gradient goes into a new zeroed
+    tensor, or is added into ``d_store`` / ``dtf`` where the caller hands
+    one (the kernel only adds).  ``store_grid_backward.launches`` counts
+    kernel launches, ``store_grid_backward.accumulated`` the calls, on
+    either device, handed a buffer to add into."""
     v_size, u_size = tables.corr.shape
     f32 = torch.float32
+    given = {}
+    if d_store is not None:
+        given["d_store"] = (d_store, f32, tuple(store.shape))
+    if dtf is not None:
+        given["dtf"] = (dtf, f32, (TF_SIZE, 4))
     swb._check_sweep_operands(
         store, tf, tables, "store_grid_bwd",
         out=(out, f32, (v_size, u_size, 4)),
         t_out=(t_out, f32, (v_size, u_size)),
         g=(g, f32, (v_size, u_size, 4)),
+        **given,
     )
+    if given:
+        store_grid_backward.accumulated += 1
     kw = dict(wb=wb, wc=wc, early_exit=early_exit, diff_tf=diff_tf)
     if store.device.type == "cpu":
-        return store_grid_backward_reference(store, tf, tables, out, t_out, g, **kw)
+        return store_grid_backward_reference(
+            store, tf, tables, out, t_out, g, d_store=d_store, dtf=dtf, **kw)
     if store.device.type != "cuda":
         raise ValueError(f"store_grid_backward: no kernel for device {store.device}")
     _na, nc, nb = store.shape
-    d_store = torch.zeros_like(store)
-    dtf = torch.zeros((TF_SIZE, 4), dtype=f32, device=store.device)
+    if d_store is None:
+        d_store = torch.zeros_like(store)
+    if dtf is None:
+        dtf = torch.zeros((TF_SIZE, 4), dtype=f32, device=store.device)
     with torch.cuda.device(store.device):
         _kernels.launch(
             "store_grid_bwd",
@@ -285,6 +311,7 @@ def store_grid_backward(
 
 
 store_grid_backward.launches = 0
+store_grid_backward.accumulated = 0
 
 
 # ======================================================== autograd function
@@ -307,34 +334,49 @@ def sweep_operands(vs: torch.Tensor, static: StaticView) -> Tuple[swb.SweepTable
 
 
 class RenderStoreGridDiff(torch.autograd.Function):
-    """(store, tf, vs, static, operands) → (V, U, 4) slope grid,
-    differentiable in the store and the TF; ``operands`` None builds the
-    view's :func:`sweep_operands` for this call."""
+    """(store, tf, vs, static, operands) → the slope grids of the views of
+    ``vs`` over one store, differentiable in the store and the TF: one
+    view vector gives (V, U, 4), an (N, 11|13) matrix (N, V, U, 4).
+    ``operands`` holds each view's :func:`sweep_operands` or None, which
+    builds that view's for this call.  The backward's first K2 zeroes the
+    store and TF gradients and the other N − 1 add into them."""
 
     @staticmethod
     def forward(ctx, store, tf, vs, static: StaticView, operands):
-        tables, clip = sweep_operands(vs, static) if operands is None else operands
+        rows = vs if vs.dim() == 2 else vs[None]
+        sets = [sweep_operands(v, static) if ops is None else ops
+                for v, ops in zip(rows, operands)]
+        outs, t_outs = [], []
         with span("libre.sweep.forward"):
-            out, t_out = swb.post_sweep(
-                store, tf, tables, clip, n_clip=0, wb=static.wb, wc=static.wc,
-                early_exit=static.early_exit,
-            )
-        ctx.save_for_backward(store, tf, out, t_out)
-        ctx.tables = tables
+            for tables, clip in sets:
+                out, t_out = swb.post_sweep(
+                    store, tf, tables, clip, n_clip=0, wb=static.wb, wc=static.wc,
+                    early_exit=static.early_exit,
+                )
+                outs.append(out)
+                t_outs.append(t_out)
+        out = torch.stack(outs) if vs.dim() == 2 else outs[0]
+        ctx.save_for_backward(store, tf, out, *t_outs)
+        ctx.tables = [tables for tables, _clip in sets]
         ctx.static = static
         return out
 
     @staticmethod
     def backward(ctx, g):
-        store, tf, out, t_out = ctx.saved_tensors
+        store, tf, out, *t_outs = ctx.saved_tensors
         static = ctx.static
         diff_tf = static.diff_tf and ctx.needs_input_grad[1]
+        if out.dim() == 3:  # one view
+            out, g = out[None], g[None]
+        g = g.contiguous()
+        d_store = dtf = None
         with span("libre.sweep.backward"):
-            d_store, dtf = store_grid_backward(
-                store, tf, ctx.tables, out, t_out, g.contiguous(),
-                wb=static.wb, wc=static.wc, early_exit=static.early_exit,
-                diff_tf=diff_tf,
-            )
+            for i, (tables, t_out) in enumerate(zip(ctx.tables, t_outs)):
+                d_store, dtf = store_grid_backward(
+                    store, tf, tables, out[i], t_out, g[i],
+                    wb=static.wb, wc=static.wc, early_exit=static.early_exit,
+                    diff_tf=diff_tf, d_store=d_store, dtf=dtf,
+                )
         return d_store, (dtf if diff_tf else None), None, None, None
 
 
@@ -343,7 +385,7 @@ def render_store_grid_diff(
     tf: torch.Tensor,
     vs,
     static: StaticView,
-    operands: Optional[Tuple[swb.SweepTables, torch.Tensor]] = None,
+    operands=None,
 ) -> torch.Tensor:
     """Differentiable slope-grid render of an unpadded (Na, Nc, Nb)
     normalized density store and a (256, 4) TF → (V, U, 4).
@@ -355,19 +397,33 @@ def render_store_grid_diff(
     are :func:`sweep_operands` of ``vs`` and ``static`` on the store's
     device, built once by a caller that renders the view again and again
     (the store trainer's loss functions build them on their first call);
-    without them each call builds its own.  The resample is float32 in
+    without them each call builds its own.  An (N, 11) (or (N, 13))
+    matrix of view vectors renders the N views, which share ``static``,
+    → (N, V, U, 4), with ``operands`` None or a sequence of N sets (each
+    a set or None); their backward leaves one store and one TF gradient
+    buffer.  The resample is float32 in
     both directions whatever a view's ``ShearWarpParams.compute_dtype``,
     as the JAX store backward forces it
     (``libre_tpu/ops/shearwarp_grad.py:868``)."""
     vs = torch.as_tensor(vs, dtype=torch.float32, device=store.device)
     want = VIEW_LEN if static.k_total is None else VIEW_LEN + 2
-    if vs.shape != (want,):
+    one = vs.dim() == 1
+    if vs.shape[-1:] != (want,) or vs.dim() > 2 or vs.shape[0] == 0:
         raise ValueError(
-            f"render_store_grid_diff: view vector shape {tuple(vs.shape)}, needs ({want},)"
+            f"render_store_grid_diff: view vector shape {tuple(vs.shape)}, needs ({want},) "
+            f"or (N, {want})"
         )
     if tuple(store.shape) != (static.store_slices, static.nc, static.nb):
         raise ValueError(
             f"render_store_grid_diff: store shape {tuple(store.shape)} != "
             f"{(static.store_slices, static.nc, static.nb)}"
+        )
+    if one:
+        operands = [operands]
+    elif operands is None:
+        operands = [None] * vs.shape[0]
+    elif len(operands) != vs.shape[0]:
+        raise ValueError(
+            f"render_store_grid_diff: {len(operands)} operand sets for {vs.shape[0]} views"
         )
     return RenderStoreGridDiff.apply(store, tf, vs, static, operands)

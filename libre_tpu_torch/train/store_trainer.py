@@ -3,12 +3,13 @@
 
 Optimizes a normalized density store (and the transfer function) so
 that the post-classification renders of a set of views match target
-slope grids: per view ``shearwarp_grad.render_store_grid_diff`` (the
-sweep kernel forward, the recompute-backward kernel backward; each
-view's sweep tables built once per loss function and device), a mean
-squared error, a ``torch.optim`` update, then the store clamped to
-[0, 1] where covered with uncovered voxels pinned at SENTINEL, and the
-TF clamped to [0, 1].
+slope grids: every view of one store tensor in one call of
+``shearwarp_grad.render_store_grid_diff`` (the sweep kernel forward once
+a view, the recompute-backward kernel backward once a view, all adding
+into one store and one TF gradient; each view's sweep tables built once
+per loss function and device), a mean squared error, a ``torch.optim``
+update, then the store clamped to [0, 1] where covered with uncovered
+voxels pinned at SENTINEL, and the TF clamped to [0, 1].
 
 The early exit is off under grad (a step function of the parameters),
 and all views share one major axis because the store is assembled in one
@@ -106,16 +107,16 @@ def _row_view(vs: torch.Tensor, vd: int, v_l: int) -> torch.Tensor:
 
 
 def _view_operands(static: swg.StaticView, make_vs: Callable) -> Callable:
-    """``operands(*key)`` → (vs, ``shearwarp_grad.sweep_operands(vs,
-    static)``) with vs = ``make_vs(*key)``, a view vector on its render's
-    device, built the first time ``key`` comes and kept: a problem's views
-    never change, so a loss function builds each render's operands once,
-    not once a step."""
+    """``operands(*key)`` → (vs, each row's ``shearwarp_grad.
+    sweep_operands(row, static)``) with vs = ``make_vs(*key)``, the (N,
+    11|13) view vectors one call renders, on its device, built the first
+    time ``key`` comes and kept: a problem's views never change, so a loss
+    function builds each render's operands once, not once a step."""
 
     @functools.cache
     def operands(*key):
         vs = make_vs(*key)
-        return vs, swg.sweep_operands(vs, static)
+        return vs, [swg.sweep_operands(row, static) for row in vs]
 
     return operands
 
@@ -126,9 +127,10 @@ def make_loss_fn(problem: StoreProblem, mesh=None):
 
     Each view's vector, sweep tables and clip operand are built on a
     device the first time the function renders there, and serve every
-    later call.  With ``mesh``, shard (vd, kd) renders rows vd of views
-    kd·Nv/d_k … (kd+1)·Nv/d_k − 1 on its device (K1 and K2 once per view
-    each; the row-shifted views' operands built once per shard), and the
+    later call.  Every view renders in one call (K1 and K2 once per view,
+    one store and one TF gradient).  With ``mesh``, shard (vd, kd) renders
+    rows vd of views kd·Nv/d_k … (kd+1)·Nv/d_k − 1 on its device in one
+    call (the row-shifted views' operands built once per shard), and the
     loss lands on the mesh's lead device.  The views must divide the
     brick axis and V the ray axis (else ValueError)."""
     v_size, u_size = problem.inter_size
@@ -138,15 +140,12 @@ def make_loss_fn(problem: StoreProblem, mesh=None):
 
     if mesh is None:
         static = problem.static_for(v_size)
-        operands = _view_operands(static, lambda i, dev: views[i].to(dev))
+        operands = _view_operands(static, lambda dev: views.to(dev))
 
         def loss_fn(store, tf, targets):
-            se = 0.0
-            for i in range(n_views):
-                vs, ops = operands(i, store.device)
-                img = swg.render_store_grid_diff(store, tf, vs, static, ops)
-                se = se + torch.sum((img - targets[i]) ** 2)
-            return se / denom
+            vs, ops = operands(store.device)
+            img = swg.render_store_grid_diff(store, tf, vs, static, ops)
+            return torch.sum((img - targets) ** 2) / denom
 
         return loss_fn
 
@@ -156,21 +155,17 @@ def make_loss_fn(problem: StoreProblem, mesh=None):
         raise ValueError(f"views={n_views} V={v_size} must divide mesh axes {d_k}x{d_v}")
     nv_l, v_l = n_views // d_k, v_size // d_v
     static_l = problem.static_for(v_l)
-    operands = _view_operands(
-        static_l, lambda i, vd, kd: move(_row_view(views[i], vd, v_l), mesh.device(vd, kd))
-    )
+    operands = _view_operands(static_l, lambda vd, kd: move(torch.stack([
+        _row_view(views[i], vd, v_l) for i in range(kd * nv_l, (kd + 1) * nv_l)
+    ]), mesh.device(vd, kd)))
 
     def sharded_loss_fn(store, tf, targets):
         parts = []
         for vd, kd, dev in mesh.shards():
-            store_l, tf_l = move(store, dev), move(tf, dev)
-            se = 0.0
-            for i in range(kd * nv_l, (kd + 1) * nv_l):
-                vs, ops = operands(i, vd, kd)
-                img = swg.render_store_grid_diff(store_l, tf_l, vs, static_l, ops)
-                tgt = move(targets[i, vd * v_l:(vd + 1) * v_l], dev)
-                se = se + torch.sum((img - tgt) ** 2)
-            parts.append(move(se, mesh.lead))
+            vs, ops = operands(vd, kd)
+            img = swg.render_store_grid_diff(move(store, dev), move(tf, dev), vs, static_l, ops)
+            tgt = move(targets[kd * nv_l:(kd + 1) * nv_l, vd * v_l:(vd + 1) * v_l], dev)
+            parts.append(move(torch.sum((img - tgt) ** 2), mesh.lead))
         return sum(parts) / denom
 
     return sharded_loss_fn
@@ -204,8 +199,9 @@ def make_slab_loss_fn(problem: StoreProblem, mesh):
        SENTINEL slices, which no plane reads);
     2. sweeps its GLOBAL plane range against the extended slab with a
        fresh carry through ``render_store_grid_diff``'s slab mode (a
-       13-float view vector carrying [k0, a_base]; the vector, its sweep
-       tables and clip operand are built on the first call and kept);
+       13-float view vector carrying [k0, a_base]; the vectors, their
+       sweep tables and clip operands are built on the first call and
+       kept), every view in one call on the shard's extended slab;
     3. the segments fold in plane order on the lead device.
 
     With the early exit off, the fold equals the one-device sweep up to fp
@@ -242,18 +238,18 @@ def make_slab_loss_fn(problem: StoreProblem, mesh):
     )
     denom = float(n_views * v_size * u_size * 4)
 
-    def slab_view(i, vd, kd):
-        """View i's 13-float vector for shard (vd, kd), on its device.
+    def slab_views(vd, kd):
+        """The views' (Nv, 13) vectors for shard (vd, kd), on its device.
         Shard kd's planes cover its slab's z range: the plane grid runs
         front to back, so toward −A it starts at the far end."""
         k0 = kd * k_l if sign > 0 else (d_k - 1 - kd) * k_l
-        vs = torch.cat([
+        vs = torch.stack([torch.cat([
             _row_view(views[i], vd, v_l),
             torch.tensor([float(k0), float(kd * na_l - 1)]),
-        ])
+        ]) for i in range(n_views)])
         return move(vs, mesh.device(vd, kd))
 
-    operands = _view_operands(static_l, slab_view)
+    operands = _view_operands(static_l, slab_views)
 
     def extended_slab(slabs, kd, dev):
         own = move(slabs[kd], dev)
@@ -265,24 +261,21 @@ def make_slab_loss_fn(problem: StoreProblem, mesh):
     def loss_fn(slabs, tf, targets):
         if len(slabs) != d_k:
             raise ValueError(f"slab loss: {len(slabs)} slabs for a brick axis of {d_k}")
-        ext = {(vd, kd): extended_slab(slabs, kd, dev) for vd, kd, dev in mesh.shards()}
         tfs = {dev: move(tf, dev) for dev in mesh.distinct_devices()}
-        se = 0.0
-        for i in range(n_views):
-            rows = []
-            for vd in range(d_v):
-                segs = []
-                for kd in range(d_k):
-                    dev = mesh.device(vd, kd)
-                    vs, ops = operands(i, vd, kd)
-                    seg = swg.render_store_grid_diff(ext[vd, kd], tfs[dev], vs, static_l, ops)
-                    segs.append(split_rgba(move(seg, mesh.lead)))
-                if sign < 0:
-                    segs = segs[::-1]  # fold in front-to-back plane order
-                rows.append(join_rgba(fold_segments(segs)))
-            img = torch.cat(rows, dim=0)
-            se = se + torch.sum((img - move(targets[i], mesh.lead)) ** 2)
-        return se / denom
+        rows = []
+        for vd in range(d_v):
+            segs = []
+            for kd in range(d_k):
+                dev = mesh.device(vd, kd)
+                vs, ops = operands(vd, kd)
+                seg = swg.render_store_grid_diff(
+                    extended_slab(slabs, kd, dev), tfs[dev], vs, static_l, ops)
+                segs.append(split_rgba(move(seg, mesh.lead)))
+            if sign < 0:
+                segs = segs[::-1]  # fold in front-to-back plane order
+            rows.append(join_rgba(fold_segments(segs)))
+        img = torch.cat(rows, dim=1)  # (Nv, V, U, 4)
+        return torch.sum((img - move(targets, mesh.lead)) ** 2) / denom
 
     return loss_fn
 

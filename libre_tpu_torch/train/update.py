@@ -1,9 +1,13 @@
 """What every trainer shares: the step, its update, its leaves and its loop.
 
 Every trainer's step is :func:`train_step`: the optimizer's gradients
-zeroed and the caller's loss under ``libre.train.loss``, ``backward``
+released and the caller's loss under ``libre.train.loss``, ``backward``
 under ``libre.train.backward``, and :func:`step_optimizer` under
-``libre.train.update``, all of it under ``libre.train.step``.
+``libre.train.update``, all of it under ``libre.train.step``.  A leaf's
+gradient is the buffer its backward wrote (the store's one K2 buffer,
+K4's ``d_volume``): autograd hands a fresh gradient to a leaf that has
+none as its ``.grad`` without a copy, so no zeroed ``.grad`` is filled
+and added into.
 
 :func:`step_optimizer` names the leaves to pin (the store trainer's
 store: clamped to [0, 1] where it was covered before the update, > -0.5,
@@ -148,22 +152,30 @@ step_optimizer.fallbacks = 0
 def train_step(optimizer: torch.optim.Optimizer, compute_loss: Callable[[], torch.Tensor], *,
                pin: Sequence[torch.Tensor] = (), clamp: Sequence[torch.Tensor] = (),
                zero_grads: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-    """One optimization step in place → the detached loss:
-    ``optimizer``'s gradients zeroed (kept allocated) and
-    ``compute_loss()``, ``backward``, each tensor of ``zero_grads`` (a leaf
-    the loss does not differentiate, which the optimizer still steps)
-    given a new zero gradient, then :func:`step_optimizer` with ``pin``
-    and ``clamp``, inside the spans ``libre.train.step`` / ``.loss`` /
-    ``.backward`` / ``.update``."""
+    """One optimization step in place → the detached loss: the gradient
+    of every leaf of ``optimizer`` set to None, so that ``backward`` makes
+    the buffer it writes the leaf's ``.grad``, and ``compute_loss()``,
+    ``backward``, then :func:`step_optimizer` with ``pin`` and ``clamp``,
+    inside the spans ``libre.train.step`` / ``.loss`` / ``.backward`` /
+    ``.update``.  The optimizer steps the leaves that had a gradient
+    before the step or get one from it: a leaf that had one and gets none
+    steps on zeros.  Each tensor of ``zero_grads`` (a leaf the loss does
+    not differentiate, which the optimizer still steps) is given a zero
+    gradient once and keeps it."""
+    kept = {id(t) for t in zero_grads}
     with span("libre.train.step"):
         with span("libre.train.loss"):
-            optimizer.zero_grad(set_to_none=False)
+            had = [p for group in optimizer.param_groups for p in group["params"]
+                   if p.grad is not None and id(p) not in kept]
+            for p in had:
+                p.grad = None
             loss = compute_loss()
         with span("libre.train.backward"):
             loss.backward()
         with span("libre.train.update"), torch.no_grad():
-            for t in zero_grads:
-                t.grad = torch.zeros_like(t)
+            for t in (*had, *zero_grads):
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
             step_optimizer(optimizer, pin=pin, clamp=clamp)
         return loss.detach()
 

@@ -174,6 +174,37 @@ def test_store_grid_bwd_kernel_matches_plain(cuda, early_exit, diff_tf):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("diff_tf", [True, False])
+def test_store_grid_bwd_kernel_adds_into_given_buffers(cuda, diff_tf):
+    """Handed a non-zero ``d_store`` and ``dtf``, the backward kernel
+    returns those tensors holding what they held plus its fresh
+    gradients (normalised by the fresh ones' max |·|, within the
+    atomics' 1e-3) and counts one accumulated launch; with ``diff_tf``
+    off ``dtf`` is left as it was."""
+    store, tf, tables, out, t_out, g, kw = store_grad_case(
+        (96, 80, 128, 64, 48, 56), seed=0, device=cuda, early_exit=1.1
+    )
+    ds, dtf = swg.store_grid_backward(store, tf, tables, out, t_out, g, diff_tf=True, **kw)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    base_s = torch.randn(ds.shape, device=cuda, generator=gen) * ds.abs().max()
+    base_t = torch.randn(dtf.shape, device=cuda, generator=gen) * dtf.abs().max()
+    d_store, d_tf = base_s.clone(), base_t.clone()
+    accumulated = swg.store_grid_backward.accumulated
+    got_s, got_t = swg.store_grid_backward(
+        store, tf, tables, out, t_out, g, diff_tf=diff_tf, d_store=d_store, dtf=d_tf, **kw
+    )
+    torch.cuda.synchronize()
+    assert got_s is d_store and got_t is d_tf
+    assert swg.store_grid_backward.accumulated == accumulated + 1
+    pairs = [(got_s, base_s, ds)] + ([(got_t, base_t, dtf)] if diff_tf else [])
+    for got, base, fresh in pairs:
+        assert float(fresh.abs().max()) > 0.0
+        assert float((got - base - fresh).abs().max() / fresh.abs().max()) <= GRAD_TOL_MAX
+    if not diff_tf:
+        assert torch.equal(got_t, base_t)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("early_exit", [1.1, 0.999])
 @pytest.mark.parametrize("field", FIELDS)
 def test_store_grid_bwd_kernel_fields(cuda, field, early_exit):

@@ -33,6 +33,7 @@ import torch
 from libre_tpu_torch.ops import rays as ray_ops
 from libre_tpu_torch.ops.reference import ALPHA_CLAMP, Camera, RenderParams
 from libre_tpu_torch.ops.transfer_function import lookup
+from libre_tpu_torch.utils.profiling import span
 
 CLASSIFICATIONS = ("pre", "post")
 COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -260,11 +261,18 @@ def _lerp_matrix(coords: torch.Tensor, n: int, inside: torch.Tensor) -> torch.Te
 
 
 def precompute_classified_volume(volume_zyx, tf, data_source_range):
-    """Pre-classification: the TF applied per voxel → 4 channel volumes."""
-    lo, hi = data_source_range
-    density = torch.clamp((volume_zyx.to(torch.float32) - lo) / (hi - lo), 0.0, 1.0)
-    rgba = lookup(tf, density)  # (Z, Y, X, 4)
-    return tuple(rgba[..., i] for i in range(4))
+    """Pre-classification: the TF applied per voxel → 4 channel volumes,
+    under the span ``libre.dense.classify``; each call adds one to
+    ``precompute_classified_volume.calls``."""
+    precompute_classified_volume.calls += 1
+    with span("libre.dense.classify"):
+        lo, hi = data_source_range
+        density = torch.clamp((volume_zyx.to(torch.float32) - lo) / (hi - lo), 0.0, 1.0)
+        rgba = lookup(tf, density)  # (Z, Y, X, 4)
+        return tuple(rgba[..., i] for i in range(4))
+
+
+precompute_classified_volume.calls = 0
 
 
 def _exclusive_cumprod(x: torch.Tensor, dim: int = 0) -> torch.Tensor:

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from libre_tpu_torch.utils.profiling import span
+
 TF_SIZE = 256
 
 
@@ -36,22 +38,26 @@ class _TakeRows(torch.autograd.Function):
     (a histogram privatised in shared memory on the card).  Autograd's own
     backward of ``table[idx]`` sorts the indices and adds each index's rows
     one after another: over a dense trainer's 16.7M samples in 256 TF texels
-    it took 1.9 s a call on an H100 (``chip_smoke.py`` phase 21)."""
+    it took 1.9 s a call on an H100 (``chip_smoke.py`` phase 21).  The
+    gather runs under the span ``libre.tf.take_rows``, its backward (on
+    autograd's thread on the card) under ``libre.tf.take_rows.backward``."""
 
     @staticmethod
     def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.n_rows = table.shape[0]
-        return table.index_select(0, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
+        with span("libre.tf.take_rows"):
+            ctx.save_for_backward(idx)
+            ctx.n_rows = table.shape[0]
+            return table.index_select(0, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        flat = idx.reshape(-1)
-        g = g.reshape(flat.numel(), -1)
-        cols = [torch.bincount(flat, weights=g[:, c], minlength=ctx.n_rows)
-                for c in range(g.shape[1])]
-        return torch.stack(cols, dim=1).to(g.dtype), None
+        with span("libre.tf.take_rows.backward"):
+            (idx,) = ctx.saved_tensors
+            flat = idx.reshape(-1)
+            g = g.reshape(flat.numel(), -1)
+            cols = [torch.bincount(flat, weights=g[:, c], minlength=ctx.n_rows)
+                    for c in range(g.shape[1])]
+            return torch.stack(cols, dim=1).to(g.dtype), None
 
 
 def lookup(tf: torch.Tensor, density: torch.Tensor) -> torch.Tensor:

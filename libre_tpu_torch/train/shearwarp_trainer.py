@@ -33,6 +33,7 @@ from libre_tpu_torch.parallel.mesh import require_mesh
 from libre_tpu_torch.parallel.shearwarp_sharded import render_slope_grid_sharded
 from libre_tpu_torch.train import update
 from libre_tpu_torch.train.update import EARLY_EXIT_OFF
+from libre_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,21 +69,22 @@ class ShearWarpProblem:
     def render_views(self, mesh, volume, tf) -> List[torch.Tensor]:
         """All views' slope-grid images (V, U, 4): on ``volume``'s device
         with ``mesh`` None, else sharded over the mesh and on its lead
-        device."""
+        device; each view under the span ``libre.dense.forward``."""
         if mesh is not None:
             require_mesh("ShearWarpProblem.render_views", mesh)
         outs = []
         for plan in self.plans:
-            if mesh is None:
-                img, _, _ = sw.render_slope_grid(
-                    volume, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
-                    self.world_min, self.world_max, self.params, self.swp,
-                )
-            else:
-                img = render_slope_grid_sharded(
-                    mesh, volume, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
-                    self.world_min, self.world_max, self.params, self.swp,
-                )
+            with span("libre.dense.forward"):
+                if mesh is None:
+                    img, _, _ = sw.render_slope_grid(
+                        volume, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
+                        self.world_min, self.world_max, self.params, self.swp,
+                    )
+                else:
+                    img = render_slope_grid_sharded(
+                        mesh, volume, tf, plan.eye, plan.axis, plan.sign, plan.bounds,
+                        self.world_min, self.world_max, self.params, self.swp,
+                    )
             outs.append(img)
         return outs
 

@@ -5,8 +5,8 @@ the CPU writing a Chrome trace (and doing nothing for None), nested
 no profiler records, and the program's ``libre.*`` spans, nested as
 named, on every trainer's step (the store trainer's on one device and
 over slabs, the exact trainer's, the mesh trainer's and the dense
-trainer's) and a ``VolumeScene`` frame of one and of two samples a
-pixel."""
+trainer's, with its classification and TF gathers) and a ``VolumeScene``
+frame of one and of two samples a pixel."""
 
 import json
 import os
@@ -130,8 +130,8 @@ def _slab_step():
 
 
 def _dense_step():
-    """A dense (plain shear-warp) train step, which opens no span of its
-    own below the trainer's."""
+    """A dense (plain shear-warp, pre-classified) train step: a
+    classification a view with its TF gathers, their backward."""
     from libre_tpu_torch.apps.render_cli import build_camera
     from libre_tpu_torch.ops import shearwarp as sw
     from libre_tpu_torch.ops.reference import RenderParams
@@ -211,15 +211,22 @@ def _set_step():
 # (path, its set-up, each span named with the span it nests in; None: the outermost)
 STEP = {"libre.train.step": None, "libre.train.loss": "libre.train.step",
         "libre.train.backward": "libre.train.step", "libre.train.update": "libre.train.step"}
+# On the CPU the plain K1 classifies each plane through ``lookup``, whose
+# TF gathers open their span inside the sweep's.
 STORE = {**STEP, "libre.sweep.forward": "libre.train.loss",
-         "libre.sweep.backward": "libre.train.backward"}
+         "libre.sweep.backward": "libre.train.backward",
+         "libre.tf.take_rows": "libre.sweep.forward"}
+DENSE = {**STEP, "libre.dense.forward": "libre.train.loss",
+         "libre.dense.classify": "libre.dense.forward",
+         "libre.tf.take_rows": "libre.dense.classify",
+         "libre.tf.take_rows.backward": "libre.train.backward"}
 PATHS = {
     # A later step reuses the tables its loss function built on its first.
     "store_step": (_store_step, STORE),
     "store_first_step": (lambda: _store_step(first=True),
                          {**STORE, "libre.sweep.tables": "libre.train.loss"}),
     "slab_step": (_slab_step, STORE),
-    "dense_step": (_dense_step, STEP),
+    "dense_step": (_dense_step, DENSE),
     "exact_step": (_exact_step, {
         "libre.train.step": None, "libre.train.loss": "libre.train.step",
         "libre.exact.forward": "libre.train.loss", "libre.train.backward": "libre.train.step",

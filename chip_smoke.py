@@ -117,9 +117,14 @@ non-zero):
    ``train.shearwarp_trainer`` over a 256³ smooth truth with
    ``ShearWarpParams``' defaults (K = 256, 256² slope grids), 4 views,
    5 Adam steps ("post") and 2 ("pre"), the plain pipeline (batched
-   products, no kernel); the TF gather's ``bincount`` backward against
-   autograd's indexing in ``render_slope_grid_fused`` at full width;
-   card vs CPU on a 32³ problem;
+   products) around the TF lookup's kernel (``csrc/tf_lookup.cu``, its
+   launches set to 0 before each run's steps and read after); in
+   ``render_slope_grid_fused`` at full width the gradients with the
+   kernel against ``lookup_reference``'s ``bincount`` backward and that
+   against autograd's indexing; the lookup alone at T = 256 on the 256³
+   truth and a flat 0.5 volume, forward equal to the plain one, both
+   gradients against ``testing.lookup_backward_reference``; card vs CPU
+   on a 32³ problem;
 22. ``models.VolumeScene`` at full width (``phase_scene``): a 512³
    smooth volume, 512² rays, the early exit 0.999: the target's render
    and 5 Adam steps on the estimate's MSE, with K3's and K4's counts set
@@ -889,11 +894,19 @@ def phase_dense_trainer(dev, card):
     ``ShearWarpParams``' defaults (K = 256 planes, 256^2 slope grids), 4
     views ("post"), 5 Adam steps (lr 3e-2) from a flat 0.5 volume and a
     grayscale TF; the loss must fall and the leaves stay in [0, 1]; "pre"
-    for 2 steps; the TF gather's backward by bincount against autograd's
-    indexing in ``render_slope_grid_fused`` at full width, gradients
-    within ``DENSE_GRAD_TOL``; card vs CPU on a 32^3 / 32^2 problem, loss
-    and one Adam step's leaves within 1e-4.  The trainer runs the plain
-    pipeline (batched products): no kernel of the port but the update's."""
+    for 2 steps.  The trainer's kernels are the update's and the TF
+    lookup's (``csrc/tf_lookup.cu``: ``lookup.launches`` set to 0 before
+    each run's steps, a forward and a backward a view a step after; no
+    fallback); the rest is the plain pipeline (batched products).  In
+    ``render_slope_grid_fused`` at full width: the gradients with the
+    lookup kernel against those with ``lookup_reference`` (its ``bincount``
+    backward), and those against autograd's indexing, all within
+    ``DENSE_GRAD_TOL``.  The lookup alone at the path's shapes (T = 256 on
+    the 256^3 truth and a flat 0.5 volume, the contention case): the
+    forward equal to ``lookup_reference``'s, both gradients within
+    ``testing.tf_lookup_bounds`` of ``lookup_backward_reference``.  Card
+    vs CPU on a 32^3 / 32^2 problem, loss and one Adam step's leaves within
+    1e-4.  Returns the ``kernels`` line's ``tf_lookup`` entry."""
     import torch
 
     from libre_tpu_torch.apps.render_cli import build_camera
@@ -902,7 +915,14 @@ def phase_dense_trainer(dev, card):
     from libre_tpu_torch.ops import transfer_function as tfm
     from libre_tpu_torch.ops.reference import RenderParams
     from libre_tpu_torch.ops.transfer_function import default_color_map, grayscale_ramp
-    from libre_tpu_torch.testing import DENSE_GRAD_TOL, smooth_volume
+    from libre_tpu_torch.testing import (
+        DENSE_GRAD_TOL,
+        TF_GRAD_RTOL,
+        assert_tf_lookup_grads,
+        lookup_backward_reference,
+        smooth_volume,
+        tf_lookup_bounds,
+    )
     from libre_tpu_torch.train import ShearWarpProblem, make_shearwarp_train_step
 
     gmin, gmax = GMIN_GMAX
@@ -921,18 +941,25 @@ def phase_dense_trainer(dev, card):
 
     truth = smooth_volume(DENSE_TRAIN_N, seed=7, device=dev)
     tf_true = torch.from_numpy(default_color_map()).to(dev)
+    lookups = 0  # the TF lookup's counted launches
     for classification, n_steps in (("post", DENSE_TRAIN_STEPS), ("pre", DENSE_PRE_STEPS)):
         prob = problem(classification)
         with torch.no_grad():
             targets = prob.render_views(None, truth, tf_true)
         leaves, opt = start(truth.shape, dev)
         step = make_shearwarp_train_step(prob, opt)
+        tfm.lookup.launches = 0
         with adam_counted(f"dense trainer ({classification})", 2 * n_steps):
             losses = [float(step(leaves, targets)) for _ in range(n_steps)]
+        want = 2 * len(prob.plans) * n_steps
+        if tfm.lookup.launches != want:
+            raise AssertionError(f"dense trainer ({classification}): the TF lookup launched "
+                                 f"{tfm.lookup.launches} times, expected {want}")
+        lookups += tfm.lookup.launches
         print(
             f"dense trainer ({classification}): {DENSE_TRAIN_N}^3, K = {prob.swp.n_planes}, "
             f"{len(prob.plans)} views of {prob.swp.inter_size} slope rays, {n_steps} Adam steps;"
-            f" losses {losses} {card}"
+            f" losses {losses}; TF lookup launches {tfm.lookup.launches} {card}"
         )
         if not all(np.isfinite(losses)):
             raise AssertionError(f"dense trainer ({classification}): losses {losses}")
@@ -943,11 +970,13 @@ def phase_dense_trainer(dev, card):
             raise AssertionError(f"dense trainer did not lower its loss: {losses}")
         del targets, leaves, opt, step
 
-    # The TF gather's backward (``transfer_function._TakeRows``, by
-    # bincount) against autograd's own backward of ``table[idx]``, which it
-    # replaced: ``render_slope_grid_fused`` (K5 forward, the recompute
-    # backward of the plain pipeline, as the trainer's) over the truth from
-    # view 0 at full width, its gradients held against each other.
+    # ``render_slope_grid_fused`` (K5 forward, the recompute backward of the
+    # plain pipeline, as the trainer's) over the truth from view 0 at full
+    # width: its gradients with the lookup kernel, with ``lookup_reference``
+    # (the dense modules' ``lookup`` swapped for it: row gathers and a
+    # ``bincount`` backward, ``transfer_function._TakeRows``) and with
+    # autograd's own backward of ``table[idx]``, which the ``bincount``
+    # replaced, held against each other.
     pre = problem("pre")
     pa = swd.slope_grid_plan_args(pre.plans[0], gmin, gmax, pre.params, pre.swp)
     g = torch.randn(pre.swp.inter_size + (4,), generator=torch.Generator().manual_seed(2))
@@ -959,17 +988,57 @@ def phase_dense_trainer(dev, card):
     class Indexing:
         apply = staticmethod(lambda table, idx: table[idx])
 
-    take_rows, got = tfm._TakeRows, {}
-    got["bincount"] = fused_grads()
-    tfm._TakeRows = Indexing
+    before = tfm.lookup.launches
+    got = {"kernel": fused_grads()}
+    if tfm.lookup.launches == before:
+        raise AssertionError("render_slope_grid_fused launched no TF lookup")
+    lookups += tfm.lookup.launches - before
+    before, take_rows = tfm.lookup.launches, tfm._TakeRows
     try:
+        sw.lookup = swd.lookup = tfm.lookup_reference
+        got["bincount"] = fused_grads()
+        tfm._TakeRows = Indexing
         got["indexing"] = fused_grads()
     finally:
+        sw.lookup = swd.lookup = tfm.lookup
         tfm._TakeRows = take_rows
-    for name, a, b in zip(("d_volume", "d_tf"), got["bincount"], got["indexing"]):
-        compare_grads(a, b, f"render_slope_grid_fused's {name}, bincount vs indexing",
-                      pre.params.early_exit, tol_max=DENSE_GRAD_TOL)
+    if tfm.lookup.launches != before:
+        raise AssertionError("the plain lookup launched the TF lookup's kernel")
+    for (a_name, b_name) in (("kernel", "bincount"), ("bincount", "indexing")):
+        for name, a, b in zip(("d_volume", "d_tf"), got[a_name], got[b_name]):
+            compare_grads(a, b, f"render_slope_grid_fused's {name}, {a_name} vs {b_name}",
+                          pre.params.early_exit, tol_max=DENSE_GRAD_TOL)
     del got
+
+    # The lookup alone at the trainer's shapes: T = 256 over the 256^3 truth
+    # and over a flat 0.5 volume (every density in bins 127 and 128).
+    if tf_true.shape[0] != 256:
+        raise AssertionError(f"the colormap has {tf_true.shape[0]} entries, not 256")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    lookup_err, tf_rel_err = 0.0, 0.0
+    before = tfm.lookup.launches
+    for name, dens in (("smooth truth", truth), ("flat 0.5", torch.full_like(truth, 0.5))):
+        g = torch.rand(dens.shape + (4,), generator=gen, device=dev) * 2.0 - 0.5
+        leaves = [tf_true.clone().requires_grad_(), dens.clone().requires_grad_()]
+        out = tfm.lookup(*leaves)
+        if not torch.equal(out, tfm.lookup_reference(tf_true, dens)):
+            raise AssertionError(f"tf_lookup's forward on the {name} differs from the plain one")
+        got = torch.autograd.grad(out, leaves, g)
+        want = lookup_backward_reference(tf_true, dens, g)
+        bounds = tf_lookup_bounds(tf_true, dens, g)
+        what = f"tf_lookup on the {DENSE_TRAIN_N}^3 {name}, T = 256"
+        assert_tf_lookup_grads(got, want, bounds, what)
+        errs = [float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)]
+        rel = float(((got[0].double() - want[0].double()).abs()
+                     / (bounds[0] / TF_GRAD_RTOL).clamp_min(1e-30)).max())
+        lookup_err, tf_rel_err = max([lookup_err] + errs), max(tf_rel_err, rel)
+        print(f"{what}: forward equal; max|d| d_tf {errs[0]:.3e} (of its entry's sum of "
+              f"|contribution| {rel:.3e}), d_density {errs[1]:.3e}")
+        del out, got, want, bounds, g, leaves
+    if tfm.lookup.launches - before != 4:
+        raise AssertionError(f"tf_lookup: {tfm.lookup.launches - before} launches for two "
+                             "forwards and backwards")
+    lookups += 4
 
     # Card vs CPU: one Adam step of the same small problem on each.
     small = ShearWarpProblem.from_cameras(
@@ -989,6 +1058,15 @@ def phase_dense_trainer(dev, card):
           f"{l_c:.6f} / {l_p:.6f}, max|d| {err:.3e}")
     if err > 1e-4:
         raise AssertionError(f"dense trainer on the card disagrees with the CPU ({err})")
+    return {
+        "name": "tf_lookup",
+        "route": "cuda",
+        "source": "libre_tpu_torch/csrc/tf_lookup.cu",
+        "replaces": None,
+        "launches": lookups,
+        "max_abs_err": lookup_err,
+        "tf_grad_err_of_mass": tf_rel_err,
+    }
 
 
 def phase_scene(dev, card, exact_tol):
@@ -3086,7 +3164,7 @@ def main() -> int:
     serve_k1, serve_k3 = phase_serve(dev, card)
     phase_done(20, quiet=True)
     # ------------------------------------- 21. the dense trainer at full width
-    phase_dense_trainer(dev, card)
+    lookup_entry = phase_dense_trainer(dev, card)
     phase_done(21)
     # ------------------------------------------- 22. VolumeScene at full width
     scene = phase_scene(dev, card, exact_tol)
@@ -3181,7 +3259,7 @@ def main() -> int:
             "launches": dense_launches + p31_launches["pre_sweep"],
             "max_abs_err": max(k5_err, p31_errs["pre_sweep"]),
         },
-    ] + p31_instances + probe_entries + [adam_entry]}))
+    ] + p31_instances + probe_entries + [adam_entry, lookup_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,8 @@
 #include <cstddef>
 #include <cuda_runtime.h>
 
+#include "wave.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -128,13 +130,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int kEpi>
 void launch(float* p, const float* g, float* m, float* v, int n, const Scalars& s,
             cudaStream_t stream) {
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const size_t items = ((size_t)n / 4 + kUnroll - 1) / kUnroll;  // a thread's work
-  const size_t wanted = (items + kThreads - 1) / kThreads;
-  const size_t cap = (size_t)(sms > 0 ? sms : 1) * kBlocksPerSm;
-  const int blocks = (int)(wanted < 1 ? 1 : (wanted < cap ? wanted : cap));
+  const long long items = ((long long)n / 4 + kUnroll - 1) / kUnroll;  // a thread's work
+  const int blocks = wave::blocks(items, kThreads, kBlocksPerSm);
   adam_update_kernel<kEpi><<<blocks, kThreads, 0, stream>>>(p, g, m, v, n, s);
 }
 

@@ -41,7 +41,7 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # Launcher argument types, in order; every launcher ends with the stream.
 SIGNATURES: Dict[str, List] = {
     "post_sweep": [_P] * 14 + [_I] * 6 + [_F] * 7 + [_I, _P],
@@ -54,6 +54,7 @@ SIGNATURES: Dict[str, List] = {
     "probe_tf_nearest": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
     "probe_tf_linear": [_P] * 3 + [_I] * 4 + [_P],
     "adam_update": [_P] * 4 + [_I] * 2 + [_F] * 7 + [_P],
+    "tf_lookup": [_P] * 6 + [_L, _I, _P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

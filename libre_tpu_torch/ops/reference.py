@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from libre_tpu_torch.ops import rays as ray_ops
-from libre_tpu_torch.ops.transfer_function import lookup
+from libre_tpu_torch.ops.transfer_function import lookup_reference
 
 EARLY_EXIT = 0.999
 ALPHA_CLAMP = 1.0 - 1.0 / 256.0
@@ -233,7 +233,7 @@ def _march_one_brick(
         tex_pos = u * tex_scale + tmin
         raw = sample_density(brick, tex_pos, params.filter_mode)
         density = torch.clamp(raw * mult + add, 0.0, 1.0)
-        src = lookup(tf, density)
+        src = lookup_reference(tf, density)
         new_rgb, new_a = composite(src, rgb, a, params.alpha_correction)
         rgb = torch.where(m[..., None], new_rgb, rgb)
         a = torch.where(m, new_a, a)

@@ -32,7 +32,7 @@ import torch
 
 from libre_tpu_torch.ops import rays as ray_ops
 from libre_tpu_torch.ops.reference import ALPHA_CLAMP, Camera, RenderParams
-from libre_tpu_torch.ops.transfer_function import lookup
+from libre_tpu_torch.ops.transfer_function import lookup, lookup_reference
 from libre_tpu_torch.utils.profiling import span
 
 CLASSIFICATIONS = ("pre", "post")
@@ -586,7 +586,7 @@ def plane_oracle(
         )  # (R, K, 4)
     else:
         dens = sample_density(dens_vol, tex_pos, "trilinear")  # (R, K)
-        rgba = lookup(tf, dens)  # outside masked through a_v below
+        rgba = lookup_reference(tf, dens)  # outside masked through a_v below
         if sentinel_mask:
             inside = inside & (dens > -0.5)
 

@@ -40,7 +40,7 @@ import torch
 from libre_tpu_torch.ops import _kernels
 from libre_tpu_torch.ops import shearwarp as sw
 from libre_tpu_torch.ops.reference import ALPHA_CLAMP, RenderParams
-from libre_tpu_torch.ops.transfer_function import lookup
+from libre_tpu_torch.ops.transfer_function import lookup_reference
 
 SENTINEL = -1024.0  # uncovered-voxel marker (normalized density is [0,1])
 TF_SIZE = 256
@@ -678,7 +678,7 @@ def post_sweep_reference(
             fetch = fetch & tile_to_rays(only[..., k], v_size, u_size)
         mask = fetch & (dens > -0.5)
 
-        rgba = lookup(tf, dens)
+        rgba = lookup_reference(tf, dens)
         alpha = rgba[..., 3] * mask.to(f32)
         a_corr = 1.0 - torch.pow(
             1.0 - torch.clamp(alpha, max=ALPHA_CLAMP), tables.corr

@@ -643,3 +643,92 @@ def split_into_bricks(volume_zyx, n_split: int, overlap: int, device="cuda"):
 
     volume = np.asarray(volume_zyx, np.float32)
     return brick_volume(volume, volume.shape[2] // n_split, overlap, device=device)
+
+
+# ============================================================ the TF lookup
+TF_LOOKUP_SIZES = (1, 2, 32, 256, 4096, 8192)  # both sides of tf_lookup.cu's 4096
+# The TF gradient summed in any f32 order against the float64 closed form:
+# a share of the entry's sum of |contribution| (the rigorous bound of k terms
+# in any order, (k − 1)·eps/2 of it, is vacuous at the dense trainer's 16.8M
+# densities in two bins).  A lost run or block reads its share of that sum:
+# on a few thousand densities in one bin a thread's run is 1e-3 of it or
+# more, but on a flat 256³ volume (~60 densities a thread) a lost run is
+# ~4e-6, under the bound, and only a lost block (~1e-3) shows; so the card's
+# tests hold the kernel to both a small flat volume and the flat 256³.
+TF_GRAD_RTOL = 1e-5
+# The density gradient, N · Σ_c g_c (t1_c − t0_c): four products, three sums,
+# four differences and the scale, in any order, within 8 eps of
+# N · Σ_c |g_c| (|t0_c| + |t1_c|).
+DENSITY_GRAD_EPS = 8
+
+
+def tf_lookup_densities(n_tf: int, seed: int, size: int = 1000) -> torch.Tensor:
+    """(size + edges,) f32 densities for the lookup's cases: 0 and 1, the
+    texel centres (i + ½)/N of a few texels, the clamp edges ½/N and
+    (N − ½)/N and their f32 neighbours, values outside [0, 1], the flat
+    0.5, and ``size`` uniform draws over [−0.1, 1.1]."""
+    rng = np.random.default_rng(seed)
+    n = np.float32(n_tf)
+    centres = (np.unique(rng.integers(0, n_tf, 8)).astype(np.float32) + np.float32(0.5)) / n
+    edges = np.float32([0.5, n_tf - 0.5]) / n
+    edges = np.concatenate([edges, np.nextafter(edges, np.float32(-1)),
+                            np.nextafter(edges, np.float32(2))])
+    fixed = np.float32([0.0, 1.0, -0.0, -0.25, 1.5, -3.0, 7.0, 0.5, 0.5, 0.5])
+    draws = rng.uniform(-0.1, 1.1, size).astype(np.float32)
+    return torch.from_numpy(np.concatenate([fixed, centres, edges, draws]).astype(np.float32))
+
+
+def lookup_backward_reference(tf: torch.Tensor, density: torch.Tensor, g: torch.Tensor):
+    """The gradients of ``transfer_function.lookup_reference`` in closed
+    form, as ``csrc/tf_lookup.cu``'s backward computes them: ``(d_tf,
+    d_density)`` for the cotangent ``g`` (``density.shape + (4,)``).  With
+    ``s' = clamp(d, 0, 1)·N − 0.5``, ``s = clamp(s', 0, N − 1)``, taps
+    ``i0 = floor(s)``, ``i1 = min(i0 + 1, N − 1)`` and weight
+    ``w = s − i0``: ``d_density = N · Σ_c g_c (tf[i1, c] − tf[i0, c])``
+    where ``0 ≤ d ≤ 1`` and ``0 ≤ s' ≤ N − 1`` (``torch.clamp``'s backward
+    passes the ends), else 0; ``d_tf[i0] += g (1 − w)``, ``d_tf[i1] += g w``.
+    Computed in float64 from the float32 taps and weights, returned in
+    ``tf``'s and ``density``'s dtypes."""
+    n = tf.shape[0]
+    s_pre = torch.clamp(density, 0.0, 1.0) * n - 0.5
+    s = torch.clamp(s_pre, 0.0, float(n - 1))
+    i0f = torch.floor(s)
+    w = (s - i0f).reshape(-1, 1).double()
+    i0 = i0f.long().reshape(-1)
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    g = g.reshape(-1, tf.shape[1]).double()
+    t = tf.double()
+    passes = (density >= 0.0) & (density <= 1.0) & (s_pre >= 0.0) & (s_pre <= n - 1)
+    dot = (g * (t[i1] - t[i0])).sum(dim=1)
+    d_density = torch.where(passes.reshape(-1), n * dot, 0.0).reshape(density.shape)
+    d_tf = torch.zeros_like(t).index_add_(0, i0, g * (1.0 - w)).index_add_(0, i1, g * w)
+    return d_tf.to(tf.dtype), d_density.to(density.dtype)
+
+
+def tf_lookup_bounds(tf: torch.Tensor, density: torch.Tensor, g: torch.Tensor):
+    """(d_tf, d_density) round-off bounds of the lookup's gradients
+    (``TF_GRAD_RTOL``, ``DENSITY_GRAD_EPS``), in float64, per entry."""
+    n = tf.shape[0]
+    mass_tf, _ = lookup_backward_reference(tf.double(), density, g.abs())
+    s = torch.clamp(torch.clamp(density, 0.0, 1.0) * n - 0.5, 0.0, float(n - 1))
+    i0 = torch.floor(s).long()
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    t = tf.double().abs()
+    mass_d = (g.double().abs() * (t[i0] + t[i1])).sum(dim=-1)
+    eps = torch.finfo(torch.float32).eps
+    return TF_GRAD_RTOL * mass_tf, DENSITY_GRAD_EPS * eps * n * mass_d
+
+
+def assert_tf_lookup_grads(got, want, bounds, what):
+    """Raises unless each of ``got`` (d_tf, d_density; None where not
+    asked for) lies within its bound of ``want``'s."""
+    for name, a, b, bound in zip(("d_tf", "d_density"), got, want, bounds):
+        if a is None:
+            continue
+        err = (a.double() - b.double()).abs()
+        over = err > bound
+        if bool(over.any()):
+            i = int(torch.argmax((err - bound).reshape(-1)))
+            raise AssertionError(
+                f"{what}: {name} off by {float(err.reshape(-1)[i])} against a bound of "
+                f"{float(bound.reshape(-1)[i])} at flat index {i} ({int(over.sum())} entries)")

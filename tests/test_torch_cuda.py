@@ -25,6 +25,7 @@ from libre_tpu_torch.ops import exact, gather, raycast
 from libre_tpu_torch.ops import shearwarp_bricked as swb
 from libre_tpu_torch.ops import shearwarp_dense as swd
 from libre_tpu_torch.ops import shearwarp_grad as swg
+from libre_tpu_torch.ops import transfer_function as tfm
 from libre_tpu_torch.render.engine import RenderEngine
 from libre_tpu_torch.ops.reference import RenderParams
 from libre_tpu_torch.testing import (
@@ -42,14 +43,20 @@ from libre_tpu_torch.testing import (
     KERNEL_TOL_MAX,
     KERNEL_TOL_MEAN,
     SWEEP_VIEWS,
+    TF_LOOKUP_SIZES,
+    assert_tf_lookup_grads,
     dense_case,
     dense_grad_case,
     dense_plain,
     exact_case,
     exact_grad_case,
     exact_set_grad_case,
+    lookup_backward_reference,
     store_grad_case,
     sweep_case,
+    tf_lookup_bounds,
+    tf_lookup_densities,
+    tf_of_size,
 )
 
 
@@ -1574,3 +1581,98 @@ def test_trainers_take_the_adam_kernel(cuda):
                                            torch.from_numpy(default_color_map()))
     counted(lambda: fit_shearwarp(dense, dense_targets, np.full((32,) * 3, 0.5, np.float32),
                                   grayscale_ramp(), device=cuda, steps=1), 2)
+
+
+# ================================================================ TF lookup
+def _tf_lookup_case(cuda, n_tf, shape, seed, flat=False):
+    """A (n_tf, 4) TF, densities of ``shape`` (the edge cases of
+    ``tf_lookup_densities`` first, then uniform draws over [−0.1, 1.1];
+    all 0.5 when ``flat``) and a cotangent with a positive mean, on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = int(np.prod(shape))
+    density = torch.rand(n, generator=gen, device=cuda) * 1.2 - 0.1
+    edges = tf_lookup_densities(n_tf, seed, size=0).to(cuda)[:n]
+    density[: edges.numel()] = edges
+    if flat:
+        density.fill_(0.5)
+    tf = torch.from_numpy(tf_of_size(n_tf) * np.float32(0.8) + np.float32(0.1)).to(cuda)
+    g = torch.rand(shape + (4,), generator=gen, device=cuda) * 2.0 - 0.5
+    return tf, density.reshape(shape), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tf", TF_LOOKUP_SIZES)
+def test_tf_lookup_forward_bit_equal(cuda, n_tf):
+    """The kernel's forward equals ``lookup_reference`` on the card bit for
+    bit: sizes off the float4 width, a strided and a misaligned density,
+    the cell's 256³."""
+    for shape in ((1,), (3,), (7, 9, 11), (4099,), (256, 256, 256)):
+        tf, density, _g = _tf_lookup_case(cuda, n_tf, shape, seed=len(shape) + n_tf)
+        got = tfm.lookup(tf, density)
+        assert got.shape == density.shape + (4,) and got.dtype == torch.float32
+        assert torch.equal(got, tfm.lookup_reference(tf, density)), shape
+    tf, density, _g = _tf_lookup_case(cuda, n_tf, (33, 64), seed=1)
+    for view in (density[:, ::2], density.reshape(-1)[1:], density.t()):
+        assert torch.equal(tfm.lookup(tf, view), tfm.lookup_reference(tf, view))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tf", TF_LOOKUP_SIZES)
+@pytest.mark.parametrize("wants", [(True, True), (True, False), (False, True)],
+                         ids=["both", "tf", "density"])
+def test_tf_lookup_backward_matches_reference(cuda, n_tf, wants):
+    """The kernel's backward against ``lookup_backward_reference`` within
+    f32 round-off, for each gradient autograd can ask for: edge and uniform
+    densities with a cotangent that is not contiguous; a flat 0.5 volume of
+    the same size, every density in the same two bins and each thread's run
+    a few densities of them (a lost run shows); the flat 0.5 at 256³, the
+    contention case, where a lost block shows."""
+    want_tf, want_density = wants
+    cases = [_tf_lookup_case(cuda, n_tf, (5, 7, 119), seed=n_tf),
+             _tf_lookup_case(cuda, n_tf, (5, 7, 119), seed=n_tf + 1, flat=True)]
+    if n_tf in (256, 8192):
+        cases.append(_tf_lookup_case(cuda, n_tf, (256, 256, 256), seed=2, flat=True))
+    for k, (tf, density, g) in enumerate(cases):
+        if k == 0:  # a strided cotangent
+            g = torch.cat([g, g], dim=-2)[..., ::2, :]
+            assert not g.is_contiguous()
+        tf_leaf = tf.clone().requires_grad_(want_tf)
+        dens_leaf = density.clone().requires_grad_(want_density)
+        out = tfm.lookup(tf_leaf, dens_leaf)
+        leaves = [t for t, w in ((tf_leaf, want_tf), (dens_leaf, want_density)) if w]
+        grads = iter(torch.autograd.grad(out, leaves, g))
+        got = (next(grads) if want_tf else None, next(grads) if want_density else None)
+        want = lookup_backward_reference(tf, density, g)
+        assert_tf_lookup_grads(got, want, tf_lookup_bounds(tf, density, g),
+                               f"T={n_tf} case {k} {wants}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_tf_lookup_counts_its_launches(cuda):
+    tf, density, g = _tf_lookup_case(cuda, 256, (64, 65), seed=4)
+    tf.requires_grad_()
+    before = tfm.lookup.launches
+    out = tfm.lookup(tf, density)
+    assert tfm.lookup.launches == before + 1
+    out.backward(g)
+    assert tfm.lookup.launches == before + 2
+    with torch.no_grad():
+        tfm.lookup(tf, density)
+    assert tfm.lookup.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_tf_lookup_rejects_what_the_kernel_does_not_take(cuda):
+    tf, density, _g = _tf_lookup_case(cuda, 256, (16,), seed=5)
+    before = tfm.lookup.launches
+    with pytest.raises(TypeError):
+        tfm.lookup(tf, density.double())
+    with pytest.raises(TypeError):
+        tfm.lookup(tf.half(), density)
+    with pytest.raises(ValueError):
+        tfm.lookup(tf.cpu(), density)
+    with pytest.raises(ValueError):
+        tfm.lookup(tf[:, :3], density)
+    assert tfm.lookup.launches == before
